@@ -1,0 +1,234 @@
+"""The Hopper CAM-match kernel: build, ctypes binding and launch wrappers.
+
+``csrc/cam_match.cu`` replaces the Pallas TPU kernel ``_cam_match_kernel``
+(``cam_match_pallas`` in ``src/repro/kernels/cam_match.py``) for the hard
+cell modes.  It is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface at first use, under ``build/repro_torch/``
+in the checkout, keyed on a hash of the sources and flags — so a fresh
+checkout builds it on its own and a rebuilt source never loads a stale
+library.  Nothing here runs at import time: the CPU tests import this
+module on machines with no ``nvcc`` and no card.
+
+The wrappers take CUDA tensors only; they check device, dtype, shape and
+contiguity, allocate the outputs and the split workspace with
+``torch.empty``, launch on the current stream, raise on a non-zero
+``cudaError_t`` and count their launches (``cam_match_cuda.launches``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "cam_match.cu",)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# rows per block of the match kernel (a multiple of its 128-row chunk): the
+# split count — and so the float summation order — depends on R alone
+ROWS_PER_SPLIT = 1024
+QUERIES_PER_TILE = 32
+
+_DTYPE_CODE = {torch.uint8: 0, torch.uint16: 1, torch.int32: 2}
+_MODE_CODE = {"direct": 0, "inclusive": 1, "msb_lsb": 2, "two_cycle": 3}
+_INT32_ONLY = ("msb_lsb", "two_cycle")
+
+
+@dataclass(frozen=True)
+class BuildInfo:
+    path: Path
+    seconds: float  # 0.0 when an earlier build of the same sources was reused
+    log: str  # nvcc's output: ptxas registers, shared memory and spills
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    for cand in (Path(cuda_home) / "bin" / "nvcc", shutil.which("nvcc")):
+        if cand and Path(cand).is_file():
+            return str(cand)
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin and on PATH); the "
+        "cam_match kernel is built from csrc/ with the CUDA toolkit"
+    )
+
+
+def build() -> BuildInfo:
+    """Compile the kernel library unless this exact source is built."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        digest.update(src.read_bytes())
+    tag = digest.hexdigest()[:16]
+    lib = BUILD_DIR / f"cam_match_{tag}.so"
+    log = lib.with_suffix(".log")
+    if lib.is_file():
+        return BuildInfo(lib, 0.0, log.read_text() if log.is_file() else "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    text = proc.stdout + proc.stderr
+    log.write_text(text)
+    os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
+    return BuildInfo(lib, seconds, text)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build().path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.xtime_cam_match.argtypes = [
+        i, i, p, p, p, p, p, p,  # dtype, mode, q, low, high, leaf, mask, bias
+        i, i, i, i, i, i, i,  # B, R, F, C, r_blk, f_blk, rows_per_split
+        p, p, p, p,  # ws, out, bits, stream
+    ]
+    lib.xtime_cam_match.restype = i
+    lib.xtime_error_string.argtypes = [i]
+    lib.xtime_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _check_operands(q, low, high, tile_mask, *, r_blk, f_blk, mode) -> None:
+    tensors = {"q": q, "low": low, "high": high}
+    if tile_mask is not None:
+        tensors["tile_mask"] = tile_mask
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 2-D tensor")
+    if q.dtype not in _DTYPE_CODE or low.dtype != q.dtype or high.dtype != q.dtype:
+        raise ValueError(
+            f"q/low/high must share one of {list(_DTYPE_CODE)}; got "
+            f"{q.dtype}/{low.dtype}/{high.dtype}"
+        )
+    if mode not in _MODE_CODE:
+        raise ValueError(f"mode {mode!r} has no kernel; kernel modes: {list(_MODE_CODE)}")
+    if mode in _INT32_ONLY and q.dtype != torch.int32:
+        raise ValueError(f"mode {mode!r} runs on int32 tables only, got {q.dtype}")
+    R, F = low.shape
+    if high.shape != low.shape or q.shape[1] != F:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, low {tuple(low.shape)}, high {tuple(high.shape)}")
+    if R == 0 or R % r_blk or F % f_blk:
+        raise ValueError(f"tables ({R}, {F}) must tile by (r_blk={r_blk}, f_blk={f_blk})")
+    if tile_mask is not None and (
+        tuple(tile_mask.shape) != (R // r_blk, F // f_blk) or tile_mask.dtype != torch.int32
+    ):
+        raise ValueError(
+            f"tile_mask must be int32 of shape {(R // r_blk, F // f_blk)}, "
+            f"got {tile_mask.dtype} {tuple(tile_mask.shape)}"
+        )
+
+
+def _launch(q, low, high, leaf, tile_mask, bias, *, r_blk, f_blk, mode, ws, out, bits):
+    lib = _library()
+    B, F = q.shape
+    R = low.shape[0]
+    C = 0 if leaf is None else leaf.shape[1]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.xtime_cam_match(
+            _DTYPE_CODE[q.dtype], _MODE_CODE[mode], _ptr(q), _ptr(low), _ptr(high),
+            _ptr(leaf), _ptr(tile_mask), _ptr(bias), B, R, F, C, r_blk, f_blk,
+            ROWS_PER_SPLIT, _ptr(ws), _ptr(out), _ptr(bits), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"cam_match kernel launch failed: {lib.xtime_error_string(rc).decode()} ({rc})"
+        )
+
+
+def n_splits(n_rows: int) -> int:
+    return -(-n_rows // ROWS_PER_SPLIT)
+
+
+def cam_match_cuda(
+    q: torch.Tensor,  # (B, F_pad) table dtype
+    low: torch.Tensor,  # (R_pad, F_pad) table dtype
+    high: torch.Tensor,  # (R_pad, F_pad) table dtype
+    leaf: torch.Tensor,  # (R_pad, C_pad) float32
+    tile_mask: torch.Tensor | None = None,  # (R_pad/r_blk, F_pad/f_blk) int32
+    bias: torch.Tensor | None = None,  # (1, C_pad) float32, added once
+    *,
+    r_blk: int = 256,
+    f_blk: int = 128,
+    mode: str = "direct",
+) -> torch.Tensor:
+    """(B, C_pad) float32 leaf sums on the card; ``None`` mask = all active."""
+    _check_operands(q, low, high, tile_mask, r_blk=r_blk, f_blk=f_blk, mode=mode)
+    R, C = leaf.shape
+    if (leaf.dtype != torch.float32 or not leaf.is_contiguous()
+            or leaf.device != q.device or R != low.shape[0] or C == 0):
+        raise ValueError(
+            f"leaf must be a contiguous float32 ({low.shape[0]}, C_pad) tensor "
+            f"on {q.device}, got {leaf.dtype} {tuple(leaf.shape)} on {leaf.device}"
+        )
+    if bias is not None:
+        if (bias.dtype != torch.float32 or bias.device != q.device
+                or tuple(bias.shape) != (1, C) or not bias.is_contiguous()):
+            raise ValueError(f"bias must be a contiguous float32 (1, {C}) tensor on {q.device}")
+    B = q.shape[0]
+    out = torch.empty((B, C), dtype=torch.float32, device=q.device)
+    if B == 0:
+        return out
+    ws = torch.empty((n_splits(R), B, C), dtype=torch.float32, device=q.device)
+    _launch(q, low, high, leaf, tile_mask, bias, r_blk=r_blk, f_blk=f_blk,
+            mode=mode, ws=ws, out=out, bits=None)
+    cam_match_cuda.launches += 1
+    return out
+
+
+cam_match_cuda.launches = 0
+
+
+def cam_match_bits_cuda(
+    q: torch.Tensor,
+    low: torch.Tensor,
+    high: torch.Tensor,
+    tile_mask: torch.Tensor | None = None,
+    *,
+    r_blk: int = 256,
+    f_blk: int = 128,
+    mode: str = "direct",
+) -> torch.Tensor:
+    """(B, R) boolean match lines from the same kernel (no leaf product)."""
+    _check_operands(q, low, high, tile_mask, r_blk=r_blk, f_blk=f_blk, mode=mode)
+    B, R = q.shape[0], low.shape[0]
+    if B == 0:
+        return torch.zeros((0, R), dtype=torch.bool, device=q.device)
+    n_words = -(-B // QUERIES_PER_TILE)
+    words = torch.empty((n_words, R), dtype=torch.int32, device=q.device)
+    _launch(q, low, high, None, tile_mask, None, r_blk=r_blk, f_blk=f_blk,
+            mode=mode, ws=None, out=None, bits=words)
+    cam_match_bits_cuda.launches += 1
+    shifts = torch.arange(QUERIES_PER_TILE, device=q.device, dtype=torch.int32)
+    unpacked = (words[:, None, :] >> shifts[None, :, None]) & 1  # (words, 32, R)
+    return unpacked.reshape(n_words * QUERIES_PER_TILE, R)[:B].to(torch.bool)
+
+
+cam_match_bits_cuda.launches = 0

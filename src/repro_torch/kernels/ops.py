@@ -1,0 +1,264 @@
+"""Host-side table prep and the device-dispatching ``cam_match`` entry.
+
+Handles the padding contract so callers can pass ragged real-world shapes:
+  * rows   -> multiple of r_blk          (pad with never-match ranges)
+  * feats  -> multiple of f_blk          (pad with always-match ranges)
+  * chans  -> multiple of c_mult         (pad leaf channels with zeros)
+The batch needs no padding: the CUDA kernel tiles it in 32-query words and
+masks the ragged edge itself.
+
+``pad_tables``, ``pack_tables``, ``wildcard_tile_mask`` and
+``check_query_range`` are NumPy copies of ``repro.kernels.ops`` and give
+byte-identical arrays; ``pack_tables`` writes straight into the narrow
+dtype instead of through padded int64 intermediates (4 GB per table pair
+at xtime-tabular's 1M x 256 cells).  ``pad_queries``/``pad_to_bucket``
+build torch tensors on the engine's device, and ``cam_match`` picks the
+implementation by device: the Hopper kernel for CUDA tensors, the plain
+version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.ref import cam_match_ref
+
+# default feature-axis tile (the engine's f_blk)
+F_CHUNK = 128
+
+TORCH_DTYPES = {"uint8": torch.uint8, "uint16": torch.uint16, "int32": torch.int32}
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _np_dtype(x) -> np.dtype:
+    """numpy dtype of a numpy array or torch tensor (``torch.uint8`` ->
+    ``uint8``)."""
+    return np.dtype(str(x.dtype).removeprefix("torch."))
+
+
+def pad_tables(
+    low: np.ndarray,
+    high: np.ndarray,
+    leaf_matrix: np.ndarray,
+    *,
+    r_blk: int = 256,
+    c_mult: int = 8,
+    n_bins: int | None = None,
+    f_blk: int = F_CHUNK,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pad the compiled CAM table to kernel-friendly shapes (host-side),
+    in the canonical exclusive-high int32 layout."""
+    R, F = low.shape
+    C = leaf_matrix.shape[1]
+    R_pad, F_pad, C_pad = _ceil_to(R, r_blk), _ceil_to(F, f_blk), _ceil_to(C, c_mult)
+    big = np.int32(n_bins if n_bins is not None else (int(high.max()) + 1))
+
+    lo = np.zeros((R_pad, F_pad), dtype=np.int32)
+    hi = np.full((R_pad, F_pad), big, dtype=np.int32)  # always-match columns
+    lo[:R, :F] = low
+    hi[:R, :F] = high
+    lo[R:, :] = 1  # never-match rows: low=1 > high=0
+    hi[R:, :] = 0
+
+    lm = np.zeros((R_pad, C_pad), dtype=np.float32)
+    lm[:R, :C] = leaf_matrix
+    return lo, hi, lm
+
+
+def pack_tables(
+    low: np.ndarray,
+    high: np.ndarray,
+    leaf_matrix: np.ndarray,
+    *,
+    r_blk: int = 256,
+    c_mult: int = 8,
+    n_bins: int | None = None,
+    f_blk: int = F_CHUNK,
+    dtype: str = "int32",
+    inclusive: bool | None = None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, bool]:
+    """Pad + pack the CAM table for the kernel; returns (lo, hi, leaf, incl).
+
+    ``dtype`` is the kernel table dtype.  The packed (unsigned) dtypes
+    always store INCLUSIVE upper bounds so the full grid [0, n_bins)
+    fits; ``inclusive=True`` forces the inclusive encoding for int32 too
+    (the engine's mode='inclusive').  Encoding map:
+
+      real cells        low,  high-1       (int32 keeps high-1 exactly,
+                                            so degenerate high=0 cells
+                                            stay unmatchable at -1)
+      always-match pad  0,    n_bins-1
+      never-match rows  1,    0            (low > high, unmatchable)
+
+    An unsigned dtype additionally requires every table value to fit its
+    range; perturbed tables must use the int32 layout.
+    """
+    dt = np.dtype(dtype)
+    if dt.kind == "f":
+        raise NotImplementedError(
+            "the float32 soft-encoded layout is not ported yet "
+            "(ROADMAP.md, 'soft' slice)"
+        )
+    if inclusive is None:
+        inclusive = dt.kind == "u"
+    if dt.kind == "u" and not inclusive:
+        raise ValueError("packed unsigned tables require the inclusive encoding")
+
+    shift = 1 if inclusive else 0
+    if dt.kind == "u":
+        lo_b = int(low.min(initial=0)), int(low.max(initial=0))
+        hi_b = (
+            int(high.min(initial=shift)) - shift,
+            int(high.max(initial=shift)) - shift,
+        )
+        top = np.iinfo(dt).max
+        if lo_b[0] < 0 or hi_b[0] < 0 or lo_b[1] > top or hi_b[1] > top:
+            raise ValueError(
+                f"table values (low in {lo_b}, inclusive high in {hi_b}) "
+                f"do not fit table dtype {dtype!r}; use 'int32' for "
+                "perturbed/out-of-grid tables"
+            )
+
+    R, F = low.shape
+    C = leaf_matrix.shape[1]
+    R_pad, F_pad, C_pad = _ceil_to(R, r_blk), _ceil_to(F, f_blk), _ceil_to(C, c_mult)
+    big = n_bins if n_bins is not None else (int(high.max(initial=0)) + 1)
+    out_dt = dt if dt.kind == "u" else np.dtype(np.int32)
+
+    lo = np.zeros((R_pad, F_pad), dtype=out_dt)
+    # always-match columns in the chosen encoding
+    hi = np.full((R_pad, F_pad), big - shift, dtype=out_dt)
+    lo[:R, :F] = low
+    # int32 wraps exactly like the reference's int64 -> int32 cast
+    np.subtract(high, shift, out=hi[:R, :F], casting="unsafe")
+    lo[R:, :] = 1  # never-match rows: low=1 > high=0 in both encodings
+    hi[R:, :] = 0
+
+    lm = np.zeros((R_pad, C_pad), dtype=np.float32)
+    lm[:R, :C] = leaf_matrix
+    return lo, hi, lm, inclusive
+
+
+def wildcard_tile_mask(
+    low: np.ndarray,
+    high: np.ndarray,
+    *,
+    r_blk: int,
+    f_blk: int,
+    n_bins: int,
+    inclusive: bool,
+) -> np.ndarray:
+    """(R/r_blk, F/f_blk) int32 — 0 marks an all-wildcard compare tile.
+
+    Operates on PADDED (and possibly packed) tables: a wildcard cell is
+    the full range [0, n_bins) in whichever encoding ``inclusive``
+    names.  Never-match padding rows are not wildcards, so their tiles
+    stay active and keep their rows unmatchable.
+    """
+    R, F = low.shape
+    if R % r_blk or F % f_blk:
+        raise ValueError(f"padded shape ({R}, {F}) must tile by ({r_blk}, {f_blk})")
+    top = n_bins - 1 if inclusive else n_bins
+    act = ~((low == 0) & (high >= top))
+    tiles = act.reshape(R // r_blk, r_blk, F // f_blk, f_blk).any(axis=(1, 3))
+    return tiles.astype(np.int32)
+
+
+def check_query_range(q, dtype: str) -> None:
+    """Reject bins a narrowing cast would WRAP (host-side or on the device).
+
+    A packed engine casting bin 300 to uint8 would wrap it to 44 and match
+    rows it must not.  Callers binning with the model's own quantizer
+    never trip this.  ``q`` is a numpy array or a torch tensor.
+    """
+    dt, qdt = np.dtype(dtype), _np_dtype(q)
+    is_tensor = isinstance(q, torch.Tensor)
+    if dt.kind != "u" or (q.numel() if is_tensor else q.size) == 0:
+        return
+    if qdt.kind == "u" and qdt.itemsize <= dt.itemsize:
+        return  # widening or same-width unsigned: no wrap possible
+    if is_tensor:
+        lim = torch.aminmax(q.to(torch.int64))
+        mn, mx = int(lim.min), int(lim.max)
+    else:
+        mn, mx = int(q.min()), int(q.max())
+    if mn < 0 or mx > np.iinfo(dt).max:
+        raise ValueError(
+            f"query bins in [{mn}, {mx}] do not fit table dtype {dtype!r} "
+            f"(max {np.iinfo(dt).max}); were these binned with the model's "
+            "quantizer?"
+        )
+
+
+def pad_queries(q, f_pad: int, b_blk: int = 1, dtype: str = "int32",
+                device=None) -> torch.Tensor:
+    B, _ = q.shape
+    return pad_to_bucket(q, _ceil_to(B, b_blk), f_pad, dtype=dtype, device=device)
+
+
+def pad_to_bucket(
+    q, bucket_b: int, f_pad: int, dtype: str = "int32", device=None
+) -> torch.Tensor:
+    """Pad a query batch (numpy array or tensor) to an explicit bucket shape.
+
+    Batch rows beyond ``B`` are zero vectors — they produce margins that
+    the caller discards; feature columns beyond ``F`` are zero, which the
+    always-match column padding of ``pad_tables`` ignores.  ``dtype`` is
+    the engine's table dtype — queries compare natively against packed
+    tables.  The result lives on ``device`` (default: ``q``'s own device).
+    """
+    B, F = q.shape
+    if B > bucket_b:
+        raise ValueError(f"batch {B} exceeds bucket {bucket_b}")
+    if F > f_pad:
+        raise ValueError(f"features {F} exceed padded width {f_pad}")
+    check_query_range(q, dtype)
+    q = torch.tensor(q) if isinstance(q, np.ndarray) else q  # copies read-only views too
+    device = q.device if device is None else torch.device(device)
+    tdt = TORCH_DTYPES[dtype]
+    out = torch.zeros((bucket_b, f_pad), dtype=tdt, device=device)
+    # int64 -> narrow casts wrap like numpy's; check_query_range ran first
+    out[:B, :F] = q.to(device=device, dtype=torch.int64).to(tdt)
+    return out
+
+
+def cam_match(
+    q_padded: torch.Tensor,
+    low: torch.Tensor,
+    high: torch.Tensor,
+    leaf: torch.Tensor,
+    tile_mask: torch.Tensor | None = None,
+    bias: torch.Tensor | None = None,
+    *,
+    out_b: int,
+    out_c: int,
+    r_blk: int = 256,
+    f_blk: int = F_CHUNK,
+    mode: str = "direct",
+) -> torch.Tensor:
+    """Kernel entry on pre-padded operands; returns unpadded (out_b, out_c).
+
+    CUDA tensors launch the Hopper kernel (``kernels.cam_match``) — it
+    either runs or raises; CPU tensors take the plain version.  ``bias``
+    is the optional (1, C_pad) fused-epilogue row, added once after the
+    row sum (bit-identical to adding it after an unfused call); callers
+    fusing it must NOT add the base score again downstream.
+    """
+    if q_padded.is_cuda:
+        from repro_torch.kernels.cam_match import cam_match_cuda
+
+        out = cam_match_cuda(
+            q_padded, low, high, leaf, tile_mask, bias,
+            r_blk=r_blk, f_blk=f_blk, mode=mode,
+        )
+    elif q_padded.device.type == "cpu":
+        out = cam_match_ref(q_padded, low, high, leaf, mode=mode)
+        if bias is not None:
+            out = out + bias
+    else:
+        raise ValueError(f"no cam_match implementation for device {q_padded.device}")
+    return out[:out_b, :out_c]
