@@ -4,19 +4,32 @@
 
 Phases, one line (or block) each:
   1. environment: card name and power limit, torch and CUDA versions;
-  2. build: nvcc of kernels/csrc/cam_match.cu, its time and ptxas report;
-  3. kernel against its plain PyTorch version on the card, for every
-     instantiated (table dtype x cell mode), tile mask on and off, bias
+  2. build: nvcc of kernels/csrc/*.cu (one process per source, started
+     together), its time and ptxas report;
+  3. the kernels against their plain PyTorch version on the card: the hard
+     kernel for every instantiated (table dtype x cell mode), the soft
+     kernel at tau 0, 0.1 and 0.5 (scores, margins, tau = 0 against the
+     int32 `direct` kernel, the moments pass), tile mask on and off, bias
      fused and unfused, at b256/r16384/f130/c8 and a ragged small shape;
-  4. the main path at the full width of xtime-tabular (4096 trees of depth
-     8, 130 features, 256 bins, 8 classes): ``repro_torch.build`` ->
-     ``CompiledModel.predict``/``raw_margin`` at batch 1, 37, 256 and 1024,
-     held to the host traversal and to the plain version, then
-     save -> load -> predict;
+  4. the main paths at the full width of xtime-tabular (4096 trees of
+     depth 8, 130 features, 256 bins, 8 classes), each with the launch
+     counts set to 0 just before it and read just after:
+     hard: ``repro_torch.build`` -> ``CompiledModel.predict``/``raw_margin``
+     at batch 1, 37, 256 and 1024, held to the host traversal and to the
+     plain version, then save -> load -> predict;
+     soft: ``build(deploy=DeployConfig(mode="soft", tau=0.1))`` ->
+     ``raw_margin``/``raw_moments`` at tau = 0 (held to the host
+     traversal, the m1 moments to the unfused margins),
+     ``predict_proba`` and ``predict(return_uncertainty=True)`` at batch
+     1, 37 and 256 and ``raw_moments`` at batch 37 (held to the plain
+     version), then save -> load -> ``predict_proba``;
   5. times with CUDA events at full width, beside the least time the card
      could take: the main path's uint8/inclusive kernel at batch 256, 1
-     and 1024 (tile mask and fused bias on and off), and the uint16 and
-     int32 instantiations at batch 256, each beside its plain version.
+     and 1024 (tile mask and fused bias on and off), the uint16 and int32
+     instantiations at batch 256, the soft kernel at batch 1 and 256 for
+     tau 0 and 0.1 and its moments pass at batch 256, each beside its
+     plain version and beside the time the all-cells design spends on its
+     compares or transcendentals; soft bind time; peak device memory.
 
 Every check that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object of the kernels and the contract line
@@ -46,24 +59,43 @@ from repro_torch.kernels import cam_match as K  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 SEED = 0
+SOFT_TAU = 0.1  # the soft main path's temperature, in bin units
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM 3.35 TB/s; 67 TFLOP/s
 # float32 outside the tensor cores counts an FMA as two operations, i.e.
 # 33.5 T lane-instructions/s — the rate of a 32-bit compare, AND or add.
+# The special-function units return 16 ex2/lg2 results per clock per SM
+# (CUDA C++ programming guide, arithmetic instruction throughput, compute
+# capability 9.0); their rate is that times the SMs and the card's
+# maximum SM clock, both read from the card.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
-F32_EPS = 2.0 ** -24  # unit roundoff of float32
+F32_FLOPS_PER_S = 67e12
+SFU_PER_CLOCK_PER_SM = 16
+F32_EPS = ref.F32_EPS
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"FAIL: {msg}")
 
 
-def card() -> str:
+def smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def card() -> str:
+    return smi("name,power.limit")
+
+
+def sfu_per_s() -> tuple[float, str]:
+    """ex2/lg2 results per second on this card, and how it was reckoned."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(smi("clocks.max.sm").split()[0])
+    rate = SFU_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    return rate, f"{SFU_PER_CLOCK_PER_SM}/clk/SM x {sms} SMs x {mhz:.0f} MHz"
 
 
 _TYPES = {"h": "uint8", "t": "uint16", "i": "int32"}
@@ -77,7 +109,13 @@ def ptxas_report(log: str) -> list[str]:
         if not m:
             continue
         k = re.search(r"cam_match_kernelI([hti])NS_\d+(\w+?)EEEv", m.group(1))
-        name = f"cam_match<{_TYPES[k.group(1)]}, {k.group(2)}>" if k else "reduce_splits"
+        sk = re.search(r"cam_match_soft_kernelILb([01])E", m.group(1))
+        if k:
+            name = f"cam_match<{_TYPES[k.group(1)]}, {k.group(2)}>"
+        elif sk:
+            name = f"cam_match_soft<{'tau=0' if sk.group(1) == '1' else 'tau>0'}>"
+        else:
+            name = "reduce_splits"
         used = lines[i + 2].split(":", 1)[-1].strip()
         out.append(f"{name}: {used}; {lines[i + 1].strip()}")
     return out
@@ -152,15 +190,6 @@ def operands(p, dtype, inclusive, leaf, dev):
     return q, to(lo), to(hi), to(lm), to(mask)
 
 
-def summation_bound(bits: torch.Tensor, leaf: torch.Tensor, extra: int) -> torch.Tensor:
-    """|kernel - plain| limit for two float32 sums of the same terms in
-    different orders: each is within (n-1)·u·Σ|term| of the exact sum, n
-    the number of nonzero terms (+ ``extra`` partial-sum merges)."""
-    absum = bits.double() @ leaf.abs().double()
-    n = bits.sum(dim=1, keepdim=True).double() + extra
-    return 2.0 * n * F32_EPS * absum
-
-
 def phase_kernel(dev, stats) -> None:
     rng = np.random.default_rng(SEED)
     for p in (tree_problem(rng, dev), ragged_problem(rng, dev)):
@@ -196,7 +225,7 @@ def phase_kernel(dev, stats) -> None:
                 if not (torch.equal(fused, out + bias) and torch.equal(fused_n, out_n + bias)):
                     fail(f"{tag}: fused bias != unfused + bias")
                 err = (out_n - out_ref_n).abs()
-                lim = summation_bound(bits_ref, lm_n, extra=K.n_splits(lo.shape[0]) + 2)
+                lim = ref.summation_bound(bits_ref, lm_n, extra=K.n_splits(lo.shape[0]) + 2)
                 if bool((err.double() > lim).any()):
                     fail(f"{tag}: normal-leaf margins off by {float(err.max())} > bound")
                 stats["max_abs_err"] = max(stats["max_abs_err"], float(err.max()))
@@ -209,6 +238,112 @@ def phase_kernel(dev, stats) -> None:
                   f"fused bias, mask on/off, rerun exact; normal leaves "
                   f"within 2(n+splits)·u·Σ|leaf| (max |err| so far "
                   f"{stats['max_abs_err']:.3g})", flush=True)
+
+
+def soft_operands(p, leaf, dev):
+    """The problem in the float32 soft layout: bins as float32 queries."""
+    lo, hi, lm, _ = ops.pack_tables(p["low"], p["high"], leaf, r_blk=p["r_blk"],
+                                    f_blk=p["f_blk"], n_bins=p["n_bins"], dtype="float32")
+    mask = ops.wildcard_tile_mask(lo, hi, r_blk=p["r_blk"], f_blk=p["f_blk"],
+                                  n_bins=p["n_bins"], inclusive=False)
+    q = ops.pad_queries(p["q"], lo.shape[1], dtype="float32", device=dev)
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return q, to(lo), to(hi), to(lm), to(mask)
+
+
+def moments_matrix(lm: torch.Tensor) -> torch.Tensor:
+    """[leaf, leaf^2, mass] as the engine builds it; each compiled row
+    feeds one channel, so its mass goes where its leaf is nonzero."""
+    return torch.cat([lm, lm * lm, (lm != 0).float()], dim=1).contiguous()
+
+
+def perturb(p, rng):
+    """1% of the real cells made never-match (high <= low), as the defect
+    injector leaves them: (+inf, -inf) in the soft layout."""
+    low, high = p["low"].copy(), p["high"].copy()
+    bad = rng.random(low.shape) < 0.01
+    high[bad] = low[bad]
+    return dict(p, name=p["name"] + "+never", low=low, high=high)
+
+
+def phase_soft_kernel(dev, stats) -> None:
+    """The soft kernel against the plain version: scores and margins,
+    exact at tau = 0 (and equal to the int32 `direct` kernel), within
+    ``ref.soft_score_bound``/``ref.soft_margin_bound`` at tau > 0; tile
+    mask on/off, fused bias, reruns, never-match rows, the moments pass."""
+    rng = np.random.default_rng(SEED + 10)
+    worst = 0.0  # largest |err| / bound over the tau > 0 checks
+    for p in (tree_problem(rng, dev), perturb(ragged_problem(rng, dev), rng)):
+        normal = rng.normal(size=p["leaf"].shape).astype(np.float32)
+        normal[p["leaf"] == 0] = 0.0  # keep the class routing of each row
+        q, lo, hi, lm, mask = soft_operands(p, p["leaf"], dev)
+        _, _, _, lm_n, _ = soft_operands(p, normal, dev)
+        mom = moments_matrix(lm)
+        f_pad, extra = lo.shape[1], K.n_splits(lo.shape[0]) + 2
+        never = torch.isposinf(lo).any(dim=1)  # padding rows and perturbed rows
+        iq, ilo, ihi, ilm, imask = operands(p, "int32", False, p["leaf"], dev)
+        _, _, _, ilm_n, _ = operands(p, "int32", False, normal, dev)
+        kd = dict(r_blk=p["r_blk"], f_blk=p["f_blk"], mode="direct")
+        direct = (K.cam_match_cuda(iq, ilo, ihi, ilm, imask, **kd),
+                  K.cam_match_cuda(iq, ilo, ihi, ilm_n, imask, **kd))
+        bias = torch.full((1, lm.shape[1]), 0.3125, device=dev)
+        for tau in (0.0, 0.1, 0.5):
+            kw = dict(r_blk=p["r_blk"], f_blk=p["f_blk"], tau=tau)
+            s_ref = ref.soft_scores_ref(q, lo, hi, tau=tau)
+            plain = {name: ref.cam_match_ref(q, lo, hi, leaf, mode="soft", tau=tau)
+                     for name, leaf in (("k/16", lm), ("normal", lm_n), ("moments", mom))}
+            for m in (mask, None):
+                tag = f"{p['name']} soft tau={tau} mask={'on' if m is not None else 'off'}"
+                scores = K.soft_scores_cuda(q, lo, hi, m, **kw)
+                outs = {"k/16": K.cam_match_soft_cuda(q, lo, hi, lm, m, **kw),
+                        "normal": K.cam_match_soft_cuda(q, lo, hi, lm_n, m, **kw),
+                        "moments": K.cam_match_soft_cuda(q, lo, hi, mom, m, **kw)}
+                again = K.cam_match_soft_cuda(q, lo, hi, lm_n, m, **kw)
+                fused = K.cam_match_soft_cuda(q, lo, hi, lm_n, m, bias, **kw)
+                torch.cuda.synchronize()
+                if torch.isnan(scores).any() or any(torch.isnan(o).any() for o in outs.values()):
+                    fail(f"{tag}: NaN")
+                if not bool((scores[:, never] == 0).all()):
+                    fail(f"{tag}: a never-match row scored above 0")
+                if not (torch.equal(again, outs["normal"]) and torch.equal(fused, again + bias)):
+                    fail(f"{tag}: rerun differs, or fused bias != unfused + bias")
+                if tau == 0.0:  # scores 0/1: exact wherever the sums are order-free
+                    if not torch.equal(scores, s_ref):
+                        fail(f"{tag}: scores differ from the plain version")
+                    for name in ("k/16", "moments"):
+                        if not torch.equal(outs[name], plain[name]):
+                            fail(f"{tag}: {name} margins differ from the plain version")
+                    err = (outs["normal"] - plain["normal"]).abs().double()
+                    if bool((err > ref.summation_bound(s_ref, lm_n, extra)).any()):
+                        fail(f"{tag}: normal margins off by {float(err.max())} > bound")
+                    if not (torch.equal(outs["k/16"], direct[0])
+                            and torch.equal(outs["normal"], direct[1])):
+                        fail(f"{tag}: margins differ from the int32 direct kernel")
+                    continue
+                lim_s = ref.soft_score_bound(s_ref, f_pad)
+                err_s = (scores - s_ref).abs().double()
+                worst = max(worst, float((err_s / lim_s).max()))
+                if bool((err_s > lim_s).any()):
+                    fail(f"{tag}: scores off by {float(err_s.max())} > bound")
+                leaves = {"k/16": lm, "normal": lm_n, "moments": mom}
+                for name, out in outs.items():
+                    lim = ref.soft_margin_bound(s_ref, leaves[name], f_pad, extra)
+                    err = (out - plain[name]).abs().double()
+                    worst = max(worst, float((err / lim).max()))
+                    if bool((err > lim).any()):
+                        fail(f"{tag}: {name} margins off by {float(err.max())} > bound")
+                    if name == "normal":
+                        stats["soft_max_abs_err"] = max(stats["soft_max_abs_err"],
+                                                        float(err.max()))
+            print(f"kernel {p['name']} soft tau={tau}: mask on/off, fused bias, rerun, "
+                  f"never-match rows 0, no NaN; "
+                  + ("scores, k/16 + moments margins exact; normal margins within "
+                     "2(n+splits+2)u·Σ|s·leaf|; all == int32 direct kernel bit for bit"
+                     if tau == 0.0 else
+                     f"scores within s(2(F+8)u|ln s| + 8u) + 2^-126 (F = {f_pad}), margins "
+                     f"and moments within that through |leaf| + 2(n+splits+2)u·Σ|s·leaf| "
+                     f"(max |err| normal margins so far {stats['soft_max_abs_err']:.3g}, "
+                     f"worst err/bound {worst:.3g})"), flush=True)
 
 
 # -- phase 4: the main path at full width -------------------------------------
@@ -228,7 +363,7 @@ def phase_main_path(dev, stats):
     batches = {b: rng.integers(0, 256, size=(b, 130)).astype(np.uint8)
                for b in (1, 37, 256, 1024)}
     torch.cuda.reset_peak_memory_stats()
-    K.cam_match_cuda.launches = 0  # count only the main path's launches
+    reset_launches()  # count only the main path's launches
     margins = {b: cm.raw_margin(x) for b, x in batches.items()}
     preds = {b: cm.predict(x) for b, x in batches.items()}
     torch.cuda.synchronize()
@@ -273,26 +408,151 @@ def phase_main_path(dev, stats):
                 fail(f"batch {b}: predictions differ after save -> load")
     print(f"main path: save -> load -> predict equal at full width "
           f"({t1 - t0:.1f} s host)", flush=True)
-    return cm, batches
+    return ens, cm, batches
+
+
+def reset_launches() -> None:
+    for fn in (K.cam_match_cuda, K.cam_match_bits_cuda, K.cam_match_soft_cuda,
+               K.soft_scores_cuda):
+        fn.launches = 0
+
+
+def phase_soft_main_path(ens, cm, batches, stats):
+    """The soft main path at full width, with the hard engine still bound."""
+    t0 = time.perf_counter()
+    soft = repro_torch.build(cm.table, deploy=repro_torch.DeployConfig(mode="soft", tau=SOFT_TAU))
+    t1 = time.perf_counter()
+    print(f"soft path: build(deploy=DeployConfig(mode='soft', tau={SOFT_TAU})) "
+          f"{t1 - t0:.1f} s host", flush=True)
+    hard = {b: cm.raw_margin(batches[b]) for b in (37, 256)}  # the hard main path's
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # count only the soft main path's launches
+    expected = 0
+    t0 = time.perf_counter()
+    eng0 = soft.engine(tau=0.0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng = soft.engine()
+    torch.cuda.synchronize()
+    stats["soft_bind_s"] = time.perf_counter() - t1
+    stats["soft_bind0_s"] = t1 - t0
+    # tau = 0: the exact limit, held to the host traversal and the hard path
+    for b in (37, 256):
+        m0 = soft.raw_margin(batches[b], tau=0.0)
+        expected += 1
+        if not np.array_equal(m0[:64], ens.raw_margin(batches[b][:64])):
+            fail(f"soft tau=0 batch {b}: margins differ from Ensemble.raw_margin")
+        if not np.array_equal(m0, hard[b]):
+            fail(f"soft tau=0 batch {b}: margins differ from the hard main path")
+    mom0 = eng0.raw_moments(batches[256])
+    expected += 1
+    if not (mom0[:, 16:24].sum(dim=1) == cm.table.n_trees).all():
+        fail("soft tau=0: the mass channels do not sum to the tree count")
+    # tau > 0: probabilities and uncertainty at every batch
+    proba, unc = {}, {}
+    for b in (1, 37, 256):
+        x = batches[b]
+        proba[b] = soft.predict_proba(x)
+        pred, unc[b] = soft.predict(x, return_uncertainty=True)
+        expected += 3
+        if proba[b].shape != (b, 8) or not np.isfinite(proba[b]).all():
+            fail(f"soft batch {b}: predict_proba not finite of shape ({b}, 8)")
+        if not np.allclose(proba[b].sum(axis=1), 1.0, rtol=0, atol=1e-5):
+            fail(f"soft batch {b}: predict_proba rows do not sum to 1 within 1e-5")
+        if not (np.isfinite(unc[b]).all() and (unc[b] >= 0).all() and unc[b].shape == (b,)):
+            fail(f"soft batch {b}: uncertainties not finite and >= 0")
+        if not np.array_equal(pred, proba[b].argmax(axis=1)):
+            fail(f"soft batch {b}: predict != argmax of predict_proba")
+    mom37 = eng.raw_moments(batches[37])
+    expected += 1
+    torch.cuda.synchronize()
+    stats["soft_launches"] = K.cam_match_soft_cuda.launches
+    stats["soft_peak_bytes"] = torch.cuda.max_memory_allocated()
+    if stats["soft_launches"] != expected or K.cam_match_cuda.launches != 0:
+        fail(f"soft path: {stats['soft_launches']} soft launches (expected {expected}), "
+             f"{K.cam_match_cuda.launches} hard ones")
+    print(f"soft path: {expected} soft kernel launches (tau=0: 2 raw_margin + 1 "
+          f"raw_moments; tau={SOFT_TAU}: predict_proba + predict + moments at B = 1, 37, "
+          f"256, and raw_moments at B = 37); tau=0 margins == Ensemble.raw_margin "
+          f"(64 rows) == hard path (all rows), "
+          f"mass channels sum to {cm.table.n_trees}; proba rows sum to 1, "
+          f"uncertainties finite >= 0; bind {stats['soft_bind_s']:.1f} s host "
+          f"(tau=0 engine {stats['soft_bind0_s']:.1f} s)", flush=True)
+
+    # tau = 0: the m1 channels are the unfused margins, bit for bit (the
+    # same float adds per channel); a comparison launch, not counted
+    a0 = eng0.arrays
+    unfused = K.cam_match_soft_cuda(eng0._prep_queries(batches[256]), a0.low, a0.high,
+                                    a0.leaf, a0.tile_mask, r_blk=eng0.r_blk,
+                                    f_blk=eng0.f_blk, tau=0.0)
+    if not torch.equal(mom0[:, :8], unfused[:, :8]):
+        fail("soft tau=0: the m1 moments differ from the unfused margins")
+    print("soft path: tau=0 m1 moments == unfused margins (B = 256) bit for bit", flush=True)
+
+    # B = 37 margins and moments against the plain version on the card
+    a = eng.arrays
+    qp = eng._prep_queries(batches[37])
+    s_ref = ref.soft_scores_ref(qp, a.low, a.high, tau=SOFT_TAU)
+    plain = ref.cam_match_ref(qp, a.low, a.high, a.leaf, mode="soft", tau=SOFT_TAU)
+    plain = plain + eng._bias  # the separate epilogue
+    lim = ref.soft_margin_bound(s_ref, a.leaf, a.f_pad, K.n_splits(a.r_pad) + 2)
+    lim = lim + 2 * F32_EPS * plain.abs().double()  # the bias add
+    got = torch.from_numpy(soft.raw_margin(batches[37])).to(plain.device)
+    err = (got - plain[:, :8]).abs().double()
+    if bool((err > lim[:, :8]).any()):
+        fail(f"soft batch 37: margins off the plain version by {float(err.max())} > bound")
+    stats["soft_max_abs_err"] = max(stats["soft_max_abs_err"], float(err.max()))
+    print(f"soft path: B=37 margins within the bound of the plain version on the card "
+          f"(max |err| {float(err.max()):.3g}, worst err/bound "
+          f"{float((err / lim[:, :8]).max()):.3g})", flush=True)
+    plain_m = ref.cam_match_ref(qp, a.low, a.high, eng._moments, mode="soft", tau=SOFT_TAU)
+    lim_m = ref.soft_margin_bound(s_ref, eng._moments, a.f_pad, K.n_splits(a.r_pad) + 2)
+    err_m = (mom37 - plain_m[:, :24]).abs().double()
+    if mom37.shape != (37, 24) or bool((err_m > lim_m[:, :24]).any()):
+        fail(f"soft batch 37: moments off the plain version by {float(err_m.max())} > bound")
+    stats["soft_max_abs_err"] = max(stats["soft_max_abs_err"], float(err_m.max()))
+    print(f"soft path: B=37 moments (R={a.r_pad}, C=24) within the bound of the plain "
+          f"version on the card (max |err| {float(err_m.max()):.3g}, worst err/bound "
+          f"{float((err_m / lim_m[:, :24]).max()):.3g})", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        soft.save(Path(tmp) / "soft")
+        loaded = repro_torch.CompiledModel.load(Path(tmp) / "soft")
+        if (loaded.deploy.mode, loaded.deploy.tau) != ("soft", SOFT_TAU):
+            fail("soft save -> load lost mode/tau")
+        if not np.array_equal(loaded.predict_proba(batches[37]), proba[37]):
+            fail("soft save -> load: predict_proba differs")
+        del loaded
+    print("soft path: save -> load keeps mode and tau, predict_proba equal", flush=True)
+    return soft
 
 
 # -- phase 5: times -----------------------------------------------------------
 
 
-def bound_ms(eng: XTimeEngine, batch: int, n_matched: int) -> tuple[float, str]:
+def binding_bounds(eng: XTimeEngine) -> int:
+    """Bounds that constrain a query: low > 0 or high < n_bins, on the
+    compiled table.  A wildcard side needs no compare."""
+    t = eng.table
+    return int((t.low > 0).sum()) + int((t.high < t.n_bins).sum())
+
+
+def bound_ms(eng: XTimeEngine, batch: int, n_matched: int) -> tuple[float, str, float]:
     """Least time for one cam_match call on this data: bytes of the active
-    table tiles, leaves, queries, mask and outputs at HBM rate, against two
-    compares per active cell and query plus one add per matched row and
-    query at the 32-bit lane rate."""
+    table tiles, leaves, queries, mask and outputs at HBM rate, against a
+    compare and an AND per binding bound and query plus one add per matched
+    row and query at the 32-bit lane rate.  Third: the compare time of the
+    all-cells design (two compares per cell of an active tile and query)."""
     a = eng.arrays
     mask = a.tile_mask.cpu().numpy()
     cells = int(mask.sum()) * eng.r_blk * eng.f_blk
     item = np.dtype(eng.table_dtype).itemsize
     nbytes = (2 * cells * item + a.r_pad * a.c_pad * 4 + batch * a.f_pad * item
               + mask.nbytes + batch * a.c_pad * 4)
-    n_ops = 2 * batch * cells + n_matched
+    n_ops = 2 * batch * binding_bounds(eng) + n_matched
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, n_ops / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    design = (2 * batch * cells + n_matched) / INT32_OPS_PER_S * 1e3
+    return (*((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), design)
 
 
 # (label, engine overrides) timed at full width; the first is the main path
@@ -328,12 +588,14 @@ def phase_times(cm, batches, name, stats) -> None:
         for b in ((256, 1, 1024) if not overrides else (256,)):
             ms = timed(eng, b, iters=50 if b == 1 else 5)
             plain_ms = plain(eng, b)
-            bnd, by = bound_ms(eng, b, b * n_trees)  # one leaf per tree and query
+            # one leaf per tree and query
+            bnd, by, design = bound_ms(eng, b, b * n_trees)
             rows[label, b] = (ms, plain_ms, bnd, by)
             print(f"times [{name}] cam_match {label} B={b} (R={eng.arrays.r_pad}, "
                   f"F_pad={eng.arrays.f_pad}): kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.3f} ms, bound {bnd:.4f} ms by {by} "
-                  f"({bnd / ms:.1%} of bound)", flush=True)
+                  f"({bnd / ms:.1%} of bound); compares of the all-cells design "
+                  f"{design:.4f} ms", flush=True)
     eng = cm.engine()
     no_mask = timed(eng, 256, mask=False, iters=5)
     no_bias = timed(eng, 256, bias=False, iters=5)
@@ -342,13 +604,96 @@ def phase_times(cm, batches, name, stats) -> None:
           f"{no_mask:.4f} ms (mask on: {rows['uint8/inclusive', 256][0]:.4f} ms, "
           f"{active:.1%} of tiles active); bias unfused {no_bias:.4f} ms", flush=True)
     print(f"times [{name}] peak device memory over the main path "
-          f"{stats['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+          f"{stats['peak_bytes'] / 2**30:.2f} GiB; binding bounds "
+          f"{binding_bounds(eng)} of {2 * eng.table.n_rows * eng.table.n_cols} "
+          f"(table cells x 2)", flush=True)
     ms, plain_ms, bnd, by = rows["uint8/inclusive", 256]
     stats["kernel_line"] = {
         "name": "cam_match", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/cam_match.cu",
         "replaces": "src/repro/kernels/cam_match.py:90",
         "launches": stats["launches"], "max_abs_err": stats["max_abs_err"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+        "library_ms": None,
+    }
+
+
+def finite_bounds(eng: XTimeEngine) -> int:
+    """Finite bounds of the soft-encoded table: the sides whose
+    log-sigmoid is not exactly 0 (an infinite side needs none)."""
+    a = eng.arrays
+    return int(torch.isfinite(a.low).sum()) + int(torch.isfinite(a.high).sum())
+
+
+def soft_bound_ms(eng: XTimeEngine, batch: int, tau: float, leaf: torch.Tensor,
+                  sfu: float) -> tuple[float, str, float]:
+    """Least time for one soft kernel call on this data.  Bytes: the active
+    float32 table tiles, leaves, queries, mask and outputs, each once.
+    Operations at tau = 0: a compare and an AND per finite bound and query
+    plus one add per matched row and query (one per tree), at the 32-bit
+    lane rate; at tau > 0: two special-function results (ex2 + lg2) per
+    finite bound and query and one ex2 per table row and query, at the SFU
+    rate ``sfu``, against an FMA per score and nonzero leaf entry at the
+    float32 rate.  Third: the time the all-cells design spends on those
+    operations (two compares, or four SFU results, per cell of an active
+    tile and query)."""
+    a = eng.arrays
+    mask = a.tile_mask.cpu().numpy()
+    cells = int(mask.sum()) * eng.r_blk * eng.f_blk
+    c = leaf.shape[1]
+    nbytes = (2 * cells * 4 + a.r_pad * c * 4 + batch * a.f_pad * 4 + mask.nbytes
+              + batch * c * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    n_fin, adds = finite_bounds(eng), batch * eng.table.n_trees
+    if tau == 0.0:
+        t_ops = (2 * batch * n_fin + adds) / INT32_OPS_PER_S * 1e3
+        design = (2 * batch * cells + adds) / INT32_OPS_PER_S * 1e3
+    else:
+        fma = 2 * batch * int((leaf != 0).sum()) / F32_FLOPS_PER_S * 1e3
+        t_ops = max(batch * (2 * n_fin + eng.table.n_rows) / sfu * 1e3, fma)
+        design = 4 * batch * cells / sfu * 1e3
+    return (*((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), design)
+
+
+def phase_soft_times(soft, batches, name, stats) -> None:
+    sfu, how = sfu_per_s()
+    eng = soft.engine()
+    rows = {}
+    for tau in (0.0, SOFT_TAU):
+        e = soft.engine(tau=tau)
+        a = e.arrays
+        for b, what in ((1, "margin"), (256, "margin"), (256, "moments")):
+            if what == "moments" and tau == 0.0:
+                continue
+            leaf, bias = (a.leaf, e._bias) if what == "margin" else (e._moments, None)
+            qp = e._prep_queries(batches[b])
+            kw = dict(r_blk=e.r_blk, f_blk=e.f_blk, tau=tau)
+            ms = sync_time(lambda: K.cam_match_soft_cuda(qp, a.low, a.high, leaf,
+                                                         a.tile_mask, bias, **kw),
+                           50 if b == 1 else (3 if tau else 5))
+            plain_ms = sync_time(lambda: ref.cam_match_ref(qp, a.low, a.high, leaf,
+                                                           mode="soft", tau=tau),
+                                 1 if b == 256 else 2, warmup=1)
+            bnd, by, design = soft_bound_ms(e, b, tau, leaf, sfu)
+            rows[tau, b, what] = (ms, plain_ms, bnd, by)
+            print(f"times [{name}] cam_match_soft tau={tau} {what} B={b} "
+                  f"(R={a.r_pad}, F_pad={a.f_pad}, C={leaf.shape[1]}): kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.3f} ms, bound {bnd:.4f} ms by {by} "
+                  f"({bnd / ms:.1%} of bound); "
+                  + ("compares" if tau == 0.0 else "SFU time")
+                  + f" of the all-cells design {design:.4f} ms", flush=True)
+    print(f"times [{name}] soft bound: SFU rate {sfu / 1e12:.3f} T/s ({how}); finite "
+          f"bounds {finite_bounds(eng)} of {2 * eng.arrays.r_pad * eng.arrays.f_pad}; active "
+          f"tiles {float(eng.arrays.tile_mask.float().mean()):.1%}; soft bind "
+          f"{stats['soft_bind_s']:.1f} s host; peak device memory over the soft path, "
+          f"hard and soft engines bound: {stats['soft_peak_bytes'] / 2**30:.2f} GiB "
+          f"(allocated now {torch.cuda.memory_allocated() / 2**30:.2f} GiB)", flush=True)
+    ms, plain_ms, bnd, by = rows[SOFT_TAU, 256, "margin"]
+    stats["soft_kernel_line"] = {
+        "name": "cam_match_soft", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/cam_match_soft.cu",
+        "replaces": "src/repro/kernels/cam_match.py:90",
+        "launches": stats["soft_launches"], "max_abs_err": stats["soft_max_abs_err"],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
         "library_ms": None,
     }
@@ -372,16 +717,24 @@ def main() -> int:
     for ln in ptxas_report(info.log):
         print(f"  ptxas {ln}", flush=True)
 
-    stats = {"max_abs_err": 0.0}
+    stats = {"max_abs_err": 0.0, "soft_max_abs_err": 0.0}
     t0 = time.perf_counter()
     phase_kernel(dev, stats)
     print(f"kernel phase {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    cm, batches = phase_main_path(dev, stats)
+    phase_soft_kernel(dev, stats)
+    print(f"soft kernel phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    reset_launches()
+    ens, cm, batches = phase_main_path(dev, stats)
     print(f"main path phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    soft = phase_soft_main_path(ens, cm, batches, stats)
+    print(f"soft path phase {time.perf_counter() - t0:.1f} s", flush=True)
     phase_times(cm, batches, name, stats)
+    phase_soft_times(soft, batches, name, stats)
 
-    print(json.dumps({"kernels": [stats["kernel_line"]]}), flush=True)
+    print(json.dumps({"kernels": [stats["kernel_line"], stats["soft_kernel_line"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

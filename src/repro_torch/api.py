@@ -8,12 +8,16 @@ The port's counterpart of ``repro.api``:
     pred = cm.predict(x)                        # on the card
     pred = cm.predict(x, device="cpu")          # the plain PyTorch version
 
+    soft = repro_torch.build(ensemble, deploy=DeployConfig(mode="soft", tau=0.1))
+    p = soft.predict_proba(x)                   # (B, n_classes) probabilities
+    pred, unc = soft.predict(x, return_uncertainty=True)
+
 Artifacts are the JAX package's format byte for byte (the same ``.npz``
 arrays and the same JSON sidecar), so either package loads what the other
 saved; ``repro_torch.convert`` assembles the port's objects from them.
 Not ported yet (ROADMAP.md): compression levels other than 'off', the
 ingestion frontend, tuning plans (carried through save/load, not
-applied), the soft mode's ``predict_proba`` and uncertainty, meshes.
+applied), meshes.
 """
 
 from __future__ import annotations
@@ -169,11 +173,67 @@ class CompiledModel:
             )
         return self.quantizer.transform(x)
 
-    def predict(self, x: np.ndarray, *, device=None, **overrides) -> np.ndarray:
+    def predict(
+        self,
+        x: np.ndarray,
+        *,
+        device=None,
+        return_uncertainty: bool = False,
+        **overrides,
+    ) -> np.ndarray | tuple[np.ndarray, np.ndarray]:
         """Final predictions for a batch of float (or pre-binned) rows:
-        ``(B,)`` int32 class ids, or float32 values for regression."""
+        ``(B,)`` int32 class ids, or float32 values for regression.
+
+        With ``return_uncertainty=True`` (soft cell mode only — DESIGN.md
+        §15) returns ``(pred, unc)``, ``unc`` the ``(B,)`` leaf-spread
+        uncertainty at each row's predicted channel (one more kernel
+        launch, over the moments matrix)."""
         q = self._binned(x, "predict")
-        return self.engine(device, **overrides).predict(q).cpu().numpy()
+        eng = self.engine(device, **overrides)
+        if return_uncertainty and eng.kernel_mode != "soft":
+            raise ValueError(
+                "predict(return_uncertainty=True) requires cell_mode="
+                f"'soft' (this binding runs mode={eng.mode!r}); build or "
+                "bind with DeployConfig(mode='soft')"
+            )
+        pred = eng.predict(q).cpu().numpy()
+        if not return_uncertainty:
+            return pred
+        u = eng.uncertainty(q).cpu().numpy()
+        if self.table.task == "regression" or self.table.n_outputs == 1:
+            unc = u[:, 0]
+        else:  # the spread behind the channel that won the argmax
+            unc = u[np.arange(pred.shape[0]), pred.astype(np.int64)]
+        return pred, unc
+
+    def predict_proba(self, x: np.ndarray, *, device=None, **overrides) -> np.ndarray:
+        """Class probabilities for a batch of float (or pre-binned) rows.
+
+        Soft cell mode only: binary single-logit models return ``(B, 2)``
+        ``[1-p, p]`` via the sigmoid, multiclass models ``(B, n_classes)``
+        via the softmax, both in float64 on the host.  Hard modes and
+        regression raise."""
+        q = self._binned(x, "predict_proba")
+        eng = self.engine(device, **overrides)
+        if eng.kernel_mode != "soft":
+            raise ValueError(
+                "predict_proba requires cell_mode='soft' (this binding "
+                f"runs mode={eng.mode!r}); build or bind with "
+                "DeployConfig(mode='soft')"
+            )
+        if self.table.task == "regression":
+            raise ValueError(
+                "predict_proba is undefined for regression models; use "
+                "predict(x, return_uncertainty=True) for a value with an "
+                "uncertainty channel"
+            )
+        m = eng.raw_margin(q).cpu().numpy().astype(np.float64)
+        if self.table.n_outputs == 1:  # single-logit binary
+            p = 1.0 / (1.0 + np.exp(-m[:, 0]))
+            return np.stack([1.0 - p, p], axis=1).astype(np.float32)
+        z = m - m.max(axis=1, keepdims=True)
+        e = np.exp(z)
+        return (e / e.sum(axis=1, keepdims=True)).astype(np.float32)
 
     def raw_margin(self, x: np.ndarray, *, device=None, **overrides) -> np.ndarray:
         """Raw ``(B, n_outputs)`` float32 margins for float (or pre-binned)

@@ -3,18 +3,21 @@
 The single-device half of ``repro.core.engine``.  At bind time the engine
 packs the canonical int32 exclusive-high table into the narrowest dtype
 the grid permits (``resolve_table_dtype`` — uint8 for ≤256 bins, inclusive
-upper bounds, compared natively), precomputes the wildcard tile-activity
-mask and moves everything to ``device``.  The device picks the
-implementation: on a CUDA device every call launches the Hopper kernel
-(``kernels/csrc/cam_match.cu``) and the base score rides its epilogue; on
-the CPU the plain PyTorch version runs.  ``DeployConfig.backend`` is not
-consulted.  Entry points run on the card unless ``device="cpu"`` is given;
-there is no fallback from a missing card to the CPU.
+upper bounds, compared natively; float32 half-integer bounds for the soft
+cell mode), precomputes the wildcard tile-activity mask and moves
+everything to ``device``.  The device picks the implementation: on a CUDA
+device every call launches a Hopper kernel (``kernels/csrc/cam_match.cu``
+for the hard modes, ``kernels/csrc/cam_match_soft.cu`` for soft) and the
+base score rides its epilogue; on the CPU the plain PyTorch version runs.
+``DeployConfig.backend`` is not consulted.  Entry points run on the card
+unless ``device="cpu"`` is given; there is no fallback from a missing card
+to the CPU.
 
 The engine reproduces ``Ensemble.raw_margin`` / ``Ensemble.predict`` on
 binned inputs — bit-for-bit on dyadic (k/16) leaves, within float32
-reassociation otherwise.  The mesh paths and the soft cell mode are not
-ported yet (ROADMAP.md).
+reassociation otherwise; soft engines also give the raw moments and the
+leaf-spread uncertainty of DESIGN.md §15.  The mesh paths are not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -101,12 +104,6 @@ class XTimeEngine:
         self.device = resolve_device(device)
         self.table = table
         self.config = config
-        if get_cell_mode(config.mode).soft:
-            raise NotImplementedError(
-                "mode='soft' is not ported yet: the soft cell variant with "
-                "predict_proba/uncertainty and its moments pass is the next "
-                "slice of the port (ROADMAP.md, 'soft' slice)"
-            )
         # compressed tables may have dropped all-wildcard feature columns:
         # queries arrive at the LOGICAL width and are narrowed to the stored
         # columns (then permuted by col_perm) before any padding/matching
@@ -122,10 +119,15 @@ class XTimeEngine:
         self.r_blk = config.r_blk
         self.f_blk = config.f_blk
         self.table_dtype = resolve_table_dtype(table, config)
-        if np.dtype(self.table_dtype).kind == "u":
+        if get_cell_mode(config.mode).soft:
+            self.kernel_mode = "soft"
+        elif np.dtype(self.table_dtype).kind == "u":
             self.kernel_mode = "inclusive"
         else:
             self.kernel_mode = config.mode
+        # soft boundary temperature in bin units; pinned to 0.0 for the
+        # hard modes, which ignore it
+        self.tau = float(config.tau) if self.kernel_mode == "soft" else 0.0
         # the base-score add rides the kernel's split reduction whenever
         # the kernel runs (bit-identical to the separate add)
         eligible = self.device.type == "cuda"
@@ -166,6 +168,21 @@ class XTimeEngine:
                        dtype=torch.float32, device=self.device)
             if self.fuse_epilogue else None
         )
+        # soft mode's uncertainty channel (DESIGN.md §15): a separate
+        # moments matrix [leaf, leaf^2, onehot(class)] per output channel,
+        # run through the same kernel with no bias — the margin path keeps
+        # the plain leaf matrix (and with it tau=0 == 'direct', bit for bit)
+        self._moments = None
+        if self.kernel_mode == "soft":
+            lm = np.asarray(table.leaf_matrix(), dtype=np.float32)  # (R, C)
+            R, C = lm.shape
+            onehot = np.zeros_like(lm)
+            cls = np.asarray(table.class_id, dtype=np.int64) % max(1, C)
+            onehot[np.arange(R), cls] = 1.0  # row mass per output channel
+            c3_pad = -(-3 * C // config.c_mult) * config.c_mult
+            m_pad = np.zeros((self.arrays.r_pad, c3_pad), dtype=np.float32)
+            m_pad[:R, : 3 * C] = np.concatenate([lm, lm * lm, onehot], axis=1)
+            self._moments = put(m_pad)
 
     @classmethod
     def from_config(
@@ -188,14 +205,16 @@ class XTimeEngine:
             out = out / torch.tensor(np.float32(max(1, table.n_trees)), device=out.device)
         return out
 
-    def _margin_padded(self, q: torch.Tensor) -> torch.Tensor:
+    def _kernel(self, q: torch.Tensor, leaf: torch.Tensor, bias, out_c: int) -> torch.Tensor:
         a = self.arrays
-        out = kops.cam_match(
-            q, a.low, a.high, a.leaf, a.tile_mask, self._bias,
-            out_b=q.shape[0], out_c=a.c_pad,
-            r_blk=self.r_blk, f_blk=self.f_blk, mode=self.kernel_mode,
+        return kops.cam_match(
+            q, a.low, a.high, leaf, a.tile_mask, bias,
+            out_b=q.shape[0], out_c=out_c, r_blk=self.r_blk, f_blk=self.f_blk,
+            mode=self.kernel_mode, tau=self.tau,
         )
-        return self._epilogue(out)
+
+    def _margin_padded(self, q: torch.Tensor) -> torch.Tensor:
+        return self._epilogue(self._kernel(q, self.arrays.leaf, self._bias, self.arrays.c_pad))
 
     def _predict_from_margin(self, m: torch.Tensor) -> torch.Tensor:
         table = self.table
@@ -246,6 +265,39 @@ class XTimeEngine:
         """Final predictions — matches ``Ensemble.predict``."""
         return self._predict_from_margin(self.raw_margin(q_bins))
 
+    # -- soft-mode uncertainty channel (DESIGN.md §15) -----------------------
+
+    def raw_moments(self, q_bins) -> torch.Tensor:
+        """(B, 3*n_outputs) raw soft moments ``[m1 | m2 | mass]``.
+
+        Per output channel c: ``m1 = sum_r s_r * leaf[r, c]``,
+        ``m2 = sum_r s_r * leaf[r, c]^2`` and ``mass = sum_r s_r`` over
+        the rows routed to c, with s_r the row's soft match score — one
+        more kernel launch, over the moments matrix, with no bias.  Soft
+        engines only."""
+        if self._moments is None:
+            raise ValueError(
+                "raw_moments/uncertainty require the soft cell mode "
+                f"(this engine runs mode={self.mode!r}); rebind with "
+                "DeployConfig(mode='soft')"
+            )
+        return self._kernel(self._prep_queries(q_bins), self._moments, None,
+                            3 * self.table.n_outputs)
+
+    def uncertainty(self, q_bins) -> torch.Tensor:
+        """(B, n_outputs) calibrated uncertainty: the score-weighted
+        population spread (std) of the leaf values behind each output
+        channel, derived on the host in float64 from ``raw_moments``.  At
+        tau=0 exactly one row per tree matches and the spread is the
+        across-tree disagreement; finite tau adds boundary ambiguity."""
+        m = self.raw_moments(q_bins).cpu().numpy().astype(np.float64)
+        C = self.table.n_outputs
+        m1, m2, mass = m[:, :C], m[:, C : 2 * C], m[:, 2 * C : 3 * C]
+        mass = np.maximum(mass, 1e-12)  # empty channels -> 0 spread, not NaN
+        mean = m1 / mass
+        var = np.maximum(m2 / mass - mean * mean, 0.0)
+        return torch.from_numpy(np.sqrt(var, dtype=np.float64).astype(np.float32))
+
     # -- bucketed serving path ----------------------------------------------
 
     @property
@@ -258,7 +310,8 @@ class XTimeEngine:
     def padded_fn(self, kind: str = "predict") -> Callable:
         """Bucket-aware entry for the serving layer: a callable of one
         pre-padded ``(bucket_b, f_pad)`` query block (``kops.pad_to_bucket``)
-        that yields the FULL padded output — the caller owns un-padding."""
+        that yields the FULL padded output — the caller owns un-padding.
+        Soft engines take the bins as float32 (exact below 2**24)."""
         if kind not in ("predict", "margin"):
             raise ValueError(f"unknown kind {kind!r}")
         a = self.arrays
@@ -268,9 +321,9 @@ class XTimeEngine:
                 raise ValueError(
                     f"expected (_, {a.f_pad}) padded queries, got {tuple(q_padded.shape)}"
                 )
-            # packed engines compare queries in the table dtype; the cast
-            # is wrap-checked (a narrowed out-of-range bin would match rows
-            # it must not)
+            # packed engines compare queries in the table dtype (soft ones
+            # as float32 bins); a narrowing cast is wrap-checked (a wrapped
+            # out-of-range bin would match rows it must not)
             q = kops.pad_to_bucket(
                 q_padded, q_padded.shape[0], a.f_pad,
                 dtype=self.table_dtype, device=self.device,

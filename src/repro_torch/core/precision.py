@@ -11,8 +11,10 @@ and the query q = 16*q_MSB + q_LSB and computing (Eq. 3):
 The four hard cell functions of ``repro.core.precision`` written on torch
 tensors: they broadcast over arbitrary leading shapes and are the plain
 version the CUDA kernel's cell functors (``kernels/csrc/cam_match.cu``) are
-held to.  The ``CellMode`` registry and ``encode_soft_bounds`` are copies;
-the soft cell's log-score functions are not ported yet.
+held to.  The soft cell's log-score functions are their torch
+counterparts, in the formula the CUDA soft kernel
+(``kernels/csrc/cam_match_soft.cu``) computes.  The ``CellMode`` registry
+and ``encode_soft_bounds`` are copies.
 """
 
 from __future__ import annotations
@@ -110,6 +112,51 @@ def encode_soft_bounds(
     lo_f[wildcard], hi_f[wildcard] = -np.inf, np.inf
     lo_f[never], hi_f[never] = np.inf, -np.inf
     return lo_f, hi_f
+
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``log(sigmoid(x))`` as ``min(x, 0) - log1p(exp(-|x|))``: the CUDA
+    kernel's formula.  Exact 0 at ``+inf``, ``-inf`` at ``-inf``, never
+    NaN (``jax.nn.log_sigmoid(+inf)`` is -0.0: equal under ``==``)."""
+    return torch.clamp(x, max=0.0) - torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def soft_inv(tau: float) -> float:
+    """``float32(1 / tau)`` as a Python float: the factor the soft cell
+    multiplies by, here and in the CUDA kernel (``1 / tau`` in double,
+    rounded once, as the JAX package computes it)."""
+    return float(np.float32(1.0 / tau))
+
+
+def soft_cell_logscore(
+    q: torch.Tensor, low_f: torch.Tensor, high_f: torch.Tensor, tau: float
+) -> torch.Tensor:
+    """Per-cell log match score on soft-encoded float32 bounds.
+
+    ``tau`` is the boundary temperature in BIN units.  ``tau == 0`` is
+    the exact hard limit: log 1 inside ``(low_f, high_f)``, -inf outside.
+    Otherwise the arguments are ``(q - low_f) * inv`` with ``inv =
+    float32(1 / tau)``, multiplied as the JAX package does (a division
+    rounds differently).  Wildcard cells ``(-inf, +inf)`` give exactly 0,
+    never-match cells ``(+inf, -inf)`` exactly -inf; no ``hi - lo`` is
+    ever formed, so no ``inf - inf``.
+    """
+    q = q.to(torch.float32)
+    if tau == 0.0:
+        return torch.where((q > low_f) & (q < high_f), 0.0, -torch.inf)
+    inv = soft_inv(tau)
+    return _log_sigmoid((q - low_f) * inv) + _log_sigmoid((high_f - q) * inv)
+
+
+def soft_match_scores(
+    q: torch.Tensor,  # (B, F) float32 (or integer bins; cast here)
+    low_f: torch.Tensor,  # (R, F) soft-encoded float32 bounds
+    high_f: torch.Tensor,
+    tau: float,
+) -> torch.Tensor:
+    """(B, R) row match scores in [0, 1]: exp of the summed log-scores."""
+    logs = soft_cell_logscore(q[:, None, :], low_f[None, :, :], high_f[None, :, :], tau)
+    return torch.exp(torch.sum(logs, dim=-1))
 
 
 # ---------------------------------------------------------------------------

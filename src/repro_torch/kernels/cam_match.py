@@ -1,10 +1,13 @@
-"""The Hopper CAM-match kernel: build, ctypes binding and launch wrappers.
+"""The Hopper CAM-match kernels: build, ctypes binding and launch wrappers.
 
-``csrc/cam_match.cu`` replaces the Pallas TPU kernel ``_cam_match_kernel``
-(``cam_match_pallas`` in ``src/repro/kernels/cam_match.py``) for the hard
-cell modes.  It is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface at first use, under ``build/repro_torch/``
-in the checkout, keyed on a hash of the sources and flags — so a fresh
+They replace the Pallas TPU kernel ``_cam_match_kernel``
+(``cam_match_pallas`` in ``src/repro/kernels/cam_match.py``):
+``csrc/cam_match.cu`` for the four hard cell modes, ``csrc/cam_match_soft.cu``
+for the soft mode on float32 tables (and, over the moments matrix, the
+uncertainty pass).  ``nvcc`` compiles each source for ``sm_90a`` (all at
+once, one process each) and links them into one shared library with a
+plain C interface at first use, under ``build/repro_torch/`` in the
+checkout, keyed on a hash of every source and the flags — so a fresh
 checkout builds it on its own and a rebuilt source never loads a stale
 library.  Nothing here runs at import time: the CPU tests import this
 module on machines with no ``nvcc`` and no card.
@@ -12,7 +15,7 @@ module on machines with no ``nvcc`` and no card.
 The wrappers take CUDA tensors only; they check device, dtype, shape and
 contiguity, allocate the outputs and the split workspace with
 ``torch.empty``, launch on the current stream, raise on a non-zero
-``cudaError_t`` and count their launches (``cam_match_cuda.launches``).
+``cudaError_t`` and count their launches (``<wrapper>.launches``).
 """
 
 from __future__ import annotations
@@ -27,15 +30,18 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+import numpy as np
 import torch
 
+from repro_torch.core.precision import soft_inv
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "cam_match.cu",)
+SOURCES = (CSRC / "cam_match.cu", CSRC / "cam_match_soft.cu")
+HEADERS = (CSRC / "cam_match_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = (
-    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+# no --use_fast_math: the soft kernel's expf/log1pf are the accurate ones
+NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # rows per block of the match kernel (a multiple of its 128-row chunk): the
 # split count — and so the float summation order — depends on R alone
@@ -65,10 +71,24 @@ def _nvcc() -> str:
     )
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; return their output, or raise with
+    the first failure's."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [(*p.communicate(), p.returncode) for p in procs]
+    for cmd, (out, err, rc) in zip(cmds, outs):
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}{err}")
+    return "".join(out + err for out, err, _ in outs)
+
+
 def build() -> BuildInfo:
-    """Compile the kernel library unless this exact source is built."""
+    """Compile the kernel library unless these exact sources are built:
+    one ``nvcc -c`` per source, started together, then one link."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS):
+        digest.update(src.name.encode())
         digest.update(src.read_bytes())
     tag = digest.hexdigest()[:16]
     lib = BUILD_DIR / f"cam_match_{tag}.so"
@@ -76,17 +96,16 @@ def build() -> BuildInfo:
     if lib.is_file():
         return BuildInfo(lib, 0.0, log.read_text() if log.is_file() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    nvcc, pid = _nvcc(), os.getpid()
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.{pid}.o" for src in SOURCES]
+    tmp = lib.with_name(f"{lib.stem}.{pid}.tmp.so")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    text = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                 for src, o in zip(SOURCES, objs)])
+    text += _run([[nvcc, ARCH, "-shared", "-o", str(tmp), *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    text = proc.stdout + proc.stderr
+    for o in objs:
+        o.unlink()
     log.write_text(text)
     os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
     return BuildInfo(lib, seconds, text)
@@ -102,6 +121,12 @@ def _library() -> ctypes.CDLL:
         p, p, p, p,  # ws, out, bits, stream
     ]
     lib.xtime_cam_match.restype = i
+    lib.xtime_cam_match_soft.argtypes = [
+        i, ctypes.c_float, p, p, p, p, p, p,  # tau_zero, inv, q, low, high, leaf, mask, bias
+        i, i, i, i, i, i, i,  # B, R, F, C, r_blk, f_blk, rows_per_split
+        p, p, p, p,  # ws, out, scores, stream
+    ]
+    lib.xtime_cam_match_soft.restype = i
     lib.xtime_error_string.argtypes = [i]
     lib.xtime_error_string.restype = ctypes.c_char_p
     return lib
@@ -111,7 +136,8 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _check_operands(q, low, high, tile_mask, *, r_blk, f_blk, mode) -> None:
+def _check_tables(q, low, high, tile_mask, *, r_blk, f_blk) -> None:
+    """Device, layout and shapes of the operands every kernel takes."""
     tensors = {"q": q, "low": low, "high": high}
     if tile_mask is not None:
         tensors["tile_mask"] = tile_mask
@@ -122,15 +148,6 @@ def _check_operands(q, low, high, tile_mask, *, r_blk, f_blk, mode) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dim() != 2 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 2-D tensor")
-    if q.dtype not in _DTYPE_CODE or low.dtype != q.dtype or high.dtype != q.dtype:
-        raise ValueError(
-            f"q/low/high must share one of {list(_DTYPE_CODE)}; got "
-            f"{q.dtype}/{low.dtype}/{high.dtype}"
-        )
-    if mode not in _MODE_CODE:
-        raise ValueError(f"mode {mode!r} has no kernel; kernel modes: {list(_MODE_CODE)}")
-    if mode in _INT32_ONLY and q.dtype != torch.int32:
-        raise ValueError(f"mode {mode!r} runs on int32 tables only, got {q.dtype}")
     R, F = low.shape
     if high.shape != low.shape or q.shape[1] != F:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, low {tuple(low.shape)}, high {tuple(high.shape)}")
@@ -145,22 +162,73 @@ def _check_operands(q, low, high, tile_mask, *, r_blk, f_blk, mode) -> None:
         )
 
 
-def _launch(q, low, high, leaf, tile_mask, bias, *, r_blk, f_blk, mode, ws, out, bits):
+def _check_operands(q, low, high, tile_mask, *, r_blk, f_blk, mode) -> None:
+    _check_tables(q, low, high, tile_mask, r_blk=r_blk, f_blk=f_blk)
+    if q.dtype not in _DTYPE_CODE or low.dtype != q.dtype or high.dtype != q.dtype:
+        raise ValueError(
+            f"q/low/high must share one of {list(_DTYPE_CODE)}; got "
+            f"{q.dtype}/{low.dtype}/{high.dtype}"
+        )
+    if mode not in _MODE_CODE:
+        raise ValueError(f"mode {mode!r} has no kernel; kernel modes: {list(_MODE_CODE)}")
+    if mode in _INT32_ONLY and q.dtype != torch.int32:
+        raise ValueError(f"mode {mode!r} runs on int32 tables only, got {q.dtype}")
+
+
+def _check_soft_operands(q, low, high, tile_mask, *, r_blk, f_blk, tau) -> None:
+    _check_tables(q, low, high, tile_mask, r_blk=r_blk, f_blk=f_blk)
+    if not (q.dtype == low.dtype == high.dtype == torch.float32):
+        raise ValueError(
+            "the soft kernel takes float32 q/low/high (the soft-encoded "
+            f"layout); got {q.dtype}/{low.dtype}/{high.dtype}"
+        )
+    if not (isinstance(tau, (int, float)) and np.isfinite(tau) and tau >= 0.0):
+        raise ValueError(f"tau must be a finite temperature >= 0, got {tau!r}")
+
+
+def _check_leaf_bias(q, low, leaf, bias) -> None:
+    R, C = leaf.shape
+    if (leaf.dtype != torch.float32 or not leaf.is_contiguous()
+            or leaf.device != q.device or R != low.shape[0] or C == 0):
+        raise ValueError(
+            f"leaf must be a contiguous float32 ({low.shape[0]}, C_pad) tensor "
+            f"on {q.device}, got {leaf.dtype} {tuple(leaf.shape)} on {leaf.device}"
+        )
+    if bias is not None:
+        if (bias.dtype != torch.float32 or bias.device != q.device
+                or tuple(bias.shape) != (1, C) or not bias.is_contiguous()):
+            raise ValueError(f"bias must be a contiguous float32 (1, {C}) tensor on {q.device}")
+
+
+def _launch(entry: str, head: tuple, q, low, high, leaf, tile_mask, bias, *,
+            r_blk, f_blk, ws, out, extra) -> None:
+    """Call the C entry ``entry`` (its own leading arguments ``head``, then
+    the operands every entry takes, with ``extra`` its second output) on
+    ``q``'s device and current stream; raise on a non-zero cudaError_t."""
     lib = _library()
     B, F = q.shape
     R = low.shape[0]
     C = 0 if leaf is None else leaf.shape[1]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.xtime_cam_match(
-            _DTYPE_CODE[q.dtype], _MODE_CODE[mode], _ptr(q), _ptr(low), _ptr(high),
-            _ptr(leaf), _ptr(tile_mask), _ptr(bias), B, R, F, C, r_blk, f_blk,
-            ROWS_PER_SPLIT, _ptr(ws), _ptr(out), _ptr(bits), stream,
+        rc = getattr(lib, entry)(
+            *head, _ptr(q), _ptr(low), _ptr(high), _ptr(leaf), _ptr(tile_mask),
+            _ptr(bias), B, R, F, C, r_blk, f_blk, ROWS_PER_SPLIT, _ptr(ws),
+            _ptr(out), _ptr(extra), stream,
         )
     if rc != 0:
         raise RuntimeError(
-            f"cam_match kernel launch failed: {lib.xtime_error_string(rc).decode()} ({rc})"
+            f"{entry} kernel launch failed: {lib.xtime_error_string(rc).decode()} ({rc})"
         )
+
+
+def _hard(q, mode) -> tuple:
+    return _DTYPE_CODE[q.dtype], _MODE_CODE[mode]
+
+
+def _soft(tau) -> tuple:
+    """tau_zero and inv = float32(1 / tau), as the plain version computes it."""
+    return (1, 0.0) if tau == 0.0 else (0, soft_inv(tau))
 
 
 def n_splits(n_rows: int) -> int:
@@ -181,24 +249,15 @@ def cam_match_cuda(
 ) -> torch.Tensor:
     """(B, C_pad) float32 leaf sums on the card; ``None`` mask = all active."""
     _check_operands(q, low, high, tile_mask, r_blk=r_blk, f_blk=f_blk, mode=mode)
+    _check_leaf_bias(q, low, leaf, bias)
     R, C = leaf.shape
-    if (leaf.dtype != torch.float32 or not leaf.is_contiguous()
-            or leaf.device != q.device or R != low.shape[0] or C == 0):
-        raise ValueError(
-            f"leaf must be a contiguous float32 ({low.shape[0]}, C_pad) tensor "
-            f"on {q.device}, got {leaf.dtype} {tuple(leaf.shape)} on {leaf.device}"
-        )
-    if bias is not None:
-        if (bias.dtype != torch.float32 or bias.device != q.device
-                or tuple(bias.shape) != (1, C) or not bias.is_contiguous()):
-            raise ValueError(f"bias must be a contiguous float32 (1, {C}) tensor on {q.device}")
     B = q.shape[0]
     out = torch.empty((B, C), dtype=torch.float32, device=q.device)
     if B == 0:
         return out
     ws = torch.empty((n_splits(R), B, C), dtype=torch.float32, device=q.device)
-    _launch(q, low, high, leaf, tile_mask, bias, r_blk=r_blk, f_blk=f_blk,
-            mode=mode, ws=ws, out=out, bits=None)
+    _launch("xtime_cam_match", _hard(q, mode), q, low, high, leaf, tile_mask, bias,
+            r_blk=r_blk, f_blk=f_blk, ws=ws, out=out, extra=None)
     cam_match_cuda.launches += 1
     return out
 
@@ -223,8 +282,8 @@ def cam_match_bits_cuda(
         return torch.zeros((0, R), dtype=torch.bool, device=q.device)
     n_words = -(-B // QUERIES_PER_TILE)
     words = torch.empty((n_words, R), dtype=torch.int32, device=q.device)
-    _launch(q, low, high, None, tile_mask, None, r_blk=r_blk, f_blk=f_blk,
-            mode=mode, ws=None, out=None, bits=words)
+    _launch("xtime_cam_match", _hard(q, mode), q, low, high, None, tile_mask, None,
+            r_blk=r_blk, f_blk=f_blk, ws=None, out=None, extra=words)
     cam_match_bits_cuda.launches += 1
     shifts = torch.arange(QUERIES_PER_TILE, device=q.device, dtype=torch.int32)
     unpacked = (words[:, None, :] >> shifts[None, :, None]) & 1  # (words, 32, R)
@@ -232,3 +291,59 @@ def cam_match_bits_cuda(
 
 
 cam_match_bits_cuda.launches = 0
+
+
+def cam_match_soft_cuda(
+    q: torch.Tensor,  # (B, F_pad) float32 bins
+    low: torch.Tensor,  # (R_pad, F_pad) float32 soft-encoded bounds
+    high: torch.Tensor,  # (R_pad, F_pad) float32 soft-encoded bounds
+    leaf: torch.Tensor,  # (R_pad, C_pad) float32 (or the moments matrix)
+    tile_mask: torch.Tensor | None = None,  # (R_pad/r_blk, F_pad/f_blk) int32
+    bias: torch.Tensor | None = None,  # (1, C_pad) float32, added once
+    *,
+    r_blk: int = 256,
+    f_blk: int = 128,
+    tau: float,
+) -> torch.Tensor:
+    """(B, C_pad) float32 soft leaf sums ``SUM_r score[b, r] * leaf[r, :]``
+    on the card; ``tau`` in bin units, 0 the exact indicator."""
+    _check_soft_operands(q, low, high, tile_mask, r_blk=r_blk, f_blk=f_blk, tau=tau)
+    _check_leaf_bias(q, low, leaf, bias)
+    R, C = leaf.shape
+    B = q.shape[0]
+    out = torch.empty((B, C), dtype=torch.float32, device=q.device)
+    if B == 0:
+        return out
+    ws = torch.empty((n_splits(R), B, C), dtype=torch.float32, device=q.device)
+    _launch("xtime_cam_match_soft", _soft(tau), q, low, high, leaf, tile_mask, bias,
+            r_blk=r_blk, f_blk=f_blk, ws=ws, out=out, extra=None)
+    cam_match_soft_cuda.launches += 1
+    return out
+
+
+cam_match_soft_cuda.launches = 0
+
+
+def soft_scores_cuda(
+    q: torch.Tensor,
+    low: torch.Tensor,
+    high: torch.Tensor,
+    tile_mask: torch.Tensor | None = None,
+    *,
+    r_blk: int = 256,
+    f_blk: int = 128,
+    tau: float,
+) -> torch.Tensor:
+    """(B, R) float32 row scores from the soft kernel (no leaf product)."""
+    _check_soft_operands(q, low, high, tile_mask, r_blk=r_blk, f_blk=f_blk, tau=tau)
+    B, R = q.shape[0], low.shape[0]
+    scores = torch.empty((B, R), dtype=torch.float32, device=q.device)
+    if B == 0:
+        return scores
+    _launch("xtime_cam_match_soft", _soft(tau), q, low, high, None, tile_mask, None,
+            r_blk=r_blk, f_blk=f_blk, ws=None, out=None, extra=scores)
+    soft_scores_cuda.launches += 1
+    return scores
+
+
+soft_scores_cuda.launches = 0

@@ -25,20 +25,21 @@
 // and packed uint8/uint16 tables against int32 ones.
 //
 // Bound on an H100 SXM at xtime-tabular's full width (R = 1M rows, F_pad
-// = 256, uint8): the compares, 2 per active cell and query, at B = 256
-// (137 G over the padded width, fewer over active tiles); the ~0.57 GB of
-// tables and leaves at B = 1.  This first version spends about four
-// integer instructions per compare and makes no use of byte-SIMD
-// compares, TMA or wgmma — that is later work.
+// = 256, uint8): the work the function needs is a compare and an AND per
+// binding bound (low > 0 or high < n_bins) and query, and that table has
+// 5.9 M of them (chip_smoke.py counts them), so B = 256 is bound by the
+// ~0.1 ms of active uint8 tiles and leaves, as is B = 1; B = 1024 by the
+// ~0.36 ms of compares.  This first version compares every cell of an
+// active tile, wildcards included, at about four integer instructions per
+// compare, and makes no use of byte-SIMD compares, TMA or wgmma — that is
+// later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "cam_match_common.cuh"  // the block shape and the chunk skeleton
 
-constexpr int kThreads = 128;  // rows per chunk: one table row per thread
-constexpr int kQueries = 32;   // queries per block: one bit each of a uint32
-constexpr int kFeat = 32;      // features staged in shared memory at a time
+namespace {
 
 // Compares run on 32-bit values: zero-extended for the unsigned tables
 // (so uint8 never sign-extends), signed for int32.
@@ -117,45 +118,19 @@ cam_match_kernel(const T* __restrict__ q, const T* __restrict__ low,
   const int row_begin = blockIdx.y * rows_per_split;
   const int row_end = min(R, row_begin + rows_per_split);
   const int n_ftiles = F / f_blk;
-
-  float* part = ws ? ws + ((size_t)blockIdx.y * B + q0) * C : nullptr;
-  if (part) {  // each output is owned by one thread: no synchronisation
-    for (int o = tid; o < nq * C; o += kThreads) part[o] = 0.f;
-  }
+  float* part = zeroed_partials(ws, B, C, q0, nq);
 
   for (int r0 = row_begin; r0 < row_end; r0 += kThreads) {
     const int nr = min(kThreads, row_end - r0);
     uint32_t m = tid < nr ? valid : 0u;
-    const int rt_first = r0 / r_blk, rt_last = (r0 + nr - 1) / r_blk;
 
     for (int k = 0; k < n_ftiles; ++k) {
-      // the same answer in every thread: the branch is uniform
-      bool active = tile_mask == nullptr;
-      for (int rt = rt_first; !active && rt <= rt_last; ++rt) {
-        active = tile_mask[(size_t)rt * n_ftiles + k] != 0;
-      }
-      if (!active) continue;  // all wildcards: every query matches
-
+      // all wildcards: every query matches
+      if (!tile_active(tile_mask, r0, nr, r_blk, n_ftiles, k)) continue;
       const int f_end = (k + 1) * f_blk;
       for (int f0 = k * f_blk; f0 < f_end; f0 += kFeat) {
         const int nf = min(kFeat, f_end - f0);
-        __syncthreads();  // the previous chunk's readers are done
-        for (int i = tid; i < kThreads * kFeat; i += kThreads) {
-          const int r = i / kFeat, f = i % kFeat;
-          if (r < nr && f < nf) {
-            const size_t g = (size_t)(r0 + r) * F + f0 + f;
-            s_lo[r * kStride + f] = low[g];
-            s_hi[r * kStride + f] = high[g];
-          }
-        }
-        for (int i = tid; i < kQueries * kFeat; i += kThreads) {
-          const int b = i / kFeat, f = i % kFeat;
-          if (f < nf) {
-            s_q[f * kQueries + b] =
-                b < nq ? W(q[(size_t)(q0 + b) * F + f0 + f]) : W(0);
-          }
-        }
-        __syncthreads();
+        stage_chunk<kStride>(q, low, high, s_lo, s_hi, s_q, F, r0, nr, f0, nf, q0, nq);
         if (tid < nr) {
           for (int f = 0; f < nf; ++f) {
             const W lo = s_lo[tid * kStride + f];
@@ -195,28 +170,12 @@ cam_match_kernel(const T* __restrict__ q, const T* __restrict__ low,
   }
 }
 
-// out[b, c] = ws[0, b, c] + ws[1, b, c] + ... (+ bias[c]), in split order.
-__global__ void reduce_splits_kernel(const float* __restrict__ ws,
-                                     const float* __restrict__ bias,
-                                     float* __restrict__ out, int splits,
-                                     int B, int C) {
-  const size_t n = (size_t)B * C;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float acc = ws[i];
-  for (int s = 1; s < splits; ++s) acc += ws[(size_t)s * n + i];
-  if (bias != nullptr) acc += bias[i % C];
-  out[i] = acc;
-}
-
 template <typename T, typename Cell>
 cudaError_t launch(const void* q, const void* low, const void* high,
                    const float* leaf, const int32_t* tile_mask, int B, int R,
                    int F, int C, int r_blk, int f_blk, int rows_per_split,
                    float* ws, uint32_t* bits, cudaStream_t stream) {
-  const dim3 grid((B + kQueries - 1) / kQueries,
-                  (R + rows_per_split - 1) / rows_per_split);
-  cam_match_kernel<T, Cell><<<grid, kThreads, 0, stream>>>(
+  cam_match_kernel<T, Cell><<<match_grid(B, R, rows_per_split), kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(low),
       static_cast<const T*>(high), leaf, tile_mask, B, R, F, C, r_blk, f_blk,
       rows_per_split, ws, bits);
@@ -239,10 +198,7 @@ extern "C" int xtime_cam_match(int dtype, int mode, const void* q,
                                int r_blk, int f_blk, int rows_per_split,
                                float* ws, float* out, uint32_t* bits,
                                void* stream_ptr) {
-  if (B <= 0 || R <= 0 || F <= 0 || r_blk <= 0 || f_blk <= 0 ||
-      rows_per_split <= 0 || rows_per_split % kThreads != 0 ||
-      R % r_blk != 0 || F % f_blk != 0 || (out != nullptr) != (ws != nullptr) ||
-      (out != nullptr && (leaf == nullptr || C <= 0))) {
+  if (bad_launch(B, R, F, C, r_blk, f_blk, rows_per_split, leaf, ws, out)) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -260,12 +216,7 @@ extern "C" int xtime_cam_match(int dtype, int mode, const void* q,
   if (dtype == 2 && mode == 3) err = XTIME_LAUNCH(int32_t, TwoCycle);
 #undef XTIME_LAUNCH
   if (err != cudaSuccess || out == nullptr) return err;
-  const int splits = (R + rows_per_split - 1) / rows_per_split;
-  const size_t n = (size_t)B * C;
-  const int threads = 256;
-  reduce_splits_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                         stream>>>(ws, bias, out, splits, B, C);
-  return cudaGetLastError();
+  return reduce_splits(ws, bias, out, R, rows_per_split, B, C, stream);
 }
 
 extern "C" const char* xtime_error_string(int code) {

@@ -11,10 +11,11 @@ masks the ragged edge itself.
 ``check_query_range`` are NumPy copies of ``repro.kernels.ops`` and give
 byte-identical arrays; ``pack_tables`` writes straight into the narrow
 dtype instead of through padded int64 intermediates (4 GB per table pair
-at xtime-tabular's 1M x 256 cells).  ``pad_queries``/``pad_to_bucket``
-build torch tensors on the engine's device, and ``cam_match`` picks the
-implementation by device: the Hopper kernel for CUDA tensors, the plain
-version for CPU tensors.
+at xtime-tabular's 1M x 256 cells), and encodes the float32 soft layout
+in row chunks (its int64/float64 intermediates would take ~10 GB at full
+width).  ``pad_queries``/``pad_to_bucket`` build torch tensors on the
+engine's device, and ``cam_match`` picks the implementation by device:
+the Hopper kernels for CUDA tensors, the plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,12 +23,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.precision import encode_soft_bounds
 from repro_torch.kernels.ref import cam_match_ref
 
 # default feature-axis tile (the engine's f_blk)
 F_CHUNK = 128
 
-TORCH_DTYPES = {"uint8": torch.uint8, "uint16": torch.uint16, "int32": torch.int32}
+TORCH_DTYPES = {
+    "uint8": torch.uint8, "uint16": torch.uint16, "int32": torch.int32,
+    "float32": torch.float32,
+}
+
+# rows of the soft layout encoded at a time: bounds the int64/float64
+# temporaries of ``encode_soft_bounds`` to a few hundred MB
+SOFT_ENCODE_ROWS = 1 << 14
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -95,13 +104,14 @@ def pack_tables(
       never-match rows  1,    0            (low > high, unmatchable)
 
     An unsigned dtype additionally requires every table value to fit its
-    range; perturbed tables must use the int32 layout.
+    range; perturbed tables must use the int32 layout.  ``'float32'`` is
+    the soft layout (``_pack_tables_soft``).
     """
     dt = np.dtype(dtype)
     if dt.kind == "f":
-        raise NotImplementedError(
-            "the float32 soft-encoded layout is not ported yet "
-            "(ROADMAP.md, 'soft' slice)"
+        return _pack_tables_soft(
+            low, high, leaf_matrix,
+            r_blk=r_blk, c_mult=c_mult, n_bins=n_bins, f_blk=f_blk,
         )
     if inclusive is None:
         inclusive = dt.kind == "u"
@@ -143,6 +153,42 @@ def pack_tables(
     return lo, hi, lm, inclusive
 
 
+def _pack_tables_soft(
+    low: np.ndarray,
+    high: np.ndarray,
+    leaf_matrix: np.ndarray,
+    *,
+    r_blk: int,
+    c_mult: int,
+    n_bins: int | None,
+    f_blk: int,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, bool]:
+    """The float32 soft-mode layout: pad in the canonical int32 form, then
+    ``encode_soft_bounds``, so padding columns become exact wildcards
+    (log-score 0) and padding rows exact never-matches (score 0).  Done
+    one block of ``SOFT_ENCODE_ROWS`` rows at a time: the encoding is
+    cell-wise, so the bytes are those of encoding the whole table."""
+    bins = int(n_bins) if n_bins is not None else (int(high.max(initial=0)) + 1)
+    R, F = low.shape
+    C = leaf_matrix.shape[1]
+    R_pad, F_pad, C_pad = _ceil_to(R, r_blk), _ceil_to(F, f_blk), _ceil_to(C, c_mult)
+    lo_f = np.empty((R_pad, F_pad), dtype=np.float32)
+    hi_f = np.empty((R_pad, F_pad), dtype=np.float32)
+    for r0 in range(0, R_pad, SOFT_ENCODE_ROWS):
+        r1 = min(R_pad, r0 + SOFT_ENCODE_ROWS)
+        real = max(0, min(R, r1) - r0)  # rows of the table in this block
+        lo = np.zeros((r1 - r0, F_pad), dtype=np.int32)
+        hi = np.full((r1 - r0, F_pad), bins, dtype=np.int32)  # always-match columns
+        lo[:real, :F] = low[r0 : r0 + real]
+        hi[:real, :F] = high[r0 : r0 + real]
+        lo[real:, :] = 1  # never-match rows: low=1 > high=0
+        hi[real:, :] = 0
+        lo_f[r0:r1], hi_f[r0:r1] = encode_soft_bounds(lo, hi, bins)
+    lm = np.zeros((R_pad, C_pad), dtype=np.float32)
+    lm[:R, :C] = leaf_matrix
+    return lo_f, hi_f, lm, False
+
+
 def wildcard_tile_mask(
     low: np.ndarray,
     high: np.ndarray,
@@ -156,14 +202,19 @@ def wildcard_tile_mask(
 
     Operates on PADDED (and possibly packed) tables: a wildcard cell is
     the full range [0, n_bins) in whichever encoding ``inclusive``
-    names.  Never-match padding rows are not wildcards, so their tiles
-    stay active and keep their rows unmatchable.
+    names; on float32 soft-encoded tables it is the exact (-inf, +inf)
+    cell, whose log-score 0 a skipped tile leaves out exactly.
+    Never-match padding rows are not wildcards, so their tiles stay
+    active and keep their rows unmatchable.
     """
     R, F = low.shape
     if R % r_blk or F % f_blk:
         raise ValueError(f"padded shape ({R}, {F}) must tile by ({r_blk}, {f_blk})")
-    top = n_bins - 1 if inclusive else n_bins
-    act = ~((low == 0) & (high >= top))
+    if np.dtype(low.dtype).kind == "f":
+        act = ~(np.isneginf(low) & np.isposinf(high))
+    else:
+        top = n_bins - 1 if inclusive else n_bins
+        act = ~((low == 0) & (high >= top))
     tiles = act.reshape(R // r_blk, r_blk, F // f_blk, f_blk).any(axis=(1, 3))
     return tiles.astype(np.int32)
 
@@ -209,7 +260,8 @@ def pad_to_bucket(
     the caller discards; feature columns beyond ``F`` are zero, which the
     always-match column padding of ``pad_tables`` ignores.  ``dtype`` is
     the engine's table dtype — queries compare natively against packed
-    tables.  The result lives on ``device`` (default: ``q``'s own device).
+    tables, and as float32 bins against soft tables (exact below 2**24).
+    The result lives on ``device`` (default: ``q``'s own device).
     """
     B, F = q.shape
     if B > bucket_b:
@@ -221,8 +273,10 @@ def pad_to_bucket(
     device = q.device if device is None else torch.device(device)
     tdt = TORCH_DTYPES[dtype]
     out = torch.zeros((bucket_b, f_pad), dtype=tdt, device=device)
-    # int64 -> narrow casts wrap like numpy's; check_query_range ran first
-    out[:B, :F] = q.to(device=device, dtype=torch.int64).to(tdt)
+    if tdt.is_floating_point:
+        out[:B, :F] = q.to(device=device, dtype=tdt)
+    else:  # int64 -> narrow casts wrap like numpy's; check_query_range ran first
+        out[:B, :F] = q.to(device=device, dtype=torch.int64).to(tdt)
     return out
 
 
@@ -239,24 +293,33 @@ def cam_match(
     r_blk: int = 256,
     f_blk: int = F_CHUNK,
     mode: str = "direct",
+    tau: float = 0.0,
 ) -> torch.Tensor:
     """Kernel entry on pre-padded operands; returns unpadded (out_b, out_c).
 
-    CUDA tensors launch the Hopper kernel (``kernels.cam_match``) — it
-    either runs or raises; CPU tensors take the plain version.  ``bias``
+    CUDA tensors launch the Hopper kernels (``kernels.cam_match``: the
+    soft kernel for ``mode='soft'``, the hard one otherwise) — they
+    either run or raise; CPU tensors take the plain version.  ``bias``
     is the optional (1, C_pad) fused-epilogue row, added once after the
     row sum (bit-identical to adding it after an unfused call); callers
-    fusing it must NOT add the base score again downstream.
+    fusing it must NOT add the base score again downstream.  ``tau`` is
+    the soft temperature in bin units; hard modes ignore it.
     """
     if q_padded.is_cuda:
-        from repro_torch.kernels.cam_match import cam_match_cuda
+        from repro_torch.kernels import cam_match as K
 
-        out = cam_match_cuda(
-            q_padded, low, high, leaf, tile_mask, bias,
-            r_blk=r_blk, f_blk=f_blk, mode=mode,
-        )
+        if mode == "soft":
+            out = K.cam_match_soft_cuda(
+                q_padded, low, high, leaf, tile_mask, bias,
+                r_blk=r_blk, f_blk=f_blk, tau=tau,
+            )
+        else:
+            out = K.cam_match_cuda(
+                q_padded, low, high, leaf, tile_mask, bias,
+                r_blk=r_blk, f_blk=f_blk, mode=mode,
+            )
     elif q_padded.device.type == "cpu":
-        out = cam_match_ref(q_padded, low, high, leaf, mode=mode)
+        out = cam_match_ref(q_padded, low, high, leaf, mode=mode, tau=tau)
         if bias is not None:
             out = out + bias
     else:

@@ -16,6 +16,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from oracles import random_cam_table
 
 import repro.api as japi
@@ -114,12 +115,15 @@ def test_engine_bind_errors():
     rng = np.random.default_rng(0)
     jt = random_cam_table(rng, r=16, f=4)
     tt = CAMTable(**{f.name: getattr(jt, f.name) for f in dataclasses.fields(jt)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        XTimeEngine(tt, config=DeployConfig(mode="soft"), device="cpu")
     with pytest.raises(ValueError, match="CUDA kernel"):
         XTimeEngine(tt, config=DeployConfig(fuse_epilogue=True), device="cpu")
     eng = XTimeEngine(tt, device="cpu")
     assert eng.batch_multiple == 1 and not eng.fuse_epilogue
+    soft = XTimeEngine(tt, config=DeployConfig(mode="soft", tau=0.25), device="cpu")
+    assert (soft.kernel_mode, soft.table_dtype, soft.tau) == ("soft", "float32", 0.25)
+    assert soft.arrays.low.dtype == soft.arrays.high.dtype == torch.float32
+    assert tuple(soft._moments.shape) == (soft.arrays.r_pad, 8)  # 3 * 1 channels -> 8
+    assert eng.tau == 0.0 and eng._moments is None
     with pytest.raises(ValueError, match="expected"):
         eng.padded_fn("margin")(np.zeros((4, 3), np.int32))
     with pytest.raises(ValueError, match="do not fit"):

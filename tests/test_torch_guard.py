@@ -35,7 +35,8 @@ def test_every_module_is_listed():
     mods = _all_modules()
     for want in ("repro_torch.api", "repro_torch.convert", "repro_torch.core.engine",
                  "repro_torch.kernels.cam_match", "repro_torch.kernels.ops",
-                 "repro_torch.kernels.ref", "repro_torch.core.precision"):
+                 "repro_torch.kernels.ref", "repro_torch.core.precision",
+                 "repro_torch.core.defects"):
         assert want in mods
 
 
@@ -108,3 +109,28 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     with pytest.raises(RuntimeError, match="kernel unavailable"):
         ops.cam_match(FakeCuda(), None, None, None, out_b=1, out_c=1, mode="direct")
     assert calls == ["direct"]
+
+
+def test_cuda_tensor_in_soft_mode_goes_to_the_soft_kernel(monkeypatch):
+    """``mode='soft'`` on a CUDA tensor goes to the soft kernel wrapper with
+    its temperature — never to the hard kernel or the plain version."""
+    from repro_torch.kernels import cam_match as K
+    from repro_torch.kernels import ops
+
+    calls = []
+
+    def fake_soft(*args, **kwargs):
+        calls.append(kwargs["tau"])
+        raise RuntimeError("soft kernel unavailable")
+
+    def fake_hard(*args, **kwargs):
+        raise AssertionError("the hard kernel got a soft call")
+
+    class FakeCuda:
+        is_cuda = True
+
+    monkeypatch.setattr(K, "cam_match_soft_cuda", fake_soft)
+    monkeypatch.setattr(K, "cam_match_cuda", fake_hard)
+    with pytest.raises(RuntimeError, match="soft kernel unavailable"):
+        ops.cam_match(FakeCuda(), None, None, None, out_b=1, out_c=1, mode="soft", tau=0.25)
+    assert calls == [0.25]
