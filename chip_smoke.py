@@ -9,8 +9,9 @@ Phases, one line (or block) each:
   3. the kernels against their plain PyTorch version on the card: the hard
      kernel for every instantiated (table dtype x cell mode), the soft
      kernel at tau 0, 0.1 and 0.5 (scores, margins, tau = 0 against the
-     int32 `direct` kernel, the moments pass), tile mask on and off, bias
-     fused and unfused, at b256/r16384/f130/c8 and a ragged small shape;
+     int32 `direct` kernel, the moments pass), each on the table's cell
+     list as built and widened past the staged slots, bias fused and
+     unfused, at b256/r16384/f130/c8 and a ragged small shape;
   4. the main paths at the full width of xtime-tabular (4096 trees of
      depth 8, 130 features, 256 bins, 8 classes), each with the launch
      counts set to 0 just before it and read just after:
@@ -23,13 +24,15 @@ Phases, one line (or block) each:
      ``predict_proba`` and ``predict(return_uncertainty=True)`` at batch
      1, 37 and 256 and ``raw_moments`` at batch 37 (held to the plain
      version), then save -> load -> ``predict_proba``;
-  5. times with CUDA events at full width, beside the least time the card
-     could take: the main path's uint8/inclusive kernel at batch 256, 1
-     and 1024 (tile mask and fused bias on and off), the uint16 and int32
-     instantiations at batch 256, the soft kernel at batch 1 and 256 for
-     tau 0 and 0.1 and its moments pass at batch 256, each beside its
-     plain version and beside the time the all-cells design spends on its
-     compares or transcendentals; soft bind time; peak device memory.
+  5. times with CUDA events at full width, each launch alone with the L2
+     cache flushed before it (and back to back, warm, beside it), beside
+     the least time the card could take: the main path's uint8/inclusive
+     kernel at batch 256, 1 and 1024 (fused bias on and off), the uint16
+     and int32 instantiations at batch 256, the soft kernel at batch 1 and
+     256 for tau 0 and 0.1 and its moments pass at batch 256, each beside
+     its plain version and beside what the cell-list design evaluates
+     (listed cells x queries); the cell lists' K, cells per row, bytes and
+     host build time; soft bind time; peak device memory.
 
 Every check that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object of the kernels and the contract line
@@ -183,11 +186,25 @@ def operands(p, dtype, inclusive, leaf, dev):
         if dtype != "int32" and p["n_bins"] > np.iinfo(dtype).max:
             return None
         lo, hi = lo.astype(dtype), hi.astype(dtype)
-    mask = ops.wildcard_tile_mask(lo, hi, r_blk=p["r_blk"], f_blk=p["f_blk"],
-                                  n_bins=p["n_bins"], inclusive=inclusive)
+    cells = ops.binding_cells(lo, hi, n_bins=p["n_bins"], inclusive=inclusive,
+                              n_real_rows=p["low"].shape[0])
     q = ops.pad_queries(p["q"], lo.shape[1], dtype=dtype, device=dev)
     to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    return q, to(lo), to(hi), to(lm), to(mask)
+    return q, to(lo), to(hi), to(lm), cells.to(dev)
+
+
+def widened(cells: ops.CellList, k: int) -> ops.CellList:
+    """The same list with its rows padded to ``k`` slots: the kernels must
+    stop at each row's count and read the slots past their staged ones
+    from device memory."""
+    def pad(a):
+        out = torch.zeros((a.shape[0], k), dtype=a.dtype, device=a.device)
+        out[:, : a.shape[1]] = a
+        return out
+    return ops.CellList(cells.count, pad(cells.feat), pad(cells.lo), pad(cells.hi), cells.width)
+
+
+WIDE_K = 40  # past the 8 cells a row the kernels stage
 
 
 def phase_kernel(dev, stats) -> None:
@@ -200,22 +217,21 @@ def phase_kernel(dev, stats) -> None:
             dyadic = operands(p, dtype, incl, p["leaf"], dev)
             if dyadic is None:
                 continue
-            q, lo, hi, lm, mask = dyadic
+            q, lo, hi, lm, cells = dyadic
             _, _, _, lm_n, _ = operands(p, dtype, incl, normal, dev)
-            kw = dict(r_blk=p["r_blk"], f_blk=p["f_blk"], mode=mode)
             bias = torch.full((1, lm.shape[1]), 0.3125, device=dev)
             bits_ref = ref.cam_match_bits_ref(q, lo, hi, mode=mode)
             out_ref = ref.cam_match_ref(q, lo, hi, lm, mode=mode)
             out_ref_n = ref.cam_match_ref(q, lo, hi, lm_n, mode=mode)
-            for m in (mask, None):
-                bits = K.cam_match_bits_cuda(q, lo, hi, m, **kw)
-                out = K.cam_match_cuda(q, lo, hi, lm, m, **kw)
-                again = K.cam_match_cuda(q, lo, hi, lm, m, **kw)
-                fused = K.cam_match_cuda(q, lo, hi, lm, m, bias, **kw)
-                out_n = K.cam_match_cuda(q, lo, hi, lm_n, m, **kw)
-                fused_n = K.cam_match_cuda(q, lo, hi, lm_n, m, bias, **kw)
+            for cl in (cells, widened(cells, WIDE_K)):
+                bits = K.cam_match_bits_cuda(q, cl, mode=mode)
+                out = K.cam_match_cuda(q, cl, lm, mode=mode)
+                again = K.cam_match_cuda(q, cl, lm, mode=mode)
+                fused = K.cam_match_cuda(q, cl, lm, bias, mode=mode)
+                out_n = K.cam_match_cuda(q, cl, lm_n, mode=mode)
+                fused_n = K.cam_match_cuda(q, cl, lm_n, bias, mode=mode)
                 torch.cuda.synchronize()
-                tag = f"{p['name']} {dtype}/{mode} mask={'on' if m is not None else 'off'}"
+                tag = f"{p['name']} {dtype}/{mode} K={cl.k}"
                 if not torch.equal(bits, bits_ref):
                     fail(f"{tag}: match bits differ from the plain version")
                 if not torch.equal(out, out_ref):
@@ -235,7 +251,8 @@ def phase_kernel(dev, stats) -> None:
                 elif not torch.equal(out_n, int32_out[enc]):
                     fail(f"{tag}: packed {dtype} != int32 {enc} margins")
             print(f"kernel {p['name']} {dtype}/{mode}: bits, k/16 margins, "
-                  f"fused bias, mask on/off, rerun exact; normal leaves "
+                  f"fused bias, cell list K={cells.k} and widened to {WIDE_K}, rerun "
+                  f"exact; normal leaves "
                   f"within 2(n+splits)·u·Σ|leaf| (max |err| so far "
                   f"{stats['max_abs_err']:.3g})", flush=True)
 
@@ -244,11 +261,11 @@ def soft_operands(p, leaf, dev):
     """The problem in the float32 soft layout: bins as float32 queries."""
     lo, hi, lm, _ = ops.pack_tables(p["low"], p["high"], leaf, r_blk=p["r_blk"],
                                     f_blk=p["f_blk"], n_bins=p["n_bins"], dtype="float32")
-    mask = ops.wildcard_tile_mask(lo, hi, r_blk=p["r_blk"], f_blk=p["f_blk"],
-                                  n_bins=p["n_bins"], inclusive=False)
+    cells = ops.binding_cells(lo, hi, n_bins=p["n_bins"], inclusive=False,
+                              n_real_rows=p["low"].shape[0])
     q = ops.pad_queries(p["q"], lo.shape[1], dtype="float32", device=dev)
     to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    return q, to(lo), to(hi), to(lm), to(mask)
+    return q, to(lo), to(hi), to(lm), cells.to(dev)
 
 
 def moments_matrix(lm: torch.Tensor) -> torch.Tensor:
@@ -269,37 +286,36 @@ def perturb(p, rng):
 def phase_soft_kernel(dev, stats) -> None:
     """The soft kernel against the plain version: scores and margins,
     exact at tau = 0 (and equal to the int32 `direct` kernel), within
-    ``ref.soft_score_bound``/``ref.soft_margin_bound`` at tau > 0; tile
-    mask on/off, fused bias, reruns, never-match rows, the moments pass."""
+    ``ref.soft_score_bound``/``ref.soft_margin_bound`` at tau > 0; the
+    cell list as built and widened, fused bias, reruns, never-match rows,
+    the moments pass."""
     rng = np.random.default_rng(SEED + 10)
     worst = 0.0  # largest |err| / bound over the tau > 0 checks
     for p in (tree_problem(rng, dev), perturb(ragged_problem(rng, dev), rng)):
         normal = rng.normal(size=p["leaf"].shape).astype(np.float32)
         normal[p["leaf"] == 0] = 0.0  # keep the class routing of each row
-        q, lo, hi, lm, mask = soft_operands(p, p["leaf"], dev)
+        q, lo, hi, lm, cells = soft_operands(p, p["leaf"], dev)
         _, _, _, lm_n, _ = soft_operands(p, normal, dev)
         mom = moments_matrix(lm)
         f_pad, extra = lo.shape[1], K.n_splits(lo.shape[0]) + 2
         never = torch.isposinf(lo).any(dim=1)  # padding rows and perturbed rows
-        iq, ilo, ihi, ilm, imask = operands(p, "int32", False, p["leaf"], dev)
+        iq, ilo, ihi, ilm, icells = operands(p, "int32", False, p["leaf"], dev)
         _, _, _, ilm_n, _ = operands(p, "int32", False, normal, dev)
-        kd = dict(r_blk=p["r_blk"], f_blk=p["f_blk"], mode="direct")
-        direct = (K.cam_match_cuda(iq, ilo, ihi, ilm, imask, **kd),
-                  K.cam_match_cuda(iq, ilo, ihi, ilm_n, imask, **kd))
+        direct = (K.cam_match_cuda(iq, icells, ilm, mode="direct"),
+                  K.cam_match_cuda(iq, icells, ilm_n, mode="direct"))
         bias = torch.full((1, lm.shape[1]), 0.3125, device=dev)
         for tau in (0.0, 0.1, 0.5):
-            kw = dict(r_blk=p["r_blk"], f_blk=p["f_blk"], tau=tau)
             s_ref = ref.soft_scores_ref(q, lo, hi, tau=tau)
             plain = {name: ref.cam_match_ref(q, lo, hi, leaf, mode="soft", tau=tau)
                      for name, leaf in (("k/16", lm), ("normal", lm_n), ("moments", mom))}
-            for m in (mask, None):
-                tag = f"{p['name']} soft tau={tau} mask={'on' if m is not None else 'off'}"
-                scores = K.soft_scores_cuda(q, lo, hi, m, **kw)
-                outs = {"k/16": K.cam_match_soft_cuda(q, lo, hi, lm, m, **kw),
-                        "normal": K.cam_match_soft_cuda(q, lo, hi, lm_n, m, **kw),
-                        "moments": K.cam_match_soft_cuda(q, lo, hi, mom, m, **kw)}
-                again = K.cam_match_soft_cuda(q, lo, hi, lm_n, m, **kw)
-                fused = K.cam_match_soft_cuda(q, lo, hi, lm_n, m, bias, **kw)
+            for cl in (cells, widened(cells, WIDE_K)):
+                tag = f"{p['name']} soft tau={tau} K={cl.k}"
+                scores = K.soft_scores_cuda(q, cl, tau=tau)
+                outs = {"k/16": K.cam_match_soft_cuda(q, cl, lm, tau=tau),
+                        "normal": K.cam_match_soft_cuda(q, cl, lm_n, tau=tau),
+                        "moments": K.cam_match_soft_cuda(q, cl, mom, tau=tau)}
+                again = K.cam_match_soft_cuda(q, cl, lm_n, tau=tau)
+                fused = K.cam_match_soft_cuda(q, cl, lm_n, bias, tau=tau)
                 torch.cuda.synchronize()
                 if torch.isnan(scores).any() or any(torch.isnan(o).any() for o in outs.values()):
                     fail(f"{tag}: NaN")
@@ -335,7 +351,8 @@ def phase_soft_kernel(dev, stats) -> None:
                     if name == "normal":
                         stats["soft_max_abs_err"] = max(stats["soft_max_abs_err"],
                                                         float(err.max()))
-            print(f"kernel {p['name']} soft tau={tau}: mask on/off, fused bias, rerun, "
+            print(f"kernel {p['name']} soft tau={tau}: cell list K={cells.k} and widened "
+                  f"to {WIDE_K}, fused bias, rerun, "
                   f"never-match rows 0, no NaN; "
                   + ("scores, k/16 + moments margins exact; normal margins within "
                      "2(n+splits+2)u·Σ|s·leaf|; all == int32 direct kernel bit for bit"
@@ -482,9 +499,8 @@ def phase_soft_main_path(ens, cm, batches, stats):
     # tau = 0: the m1 channels are the unfused margins, bit for bit (the
     # same float adds per channel); a comparison launch, not counted
     a0 = eng0.arrays
-    unfused = K.cam_match_soft_cuda(eng0._prep_queries(batches[256]), a0.low, a0.high,
-                                    a0.leaf, a0.tile_mask, r_blk=eng0.r_blk,
-                                    f_blk=eng0.f_blk, tau=0.0)
+    unfused = K.cam_match_soft_cuda(eng0._prep_queries(batches[256]), a0.cells, a0.leaf,
+                                    tau=0.0)
     if not torch.equal(mom0[:, :8], unfused[:, :8]):
         fail("soft tau=0: the m1 moments differ from the unfused margins")
     print("soft path: tau=0 m1 moments == unfused margins (B = 256) bit for bit", flush=True)
@@ -530,6 +546,29 @@ def phase_soft_main_path(ens, cm, batches, stats):
 # -- phase 5: times -----------------------------------------------------------
 
 
+FLUSH_BYTES = 256 << 20  # written before each cold launch: 5x the 50 MB L2
+
+
+def cold_time(fn, iters: int) -> float:
+    """Mean milliseconds of ``fn()`` launched alone with the L2 cache
+    flushed before it: CUDA events around each launch only, after a write
+    of ``FLUSH_BYTES`` and a short device spin that lets the host enqueue
+    the launch before the first event is reached."""
+    scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    pairs = []
+    for i in range(iters):
+        scratch.fill_(i & 0xFF)
+        torch.cuda._sleep(200_000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(st.elapsed_time(en) for st, en in pairs) / iters
+
+
 def binding_bounds(eng: XTimeEngine) -> int:
     """Bounds that constrain a query: low > 0 or high < n_bins, on the
     compiled table.  A wildcard side needs no compare."""
@@ -537,21 +576,63 @@ def binding_bounds(eng: XTimeEngine) -> int:
     return int((t.low > 0).sum()) + int((t.high < t.n_bins).sum())
 
 
-def bound_ms(eng: XTimeEngine, batch: int, n_matched: int) -> tuple[float, str, float]:
-    """Least time for one cam_match call on this data: bytes of the active
-    table tiles, leaves, queries, mask and outputs at HBM rate, against a
-    compare and an AND per binding bound and query plus one add per matched
-    row and query at the 32-bit lane rate.  Third: the compare time of the
-    all-cells design (two compares per cell of an active tile and query)."""
+def listed_cells(cells: ops.CellList) -> int:
+    """Cells the kernels evaluate a query against: each row's count, the
+    ELL padding past it excluded."""
+    return int(cells.count.sum())
+
+
+def list_bytes(cells: ops.CellList) -> tuple[int, int]:
+    """Bytes of the cell list: the listed cells and counts (what a kernel
+    must read), and as stored with its ELL padding."""
+    per_cell = cells.feat.element_size() + 2 * cells.lo.element_size()
+    R, K = cells.feat.shape
+    return listed_cells(cells) * per_cell + 4 * R, (K * per_cell + 4) * R
+
+
+def cell_list_line(name: str, label: str, eng: XTimeEngine) -> None:
+    """K, cells per row, bytes and host build time of an engine's list."""
+    a, t = eng.arrays, eng.table
+    lo, hi = a.low.cpu().numpy(), a.high.cpu().numpy()
+    t0 = time.perf_counter()
+    ops.binding_cells(lo, hi, n_bins=t.n_bins, inclusive=a.inclusive, n_real_rows=t.n_rows)
+    secs = time.perf_counter() - t0
+    cnt = a.cells.count[: t.n_rows].double()
+    need, stored = list_bytes(a.cells)
+    print(f"times [{name}] cell list {label}: K = {a.cells.k}, cells per row mean "
+          f"{float(cnt.mean()):.3f} max {int(cnt.max())} ({t.n_rows} rows, F_pad "
+          f"{a.f_pad}); {need / 1e6:.2f} MB listed + counts, {stored / 1e6:.2f} MB as "
+          f"stored; built in {secs:.2f} s on the host", flush=True)
+
+
+def match_stats(eng: XTimeEngine, qp: torch.Tensor) -> tuple[int, int]:
+    """(matched (query, row) pairs, distinct matched rows) of this batch,
+    from the kernel's match words, 256 queries at a time."""
+    rows = torch.zeros(eng.arrays.r_pad, dtype=torch.bool, device=qp.device)
+    n = 0
+    for b0 in range(0, qp.shape[0], 256):
+        bits = K.cam_match_bits_cuda(qp[b0:b0 + 256], eng.arrays.cells, mode=eng.kernel_mode)
+        n += int(bits.sum())
+        rows |= bits.any(dim=0)
+    return n, int(rows.sum())
+
+
+def bound_ms(eng: XTimeEngine, batch: int, n_matched: int,
+             distinct: int) -> tuple[float, str, float]:
+    """Least time for one cam_match call on this data: the bytes the
+    cell-list kernel must read and write, each once — the listed cells and
+    counts, the distinct matched leaf rows, the queries and the outputs —
+    at HBM rate, against a compare and an AND per binding bound and query
+    plus one add per matched row and query at the 32-bit lane rate.
+    Third: the time of what the design evaluates at that rate, two
+    compares per listed cell and query plus the adds."""
     a = eng.arrays
-    mask = a.tile_mask.cpu().numpy()
-    cells = int(mask.sum()) * eng.r_blk * eng.f_blk
     item = np.dtype(eng.table_dtype).itemsize
-    nbytes = (2 * cells * item + a.r_pad * a.c_pad * 4 + batch * a.f_pad * item
-              + mask.nbytes + batch * a.c_pad * 4)
+    nbytes = (list_bytes(a.cells)[0] + distinct * a.c_pad * 4 + batch * a.f_pad * item
+              + batch * a.c_pad * 4)
     n_ops = 2 * batch * binding_bounds(eng) + n_matched
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, n_ops / INT32_OPS_PER_S * 1e3
-    design = (2 * batch * cells + n_matched) / INT32_OPS_PER_S * 1e3
+    design = (2 * batch * listed_cells(a.cells) + n_matched) / INT32_OPS_PER_S * 1e3
     return (*((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), design)
 
 
@@ -566,19 +647,13 @@ TIMED = [
 
 
 def phase_times(cm, batches, name, stats) -> None:
-    n_trees = cm.table.n_trees
-
-    def timed(eng, b, *, mask=True, bias=True, iters=10):
+    def launcher(eng, qp, *, bias=True):
         a = eng.arrays
-        qp = eng._prep_queries(batches[b])
-        m = a.tile_mask if mask else None
         bs = eng._bias if bias else None
-        kw = dict(r_blk=eng.r_blk, f_blk=eng.f_blk, mode=eng.kernel_mode)
-        return sync_time(lambda: K.cam_match_cuda(qp, a.low, a.high, a.leaf, m, bs, **kw), iters)
+        return lambda: K.cam_match_cuda(qp, a.cells, a.leaf, bs, mode=eng.kernel_mode)
 
-    def plain(eng, b):
+    def plain(eng, qp):
         a = eng.arrays
-        qp = eng._prep_queries(batches[b])
         return sync_time(lambda: ref.cam_match_ref(qp, a.low, a.high, a.leaf,
                                                    mode=eng.kernel_mode), 2, warmup=1)
 
@@ -586,23 +661,26 @@ def phase_times(cm, batches, name, stats) -> None:
     for label, overrides in TIMED:
         eng = cm.engine(**overrides)
         for b in ((256, 1, 1024) if not overrides else (256,)):
-            ms = timed(eng, b, iters=50 if b == 1 else 5)
-            plain_ms = plain(eng, b)
-            # one leaf per tree and query
-            bnd, by, design = bound_ms(eng, b, b * n_trees)
+            qp = eng._prep_queries(batches[b])
+            fn = launcher(eng, qp)
+            ms = cold_time(fn, 20 if b == 1 else 10)
+            warm = sync_time(fn, 50 if b == 1 else 10)
+            plain_ms = plain(eng, qp)
+            bnd, by, design = bound_ms(eng, b, *match_stats(eng, qp))
             rows[label, b] = (ms, plain_ms, bnd, by)
             print(f"times [{name}] cam_match {label} B={b} (R={eng.arrays.r_pad}, "
-                  f"F_pad={eng.arrays.f_pad}): kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.3f} ms, bound {bnd:.4f} ms by {by} "
-                  f"({bnd / ms:.1%} of bound); compares of the all-cells design "
-                  f"{design:.4f} ms", flush=True)
+                  f"F_pad={eng.arrays.f_pad}, K={eng.arrays.cells.k}): kernel {ms:.4f} ms "
+                  f"L2 flushed (warm {warm:.4f} ms), plain {plain_ms:.3f} ms, bound "
+                  f"{bnd:.4f} ms by {by} ({bnd / ms:.1%} of bound); the cell-list design "
+                  f"evaluates {listed_cells(eng.arrays.cells) * b} cells x queries: "
+                  f"{design:.4f} ms of compares", flush=True)
+        if not overrides:
+            cell_list_line(name, label, eng)
     eng = cm.engine()
-    no_mask = timed(eng, 256, mask=False, iters=5)
-    no_bias = timed(eng, 256, bias=False, iters=5)
-    active = float(eng.arrays.tile_mask.float().mean())
-    print(f"times [{name}] cam_match uint8/inclusive B=256: tile mask off "
-          f"{no_mask:.4f} ms (mask on: {rows['uint8/inclusive', 256][0]:.4f} ms, "
-          f"{active:.1%} of tiles active); bias unfused {no_bias:.4f} ms", flush=True)
+    qp = eng._prep_queries(batches[256])
+    no_bias = cold_time(launcher(eng, qp, bias=False), 10)
+    print(f"times [{name}] cam_match uint8/inclusive B=256: bias unfused {no_bias:.4f} ms "
+          f"(fused {rows['uint8/inclusive', 256][0]:.4f} ms), L2 flushed", flush=True)
     print(f"times [{name}] peak device memory over the main path "
           f"{stats['peak_bytes'] / 2**30:.2f} GiB; binding bounds "
           f"{binding_bounds(eng)} of {2 * eng.table.n_rows * eng.table.n_cols} "
@@ -625,33 +703,40 @@ def finite_bounds(eng: XTimeEngine) -> int:
     return int(torch.isfinite(a.low).sum()) + int(torch.isfinite(a.high).sum())
 
 
+def evaluated_sides(cells: ops.CellList) -> int:
+    """Log-sigmoids the soft kernel evaluates a query against: the sides
+    of listed cells that are not the exact +0 of an infinite bound."""
+    used = torch.arange(cells.k, device=cells.count.device)[None, :] < cells.count[:, None]
+    return int(((cells.lo != -torch.inf) & used).sum() + ((cells.hi != torch.inf) & used).sum())
+
+
 def soft_bound_ms(eng: XTimeEngine, batch: int, tau: float, leaf: torch.Tensor,
-                  sfu: float) -> tuple[float, str, float]:
-    """Least time for one soft kernel call on this data.  Bytes: the active
-    float32 table tiles, leaves, queries, mask and outputs, each once.
-    Operations at tau = 0: a compare and an AND per finite bound and query
-    plus one add per matched row and query (one per tree), at the 32-bit
-    lane rate; at tau > 0: two special-function results (ex2 + lg2) per
-    finite bound and query and one ex2 per table row and query, at the SFU
-    rate ``sfu``, against an FMA per score and nonzero leaf entry at the
-    float32 rate.  Third: the time the all-cells design spends on those
-    operations (two compares, or four SFU results, per cell of an active
-    tile and query)."""
-    a = eng.arrays
-    mask = a.tile_mask.cpu().numpy()
-    cells = int(mask.sum()) * eng.r_blk * eng.f_blk
+                  sfu: float, distinct: int) -> tuple[float, str, float]:
+    """Least time for one soft kernel call on this data.  Bytes: the listed
+    cells and counts, the leaf rows the call needs (the ``distinct``
+    matched rows at tau = 0; every table row at tau > 0), the queries and
+    the outputs, each once.  Operations at tau = 0: a compare and an AND
+    per finite bound and query plus one add per matched row and query (one
+    per tree), at the 32-bit lane rate; at tau > 0: two special-function
+    results (ex2 + lg2) per finite bound and query and one ex2 per table
+    row and query, at the SFU rate ``sfu``, against an FMA per score and
+    nonzero leaf entry at the float32 rate.  Third: the time of what the
+    design evaluates at the same rates (two compares per listed cell, or
+    two SFU results per evaluated side, and query)."""
+    a, t = eng.arrays, eng.table
     c = leaf.shape[1]
-    nbytes = (2 * cells * 4 + a.r_pad * c * 4 + batch * a.f_pad * 4 + mask.nbytes
+    rows = distinct if tau == 0.0 else t.n_rows
+    nbytes = (list_bytes(a.cells)[0] + rows * c * 4 + batch * a.f_pad * 4
               + batch * c * 4)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    n_fin, adds = finite_bounds(eng), batch * eng.table.n_trees
+    n_fin, adds = finite_bounds(eng), batch * t.n_trees
     if tau == 0.0:
         t_ops = (2 * batch * n_fin + adds) / INT32_OPS_PER_S * 1e3
-        design = (2 * batch * cells + adds) / INT32_OPS_PER_S * 1e3
+        design = (2 * batch * listed_cells(a.cells) + adds) / INT32_OPS_PER_S * 1e3
     else:
         fma = 2 * batch * int((leaf != 0).sum()) / F32_FLOPS_PER_S * 1e3
-        t_ops = max(batch * (2 * n_fin + eng.table.n_rows) / sfu * 1e3, fma)
-        design = 4 * batch * cells / sfu * 1e3
+        t_ops = max(batch * (2 * n_fin + t.n_rows) / sfu * 1e3, fma)
+        design = batch * (2 * evaluated_sides(a.cells) + a.r_pad) / sfu * 1e3
     return (*((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), design)
 
 
@@ -667,24 +752,27 @@ def phase_soft_times(soft, batches, name, stats) -> None:
                 continue
             leaf, bias = (a.leaf, e._bias) if what == "margin" else (e._moments, None)
             qp = e._prep_queries(batches[b])
-            kw = dict(r_blk=e.r_blk, f_blk=e.f_blk, tau=tau)
-            ms = sync_time(lambda: K.cam_match_soft_cuda(qp, a.low, a.high, leaf,
-                                                         a.tile_mask, bias, **kw),
-                           50 if b == 1 else (3 if tau else 5))
+            fn = lambda: K.cam_match_soft_cuda(qp, a.cells, leaf, bias, tau=tau)  # noqa: E731
+            ms = cold_time(fn, 20 if b == 1 else 10)
+            warm = sync_time(fn, 50 if b == 1 else 10)
             plain_ms = sync_time(lambda: ref.cam_match_ref(qp, a.low, a.high, leaf,
                                                            mode="soft", tau=tau),
                                  1 if b == 256 else 2, warmup=1)
-            bnd, by, design = soft_bound_ms(e, b, tau, leaf, sfu)
+            distinct = 0 if tau else int((K.soft_scores_cuda(qp, a.cells, tau=0.0) > 0)
+                                         .any(dim=0).sum())
+            bnd, by, design = soft_bound_ms(e, b, tau, leaf, sfu, distinct)
             rows[tau, b, what] = (ms, plain_ms, bnd, by)
             print(f"times [{name}] cam_match_soft tau={tau} {what} B={b} "
-                  f"(R={a.r_pad}, F_pad={a.f_pad}, C={leaf.shape[1]}): kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.3f} ms, bound {bnd:.4f} ms by {by} "
-                  f"({bnd / ms:.1%} of bound); "
-                  + ("compares" if tau == 0.0 else "SFU time")
-                  + f" of the all-cells design {design:.4f} ms", flush=True)
+                  f"(R={a.r_pad}, F_pad={a.f_pad}, C={leaf.shape[1]}, K={a.cells.k}): kernel "
+                  f"{ms:.4f} ms L2 flushed (warm {warm:.4f} ms), plain {plain_ms:.3f} ms, "
+                  f"bound {bnd:.4f} ms by {by} ({bnd / ms:.1%} of bound); the cell-list "
+                  f"design evaluates {listed_cells(a.cells) * b} cells x queries: "
+                  f"{design:.4f} ms of " + ("compares" if tau == 0.0 else "SFU time"),
+                  flush=True)
+    cell_list_line(name, "soft float32", eng)
     print(f"times [{name}] soft bound: SFU rate {sfu / 1e12:.3f} T/s ({how}); finite "
-          f"bounds {finite_bounds(eng)} of {2 * eng.arrays.r_pad * eng.arrays.f_pad}; active "
-          f"tiles {float(eng.arrays.tile_mask.float().mean()):.1%}; soft bind "
+          f"bounds {finite_bounds(eng)} of {2 * eng.arrays.r_pad * eng.arrays.f_pad}, "
+          f"sides the kernel evaluates {evaluated_sides(eng.arrays.cells)}; soft bind "
           f"{stats['soft_bind_s']:.1f} s host; peak device memory over the soft path, "
           f"hard and soft engines bound: {stats['soft_peak_bytes'] / 2**30:.2f} GiB "
           f"(allocated now {torch.cuda.memory_allocated() / 2**30:.2f} GiB)", flush=True)

@@ -4,8 +4,9 @@ The single-device half of ``repro.core.engine``.  At bind time the engine
 packs the canonical int32 exclusive-high table into the narrowest dtype
 the grid permits (``resolve_table_dtype`` — uint8 for ≤256 bins, inclusive
 upper bounds, compared natively; float32 half-integer bounds for the soft
-cell mode), precomputes the wildcard tile-activity mask and moves
-everything to ``device``.  The device picks the implementation: on a CUDA
+cell mode), precomputes the wildcard tile-activity mask and the per-row
+list of non-wildcard cells (``kops.binding_cells``, what the kernels
+read) and moves everything to ``device``.  The device picks the implementation: on a CUDA
 device every call launches a Hopper kernel (``kernels/csrc/cam_match.cu``
 for the hard modes, ``kernels/csrc/cam_match_soft.cu`` for soft) and the
 base score rides its epilogue; on the CPU the plain PyTorch version runs.
@@ -74,7 +75,8 @@ class EngineArrays:
     low: torch.Tensor  # (R_pad, F_pad) table dtype
     high: torch.Tensor  # (inclusive upper bounds when packed)
     leaf: torch.Tensor  # (R_pad, C_pad) float32
-    tile_mask: torch.Tensor  # (R_pad/r_blk, F_pad/f_blk) int32
+    tile_mask: torch.Tensor  # (R_pad/r_blk, F_pad/f_blk) int32, as the JAX package binds it
+    cells: kops.CellList  # each row's non-wildcard cells: what the kernels read
     r_pad: int
     f_pad: int
     c_pad: int
@@ -151,13 +153,17 @@ class XTimeEngine:
             low, high, r_blk=self.r_blk, f_blk=self.f_blk,
             n_bins=table.n_bins, inclusive=inclusive,
         )
+        cells = kops.binding_cells(
+            low, high, n_bins=table.n_bins, inclusive=inclusive,
+            n_real_rows=table.n_rows,
+        )
 
         def put(a: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(a).to(self.device)
 
         self.arrays = EngineArrays(
             low=put(low), high=put(high), leaf=put(leaf),
-            tile_mask=put(tile_mask),
+            tile_mask=put(tile_mask), cells=cells.to(self.device),
             r_pad=low.shape[0], f_pad=low.shape[1], c_pad=leaf.shape[1],
             table_dtype=self.table_dtype, inclusive=inclusive,
         )
@@ -208,9 +214,8 @@ class XTimeEngine:
     def _kernel(self, q: torch.Tensor, leaf: torch.Tensor, bias, out_c: int) -> torch.Tensor:
         a = self.arrays
         return kops.cam_match(
-            q, a.low, a.high, leaf, a.tile_mask, bias,
-            out_b=q.shape[0], out_c=out_c, r_blk=self.r_blk, f_blk=self.f_blk,
-            mode=self.kernel_mode, tau=self.tau,
+            q, a.low, a.high, leaf, a.cells, bias,
+            out_b=q.shape[0], out_c=out_c, mode=self.kernel_mode, tau=self.tau,
         )
 
     def _margin_padded(self, q: torch.Tensor) -> torch.Tensor:

@@ -12,10 +12,14 @@ checkout builds it on its own and a rebuilt source never loads a stale
 library.  Nothing here runs at import time: the CPU tests import this
 module on machines with no ``nvcc`` and no card.
 
-The wrappers take CUDA tensors only; they check device, dtype, shape and
-contiguity, allocate the outputs and the split workspace with
-``torch.empty``, launch on the current stream, raise on a non-zero
-``cudaError_t`` and count their launches (``<wrapper>.launches``).
+Both kernels read the table as its per-row cell list (``ops.CellList``,
+built by ``ops.binding_cells`` at bind time): each row's non-wildcard
+cells, in ascending feature order, and nothing of the dense tables.  The
+wrappers take CUDA tensors only; they check device, dtype, shape and
+contiguity (the list checked its own counts when it was made), allocate
+the outputs and the split workspace with ``torch.empty``, launch on the
+current stream, raise on a non-zero ``cudaError_t`` and count their
+launches (``<wrapper>.launches``).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.precision import soft_inv
+from repro_torch.kernels.ops import CellList
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "cam_match.cu", CSRC / "cam_match_soft.cu")
@@ -43,8 +48,8 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 # no --use_fast_math: the soft kernel's expf/log1pf are the accurate ones
 NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# rows per block of the match kernel (a multiple of its 128-row chunk): the
-# split count — and so the float summation order — depends on R alone
+# rows per block of the match kernels (a multiple of their 128-row chunk):
+# the split count — and so the float summation order — depends on R alone
 ROWS_PER_SPLIT = 1024
 QUERIES_PER_TILE = 32
 
@@ -115,17 +120,15 @@ def build() -> BuildInfo:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build().path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.xtime_cam_match.argtypes = [
-        i, i, p, p, p, p, p, p,  # dtype, mode, q, low, high, leaf, mask, bias
-        i, i, i, i, i, i, i,  # B, R, F, C, r_blk, f_blk, rows_per_split
-        p, p, p, p,  # ws, out, bits, stream
+    cells = [p, p, p, p, i]  # count, feat, lo, hi, K
+    rest = [
+        p, p,  # leaf, bias
+        i, i, i, i, i,  # B, R, F, C, rows_per_split
+        p, p, p, p,  # ws, out, bits or scores, stream
     ]
+    lib.xtime_cam_match.argtypes = [i, i, p, *cells, *rest]  # dtype, mode, q
     lib.xtime_cam_match.restype = i
-    lib.xtime_cam_match_soft.argtypes = [
-        i, ctypes.c_float, p, p, p, p, p, p,  # tau_zero, inv, q, low, high, leaf, mask, bias
-        i, i, i, i, i, i, i,  # B, R, F, C, r_blk, f_blk, rows_per_split
-        p, p, p, p,  # ws, out, scores, stream
-    ]
+    lib.xtime_cam_match_soft.argtypes = [i, ctypes.c_float, p, *cells, *rest]  # tau_zero, inv, q
     lib.xtime_cam_match_soft.restype = i
     lib.xtime_error_string.argtypes = [i]
     lib.xtime_error_string.restype = ctypes.c_char_p
@@ -136,62 +139,48 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _check_tables(q, low, high, tile_mask, *, r_blk, f_blk) -> None:
-    """Device, layout and shapes of the operands every kernel takes."""
-    tensors = {"q": q, "low": low, "high": high}
-    if tile_mask is not None:
-        tensors["tile_mask"] = tile_mask
+def _check_cells(q, cells, table_dtype) -> None:
+    """Device, layout and shapes of the query block and the cell list."""
+    if not isinstance(cells, CellList):
+        raise ValueError(f"the kernels take the table as an ops.CellList, got {type(cells).__name__}")
+    tensors = {"q": q, "count": cells.count, "feat": cells.feat, "lo": cells.lo, "hi": cells.hi}
     for name, t in tensors.items():
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 2-D tensor")
-    R, F = low.shape
-    if high.shape != low.shape or q.shape[1] != F:
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, low {tuple(low.shape)}, high {tuple(high.shape)}")
-    if R == 0 or R % r_blk or F % f_blk:
-        raise ValueError(f"tables ({R}, {F}) must tile by (r_blk={r_blk}, f_blk={f_blk})")
-    if tile_mask is not None and (
-        tuple(tile_mask.shape) != (R // r_blk, F // f_blk) or tile_mask.dtype != torch.int32
-    ):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dim() != 2 or q.shape[1] != cells.width:
+        raise ValueError(f"q {tuple(q.shape)} must be (B, {cells.width}), the cell list's width")
+    if q.dtype != table_dtype or cells.lo.dtype != table_dtype:
         raise ValueError(
-            f"tile_mask must be int32 of shape {(R // r_blk, F // f_blk)}, "
-            f"got {tile_mask.dtype} {tuple(tile_mask.shape)}"
+            f"q and the cell bounds must be {table_dtype}; got {q.dtype}/{cells.lo.dtype}"
         )
 
 
-def _check_operands(q, low, high, tile_mask, *, r_blk, f_blk, mode) -> None:
-    _check_tables(q, low, high, tile_mask, r_blk=r_blk, f_blk=f_blk)
-    if q.dtype not in _DTYPE_CODE or low.dtype != q.dtype or high.dtype != q.dtype:
-        raise ValueError(
-            f"q/low/high must share one of {list(_DTYPE_CODE)}; got "
-            f"{q.dtype}/{low.dtype}/{high.dtype}"
-        )
+def _check_hard(q, cells, mode) -> None:
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"q must be one of {list(_DTYPE_CODE)}; got {q.dtype}")
+    _check_cells(q, cells, q.dtype)
     if mode not in _MODE_CODE:
         raise ValueError(f"mode {mode!r} has no kernel; kernel modes: {list(_MODE_CODE)}")
     if mode in _INT32_ONLY and q.dtype != torch.int32:
         raise ValueError(f"mode {mode!r} runs on int32 tables only, got {q.dtype}")
 
 
-def _check_soft_operands(q, low, high, tile_mask, *, r_blk, f_blk, tau) -> None:
-    _check_tables(q, low, high, tile_mask, r_blk=r_blk, f_blk=f_blk)
-    if not (q.dtype == low.dtype == high.dtype == torch.float32):
-        raise ValueError(
-            "the soft kernel takes float32 q/low/high (the soft-encoded "
-            f"layout); got {q.dtype}/{low.dtype}/{high.dtype}"
-        )
+def _check_soft(q, cells, tau) -> None:
+    _check_cells(q, cells, torch.float32)
     if not (isinstance(tau, (int, float)) and np.isfinite(tau) and tau >= 0.0):
         raise ValueError(f"tau must be a finite temperature >= 0, got {tau!r}")
 
 
-def _check_leaf_bias(q, low, leaf, bias) -> None:
+def _check_leaf_bias(q, cells, leaf, bias) -> None:
     R, C = leaf.shape
     if (leaf.dtype != torch.float32 or not leaf.is_contiguous()
-            or leaf.device != q.device or R != low.shape[0] or C == 0):
+            or leaf.device != q.device or R != cells.count.shape[0] or C == 0):
         raise ValueError(
-            f"leaf must be a contiguous float32 ({low.shape[0]}, C_pad) tensor "
+            f"leaf must be a contiguous float32 ({cells.count.shape[0]}, C_pad) tensor "
             f"on {q.device}, got {leaf.dtype} {tuple(leaf.shape)} on {leaf.device}"
         )
     if bias is not None:
@@ -200,21 +189,21 @@ def _check_leaf_bias(q, low, leaf, bias) -> None:
             raise ValueError(f"bias must be a contiguous float32 (1, {C}) tensor on {q.device}")
 
 
-def _launch(entry: str, head: tuple, q, low, high, leaf, tile_mask, bias, *,
-            r_blk, f_blk, ws, out, extra) -> None:
+def _launch(entry: str, head: tuple, q, cells: CellList, leaf, bias, *, ws, out,
+            extra) -> None:
     """Call the C entry ``entry`` (its own leading arguments ``head``, then
     the operands every entry takes, with ``extra`` its second output) on
     ``q``'s device and current stream; raise on a non-zero cudaError_t."""
     lib = _library()
     B, F = q.shape
-    R = low.shape[0]
+    R, K = cells.feat.shape
     C = 0 if leaf is None else leaf.shape[1]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, entry)(
-            *head, _ptr(q), _ptr(low), _ptr(high), _ptr(leaf), _ptr(tile_mask),
-            _ptr(bias), B, R, F, C, r_blk, f_blk, ROWS_PER_SPLIT, _ptr(ws),
-            _ptr(out), _ptr(extra), stream,
+            *head, _ptr(q), _ptr(cells.count), _ptr(cells.feat), _ptr(cells.lo),
+            _ptr(cells.hi), K, _ptr(leaf), _ptr(bias), B, R, F, C, ROWS_PER_SPLIT,
+            _ptr(ws), _ptr(out), _ptr(extra), stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -237,27 +226,23 @@ def n_splits(n_rows: int) -> int:
 
 def cam_match_cuda(
     q: torch.Tensor,  # (B, F_pad) table dtype
-    low: torch.Tensor,  # (R_pad, F_pad) table dtype
-    high: torch.Tensor,  # (R_pad, F_pad) table dtype
+    cells: CellList,  # the table's cell list on q's device, (R_pad, K)
     leaf: torch.Tensor,  # (R_pad, C_pad) float32
-    tile_mask: torch.Tensor | None = None,  # (R_pad/r_blk, F_pad/f_blk) int32
     bias: torch.Tensor | None = None,  # (1, C_pad) float32, added once
     *,
-    r_blk: int = 256,
-    f_blk: int = 128,
     mode: str = "direct",
 ) -> torch.Tensor:
-    """(B, C_pad) float32 leaf sums on the card; ``None`` mask = all active."""
-    _check_operands(q, low, high, tile_mask, r_blk=r_blk, f_blk=f_blk, mode=mode)
-    _check_leaf_bias(q, low, leaf, bias)
+    """(B, C_pad) float32 leaf sums on the card."""
+    _check_hard(q, cells, mode)
+    _check_leaf_bias(q, cells, leaf, bias)
     R, C = leaf.shape
     B = q.shape[0]
     out = torch.empty((B, C), dtype=torch.float32, device=q.device)
     if B == 0:
         return out
     ws = torch.empty((n_splits(R), B, C), dtype=torch.float32, device=q.device)
-    _launch("xtime_cam_match", _hard(q, mode), q, low, high, leaf, tile_mask, bias,
-            r_blk=r_blk, f_blk=f_blk, ws=ws, out=out, extra=None)
+    _launch("xtime_cam_match", _hard(q, mode), q, cells, leaf, bias, ws=ws, out=out,
+            extra=None)
     cam_match_cuda.launches += 1
     return out
 
@@ -265,25 +250,16 @@ def cam_match_cuda(
 cam_match_cuda.launches = 0
 
 
-def cam_match_bits_cuda(
-    q: torch.Tensor,
-    low: torch.Tensor,
-    high: torch.Tensor,
-    tile_mask: torch.Tensor | None = None,
-    *,
-    r_blk: int = 256,
-    f_blk: int = 128,
-    mode: str = "direct",
-) -> torch.Tensor:
+def cam_match_bits_cuda(q: torch.Tensor, cells: CellList, *, mode: str = "direct") -> torch.Tensor:
     """(B, R) boolean match lines from the same kernel (no leaf product)."""
-    _check_operands(q, low, high, tile_mask, r_blk=r_blk, f_blk=f_blk, mode=mode)
-    B, R = q.shape[0], low.shape[0]
+    _check_hard(q, cells, mode)
+    B, R = q.shape[0], cells.count.shape[0]
     if B == 0:
         return torch.zeros((0, R), dtype=torch.bool, device=q.device)
     n_words = -(-B // QUERIES_PER_TILE)
     words = torch.empty((n_words, R), dtype=torch.int32, device=q.device)
-    _launch("xtime_cam_match", _hard(q, mode), q, low, high, None, tile_mask, None,
-            r_blk=r_blk, f_blk=f_blk, ws=None, out=None, extra=words)
+    _launch("xtime_cam_match", _hard(q, mode), q, cells, None, None, ws=None, out=None,
+            extra=words)
     cam_match_bits_cuda.launches += 1
     shifts = torch.arange(QUERIES_PER_TILE, device=q.device, dtype=torch.int32)
     unpacked = (words[:, None, :] >> shifts[None, :, None]) & 1  # (words, 32, R)
@@ -295,28 +271,24 @@ cam_match_bits_cuda.launches = 0
 
 def cam_match_soft_cuda(
     q: torch.Tensor,  # (B, F_pad) float32 bins
-    low: torch.Tensor,  # (R_pad, F_pad) float32 soft-encoded bounds
-    high: torch.Tensor,  # (R_pad, F_pad) float32 soft-encoded bounds
+    cells: CellList,  # the soft table's cell list on q's device, (R_pad, K)
     leaf: torch.Tensor,  # (R_pad, C_pad) float32 (or the moments matrix)
-    tile_mask: torch.Tensor | None = None,  # (R_pad/r_blk, F_pad/f_blk) int32
     bias: torch.Tensor | None = None,  # (1, C_pad) float32, added once
     *,
-    r_blk: int = 256,
-    f_blk: int = 128,
     tau: float,
 ) -> torch.Tensor:
     """(B, C_pad) float32 soft leaf sums ``SUM_r score[b, r] * leaf[r, :]``
     on the card; ``tau`` in bin units, 0 the exact indicator."""
-    _check_soft_operands(q, low, high, tile_mask, r_blk=r_blk, f_blk=f_blk, tau=tau)
-    _check_leaf_bias(q, low, leaf, bias)
+    _check_soft(q, cells, tau)
+    _check_leaf_bias(q, cells, leaf, bias)
     R, C = leaf.shape
     B = q.shape[0]
     out = torch.empty((B, C), dtype=torch.float32, device=q.device)
     if B == 0:
         return out
     ws = torch.empty((n_splits(R), B, C), dtype=torch.float32, device=q.device)
-    _launch("xtime_cam_match_soft", _soft(tau), q, low, high, leaf, tile_mask, bias,
-            r_blk=r_blk, f_blk=f_blk, ws=ws, out=out, extra=None)
+    _launch("xtime_cam_match_soft", _soft(tau), q, cells, leaf, bias, ws=ws, out=out,
+            extra=None)
     cam_match_soft_cuda.launches += 1
     return out
 
@@ -324,24 +296,15 @@ def cam_match_soft_cuda(
 cam_match_soft_cuda.launches = 0
 
 
-def soft_scores_cuda(
-    q: torch.Tensor,
-    low: torch.Tensor,
-    high: torch.Tensor,
-    tile_mask: torch.Tensor | None = None,
-    *,
-    r_blk: int = 256,
-    f_blk: int = 128,
-    tau: float,
-) -> torch.Tensor:
+def soft_scores_cuda(q: torch.Tensor, cells: CellList, *, tau: float) -> torch.Tensor:
     """(B, R) float32 row scores from the soft kernel (no leaf product)."""
-    _check_soft_operands(q, low, high, tile_mask, r_blk=r_blk, f_blk=f_blk, tau=tau)
-    B, R = q.shape[0], low.shape[0]
+    _check_soft(q, cells, tau)
+    B, R = q.shape[0], cells.count.shape[0]
     scores = torch.empty((B, R), dtype=torch.float32, device=q.device)
     if B == 0:
         return scores
-    _launch("xtime_cam_match_soft", _soft(tau), q, low, high, None, tile_mask, None,
-            r_blk=r_blk, f_blk=f_blk, ws=None, out=None, extra=scores)
+    _launch("xtime_cam_match_soft", _soft(tau), q, cells, None, None, ws=None, out=None,
+            extra=scores)
     soft_scores_cuda.launches += 1
     return scores
 

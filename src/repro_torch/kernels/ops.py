@@ -16,9 +16,13 @@ in row chunks (its int64/float64 intermediates would take ~10 GB at full
 width).  ``pad_queries``/``pad_to_bucket`` build torch tensors on the
 engine's device, and ``cam_match`` picks the implementation by device:
 the Hopper kernels for CUDA tensors, the plain version for CPU tensors.
+``binding_cells`` (the port's own) lists each row's non-wildcard cells,
+the only cells the Hopper kernels read.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -189,6 +193,22 @@ def _pack_tables_soft(
     return lo_f, hi_f, lm, False
 
 
+def wildcard_cells(low, high, *, n_bins: int, inclusive: bool) -> np.ndarray:
+    """Boolean array of ``low``'s shape: True where a cell is the wildcard.
+
+    On PADDED (and possibly packed) tables: the full range [0, n_bins) in
+    whichever encoding ``inclusive`` names; on float32 soft-encoded tables
+    the exact (-inf, +inf) cell, whose log-score is exactly 0.  Every query
+    bin in [0, n_bins) matches such a cell in every hard cell mode, so
+    leaving it out of a compare changes nothing.  Never-match padding
+    cells are not wildcards.
+    """
+    if np.dtype(low.dtype).kind == "f":
+        return np.isneginf(low) & np.isposinf(high)
+    top = n_bins - 1 if inclusive else n_bins
+    return (low == 0) & (high >= top)
+
+
 def wildcard_tile_mask(
     low: np.ndarray,
     high: np.ndarray,
@@ -198,25 +218,132 @@ def wildcard_tile_mask(
     n_bins: int,
     inclusive: bool,
 ) -> np.ndarray:
-    """(R/r_blk, F/f_blk) int32 — 0 marks an all-wildcard compare tile.
-
-    Operates on PADDED (and possibly packed) tables: a wildcard cell is
-    the full range [0, n_bins) in whichever encoding ``inclusive``
-    names; on float32 soft-encoded tables it is the exact (-inf, +inf)
-    cell, whose log-score 0 a skipped tile leaves out exactly.
-    Never-match padding rows are not wildcards, so their tiles stay
-    active and keep their rows unmatchable.
-    """
+    """(R/r_blk, F/f_blk) int32 — 0 marks an all-wildcard compare tile
+    (``wildcard_cells``).  Never-match padding rows are not wildcards, so
+    their tiles stay active."""
     R, F = low.shape
     if R % r_blk or F % f_blk:
         raise ValueError(f"padded shape ({R}, {F}) must tile by ({r_blk}, {f_blk})")
-    if np.dtype(low.dtype).kind == "f":
-        act = ~(np.isneginf(low) & np.isposinf(high))
-    else:
-        top = n_bins - 1 if inclusive else n_bins
-        act = ~((low == 0) & (high >= top))
+    act = ~wildcard_cells(low, high, n_bins=n_bins, inclusive=inclusive)
     tiles = act.reshape(R // r_blk, r_blk, F // f_blk, f_blk).any(axis=(1, 3))
     return tiles.astype(np.int32)
+
+
+@dataclass(frozen=True)
+class CellList:
+    """Each table row's non-wildcard cells, in ascending feature order
+    (an ELL layout: K slots a row, the first ``count[r]`` of them used).
+
+      count  (R_pad,)    int32, at most K
+      feat   (R_pad, K)  uint16 feature index, below ``width``
+      lo, hi (R_pad, K)  the cells' bounds exactly as the table stores them
+
+    Slots past a row's count are zero and never read.  ``width`` is the
+    padded feature count F_pad of the table (and of the queries).  Holds
+    numpy arrays or tensors; the construction checks the shapes, dtypes
+    and ``count <= K``, ``feat < width`` once, so a kernel launch need not.
+    """
+
+    count: np.ndarray | torch.Tensor
+    feat: np.ndarray | torch.Tensor
+    lo: np.ndarray | torch.Tensor
+    hi: np.ndarray | torch.Tensor
+    width: int
+
+    def __post_init__(self) -> None:
+        R, K = tuple(self.feat.shape)
+        if (tuple(self.count.shape) != (R,) or tuple(self.lo.shape) != (R, K)
+                or tuple(self.hi.shape) != (R, K) or K == 0):
+            raise ValueError(
+                f"cell list shapes: count {tuple(self.count.shape)}, feat "
+                f"{tuple(self.feat.shape)}, lo {tuple(self.lo.shape)}, hi "
+                f"{tuple(self.hi.shape)}; want (R,) and (R, K >= 1)"
+            )
+        if _np_dtype(self.count) != np.int32 or _np_dtype(self.feat) != np.uint16:
+            raise ValueError("cell list count must be int32 and feat uint16")
+        if _np_dtype(self.lo) != _np_dtype(self.hi):
+            raise ValueError("cell list lo and hi must share the table dtype")
+        if R:
+            cmin, cmax = int(self.count.min()), int(self.count.max())
+            fmax = int(self.feat.max()) if isinstance(self.feat, np.ndarray) else int(
+                self.feat.to(torch.int32).max())
+            if cmin < 0 or cmax > K or fmax >= self.width:
+                raise ValueError(
+                    f"cell list counts in [{cmin}, {cmax}] (K = {K}) or features up to "
+                    f"{fmax} (width {self.width}) out of range"
+                )
+
+    @property
+    def k(self) -> int:
+        return int(self.feat.shape[1])
+
+    def to(self, device) -> "CellList":
+        """The same list as tensors on ``device``."""
+        def put(a):
+            t = torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+            return t.to(device).contiguous()
+        return CellList(put(self.count), put(self.feat), put(self.lo), put(self.hi),
+                        self.width)
+
+
+# rows of the table scanned at a time by ``binding_cells``: bounds its
+# boolean and index temporaries to a few tens of MB at F_pad = 256
+CELL_SCAN_ROWS = 1 << 14
+
+
+def binding_cells(
+    low: np.ndarray,
+    high: np.ndarray,
+    *,
+    n_bins: int,
+    inclusive: bool,
+    n_real_rows: int,
+) -> CellList:
+    """The ``CellList`` of a padded, packed table (any layout of
+    ``pack_tables``/``pad_tables``): every cell of a row that is not the
+    wildcard (``wildcard_cells``), in ascending feature order.  Rows from
+    ``n_real_rows`` on are the never-match padding rows, whose cells are
+    all alike: each is listed as one cell, its first, since the AND (or
+    sum) of one equals that of all.  K is the largest count, at least 1.
+    Scanned in ``CELL_SCAN_ROWS``-row blocks, so host memory stays bounded
+    at full width."""
+    R, F = low.shape
+    if high.shape != low.shape:
+        raise ValueError(f"low {low.shape} and high {high.shape} differ")
+    if F > np.iinfo(np.uint16).max + 1:
+        raise ValueError(f"{F} features do not fit the cell list's uint16 index")
+    n_real = int(n_real_rows)
+    if not 0 <= n_real <= R:
+        raise ValueError(f"n_real_rows={n_real_rows} outside [0, {R}]")
+    pad_lo, pad_hi = low[n_real:], high[n_real:]
+    if not ((pad_lo == pad_lo[:, :1]) & (pad_hi == pad_hi[:, :1])).all():
+        raise ValueError(f"rows from {n_real} on are not uniform padding rows")
+
+    def listed(r0: int, r1: int) -> np.ndarray:
+        act = ~wildcard_cells(low[r0:r1], high[r0:r1], n_bins=n_bins, inclusive=inclusive)
+        pad = max(0, r1 - max(r0, n_real))  # padding rows in this block
+        if pad:
+            act[-pad:] = False
+            act[-pad:, 0] = True
+        return act
+
+    count = np.empty(R, dtype=np.int32)
+    for r0 in range(0, R, CELL_SCAN_ROWS):
+        r1 = min(R, r0 + CELL_SCAN_ROWS)
+        count[r0:r1] = listed(r0, r1).sum(axis=1)
+    K = max(1, int(count.max(initial=0)))
+    feat = np.zeros((R, K), dtype=np.uint16)
+    lo = np.zeros((R, K), dtype=low.dtype)
+    hi = np.zeros((R, K), dtype=high.dtype)
+    for r0 in range(0, R, CELL_SCAN_ROWS):
+        r1 = min(R, r0 + CELL_SCAN_ROWS)
+        rows, cols = np.nonzero(listed(r0, r1))  # row-major: ascending features
+        start = np.cumsum(count[r0:r1]) - count[r0:r1]
+        slot = np.arange(rows.size) - np.repeat(start, count[r0:r1])
+        feat[r0 + rows, slot] = cols
+        lo[r0 + rows, slot] = low[r0 + rows, cols]
+        hi[r0 + rows, slot] = high[r0 + rows, cols]
+    return CellList(count, feat, lo, hi, F)
 
 
 def check_query_range(q, dtype: str) -> None:
@@ -285,39 +412,33 @@ def cam_match(
     low: torch.Tensor,
     high: torch.Tensor,
     leaf: torch.Tensor,
-    tile_mask: torch.Tensor | None = None,
+    cells: CellList | None = None,
     bias: torch.Tensor | None = None,
     *,
     out_b: int,
     out_c: int,
-    r_blk: int = 256,
-    f_blk: int = F_CHUNK,
     mode: str = "direct",
     tau: float = 0.0,
 ) -> torch.Tensor:
     """Kernel entry on pre-padded operands; returns unpadded (out_b, out_c).
 
     CUDA tensors launch the Hopper kernels (``kernels.cam_match``: the
-    soft kernel for ``mode='soft'``, the hard one otherwise) — they
-    either run or raise; CPU tensors take the plain version.  ``bias``
-    is the optional (1, C_pad) fused-epilogue row, added once after the
-    row sum (bit-identical to adding it after an unfused call); callers
-    fusing it must NOT add the base score again downstream.  ``tau`` is
-    the soft temperature in bin units; hard modes ignore it.
+    soft kernel for ``mode='soft'``, the hard one otherwise) on the
+    table's ``cells`` (``binding_cells``, on the card) — they either run
+    or raise; CPU tensors take the plain version on the dense ``low`` /
+    ``high``.  ``bias`` is the optional (1, C_pad) fused-epilogue row,
+    added once after the row sum (bit-identical to adding it after an
+    unfused call); callers fusing it must NOT add the base score again
+    downstream.  ``tau`` is the soft temperature in bin units; hard modes
+    ignore it.
     """
     if q_padded.is_cuda:
         from repro_torch.kernels import cam_match as K
 
         if mode == "soft":
-            out = K.cam_match_soft_cuda(
-                q_padded, low, high, leaf, tile_mask, bias,
-                r_blk=r_blk, f_blk=f_blk, tau=tau,
-            )
+            out = K.cam_match_soft_cuda(q_padded, cells, leaf, bias, tau=tau)
         else:
-            out = K.cam_match_cuda(
-                q_padded, low, high, leaf, tile_mask, bias,
-                r_blk=r_blk, f_blk=f_blk, mode=mode,
-            )
+            out = K.cam_match_cuda(q_padded, cells, leaf, bias, mode=mode)
     elif q_padded.device.type == "cpu":
         out = cam_match_ref(q_padded, low, high, leaf, mode=mode, tau=tau)
         if bias is not None:

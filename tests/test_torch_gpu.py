@@ -39,16 +39,47 @@ def card():
     return torch.device("cuda")
 
 
-def _operands(dtype, mode, n_bins, dev):
-    """Seeded exclusive-high tables, 60% wildcard cells, k/16 leaves, in
-    the kernel layout of ``dtype`` (inclusive-high for mode='inclusive')."""
+def _widened(cells: ops.CellList, k: int) -> ops.CellList:
+    """The same list with its rows padded to ``k`` slots: the kernels must
+    stop at each row's count, and read slots past their staged ones from
+    device memory."""
+    def pad(a):
+        out = torch.zeros((a.shape[0], k), dtype=a.dtype, device=a.device)
+        out[:, : a.shape[1]] = a
+        return out
+    return ops.CellList(cells.count, pad(cells.feat), pad(cells.lo), pad(cells.hi), cells.width)
+
+
+def _tables(rng, n_bins, q, *, r=R, wild=0.6, noisy=False):
+    """Seeded exclusive-high int32 tables with ``wild`` wildcard cells;
+    ``noisy`` shifts the bounds by up to ±3 bins (negative and past the
+    grid) and makes 2% of the cells never-match, as the defect injector
+    leaves an int32 table.  Every fourth row is widened to hold one of the
+    queries ``q``, so each problem has matches at any batch size."""
+    low = rng.integers(0, n_bins, size=(r, F)).astype(np.int32)
+    high = np.minimum(low + rng.integers(1, n_bins, size=(r, F)), n_bins).astype(np.int32)
+    w = rng.random((r, F)) < wild
+    low[w], high[w] = 0, n_bins
+    if noisy:
+        low = low + rng.integers(-3, 4, size=low.shape).astype(np.int32)
+        high = high + rng.integers(-3, 4, size=high.shape).astype(np.int32)
+        bad = rng.random((r, F)) < 0.02
+        high[bad] = low[bad]
+    rows = np.arange(0, r, 4)
+    hold = q[rows % q.shape[0]]
+    low[rows] = np.minimum(low[rows], hold)
+    high[rows] = np.maximum(high[rows], hold + 1)
+    return low, high
+
+
+def _operands(dtype, mode, n_bins, dev, *, b=B, r=R, noisy=False):
+    """Seeded tables, 60% wildcard cells (10% when ``noisy``), k/16 leaves,
+    in the kernel layout of ``dtype`` (inclusive-high for mode='inclusive'),
+    with their cell list."""
     rng = np.random.default_rng(11)
-    low = rng.integers(0, n_bins, size=(R, F)).astype(np.int32)
-    high = np.minimum(low + rng.integers(1, n_bins, size=(R, F)), n_bins).astype(np.int32)
-    wild = rng.random((R, F)) < 0.6
-    low[wild], high[wild] = 0, n_bins
-    leaf = (rng.integers(-16, 17, size=(R, C)) / 16.0).astype(np.float32)
-    q = rng.integers(0, n_bins, size=(B, F))
+    q = rng.integers(0, n_bins, size=(b, F))
+    low, high = _tables(rng, n_bins, q, r=r, wild=0.1 if noisy else 0.6, noisy=noisy)
+    leaf = (rng.integers(-16, 17, size=(r, C)) / 16.0).astype(np.float32)
     incl = mode == "inclusive"
     if incl:
         lo, hi, lm, _ = ops.pack_tables(low, high, leaf, r_blk=R_BLK, f_blk=F_BLK,
@@ -56,33 +87,66 @@ def _operands(dtype, mode, n_bins, dev):
     else:
         lo, hi, lm = ops.pad_tables(low, high, leaf, r_blk=R_BLK, f_blk=F_BLK, n_bins=n_bins)
         lo, hi = lo.astype(dtype), hi.astype(dtype)
-    mask = ops.wildcard_tile_mask(lo, hi, r_blk=R_BLK, f_blk=F_BLK, n_bins=n_bins,
-                                  inclusive=incl)
+    cells = ops.binding_cells(lo, hi, n_bins=n_bins, inclusive=incl, n_real_rows=r)
     qp = ops.pad_queries(q, lo.shape[1], dtype=dtype, device=dev)
-    return (qp, *(torch.from_numpy(a).to(dev) for a in (lo, hi, lm, mask)))
+    return (qp, *(torch.from_numpy(a).to(dev) for a in (lo, hi, lm)), cells.to(dev))
+
+
+def _check_hard(K, q, lo, hi, lm, cells, mode, dev):
+    """Bits and k/16 margins equal the plain version, with the list as
+    built and widened past the staged slots; fused bias equals unfused +
+    bias; two runs equal.  Returns the margins."""
+    bits = cam_match_bits_ref(q, lo, hi, mode=mode)
+    assert bits.any() and not bits.all()  # both outcomes
+    want = cam_match_ref(q, lo, hi, lm, mode=mode)
+    bias = torch.full((1, lm.shape[1]), 0.75, device=dev)
+    for cl in (cells, _widened(cells, 40)):
+        assert torch.equal(K.cam_match_bits_cuda(q, cl, mode=mode), bits)
+        out = K.cam_match_cuda(q, cl, lm, mode=mode)
+        assert torch.equal(out, want)
+        assert torch.equal(K.cam_match_cuda(q, cl, lm, mode=mode), out)
+        assert torch.equal(K.cam_match_cuda(q, cl, lm, bias, mode=mode), out + bias)
+    return out
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,mode,n_bins", VARIANTS)
 def test_cuda_kernel_matches_plain_version(card, dtype, mode, n_bins):
-    """Bits and k/16 margins equal the plain version with the tile mask on
-    and off; fused bias equals unfused + bias; packed equals int32."""
+    """Bits and k/16 margins equal the plain version with the cell list as
+    built and widened; fused bias equals unfused + bias; packed equals
+    int32."""
     from repro_torch.kernels import cam_match as K
 
-    q, lo, hi, lm, mask = _operands(dtype, mode, n_bins, card)
-    kw = dict(r_blk=R_BLK, f_blk=F_BLK, mode=mode)
-    bits = cam_match_bits_ref(q, lo, hi, mode=mode)
-    assert bits.any() and not bits.all()
-    want = cam_match_ref(q, lo, hi, lm, mode=mode)
-    bias = torch.full((1, lm.shape[1]), 0.75, device=card)
-    for m in (mask, None):
-        assert torch.equal(K.cam_match_bits_cuda(q, lo, hi, m, **kw), bits)
-        out = K.cam_match_cuda(q, lo, hi, lm, m, **kw)
-        assert torch.equal(out, want)
-        assert torch.equal(K.cam_match_cuda(q, lo, hi, lm, m, bias, **kw), out + bias)
+    q, lo, hi, lm, cells = _operands(dtype, mode, n_bins, card)
+    out = _check_hard(K, q, lo, hi, lm, cells, mode, card)
     if dtype != "int32":
-        q32, lo32, hi32, lm32, mask32 = _operands("int32", mode, n_bins, card)
-        assert torch.equal(out, K.cam_match_cuda(q32, lo32, hi32, lm32, mask32, **kw))
+        q32, _, _, lm32, cells32 = _operands("int32", mode, n_bins, card)
+        assert torch.equal(out, K.cam_match_cuda(q32, cells32, lm32, mode=mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,r", [(1, 200), (37, 203)], ids=["B1", "B37-ragged"])
+@pytest.mark.parametrize("dtype,mode,n_bins", VARIANTS[:5])
+def test_cuda_kernel_ragged_batch_and_rows(card, dtype, mode, n_bins, b, r):
+    """A batch that is not a multiple of 32 and a table whose rows do not
+    tile (never-match padding rows, listed as one cell each)."""
+    from repro_torch.kernels import cam_match as K
+
+    q, lo, hi, lm, cells = _operands(dtype, mode, n_bins, card, b=b, r=r)
+    assert cells.feat.shape[0] > r or r == R
+    _check_hard(K, q, lo, hi, lm, cells, mode, card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["direct", "inclusive", "msb_lsb", "two_cycle"])
+def test_cuda_kernel_noisy_int32_large_k(card, mode):
+    """Noisy int32 bounds with never-match cells and few wildcards: rows
+    list more cells than are staged, and every one of them counts."""
+    from repro_torch.kernels import cam_match as K
+
+    q, lo, hi, lm, cells = _operands("int32", mode, 256, card, b=37, r=203, noisy=True)
+    assert cells.k > 8  # more than the kernels stage a row
+    _check_hard(K, q, lo, hi, lm, cells, mode, card)
 
 
 @pytest.mark.gpu
@@ -102,62 +166,87 @@ def test_predict_on_the_card_matches_traversal(card):
     np.testing.assert_array_equal(cm.raw_margin(q), cm.raw_margin(q, device="cpu"))
 
 
-def _soft_operands(dev, *, perturbed=False, normal=False):
-    """The tables of ``_operands`` in the float32 soft layout; ``perturbed``
-    adds never-match cells (high <= low) to the real rows."""
+def _soft_operands(dev, *, perturbed=False, normal=False, b=B, r=R, wild=0.6):
+    """The tables of ``_operands`` in the float32 soft layout, with their
+    cell list; ``perturbed`` adds never-match cells (high <= low) to the
+    real rows."""
     rng = np.random.default_rng(11)
     n_bins = 256
-    low = rng.integers(0, n_bins, size=(R, F)).astype(np.int32)
-    high = np.minimum(low + rng.integers(1, n_bins, size=(R, F)), n_bins).astype(np.int32)
-    wild = rng.random((R, F)) < 0.6
-    low[wild], high[wild] = 0, n_bins
+    q = rng.integers(0, n_bins, size=(b, F))
+    low, high = _tables(rng, n_bins, q, r=r, wild=wild)
     if perturbed:
-        bad = rng.random((R, F)) < 0.01
+        bad = rng.random((r, F)) < 0.01
         high[bad] = low[bad]
     if normal:
-        leaf = rng.normal(size=(R, C)).astype(np.float32)
+        leaf = rng.normal(size=(r, C)).astype(np.float32)
     else:
-        leaf = (rng.integers(-16, 17, size=(R, C)) / 16.0).astype(np.float32)
-    q = rng.integers(0, n_bins, size=(B, F))
+        leaf = (rng.integers(-16, 17, size=(r, C)) / 16.0).astype(np.float32)
     lo, hi, lm, _ = ops.pack_tables(low, high, leaf, r_blk=R_BLK, f_blk=F_BLK,
                                     n_bins=n_bins, dtype="float32")
-    mask = ops.wildcard_tile_mask(lo, hi, r_blk=R_BLK, f_blk=F_BLK, n_bins=n_bins,
-                                  inclusive=False)
+    cells = ops.binding_cells(lo, hi, n_bins=n_bins, inclusive=False, n_real_rows=r)
     qp = ops.pad_queries(q, lo.shape[1], dtype="float32", device=dev)
-    return (qp, *(torch.from_numpy(a).to(dev) for a in (lo, hi, lm, mask))), (low, high, leaf, q)
+    ops_ = (qp, *(torch.from_numpy(a).to(dev) for a in (lo, hi, lm)), cells.to(dev))
+    return ops_, (low, high, leaf, q)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("tau", [0.0, 0.1, 0.5])
-@pytest.mark.parametrize("perturbed", [False, True], ids=["compiled", "perturbed"])
-def test_cuda_soft_kernel_matches_plain_version(card, tau, perturbed):
+def _check_soft(K, q, lo, hi, lm, cells, tau, dev):
     """Scores and margins against the plain version (exact at tau = 0,
-    within ``soft_score_bound``/``soft_margin_bound`` otherwise), tile mask
-    on and off, fused bias == unfused + bias, two runs identical, no NaN,
-    never-match rows score exactly 0."""
-    from repro_torch.kernels import cam_match as K
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    (q, lo, hi, lm, mask), _ = _soft_operands(card, perturbed=perturbed, normal=tau > 0)
-    kw = dict(r_blk=R_BLK, f_blk=F_BLK, tau=tau)
+    within ``soft_score_bound``/``soft_margin_bound`` otherwise), with the
+    list as built and widened past the staged slots; fused bias == unfused
+    + bias, two runs identical, no NaN, never-match rows score exactly 0.
+    Returns whether the table has never-match rows."""
     s_ref = soft_scores_ref(q, lo, hi, tau=tau)
     m_ref = cam_match_ref(q, lo, hi, lm, mode="soft", tau=tau)
-    bias = torch.full((1, lm.shape[1]), 0.75, device=card)
-    for m in (mask, None):
-        scores = K.soft_scores_cuda(q, lo, hi, m, **kw)
-        out = K.cam_match_soft_cuda(q, lo, hi, lm, m, **kw)
+    bias = torch.full((1, lm.shape[1]), 0.75, device=dev)
+    never = torch.isposinf(lo).any(dim=1)  # rows holding a (+inf, -inf) cell
+    for cl in (cells, _widened(cells, 40)):
+        scores = K.soft_scores_cuda(q, cl, tau=tau)
+        out = K.cam_match_soft_cuda(q, cl, lm, tau=tau)
         torch.cuda.synchronize()
         assert not torch.isnan(scores).any() and not torch.isnan(out).any()
-        never = torch.isposinf(lo).any(dim=1)  # rows holding a (+inf, -inf) cell
-        assert never.any() == perturbed and (scores[:, never] == 0).all()
+        assert (scores[:, never] == 0).all()
         if tau == 0.0:
             assert torch.equal(scores, s_ref) and torch.equal(out, m_ref)
         else:
             assert ((scores - s_ref).abs().double() <= soft_score_bound(s_ref, lo.shape[1])).all()
             lim = soft_margin_bound(s_ref, lm, lo.shape[1], extra=K.n_splits(lo.shape[0]) + 2)
             assert ((out - m_ref).abs().double() <= lim).all()
-        assert torch.equal(K.cam_match_soft_cuda(q, lo, hi, lm, m, **kw), out)
-        assert torch.equal(K.cam_match_soft_cuda(q, lo, hi, lm, m, bias, **kw), out + bias)
+        assert torch.equal(K.cam_match_soft_cuda(q, cl, lm, tau=tau), out)
+        assert torch.equal(K.cam_match_soft_cuda(q, cl, lm, bias, tau=tau), out + bias)
+    return bool(never.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tau", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("perturbed", [False, True], ids=["compiled", "perturbed"])
+def test_cuda_soft_kernel_matches_plain_version(card, tau, perturbed):
+    """The soft kernel against the plain version (``_check_soft``); only the
+    perturbed table has never-match real rows."""
+    from repro_torch.kernels import cam_match as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (q, lo, hi, lm, cells), _ = _soft_operands(card, perturbed=perturbed, normal=tau > 0)
+    assert _check_soft(K, q, lo, hi, lm, cells, tau, card) == perturbed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tau", [0.0, 0.1])
+@pytest.mark.parametrize("case", ["B1", "B37-ragged", "perturbed-large-K"])
+def test_cuda_soft_kernel_ragged_and_large_k(card, case, tau):
+    """B = 1, B = 37 on a table whose rows do not tile (never-match
+    padding rows, one listed cell each), and a perturbed table with few
+    wildcards whose rows list more cells than are staged."""
+    from repro_torch.kernels import cam_match as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = {"B1": dict(b=1), "B37-ragged": dict(b=37, r=203),
+          "perturbed-large-K": dict(b=37, r=203, wild=0.05, perturbed=True)}[case]
+    (q, lo, hi, lm, cells), _ = _soft_operands(card, normal=tau > 0, **kw)
+    if case == "perturbed-large-K":
+        assert cells.k > 8  # more than the kernels stage a row
+    if "r" in kw:
+        assert lo.shape[0] > kw["r"] and (cells.count[kw["r"]:] == 1).all()
+    _check_soft(K, q, lo, hi, lm, cells, tau, card)
 
 
 @pytest.mark.gpu
@@ -167,18 +256,16 @@ def test_cuda_soft_tau_zero_equals_direct_kernel(card, normal):
     `direct` kernel's, bit for bit, on normal leaves too."""
     from repro_torch.kernels import cam_match as K
 
-    (q, lo, hi, lm, mask), (low, high, leaf, qi) = _soft_operands(card, normal=normal)
+    (q, lo, hi, lm, cells), (low, high, leaf, qi) = _soft_operands(card, normal=normal)
     ilo, ihi, ilm = ops.pad_tables(low, high, leaf, r_blk=R_BLK, f_blk=F_BLK, n_bins=256)
-    imask = ops.wildcard_tile_mask(ilo, ihi, r_blk=R_BLK, f_blk=F_BLK, n_bins=256,
-                                   inclusive=False)
+    icells = ops.binding_cells(ilo, ihi, n_bins=256, inclusive=False, n_real_rows=R).to(card)
     iq = ops.pad_queries(qi, ilo.shape[1], dtype="int32", device=card)
-    ilo, ihi, ilm, imask = (torch.from_numpy(a).to(card) for a in (ilo, ihi, ilm, imask))
-    direct = K.cam_match_cuda(iq, ilo, ihi, ilm, imask, r_blk=R_BLK, f_blk=F_BLK, mode="direct")
-    soft = K.cam_match_soft_cuda(q, lo, hi, lm, mask, r_blk=R_BLK, f_blk=F_BLK, tau=0.0)
+    ilo, ihi, ilm = (torch.from_numpy(a).to(card) for a in (ilo, ihi, ilm))
+    direct = K.cam_match_cuda(iq, icells, ilm, mode="direct")
+    soft = K.cam_match_soft_cuda(q, cells, lm, tau=0.0)
     assert torch.equal(soft, direct)
     bits = cam_match_bits_ref(iq, ilo, ihi, mode="direct")
-    assert torch.equal(K.soft_scores_cuda(q, lo, hi, mask, r_blk=R_BLK, f_blk=F_BLK, tau=0.0),
-                       bits.float())
+    assert torch.equal(K.soft_scores_cuda(q, cells, tau=0.0), bits.float())
 
 
 @pytest.mark.gpu

@@ -107,7 +107,7 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
 
     monkeypatch.setattr(K, "cam_match_cuda", fake_kernel)
     with pytest.raises(RuntimeError, match="kernel unavailable"):
-        ops.cam_match(FakeCuda(), None, None, None, out_b=1, out_c=1, mode="direct")
+        ops.cam_match(FakeCuda(), None, None, None, None, out_b=1, out_c=1, mode="direct")
     assert calls == ["direct"]
 
 
@@ -132,5 +132,6 @@ def test_cuda_tensor_in_soft_mode_goes_to_the_soft_kernel(monkeypatch):
     monkeypatch.setattr(K, "cam_match_soft_cuda", fake_soft)
     monkeypatch.setattr(K, "cam_match_cuda", fake_hard)
     with pytest.raises(RuntimeError, match="soft kernel unavailable"):
-        ops.cam_match(FakeCuda(), None, None, None, out_b=1, out_c=1, mode="soft", tau=0.25)
+        ops.cam_match(FakeCuda(), None, None, None, None, out_b=1, out_c=1, mode="soft",
+                      tau=0.25)
     assert calls == [0.25]

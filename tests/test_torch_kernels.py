@@ -72,8 +72,10 @@ def test_plain_version_matches_jax(dtype, mode, n_bins, dyadic):
         f_blk=F_BLK, mode=mode, interpret=True,
     ))
     # the port's ops entry on CPU tensors is the plain version (+ bias)
-    via_ops = tops.cam_match(tq, tlo, thi, tlm, *_torch(mask), out_b=B,
-                             out_c=lm.shape[1], r_blk=R_BLK, f_blk=F_BLK, mode=mode).numpy()
+    cells = tops.binding_cells(lo, hi, n_bins=n_bins, inclusive=mode == "inclusive",
+                               n_real_rows=R)
+    via_ops = tops.cam_match(tq, tlo, thi, tlm, cells, out_b=B,
+                             out_c=lm.shape[1], mode=mode).numpy()
     np.testing.assert_array_equal(via_ops, got)
     for other in (ref, pallas):
         if dyadic:
