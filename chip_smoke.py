@@ -32,7 +32,21 @@ Phases, one line (or block) each:
      256 for tau 0 and 0.1 and its moments pass at batch 256, each beside
      its plain version and beside what the cell-list design evaluates
      (listed cells x queries); the cell lists' K, cells per row, bytes and
-     host build time; soft bind time; peak device memory.
+     host build time; soft bind time; peak device memory;
+  6. the tiers on top of the engine, on the phase 4 artifacts (each with
+     the launch counts set to 0 just before it and read just after):
+     serving: ``TableRegistry`` -> ``ServeLoop(flush_rows=256)`` replaying
+     a seeded trace of 2000 single-row requests at its pace (every result
+     == ``cm.predict``), the single-row service latency (a flush per
+     request), and a hot swap to the soft artifact under traffic (results
+     after it == ``soft.predict``); cluster: ``ClusterServer(n_replicas=2)``
+     on the same trace (== the ``ServeLoop`` results), then again with
+     replica 1 crashed midway (every request completes, bit-equal, none
+     shed); scoring: ``score_file`` of 262,144 seeded uint8 rows x 130 from
+     an ``.npy`` in 16384-row chunks, double buffering on, off and on
+     (== ``cm.predict`` in 1024-row batches); the traversal baseline at
+     batch 1, 256 and 1024 (margins == the engine's), its time beside the
+     CAM kernel's.
 
 Every check that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object of the kernels and the contract line
@@ -787,6 +801,193 @@ def phase_soft_times(soft, batches, name, stats) -> None:
     }
 
 
+# -- phase 6: serving, cluster, scoring and the traversal baseline -----------------
+
+
+SERVE_REQUESTS = 2000
+SERVE_GAP_S = 5e-4  # the trace's mean gap between requests: 2000 requests/s
+SCORE_ROWS, SCORE_CHUNK = 262_144, 16_384
+
+
+def latency(s) -> str:
+    """A ``LatencyStats`` as one line of unrounded numbers."""
+    return (f"p50 {s.p50_ms} ms, p99 {s.p99_ms} ms, mean {s.mean_ms} ms, "
+            f"{s.requests_per_s} requests/s, {s.samples_per_s} rows/s, "
+            f"{s.n_requests} requests, {s.n_flushes} flushes")
+
+
+def request_rows(xs: np.ndarray, trace) -> list[np.ndarray]:
+    return [np.take(xs, np.arange(r.row_start, r.row_start + r.n_rows), axis=0, mode="wrap")
+            for r in trace.requests]
+
+
+def counted(label: str) -> int:
+    """The hard and soft kernels' launches since the last reset; a phase
+    that launched neither fails."""
+    n = K.cam_match_cuda.launches + K.cam_match_soft_cuda.launches
+    if n == 0:
+        fail(f"{label}: no kernel launch")
+    return n
+
+
+def serve_trace(marks=()):
+    """The seeded trace of 2000 single-row requests (marks leave the
+    requests as they are) and the rows it replays."""
+    from repro_torch.serve import make_trace
+
+    xs = np.random.default_rng(SEED + 20).integers(0, 256, size=(4096, 130)).astype(np.uint8)
+    return make_trace(["xtime"], SERVE_REQUESTS, seed=SEED + 21, mean_interval_s=SERVE_GAP_S,
+                      mean_rows=1.0, max_rows=1, marks=marks), xs
+
+
+def phase_serving(cm, soft, name, stats):
+    from repro_torch.serve import ServeLoop, TableRegistry, make_trace, replay_trace
+
+    eng = cm.engine()
+    reg = TableRegistry(device=eng.device)
+    if reg.register("xtime", cm).engine is not eng:
+        fail("serving: the registry bound a second engine for the artifact")
+    trace, xs = serve_trace()
+    want = cm.predict(np.concatenate(request_rows(xs, trace)))
+
+    loop = ServeLoop(reg, flush_rows=256)  # window 2 ms
+    reset_launches()
+    res = replay_trace(loop.submit, trace, {"xtime": xs}, speed=1.0)
+    loop.drain()
+    launches = counted("serving")
+    got = [loop.result(h) for h in res.handles]
+    if not np.array_equal(np.concatenate(got), want):
+        fail("serving: ServeLoop results differ from cm.predict")
+    stats["serve_results"] = got  # the cluster phase's oracle
+    s, rep = loop.stats("xtime"), loop.report("xtime")
+    print(f"serve [{name}] ServeLoop(flush_rows=256, window 2 ms), {SERVE_REQUESTS} single-row "
+          f"requests paced at {1 / SERVE_GAP_S:.0f}/s (replayed in {res.wall_s:.3f} s): "
+          f"{latency(s)}; buckets {rep['measured']['buckets']}; {launches} kernel launches; "
+          f"== cm.predict", flush=True)
+
+    # service time: a flush per request (window 0), nothing to wait for
+    quick = ServeLoop(reg, window_s=0.0, flush_rows=256)
+    head = make_trace(["xtime"], 500, seed=SEED + 22, mean_rows=1.0, max_rows=1)
+    reset_launches()
+    res = replay_trace(quick.submit, head, {"xtime": xs}, speed=0)
+    quick.drain()
+    launches = counted("serving, window 0")
+    got = [quick.result(h) for h in res.handles]
+    if not np.array_equal(np.concatenate(got), cm.predict(np.concatenate(request_rows(xs, head)))):
+        fail("serving, window 0: results differ from cm.predict")
+    s = quick.stats("xtime")
+    print(f"serve [{name}] single-row service latency (window 0: one flush, one launch a "
+          f"request, 500 requests back to back): {latency(s)}; {launches} kernel launches",
+          flush=True)
+
+    # a hot swap to the soft artifact under traffic
+    swap = make_trace(["xtime"], 400, seed=SEED + 23, mean_interval_s=SERVE_GAP_S,
+                      mean_rows=1.0, max_rows=1, marks=[(0.5, "swap")])
+    at = swap.marks[0].t
+    reset_launches()
+    res = replay_trace(loop.submit, swap, {"xtime": xs}, speed=1.0,
+                       callbacks={"swap": lambda: reg.register("xtime", soft,
+                                                               deploy=soft.deploy)})
+    loop.drain()
+    hard_n, soft_n = K.cam_match_cuda.launches, K.cam_match_soft_cuda.launches
+    if hard_n == 0 or soft_n == 0:
+        fail(f"hot swap: {hard_n} hard and {soft_n} soft launches")
+    got = [loop.result(h) for h in res.handles]
+    rows = request_rows(xs, swap)
+    before = [i for i, r in enumerate(swap.requests) if r.t < at]
+    after = [i for i, r in enumerate(swap.requests) if r.t >= at]
+    if not np.array_equal(np.concatenate([got[i] for i in before]),
+                          cm.predict(np.concatenate([rows[i] for i in before]))):
+        fail("hot swap: results before the swap differ from cm.predict")
+    if not np.array_equal(np.concatenate([got[i] for i in after]),
+                          soft.predict(np.concatenate([rows[i] for i in after]))):
+        fail("hot swap: results after the swap differ from soft.predict")
+    if reg.version("xtime") != 2 or reg.engine("xtime") is not soft.engine():
+        fail("hot swap: the registry does not serve the soft artifact's engine")
+    print(f"serve [{name}] hot swap to the soft artifact (tau={SOFT_TAU}) under traffic: "
+          f"{len(before)} requests before == cm.predict, {len(after)} after == soft.predict; "
+          f"{hard_n} hard + {soft_n} soft launches", flush=True)
+
+
+def phase_cluster(cm, name, stats):
+    from repro_torch.serve import ClusterServer, replay_trace
+
+    oracle = np.concatenate(stats["serve_results"])  # the ServeLoop's, same trace
+    with ClusterServer(n_replicas=2, device=cm.engine().device, flush_rows=256) as srv:
+        srv.register("xtime", cm)
+        if any(r.registry.engine("xtime") is not cm.engine() for r in srv.replicas.values()):
+            fail("cluster: a replica bound a second engine")
+        for label, marks, callbacks in (
+                ("", (), {}),
+                (" with replica 1 crashed midway", [(0.5, "crash")],
+                 {"crash": lambda: srv.inject_crash(1)})):
+            trace, xs = serve_trace(marks)
+            srv.reset_stats()
+            reset_launches()
+            res = replay_trace(srv.submit, trace, {"xtime": xs}, speed=1.0, callbacks=callbacks)
+            srv.drain(timeout=120)
+            launches = counted("cluster" + label)
+            got = [h.result(10) for h in res.handles]
+            if not np.array_equal(np.concatenate(got), oracle):
+                fail(f"cluster{label}: results differ from the ServeLoop's")
+            rep = srv.report("xtime")
+            if res.shed or rep["shed"]:
+                fail(f"cluster{label}: {res.shed} requests shed")
+            s = srv.stats("xtime")
+            states = {i: r["state"] for i, r in rep["replicas"].items()}
+            print(f"cluster [{name}] ClusterServer(n_replicas=2), the same trace{label}: "
+                  f"{latency(s)}; 0 shed, {rep['failovers']} failovers, replicas {states}, "
+                  f"window {rep['windows_ms']} ms; {launches} kernel launches; == ServeLoop",
+                  flush=True)
+        if srv.report()["failovers"] < 1:
+            fail("cluster: the injected crash caused no failover")
+
+
+def phase_scoring(cm, name):
+    from repro_torch.score import score_file
+
+    xs = np.random.default_rng(SEED + 30).integers(0, 256, size=(SCORE_ROWS, 130)).astype(np.uint8)
+    want = np.concatenate([cm.predict(xs[i:i + 1024]) for i in range(0, SCORE_ROWS, 1024)])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "rows.npy"
+        np.save(path, xs)
+        for db in (True, False, True):
+            reset_launches()
+            r = score_file(cm, path, kind="predict", chunk_rows=SCORE_CHUNK, double_buffer=db)
+            launches = counted("scoring")
+            if launches != r.n_chunks:
+                fail(f"scoring: {launches} launches for {r.n_chunks} chunks")
+            if not np.array_equal(r.values, want):
+                fail(f"scoring (double buffer {db}): differs from cm.predict in 1024-row batches")
+            print(f"score [{name}] score_file {SCORE_ROWS} x 130 uint8 rows "
+                  f"({xs.nbytes / 1e6:.1f} MB .npy), chunk_rows {SCORE_CHUNK} (bucket {r.bucket}), "
+                  f"double buffer {db}: {r.rows_per_s} rows/s ({r.elapsed_s} s, "
+                  f"{r.n_chunks} chunks, {launches} launches); == cm.predict", flush=True)
+
+
+def phase_traversal(ens, cm, batches, name):
+    t0 = time.perf_counter()
+    tb = repro_torch.TraversalBaseline(ens)
+    print(f"traversal [{name}] TraversalBaseline: {tb.feature.shape[0]} trees x "
+          f"{tb.feature.shape[1]} node slots, depth {tb.depth}, built in "
+          f"{time.perf_counter() - t0:.1f} s (host); the JAX package's traversal "
+          f"algorithm in torch ops (gathers + a float32 sum per class), not a tuned GPU "
+          f"library", flush=True)
+    eng = cm.engine()
+    for b in (1, 256, 1024):
+        qd = torch.from_numpy(batches[b]).to(eng.device)
+        if not np.array_equal(tb.raw_margin(qd).cpu().numpy(), cm.raw_margin(batches[b])):
+            fail(f"traversal batch {b}: margins differ from the engine's")
+        trav = sync_time(lambda: tb.raw_margin(qd), 20 if b == 1 else 5)
+        qp = eng._prep_queries(batches[b])
+        a = eng.arrays
+        cam = sync_time(lambda: K.cam_match_cuda(qp, a.cells, a.leaf, eng._bias,
+                                                 mode=eng.kernel_mode), 20 if b == 1 else 5)
+        print(f"traversal [{name}] B={b}: traversal {trav:.4f} ms, CAM kernel {cam:.4f} ms "
+              f"(both warm, back to back, CUDA events; traversal / CAM {trav / cam:.2f}); "
+              f"margins == the engine's", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -821,6 +1022,13 @@ def main() -> int:
     print(f"soft path phase {time.perf_counter() - t0:.1f} s", flush=True)
     phase_times(cm, batches, name, stats)
     phase_soft_times(soft, batches, name, stats)
+    for label, phase in (("serving", lambda: phase_serving(cm, soft, name, stats)),
+                         ("cluster", lambda: phase_cluster(cm, name, stats)),
+                         ("scoring", lambda: phase_scoring(cm, name)),
+                         ("traversal", lambda: phase_traversal(ens, cm, batches, name))):
+        t0 = time.perf_counter()
+        phase()
+        print(f"{label} phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [stats["kernel_line"], stats["soft_kernel_line"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,22 +5,35 @@ slice beside it (ROADMAP.md).  It imports ``torch`` and never ``jax`` or
 anything of ``repro``; artifacts are exchanged through the shared on-disk
 format.  It carries the main path: compiled artifact -> engine -> Hopper
 CAM-match kernel -> ``predict``, and in the soft cell mode
-``predict_proba`` and the leaf-spread uncertainty.
+``predict_proba`` and the leaf-spread uncertainty; on top of the engine,
+the serving tier (``TableRegistry`` -> ``MicroBatcher`` -> ``ServeLoop``,
+and the replicated ``ClusterServer``), streaming ``score_file`` and the
+``TraversalBaseline`` the paper compares against.
 
     repro_torch.api      ``build`` -> ``CompiledModel`` (save/load/predict)
     repro_torch.convert  artifact state <-> the port's ``CompiledModel``
     repro_torch.core     trees, compiler, placement, NoC/perf models,
-                         precision cells, defect injection and the
-                         single-device engine
+                         precision cells, defect injection, the
+                         single-device engine and the traversal baseline
     repro_torch.kernels  table prep, the plain PyTorch version and the
                          CUDA kernels (``kernels/csrc/cam_match.cu``,
                          ``kernels/csrc/cam_match_soft.cu``)
+    repro_torch.serve    registry, micro-batching, the serving loop, the
+                         async cluster and traffic replay
+    repro_torch.score    streaming offline scoring of columnar files
+    repro_torch.ft       heartbeats and straggler detection
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from repro_torch.api import CompiledModel, build
+from repro_torch.core.baselines import TraversalBaseline
 from repro_torch.core.deploy import DeployConfig
 from repro_torch.core.engine import XTimeEngine
+from repro_torch.score import score_file
+from repro_torch.serve import ClusterServer, ServeLoop, TableRegistry
 
-__all__ = ["CompiledModel", "DeployConfig", "XTimeEngine", "build"]
+__all__ = [
+    "ClusterServer", "CompiledModel", "DeployConfig", "ServeLoop", "TableRegistry",
+    "TraversalBaseline", "XTimeEngine", "build", "score_file",
+]

@@ -15,15 +15,19 @@ The port's counterpart of ``repro.api``:
 Artifacts are the JAX package's format byte for byte (the same ``.npz``
 arrays and the same JSON sidecar), so either package loads what the other
 saved; ``repro_torch.convert`` assembles the port's objects from them.
+``engine()`` binds an artifact once per (device, overrides), under a lock,
+so serving replicas that bind at once share one engine.
 Not ported yet (ROADMAP.md): compression levels other than 'off', the
-ingestion frontend, tuning plans (carried through save/load, not
-applied), meshes.
+ingestion frontend, tuning plans (carried through save/load, and a
+``batch_hint`` is accepted, but none is applied), meshes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import threading
+import warnings
 from dataclasses import dataclass
 from pathlib import Path
 from typing import TYPE_CHECKING
@@ -87,8 +91,10 @@ class CompiledModel:
     compression: dict | None = None
 
     def __post_init__(self) -> None:
-        # per-instance engine cache (frozen dataclass => set via object)
+        # per-instance engine cache and the lock its binds run under
+        # (frozen dataclass => set via object)
         object.__setattr__(self, "_engines", {})
+        object.__setattr__(self, "_engine_lock", threading.Lock())
 
     @property
     def chip(self) -> ChipSpec:
@@ -115,21 +121,52 @@ class CompiledModel:
             cfg = cfg.replace(spmd="gspmd")
         return cfg
 
-    def engine(self, device=None, **overrides) -> "XTimeEngine":
+    def engine(self, device=None, *, mesh=None, batch_hint=None, **overrides) -> "XTimeEngine":
         """Lazily bind this artifact to an ``XTimeEngine`` on ``device``
         (``None``: the card).  Repeated calls with the same device and
-        overrides return the same engine."""
+        overrides return the same engine; concurrent first calls bind it
+        once (the others wait for it).
+
+        ``batch_hint`` is accepted for the JAX package's signature and
+        applies nothing: tuning plans are carried, not applied, until the
+        autotuner is ported (ROADMAP.md).  ``mesh`` raises: the
+        multi-device engine is not ported yet."""
         from repro_torch.core.engine import XTimeEngine, resolve_device
 
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh engines are not ported yet (ROADMAP.md, queue 1, "
+                "'multi-device engine'); bind one device with device=..."
+            )
         dev = resolve_device(device)
         key = (str(dev), tuple(sorted(overrides.items())))
-        cached = self._engines.get(key)
-        if cached is None:
-            cached = XTimeEngine.from_config(
-                self.table, self.resolved_deploy(**overrides), device=dev
-            )
-            self._engines[key] = cached
+        with self._engine_lock:
+            cached = self._engines.get(key)
+            if cached is None:
+                cached = XTimeEngine.from_config(
+                    self.table, self.resolved_deploy(**overrides), device=dev
+                )
+                self._engines[key] = cached
         return cached
+
+    def with_deploy(self, deploy: DeployConfig) -> "CompiledModel":
+        """Same compiled tables, different execution config.
+
+        Only the cheap chip-side plans are recomputed, and only when
+        ``batching`` changed (it alters the router program) — the CAM
+        table and core placement are reused as-is, never recompiled.
+        ``deploy.compress`` is pinned to this artifact's actual level.
+        An unchanged config returns this very artifact, engines and all.
+        """
+        if deploy.compress != self.deploy.compress:
+            deploy = deploy.replace(compress=self.deploy.compress)
+        if deploy == self.deploy:
+            return self
+        if deploy.batching == self.deploy.batching:
+            return dataclasses.replace(self, deploy=deploy)
+        noc = plan_noc(self.table, self.placement, batching=deploy.batching)
+        perf = xtime_perf(self.table, self.placement, noc)
+        return dataclasses.replace(self, noc=noc, perf=perf, deploy=deploy)
 
     # -- persistence ---------------------------------------------------------
 
@@ -240,6 +277,51 @@ class CompiledModel:
         rows."""
         q = self._binned(x, "raw_margin")
         return self.engine(device, **overrides).raw_margin(q).cpu().numpy()
+
+    def bin(self, x: np.ndarray) -> np.ndarray:
+        """Deprecated: float queries -> integer bins.  Call :meth:`predict`
+        / :meth:`raw_margin` directly (they bin internally), or
+        ``model.quantizer.transform(x)`` when only the bins are wanted."""
+        warnings.warn(
+            "CompiledModel.bin() is deprecated: call model.predict(x) / "
+            "model.raw_margin(x) directly (they bin float queries "
+            "internally), or model.quantizer.transform(x) for bare bins",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        if self.quantizer is None:
+            raise ValueError(
+                "this artifact has no feature grid attached; bin queries "
+                "with the FeatureQuantizer the model was trained on"
+            )
+        return self.quantizer.transform(np.asarray(x))
+
+    # -- introspection -------------------------------------------------------
+
+    def summary(self) -> dict:
+        """Human-facing one-stop description (examples / logs)."""
+        return {
+            "rows": self.table.n_rows,
+            "features": self.table.n_features,
+            "columns": self.table.n_cols,
+            "compress": self.deploy.compress,
+            "rows_saved": (
+                0 if self.compression is None
+                else int(self.compression.get("rows_saved", 0))
+            ),
+            "trees": self.table.n_trees,
+            "outputs": self.table.n_outputs,
+            "task": self.table.task,
+            "cores_used": self.placement.n_cores_used,
+            "replication": self.placement.replication,
+            "noc": self.noc.config,
+            "latency_ns": round(self.perf.latency_ns, 1),
+            "throughput_msps": round(self.perf.throughput_msps, 2),
+            "backend": self.deploy.backend,
+            "mode": self.deploy.mode,
+            "table_dtype": self.table.table_dtype,
+            "tuned": self.tuning is not None,
+        }
 
 
 def _base_path(path: str | Path) -> Path:

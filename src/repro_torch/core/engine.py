@@ -39,13 +39,18 @@ DEFAULT_DEVICE = "cuda"
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card.  A CUDA device with no card raises: the
-    port never continues on the CPU unless asked to."""
+    port never continues on the CPU unless asked to.  A bare ``'cuda'``
+    resolves to the current card's index, so ``'cuda'`` and ``'cuda:0'``
+    name one device (and share one engine per artifact)."""
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(dev)!r} requested but torch sees no CUDA device; "
-            "pass device='cpu' to run the plain PyTorch version"
-        )
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(dev)!r} requested but torch sees no CUDA device; "
+                "pass device='cpu' to run the plain PyTorch version"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -118,8 +123,16 @@ class XTimeEngine:
             else np.asarray(table.col_perm, dtype=np.int64)
         )
         self.mode = config.mode
+        # b_blk only sizes the serving and scoring buckets; the kernel
+        # tiles the batch itself (see ``batch_multiple``)
+        self.b_blk = config.b_blk
         self.r_blk = config.r_blk
         self.f_blk = config.f_blk
+        # carried for reports: the port dispatches on the device, runs one
+        # device, and so always the single-device collective plan
+        self.backend = config.backend
+        self.spmd = "gspmd"
+        self.noc_config = "accumulate" if config.noc_config == "auto" else config.noc_config
         self.table_dtype = resolve_table_dtype(table, config)
         if get_cell_mode(config.mode).soft:
             self.kernel_mode = "soft"
@@ -189,6 +202,10 @@ class XTimeEngine:
             m_pad = np.zeros((self.arrays.r_pad, c3_pad), dtype=np.float32)
             m_pad[:R, : 3 * C] = np.concatenate([lm, lm * lm, onehot], axis=1)
             self._moments = put(m_pad)
+        if self.device.type == "cuda":
+            # the tables are complete before any stream reads them (serving
+            # replicas launch on streams of their own)
+            torch.cuda.synchronize(self.device)
 
     @classmethod
     def from_config(

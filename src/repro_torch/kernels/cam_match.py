@@ -19,17 +19,19 @@ wrappers take CUDA tensors only; they check device, dtype, shape and
 contiguity (the list checked its own counts when it was made), allocate
 the outputs and the split workspace with ``torch.empty``, launch on the
 current stream, raise on a non-zero ``cudaError_t`` and count their
-launches (``<wrapper>.launches``).
+launches (``<wrapper>.launches``).  The build and the load run under one
+lock: threads of a process that first launch at once build the library
+once, and the others wait for it.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -56,6 +58,11 @@ QUERIES_PER_TILE = 32
 _DTYPE_CODE = {torch.uint8: 0, torch.uint16: 1, torch.int32: 2}
 _MODE_CODE = {"direct": 0, "inclusive": 1, "msb_lsb": 2, "two_cycle": 3}
 _INT32_ONLY = ("msb_lsb", "two_cycle")
+
+# re-entrant: _library() builds under it, and build() takes it too
+_BUILD_LOCK = threading.RLock()
+_LIB: ctypes.CDLL | None = None
+_COUNT_LOCK = threading.Lock()
 
 
 @dataclass(frozen=True)
@@ -90,7 +97,13 @@ def _run(cmds: list[list[str]]) -> str:
 
 def build() -> BuildInfo:
     """Compile the kernel library unless these exact sources are built:
-    one ``nvcc -c`` per source, started together, then one link."""
+    one ``nvcc -c`` per source, started together, then one link.  One
+    thread at a time: the others wait and then find the library built."""
+    with _BUILD_LOCK:
+        return _build_locked()
+
+
+def _build_locked() -> BuildInfo:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in (*SOURCES, *HEADERS):
         digest.update(src.name.encode())
@@ -116,9 +129,20 @@ def build() -> BuildInfo:
     return BuildInfo(lib, seconds, text)
 
 
-@functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build().path))
+    """The loaded kernel library, built and bound on first use (once per
+    process, whichever thread comes first)."""
+    global _LIB
+    lib = _LIB
+    if lib is None:
+        with _BUILD_LOCK:
+            if _LIB is None:
+                _LIB = _bind(ctypes.CDLL(str(build().path)))
+            lib = _LIB
+    return lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     cells = [p, p, p, p, i]  # count, feat, lo, hi, K
     rest = [
@@ -211,6 +235,12 @@ def _launch(entry: str, head: tuple, q, cells: CellList, leaf, bias, *, ws, out,
         )
 
 
+def _counted(wrapper) -> None:
+    """One more launch of ``wrapper``'s kernel; replica threads launch at once."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def _hard(q, mode) -> tuple:
     return _DTYPE_CODE[q.dtype], _MODE_CODE[mode]
 
@@ -243,7 +273,7 @@ def cam_match_cuda(
     ws = torch.empty((n_splits(R), B, C), dtype=torch.float32, device=q.device)
     _launch("xtime_cam_match", _hard(q, mode), q, cells, leaf, bias, ws=ws, out=out,
             extra=None)
-    cam_match_cuda.launches += 1
+    _counted(cam_match_cuda)
     return out
 
 
@@ -260,7 +290,7 @@ def cam_match_bits_cuda(q: torch.Tensor, cells: CellList, *, mode: str = "direct
     words = torch.empty((n_words, R), dtype=torch.int32, device=q.device)
     _launch("xtime_cam_match", _hard(q, mode), q, cells, None, None, ws=None, out=None,
             extra=words)
-    cam_match_bits_cuda.launches += 1
+    _counted(cam_match_bits_cuda)
     shifts = torch.arange(QUERIES_PER_TILE, device=q.device, dtype=torch.int32)
     unpacked = (words[:, None, :] >> shifts[None, :, None]) & 1  # (words, 32, R)
     return unpacked.reshape(n_words * QUERIES_PER_TILE, R)[:B].to(torch.bool)
@@ -289,7 +319,7 @@ def cam_match_soft_cuda(
     ws = torch.empty((n_splits(R), B, C), dtype=torch.float32, device=q.device)
     _launch("xtime_cam_match_soft", _soft(tau), q, cells, leaf, bias, ws=ws, out=out,
             extra=None)
-    cam_match_soft_cuda.launches += 1
+    _counted(cam_match_soft_cuda)
     return out
 
 
@@ -305,7 +335,7 @@ def soft_scores_cuda(q: torch.Tensor, cells: CellList, *, tau: float) -> torch.T
         return scores
     _launch("xtime_cam_match_soft", _soft(tau), q, cells, None, None, ws=None, out=None,
             extra=scores)
-    soft_scores_cuda.launches += 1
+    _counted(soft_scores_cuda)
     return scores
 
 

@@ -1,0 +1,228 @@
+"""Multi-model table registry for the serving engine.
+
+The port of ``repro.serve.registry``.  One serving process holds MANY
+compiled models (one per customer table / model version) on one device.
+Each entry is a ``ServedModel`` wrapped around a
+``repro_torch.api.CompiledModel`` artifact — the registry accepts a
+trained ``Ensemble`` (compiles it), a raw ``CAMTable`` (places it), or a
+``CompiledModel`` loaded from disk (the cold-start path: installed as-is,
+zero recompilation, no training imports), and binds the artifact's
+``DeployConfig`` to the registry's ``device`` (``None``: the card, which
+raises where there is none).  The artifact binds each engine once, so
+registries that install the same artifact (the cluster's replicas) share
+one engine.
+
+Hot swap: re-registering a name atomically replaces its engine and bumps
+the version; in-flight flushes keep the old engine object (Python
+reference semantics) and the next flush picks up the new table.  Serving
+settings (``batching``, the deploy config) carry over across swaps unless
+explicitly overridden, so a swap changes the TABLE, not the
+configuration.
+
+Thread safety: every registry operation (register/swap/unregister and
+all lookups) runs under one re-entrant lock, so the async cluster tier
+(``repro_torch.serve.cluster``) can hot-swap from a control thread while
+worker threads resolve entries — a reader sees either the old or the
+new ``ServedModel``, never a torn one.  ``register`` holds the lock
+across its read-modify-write (version bump + settings carry-over), which
+serializes concurrent swaps of the same name.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+
+from repro_torch.api import CompiledModel, build
+from repro_torch.core.compile import CAMTable, ChipSpec, CorePlacement
+from repro_torch.core.deploy import DeployConfig
+from repro_torch.core.engine import XTimeEngine, resolve_device
+from repro_torch.core.noc import NoCPlan
+from repro_torch.core.perfmodel import PerfReport
+from repro_torch.core.trees import Ensemble
+
+
+@dataclass
+class ServedModel:
+    """One registry entry: the live engine around its compiled artifact."""
+
+    name: str
+    version: int
+    artifact: CompiledModel
+    engine: XTimeEngine
+    batching: bool = False  # retained across hot swaps
+
+    # artifact views (kept as properties so the artifact stays the single
+    # source of truth; ``entry.table`` etc. remain stable public names)
+
+    @property
+    def table(self) -> CAMTable:
+        return self.artifact.table
+
+    @property
+    def placement(self) -> CorePlacement:
+        return self.artifact.placement
+
+    @property
+    def noc(self) -> NoCPlan:
+        return self.artifact.noc
+
+    @property
+    def perf(self) -> PerfReport:
+        """Analytic chip numbers for this exact mapping."""
+        return self.artifact.perf
+
+    @property
+    def deploy(self) -> DeployConfig:
+        return self.artifact.deploy
+
+    @property
+    def tuning(self) -> dict | None:
+        """Persisted autotune plan of the artifact (carried, not applied:
+        the autotuner is not ported yet); None when never autotuned."""
+        return self.artifact.tuning
+
+    @property
+    def compression(self) -> dict | None:
+        """``CompressionReport`` dict of the JAX package's pass that
+        produced this table; None for compress='off'.  Hot swaps keep
+        each artifact's own report (``with_deploy`` pins ``compress``)."""
+        return self.artifact.compression
+
+
+class TableRegistry:
+    """Compile/load, hold and hot-swap named models sharing one device."""
+
+    def __init__(
+        self,
+        *,
+        device=None,
+        chip_spec: ChipSpec | None = None,
+        deploy: DeployConfig | None = None,
+    ) -> None:
+        self.device = resolve_device(device)
+        self.chip_spec = chip_spec
+        self.deploy = deploy  # None => per-model defaults / artifact config
+        self._models: dict[str, ServedModel] = {}
+        self._lock = threading.RLock()
+
+    # -- registration --------------------------------------------------------
+
+    def register(
+        self,
+        name: str,
+        model: Ensemble | CAMTable | CompiledModel,
+        *,
+        batching: bool | None = None,
+        deploy: DeployConfig | None = None,
+    ) -> ServedModel:
+        """Install ``model`` under ``name`` (compiling only if needed).
+
+        ``Ensemble`` / ``CAMTable`` inputs run the compiler pipeline via
+        ``repro_torch.api.build``; a ``CompiledModel`` is installed as-is
+        — the serve cold-start path recompiles nothing.  Registering an
+        existing name is the hot-swap path: the entry is replaced
+        atomically and its version incremented, with the previous
+        registration's ``batching``/deploy settings carried over unless
+        overridden.
+        """
+        with self._lock:
+            return self._register_locked(name, model, batching=batching, deploy=deploy)
+
+    def _register_locked(
+        self,
+        name: str,
+        model: Ensemble | CAMTable | CompiledModel,
+        *,
+        batching: bool | None = None,
+        deploy: DeployConfig | None = None,
+    ) -> ServedModel:
+        prev = self._models.get(name)
+        # base config precedence: explicit deploy > carried-over previous
+        # registration > the artifact's own config > registry default
+        if deploy is not None:
+            base = deploy
+        elif prev is not None:
+            base = prev.deploy
+        elif isinstance(model, CompiledModel):
+            base = model.deploy
+        else:
+            base = self.deploy or DeployConfig()
+        if batching is None:
+            batching = base.batching
+        cfg = base.replace(batching=batching)
+
+        if isinstance(model, CompiledModel):
+            artifact = model.with_deploy(cfg)  # never recompiles the table
+        else:
+            artifact = build(model, deploy=cfg, chip=self.chip_spec)
+
+        entry = ServedModel(
+            name=name,
+            version=self.version(name) + 1,
+            artifact=artifact,
+            engine=artifact.engine(self.device),
+            batching=batching,
+        )
+        self._models[name] = entry
+        return entry
+
+    def swap(
+        self, name: str, model: Ensemble | CAMTable | CompiledModel, **kw
+    ) -> ServedModel:
+        """Hot-swap: like ``register`` but the name must already exist."""
+        with self._lock:
+            if name not in self._models:
+                raise KeyError(f"cannot swap unknown model {name!r}")
+            return self._register_locked(name, model, **kw)
+
+    def unregister(self, name: str) -> None:
+        with self._lock:
+            try:
+                del self._models[name]
+            except KeyError:
+                raise KeyError(
+                    f"unknown model {name!r}; registered: {sorted(self._models)}"
+                ) from None
+
+    # -- lookup --------------------------------------------------------------
+
+    def get(self, name: str) -> ServedModel:
+        with self._lock:
+            try:
+                return self._models[name]
+            except KeyError:
+                raise KeyError(
+                    f"unknown model {name!r}; registered: {sorted(self._models)}"
+                ) from None
+
+    def engine(self, name: str) -> XTimeEngine:
+        return self.get(name).engine
+
+    def engine_for_batch(self, name: str, batch: int) -> XTimeEngine:
+        """The engine serving ``batch``-sized requests of ``name``: the
+        entry's engine, since the port applies no tuning plan yet (a
+        tuned artifact's per-bucket dispatch waits for the autotuner,
+        ROADMAP.md)."""
+        return self.get(name).engine
+
+    def artifact(self, name: str) -> CompiledModel:
+        return self.get(name).artifact
+
+    def version(self, name: str) -> int:
+        """Current version of ``name`` (0 if never registered)."""
+        with self._lock:
+            entry = self._models.get(name)
+            return entry.version if entry is not None else 0
+
+    def names(self) -> list[str]:
+        with self._lock:
+            return sorted(self._models)
+
+    def __contains__(self, name: str) -> bool:
+        with self._lock:
+            return name in self._models
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._models)

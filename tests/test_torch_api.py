@@ -146,3 +146,30 @@ def test_whole_slice_at_smoke_widths():
     np.testing.assert_array_equal(tcm.raw_margin(q, device="cpu"), tens.raw_margin(q))
     np.testing.assert_array_equal(tcm.predict(q, device="cpu"), np.asarray(jcm.predict(q)))
     np.testing.assert_array_equal(tcm.predict(q, device="cpu"), tens.predict(q))
+
+
+def test_summary_with_deploy_bin_and_engine_match_jax(tmp_path):
+    """``summary``, ``with_deploy`` and the deprecated ``bin`` behave as
+    the JAX package's; the engine reports the JAX engine's attributes;
+    ``batch_hint`` binds no second engine and ``mesh`` is refused."""
+    dump = FIXTURES / "xgb_deep.json"
+    x = _expected(dump)["x"]
+    jcm = japi.build(str(dump))
+    jcm.save(tmp_path / "j")
+    tcm = repro_torch.CompiledModel.load(tmp_path / "j")
+    assert tcm.summary() == jcm.summary()
+    for change in ({"batching": True}, {"b_blk": 64}, {}):
+        jd, td = jcm.with_deploy(jcm.deploy.replace(**change)), tcm.with_deploy(
+            tcm.deploy.replace(**change))
+        assert td.summary() == jd.summary() and td.deploy.to_dict() == jd.deploy.to_dict()
+    assert tcm.with_deploy(tcm.deploy) is tcm
+    with pytest.warns(DeprecationWarning, match="CompiledModel.bin"):
+        got = tcm.bin(x)
+    with pytest.warns(DeprecationWarning, match="CompiledModel.bin"):
+        np.testing.assert_array_equal(got, jcm.bin(x))
+    eng, jeng = tcm.engine("cpu"), jcm.engine()
+    for name in ("b_blk", "backend", "spmd", "noc_config", "batch_multiple", "table_dtype"):
+        assert getattr(eng, name) == getattr(jeng, name), name
+    assert tcm.engine("cpu", batch_hint=4096) is eng
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        tcm.engine("cpu", mesh=object())

@@ -301,3 +301,130 @@ def test_soft_engine_and_moments_pass_on_the_card(card, tau):
         err = (mom.to(card) - cam_match_ref(qp, a.low, a.high, gpu._moments, mode="soft",
                                             tau=tau)[:, :15]).abs().double()
         assert (err <= lim[:, :15]).all()
+
+
+# -- the serving, scoring and baseline tiers on the card ----------------------------
+
+
+def _tier_model():
+    """40 trees of depth 6 (k/16 leaves: every sum is exact in any order)."""
+    ens = random_deep_ensemble(n_trees=40, depth=6, n_features=30, n_bins=256,
+                               task="multiclass", n_classes=5, seed=3)
+    q = np.random.default_rng(5).integers(0, 256, size=(300, 30)).astype(np.uint8)
+    return ens, repro_torch.build(ens), q
+
+
+@pytest.mark.gpu
+def test_microbatcher_on_the_card_equals_engine_predict(card):
+    from repro_torch.kernels import cam_match as K
+    from repro_torch.serve import MicroBatcher
+
+    ens, cm, q = _tier_model()
+    eng = cm.engine()
+    assert eng.device.type == "cuda"
+    mb = MicroBatcher.for_engine(eng, max_batch=256)
+    mbm = MicroBatcher.for_engine(eng, max_batch=256, kind="margin")
+    sizes, ids, row = [1, 3, 1, 7, 2, 1, 17, 1, 40], [], 0
+    for s in sizes:
+        ids.append((mb.submit(q[row:row + s]), mbm.submit(q[row:row + s]), q[row:row + s]))
+        row += s
+    before = K.cam_match_cuda.launches
+    out, outm = mb.flush(), mbm.flush()
+    assert K.cam_match_cuda.launches == before + 2  # one launch a flush
+    for rid, ridm, chunk in ids:
+        np.testing.assert_array_equal(out[rid], eng.predict(chunk).cpu().numpy())
+        np.testing.assert_array_equal(outm[ridm], ens.raw_margin(chunk))
+
+
+@pytest.mark.gpu
+def test_cluster_on_the_card_equals_serve_loop_through_a_crash(card):
+    from repro_torch.serve import ClusterServer, ServeLoop, TableRegistry, make_trace, replay_trace
+
+    _, cm, q = _tier_model()
+    trace = make_trace(["m"], 200, seed=7, mean_interval_s=1e-4, marks=[(0.5, "crash")])
+    reg = TableRegistry()
+    reg.register("m", cm)
+    loop = ServeLoop(reg, window_s=100.0, flush_rows=16, max_batch=128)
+    oracle = replay_trace(loop.submit, trace, {"m": q}, speed=0)
+    loop.drain()
+    want = [loop.result(h) for h in oracle.handles]
+    with ClusterServer(n_replicas=2, flush_rows=16, max_batch=128) as srv:
+        srv.register("m", cm)
+        assert all(r.stream is not None for r in srv.replicas.values())
+        res = replay_trace(srv.submit, trace, {"m": q}, speed=0,
+                           callbacks={"crash": lambda: srv.inject_crash(1)})
+        srv.drain(timeout=60)
+        for h, w in zip(res.handles, want):
+            np.testing.assert_array_equal(h.result(5), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk_rows", [1000, 64, 37])
+def test_score_file_on_the_card_chunked_equals_one_shot(card, chunk_rows):
+    from repro_torch.kernels import cam_match as K
+
+    ens, cm, q = _tier_model()
+    one_shot = cm.raw_margin(q)
+    np.testing.assert_array_equal(one_shot, ens.raw_margin(q))
+    before = K.cam_match_cuda.launches
+    on = repro_torch.score_file(cm, q, kind="margin", chunk_rows=chunk_rows)
+    assert K.cam_match_cuda.launches == before + on.n_chunks
+    off = repro_torch.score_file(cm, q, kind="margin", chunk_rows=chunk_rows,
+                                 double_buffer=False)
+    pred = repro_torch.score_file(cm, q, kind="predict", chunk_rows=chunk_rows)
+    np.testing.assert_array_equal(on.values, one_shot)
+    np.testing.assert_array_equal(off.values, one_shot)
+    np.testing.assert_array_equal(pred.values, ens.predict(q))
+    assert on.engine["device"].startswith("cuda")
+
+
+@pytest.mark.gpu
+def test_score_file_on_the_card_while_kernels_run(card):
+    """Chunks whose kernels take milliseconds: the copy of chunk i+1 runs
+    while chunk i's kernel still reads its queries, so a device buffer the
+    copy stream writes must never be memory that kernel was given."""
+    ens = random_deep_ensemble(n_trees=2048, depth=8, n_features=130, n_bins=256,
+                               task="multiclass", n_classes=8, seed=4)
+    cm = repro_torch.build(ens)
+    q = np.random.default_rng(8).integers(0, 256, size=(8192, 130)).astype(np.uint8)
+    want = np.concatenate([cm.raw_margin(q[i:i + 512]) for i in range(0, q.shape[0], 512)])
+    np.testing.assert_array_equal(want[:64], ens.raw_margin(q[:64]))
+    for chunk in (1024, 4096):
+        for db in (True, False):
+            r = repro_torch.score_file(cm, q, kind="margin", chunk_rows=chunk, double_buffer=db)
+            np.testing.assert_array_equal(r.values, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("task", ["multiclass", "binary", "regression"])
+def test_traversal_baseline_on_the_card(card, task):
+    ens = random_deep_ensemble(n_trees=40, depth=6, n_features=30, n_bins=256, task=task,
+                               n_classes=5 if task == "multiclass" else 1, seed=3)
+    q = np.random.default_rng(6).integers(0, 256, size=(257, 30)).astype(np.uint8)
+    tb = repro_torch.TraversalBaseline(ens)
+    got = tb.raw_margin(q)
+    assert got.is_cuda
+    np.testing.assert_array_equal(got.cpu().numpy(), ens.raw_margin(q))
+    np.testing.assert_array_equal(tb.predict(q), ens.predict(q))
+
+
+@pytest.mark.gpu
+def test_eight_threads_bind_one_engine_on_the_card(card):
+    import threading
+
+    _, cm, q = _tier_model()
+    barrier, engines = threading.Barrier(8), []
+
+    def bind():
+        barrier.wait(timeout=60)
+        engines.append(cm.engine())
+
+    threads = [threading.Thread(target=bind) for _ in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    assert len(engines) == 8 and all(e is engines[0] for e in engines)
+    assert len(cm._engines) == 1
+    np.testing.assert_array_equal(engines[0].predict(q).cpu().numpy(), cm.predict(q))

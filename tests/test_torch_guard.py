@@ -36,7 +36,12 @@ def test_every_module_is_listed():
     for want in ("repro_torch.api", "repro_torch.convert", "repro_torch.core.engine",
                  "repro_torch.kernels.cam_match", "repro_torch.kernels.ops",
                  "repro_torch.kernels.ref", "repro_torch.core.precision",
-                 "repro_torch.core.defects"):
+                 "repro_torch.core.defects", "repro_torch.core.baselines",
+                 "repro_torch.core.tune", "repro_torch.ft.runtime",
+                 "repro_torch.serve.batching", "repro_torch.serve.registry",
+                 "repro_torch.serve.traffic", "repro_torch.serve.loop",
+                 "repro_torch.serve.cluster", "repro_torch.score.reader",
+                 "repro_torch.score.writer", "repro_torch.score.pipeline"):
         assert want in mods
 
 
@@ -79,11 +84,16 @@ def _small_model():
 def test_default_device_is_the_card(monkeypatch):
     """Without ``device`` every entry point binds CUDA; with no card it
     raises a clear error and never continues on the CPU."""
+    from repro_torch.serve import ClusterServer, TableRegistry
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ens, cm = _small_model()
     x = np.zeros((3, 5), dtype=np.uint8)
     for call in (lambda: cm.predict(x), lambda: cm.raw_margin(x),
-                 lambda: cm.engine(), lambda: XTimeEngine(cm.table)):
+                 lambda: cm.engine(), lambda: XTimeEngine(cm.table),
+                 lambda: TableRegistry(), lambda: ClusterServer(n_replicas=1),
+                 lambda: repro_torch.score_file(cm, x),
+                 lambda: repro_torch.TraversalBaseline(ens)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # the CPU is used only when asked for
