@@ -11,7 +11,8 @@ Phases, one line (or block) each:
      kernel at tau 0, 0.1 and 0.5 (scores, margins, tau = 0 against the
      int32 `direct` kernel, the moments pass), each on the table's cell
      list as built and widened past the staged slots, bias fused and
-     unfused, at b256/r16384/f130/c8 and a ragged small shape;
+     unfused, at b256/r16384/f130/c8, a ragged small shape and tables
+     2,048 and 8,192 features wide (past the staged query window);
   4. the main paths at the full width of xtime-tabular (4096 trees of
      depth 8, 130 features, 256 bins, 8 classes), each with the launch
      counts set to 0 just before it and read just after:
@@ -46,7 +47,24 @@ Phases, one line (or block) each:
      an ``.npy`` in 16384-row chunks, double buffering on, off and on
      (== ``cm.predict`` in 1024-row batches); the traversal baseline at
      batch 1, 256 and 1024 (margins == the engine's), its time beside the
-     CAM kernel's.
+     CAM kernel's;
+  7. models in (each run with the launch counts set to 0 just before it
+     and read just after): the 8 golden dumps of tests/fixtures/ingest
+     through ``build(path)`` == their records; the xtime-tabular ensemble
+     exported by ``to_xgboost_json`` with float thresholds, built from the
+     dump at 'off' and 'prune' (== the native ensemble and each other bit
+     for bit at B = 1, 256, 1024; rows, K, cells a row and the host
+     seconds of each step; the uint8 kernel's time at B = 256 and 1024;
+     ``score_file`` on the 'prune' artifact); the paper-scale smoke shape
+     (512 trees x depth 8, 32 features) at every level, bit-equal to
+     'off', and soft tau = 0.1 on 'full' against its plain version; the
+     degenerate tables compression leaves (one sentinel row, one column)
+     against the plain version; ``random_search`` GBDT and RF winners on
+     churn and a 3-round GBDT on gas, built at 'auto' and served, equal to
+     ``Ensemble.predict``; a model 8,000 features wide (past every
+     variant's staged query window) through every hard variant and the
+     soft kernel and its moments pass, held to the traversal or the plain
+     version and timed.
 
 Every check that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object of the kernels and the contract line
@@ -125,12 +143,14 @@ def ptxas_report(log: str) -> list[str]:
         m = re.search(r"Function properties for (\S+)", ln)
         if not m:
             continue
-        k = re.search(r"cam_match_kernelI([hti])NS_\d+(\w+?)EEEv", m.group(1))
-        sk = re.search(r"cam_match_soft_kernelILb([01])E", m.group(1))
+        k = re.search(r"cam_match_kernelI([hti])NS_\d+(\w+?)ELb([01])EEEv", m.group(1))
+        sk = re.search(r"cam_match_soft_kernelILb([01])ELb([01])E", m.group(1))
         if k:
-            name = f"cam_match<{_TYPES[k.group(1)]}, {k.group(2)}>"
+            wide = ", wide" if k.group(3) == "1" else ""
+            name = f"cam_match<{_TYPES[k.group(1)]}, {k.group(2)}{wide}>"
         elif sk:
-            name = f"cam_match_soft<{'tau=0' if sk.group(1) == '1' else 'tau>0'}>"
+            wide = ", wide" if sk.group(2) == "1" else ""
+            name = f"cam_match_soft<{'tau=0' if sk.group(1) == '1' else 'tau>0'}{wide}>"
         else:
             name = "reduce_splits"
         used = lines[i + 2].split(":", 1)[-1].strip()
@@ -180,6 +200,38 @@ def ragged_problem(rng, dev):
                 n_bins=n_bins, r_blk=32, f_blk=16)
 
 
+# padded widths past the staged query window: of the int32 and soft
+# variants at 2,048 (1,536 and 1,408 features fit), of every variant at 8,192
+WIDE_WIDTHS = (2048, 8192)
+
+
+def wide_problem(rng, f):
+    """b40/r2048/f<f>/c3 on a 200-bin grid: 12 listed cells a row at
+    random features, one of them among the last 512; every 4th row widened
+    to hold a query.  The 32-query tile walks a row a warp, the 8-query
+    tail a (row, query) pair a thread."""
+    r, b, n_bins = 2048, 40, 200
+    low = np.zeros((r, f), np.int32)
+    high = np.full((r, f), n_bins, np.int32)
+    q = rng.integers(0, n_bins, size=(b, f))
+    for i in range(r):
+        cols = rng.choice(f - 512, size=11, replace=False).tolist() + [int(rng.integers(f - 512, f))]
+        lo = rng.integers(0, n_bins - 1, size=12)
+        hi = np.minimum(n_bins, lo + rng.integers(1, n_bins // 2, size=12))
+        if i % 4 == 0:
+            lo, hi = np.minimum(lo, q[i % b, cols]), np.maximum(hi, q[i % b, cols] + 1)
+        low[i, cols], high[i, cols] = lo, hi
+    leaf = (rng.integers(-16, 17, size=(r, 3)) / 16.0).astype(np.float32)
+    return dict(name=f"b{b}/r{r}/f{f}/c3", low=low, high=high, leaf=leaf, q=q,
+                n_bins=n_bins, r_blk=256, f_blk=128)
+
+
+def problems(rng, dev):
+    """The shapes phase 3 holds every kernel variant to its plain version at."""
+    return (tree_problem(rng, dev), ragged_problem(rng, dev),
+            *(wide_problem(rng, f) for f in WIDE_WIDTHS))
+
+
 # (table dtype, mode, inclusive encoding): every instantiation of the kernel
 VARIANTS = [
     ("int32", "direct", False), ("int32", "inclusive", True),
@@ -223,7 +275,7 @@ WIDE_K = 40  # past the 8 cells a row the kernels stage
 
 def phase_kernel(dev, stats) -> None:
     rng = np.random.default_rng(SEED)
-    for p in (tree_problem(rng, dev), ragged_problem(rng, dev)):
+    for p in problems(rng, dev):
         normal = rng.normal(size=p["leaf"].shape).astype(np.float32)
         normal[p["leaf"] == 0] = 0.0  # keep the class routing of each row
         int32_out = {}
@@ -305,7 +357,8 @@ def phase_soft_kernel(dev, stats) -> None:
     the moments pass."""
     rng = np.random.default_rng(SEED + 10)
     worst = 0.0  # largest |err| / bound over the tau > 0 checks
-    for p in (tree_problem(rng, dev), perturb(ragged_problem(rng, dev), rng)):
+    tree, ragged, *wide = problems(rng, dev)
+    for p in (tree, perturb(ragged, rng), *wide):
         normal = rng.normal(size=p["leaf"].shape).astype(np.float32)
         normal[p["leaf"] == 0] = 0.0  # keep the class routing of each row
         q, lo, hi, lm, cells = soft_operands(p, p["leaf"], dev)
@@ -671,8 +724,14 @@ def phase_times(cm, batches, name, stats) -> None:
         return sync_time(lambda: ref.cam_match_ref(qp, a.low, a.high, a.leaf,
                                                    mode=eng.kernel_mode), 2, warmup=1)
 
-    rows = {}
+    rows, variant_launches = {}, {}
+    main_256 = cm.raw_margin(batches[256])
     for label, overrides in TIMED:
+        if overrides:  # this variant's path: cm.raw_margin(x, **overrides)
+            reset_launches()
+            if not np.array_equal(cm.raw_margin(batches[256], **overrides), main_256):
+                fail(f"{label}: margins differ from the main path's")
+            variant_launches[label] = counted(label)
         eng = cm.engine(**overrides)
         for b in ((256, 1, 1024) if not overrides else (256,)):
             qp = eng._prep_queries(batches[b])
@@ -700,14 +759,14 @@ def phase_times(cm, batches, name, stats) -> None:
           f"{binding_bounds(eng)} of {2 * eng.table.n_rows * eng.table.n_cols} "
           f"(table cells x 2)", flush=True)
     ms, plain_ms, bnd, by = rows["uint8/inclusive", 256]
-    stats["kernel_line"] = {
-        "name": "cam_match", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/cam_match.cu",
-        "replaces": "src/repro/kernels/cam_match.py:90",
-        "launches": stats["launches"], "max_abs_err": stats["max_abs_err"],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-        "library_ms": None,
-    }
+    stats["kernel_line"] = kernel_entry("cam_match", "cam_match.cu", stats["launches"],
+                                        stats["max_abs_err"], ms, plain_ms, bnd, by)
+    stats["variant_lines"] = [
+        kernel_entry(f"cam_match[{label}]", "cam_match.cu", variant_launches[label],
+                     stats["max_abs_err"], *rows[label, 256])
+        for label, overrides in TIMED if overrides]
+    print(f"times [{name}] variant paths cm.raw_margin(x, **overrides) at B=256 == the main "
+          f"path's margins; launches {variant_launches}", flush=True)
 
 
 def finite_bounds(eng: XTimeEngine) -> int:
@@ -791,14 +850,14 @@ def phase_soft_times(soft, batches, name, stats) -> None:
           f"hard and soft engines bound: {stats['soft_peak_bytes'] / 2**30:.2f} GiB "
           f"(allocated now {torch.cuda.memory_allocated() / 2**30:.2f} GiB)", flush=True)
     ms, plain_ms, bnd, by = rows[SOFT_TAU, 256, "margin"]
-    stats["soft_kernel_line"] = {
-        "name": "cam_match_soft", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/cam_match_soft.cu",
-        "replaces": "src/repro/kernels/cam_match.py:90",
-        "launches": stats["soft_launches"], "max_abs_err": stats["soft_max_abs_err"],
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-        "library_ms": None,
-    }
+    stats["soft_kernel_line"] = kernel_entry("cam_match_soft", "cam_match_soft.cu",
+                                             stats["soft_launches"], stats["soft_max_abs_err"],
+                                             ms, plain_ms, bnd, by)
+    stats["soft_variant_lines"] = [
+        kernel_entry(f"cam_match_soft[{label}]", "cam_match_soft.cu", stats["soft_launches"],
+                     stats["soft_max_abs_err"], *rows[key])
+        for label, key in (("tau=0", (0.0, 256, "margin")),
+                           (f"tau={SOFT_TAU} moments", (SOFT_TAU, 256, "moments")))]
 
 
 # -- phase 6: serving, cluster, scoring and the traversal baseline -----------------
@@ -988,6 +1047,436 @@ def phase_traversal(ens, cm, batches, name):
               f"margins == the engine's", flush=True)
 
 
+
+# -- phase 7: models in --------------------------------------------------------
+
+
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "ingest"
+# scripts/paper_scale_smoke.py's model: where the merge finishes in seconds
+PAPER_SCALE = dict(n_trees=512, depth=8, n_features=32, n_bins=256, p_dup=0.5,
+                   seed=20260808)
+WIDE_FEATURES, WIDE_BATCH = 8000, 256  # the wide model: F_pad 8,064
+
+
+class StepTimes:
+    """Host seconds of the steps of ``build`` and of an engine bind, by
+    wrapping the functions they call for as long as the ``with`` lasts:
+    parse (``load_model``), lower, compile, compress, the chip plans
+    (placement, NoC, perf) and the cell list."""
+
+    def __init__(self):
+        import repro_torch.api as api
+        import repro_torch.ingest as ingest
+
+        self.s: dict[str, float] = {}
+        self._targets = [(ingest, "load_model", "parse"), (ingest, "lower_to_ensemble", "lower"),
+                         (api, "compile_ensemble", "compile"), (api, "compress_table", "compress"),
+                         (api, "pack_cores", "plans"), (api, "plan_noc", "plans"),
+                         (api, "xtime_perf", "plans"), (ops, "binding_cells", "cell list")]
+        self._saved = []
+
+    def __enter__(self):
+        for mod, attr, label in self._targets:
+            fn = getattr(mod, attr)
+            self._saved.append((mod, attr, fn))
+            setattr(mod, attr, self._wrap(fn, label))
+        return self
+
+    def _wrap(self, fn, label):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.s[label] = self.s.get(label, 0.0) + time.perf_counter() - t0
+        return timed
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+
+
+def table_line(cm, eng) -> str:
+    cnt = eng.arrays.cells.count[: cm.table.n_rows].double()
+    return (f"{cm.table.n_rows} rows x {cm.table.n_cols} columns (F_pad {eng.arrays.f_pad}), "
+            f"cell list K = {eng.arrays.cells.k}, cells per row mean {float(cnt.mean()):.3f} "
+            f"max {int(cnt.max())}")
+
+
+def phase_goldens(name) -> None:
+    """Every golden dump of tests/fixtures/ingest through ``build(path)``
+    on the card: the recorded answers (tests/test_torch_api.py's check)."""
+    dumps = sorted(p for p in FIXTURES.iterdir()
+                   if p.suffix in (".json", ".txt") and ".expected" not in p.name)
+    if len(dumps) != 8:
+        fail(f"goldens: {len(dumps)} dumps in {FIXTURES}, expected 8")
+    reset_launches()
+    for dump in dumps:
+        exp = json.loads(dump.with_name(dump.name.rsplit(".", 1)[0] + ".expected.json")
+                         .read_text())
+        x = np.asarray(exp["x"], dtype=np.float64)
+        cm = repro_torch.build(str(dump))
+        pred, margin = cm.predict(x), cm.raw_margin(x)
+        want_p, want_m = np.asarray(exp["predict"]), np.asarray(exp["raw_margin"], np.float32)
+        if cm.table.task == "regression":
+            ok_p = np.allclose(pred, want_p, rtol=1e-5, atol=1e-6)
+        else:
+            ok_p = np.array_equal(pred, want_p.astype(pred.dtype))
+        if not ok_p or not np.allclose(margin, want_m, rtol=1e-5, atol=1e-6):
+            fail(f"golden {dump.name}: predictions or margins differ from the record")
+    launches = counted("goldens")
+    print(f"models in [{name}] goldens: the 8 dumps of tests/fixtures/ingest through "
+          f"repro_torch.build(path) -> predict/raw_margin on the card == each "
+          f"*.expected.json (class ids exact, values rtol 1e-5 atol 1e-6); "
+          f"{launches} kernel launches", flush=True)
+
+
+def phase_ingested(ens, name, stats) -> None:
+    """The xtime-tabular ensemble exported as an XGBoost JSON dump with
+    float thresholds, built from the dump at 'off' and 'prune', served on
+    the card, held to the native ensemble; kernel times and score_file."""
+    from repro_torch.core.quantize import FeatureQuantizer
+    from repro_torch.ingest import to_xgboost_json
+    from repro_torch.score import score_file
+
+    rng = np.random.default_rng(SEED + 40)
+    quant = FeatureQuantizer.fit(rng.normal(size=(65536, 130)), 256)
+    t0 = time.perf_counter()
+    text = json.dumps(to_xgboost_json(ens, quant))
+    export_s = time.perf_counter() - t0
+    xs = {b: rng.normal(size=(b, 130)) for b in (1, 256, 1024)}
+    want = {b: (ens.raw_margin(quant.transform(x[:64])), ens.predict(quant.transform(x[:64])))
+            for b, x in xs.items()}
+    cms, margins, res = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "xtime_tabular.json"
+        path.write_text(text)
+        print(f"models in [{name}] ingested: xtime-tabular (4096 trees x depth 8, 130 features, "
+              f"8 classes, seed {SEED}) exported by to_xgboost_json with float thresholds, "
+              f"{len(text) / 1e6:.1f} MB, {export_s:.2f} s host", flush=True)
+        for level in ("off", "prune"):
+            reset_launches()
+            with StepTimes() as st:
+                t0 = time.perf_counter()
+                cm = repro_torch.build(str(path), compress=level)
+                t1 = time.perf_counter()
+                eng = cm.engine()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+            margins[level] = {b: cm.raw_margin(x) for b, x in xs.items()}
+            preds = {b: cm.predict(x) for b, x in xs.items()}
+            torch.cuda.synchronize()
+            launches = counted(f"ingested {level}")
+            for b in xs:
+                m, pr = want[b]
+                if not (np.array_equal(margins[level][b][:64], m)
+                        and np.array_equal(preds[b][:64], pr)):
+                    fail(f"ingested {level} B={b}: differs from the native ensemble")
+                if not np.array_equal(margins[level][b], margins["off"][b]):
+                    fail(f"ingested {level} B={b}: margins differ from 'off' bit for bit")
+            cms[level] = cm
+            steps = ", ".join(f"{k} {v:.2f} s" for k, v in st.s.items())
+            print(f"models in [{name}] ingested compress={level!r}: {table_line(cm, eng)}; "
+                  f"margins and predictions at B = 1, 256, 1024 == the native ensemble (64 rows "
+                  f"a batch)" + (" and == 'off' bit for bit (all rows)" if level != "off" else "")
+                  + f"; {launches} kernel launches; host: build {t1 - t0:.2f} s ({steps}), "
+                  f"bind {t2 - t1:.2f} s", flush=True)
+            if cm.compression is not None:
+                print(f"models in [{name}] ingested compression report: {cm.compression}",
+                      flush=True)
+            for b in (256, 1024):
+                qp = eng._prep_queries(cm.quantizer.transform(xs[b]))
+                a = eng.arrays
+                fn = lambda: K.cam_match_cuda(qp, a.cells, a.leaf, eng._bias,  # noqa: E731
+                                              mode=eng.kernel_mode)
+                ms = cold_time(fn, 10)
+                bnd, by, design = bound_ms(eng, b, *match_stats(eng, qp))
+                res[level, b] = ms
+                print(f"times [{name}] ingested {level!r} cam_match {eng.table_dtype}/"
+                      f"{eng.kernel_mode} B={b} (R={a.r_pad}, K={a.cells.k}): kernel {ms:.4f} ms "
+                      f"L2 flushed, bound {bnd:.4f} ms by {by} ({bnd / ms:.1%} of bound), the "
+                      f"cell-list design {design:.4f} ms of compares", flush=True)
+        for b in (256, 1024):
+            ratio = res["prune", b] / res["off", b]
+            rows = cms["prune"].table.n_rows / cms["off"].table.n_rows
+            print(f"times [{name}] ingested B={b}: 'prune' / 'off' kernel time {ratio:.3f} "
+                  f"(rows {rows:.3f})", flush=True)
+
+        big = cms["prune"].quantizer.transform(rng.normal(size=(SCORE_ROWS, 130)))
+        want_big = np.concatenate([cms["off"].predict(big[i:i + SCORE_CHUNK])
+                                   for i in range(0, SCORE_ROWS, SCORE_CHUNK)])
+        npy = Path(tmp) / "rows.npy"
+        np.save(npy, big)
+        reset_launches()
+        r = score_file(cms["prune"], npy, kind="predict", chunk_rows=SCORE_CHUNK)
+        launches = counted("ingested scoring")
+        if not np.array_equal(r.values, want_big):
+            fail("ingested score_file on 'prune' differs from 'off' predict")
+        print(f"score [{name}] ingested 'prune': score_file {SCORE_ROWS} x 130 {big.dtype} rows "
+              f"binned by the ingested grid, chunk_rows {SCORE_CHUNK}: {r.rows_per_s} rows/s "
+              f"({r.elapsed_s} s, {r.n_chunks} chunks, {launches} launches); == 'off' predict",
+              flush=True)
+
+
+def phase_compress_levels(name, stats) -> None:
+    """'merge' and 'full' on the paper-scale smoke shape, bit-equal to
+    'off' on the card; soft tau = 0.1 on the 'full' artifact against its
+    plain version."""
+    ens = random_deep_ensemble(**PAPER_SCALE)
+    q = np.random.default_rng(SEED + 41).integers(0, 256, size=(256, 32)).astype(np.uint8)
+    base = None
+    for level in ("off", "prune", "merge", "full"):
+        reset_launches()
+        with StepTimes() as st:
+            cm = repro_torch.build(ens, compress=level)
+        m = cm.raw_margin(q)
+        launches = counted(f"paper-scale {level}")
+        base = m if base is None else base
+        if not np.array_equal(m, base):
+            fail(f"paper-scale {level}: margins differ from 'off' bit for bit")
+        print(f"models in [{name}] paper-scale (512 trees x depth 8, 32 features, p_dup 0.5, "
+              f"seed {PAPER_SCALE['seed']}) compress={level!r}: {table_line(cm, cm.engine())}; "
+              f"margins at B = 256 == 'off' bit for bit; compress_table "
+              f"{st.s.get('compress', 0.0):.2f} s host; {launches} kernel launches"
+              + (f"; report {cm.compression}" if cm.compression else ""), flush=True)
+    reset_launches()
+    eng = cm.engine(mode="soft", tau=SOFT_TAU)
+    got = torch.from_numpy(cm.raw_margin(q, mode="soft", tau=SOFT_TAU)).cuda()
+    if K.cam_match_soft_cuda.launches == 0:
+        fail("paper-scale 'full' soft: no soft kernel launch")
+    a = eng.arrays
+    qp = eng._prep_queries(q)
+    s_ref = ref.soft_scores_ref(qp, a.low, a.high, tau=SOFT_TAU)
+    plain = ref.cam_match_ref(qp, a.low, a.high, a.leaf, mode="soft", tau=SOFT_TAU)
+    plain = plain + float(np.float32(cm.table.base_score))  # the epilogue's base score
+    lim = ref.soft_margin_bound(s_ref, a.leaf, a.f_pad, K.n_splits(a.r_pad) + 2)
+    lim = lim + 2 * F32_EPS * plain.abs().double()  # the bias add
+    c = got.shape[1]
+    err = (got - plain[:, :c]).abs().double()
+    if bool((err > lim[:, :c]).any()):
+        fail(f"paper-scale 'full' soft: margins off the plain version by {float(err.max())}")
+    stats["soft_max_abs_err"] = max(stats["soft_max_abs_err"], float(err.max()))
+    print(f"models in [{name}] paper-scale 'full' soft tau={SOFT_TAU}: margins within the bound "
+          f"of the plain version on the card (max |err| {float(err.max()):.3g})", flush=True)
+
+
+def phase_degenerate(name) -> None:
+    """Tables compression leaves degenerate, through the kernel and held
+    to the plain version: every row pruned (the one sentinel row) and a
+    table collapsed to one feature column."""
+    from repro_torch.core.compile import CAMTable
+    from repro_torch.core.compress import compress_table
+
+    rng = np.random.default_rng(SEED + 42)
+    r, f, n_bins = 64, 20, 256
+
+    def table(low, high):
+        return CAMTable(low=low.astype(np.int32), high=high.astype(np.int32),
+                        leaf=(rng.integers(-16, 17, size=r) / 16.0).astype(np.float32),
+                        tree_id=np.arange(r, dtype=np.int32), class_id=np.zeros(r, np.int32),
+                        n_trees=r, n_features=f, n_bins=n_bins, n_outputs=1, task="regression",
+                        kind="gbdt", base_score=0.0, n_classes=1, table_dtype="int32")
+
+    low, high = np.zeros((r, f)), np.full((r, f), n_bins)
+    cols = rng.integers(0, f, size=r)
+    low[np.arange(r), cols] = 100  # an empty interval in every row
+    high[np.arange(r), cols] = 100
+    pruned = table(low, high)
+    low, high = np.zeros((r, f)), np.full((r, f), n_bins)
+    low[:, 7] = rng.integers(0, 128, size=r)  # feature 7 the only constrained one
+    high[:, 7] = low[:, 7] + rng.integers(1, 128, size=r)
+    one_col = table(low, high)
+    q = rng.integers(0, n_bins, size=(37, f)).astype(np.int32)
+    for label, t, check in (
+            ("every row pruned", pruned,
+             lambda ct, rep: rep.sentinel_rows == 1 and ct.n_rows == 1),
+            ("collapsed to one column", one_col,
+             lambda ct, rep: ct.n_cols == 1 and list(ct.feature_ids) == [7])):
+        ct, rep = compress_table(t, level="full")
+        if not check(ct, rep):
+            fail(f"degenerate ({label}): compression gave {ct.n_rows} rows x {ct.n_cols} cols")
+        cm = repro_torch.build(ct)
+        reset_launches()
+        got = cm.raw_margin(q)
+        launches = counted(f"degenerate ({label})")
+        plain = cm.raw_margin(q, device="cpu")
+        truth = repro_torch.build(t).raw_margin(q, device="cpu")
+        if not (np.array_equal(got, plain) and np.array_equal(got, truth)):
+            fail(f"degenerate ({label}): the card differs from the plain version")
+        print(f"models in [{name}] degenerate table, {label}: {ct.n_rows} rows x {ct.n_cols} "
+              f"columns through the kernel ({launches} launches) == the plain version == the "
+              f"uncompressed table's plain version", flush=True)
+
+
+def search_trials(ds, kind, seconds):
+    """``random_search`` with as many trials as fit about ``seconds`` of
+    host time, judged from one trial alone (the same seed draws the same
+    first trials)."""
+    from repro_torch.core.tune import random_search
+
+    t0 = time.perf_counter()
+    random_search(ds, kind=kind, n_trials=1, seed=SEED)
+    one = time.perf_counter() - t0
+    n = int(max(1, min(40, seconds // max(one, 1e-3))))
+    t0 = time.perf_counter()
+    res = random_search(ds, kind=kind, n_trials=n, seed=SEED)
+    return res, n, time.perf_counter() - t0
+
+
+def serve_trained(label, ens, quant, ds, name) -> None:
+    from repro_torch.data import accuracy_metric
+
+    reset_launches()
+    cm = repro_torch.build(ens, quantizer=quant, compress="auto")
+    pred = cm.predict(ds.x_test)
+    launches = counted(label)
+    want = ens.predict(quant.transform(ds.x_test))
+    if not np.array_equal(pred, want):
+        fail(f"{label}: predictions on the card differ from Ensemble.predict")
+    acc, acc_np = (accuracy_metric(ds.task, ds.y_test, p) for p in (pred, want))
+    if acc != acc_np:
+        fail(f"{label}: accuracy {acc} != the numpy ensemble's {acc_np}")
+    print(f"models in [{name}] {label}: build(compress='auto') -> {table_line(cm, cm.engine())}; "
+          f"predict on the card over the {ds.x_test.shape[0]} test rows == Ensemble.predict; "
+          f"accuracy {acc} (numpy ensemble {acc_np}); {launches} kernel launches "
+          f"({ens.n_trees} trees, max {ens.max_leaves} leaves, rows saved "
+          f"{cm.compression['rows_saved']})", flush=True)
+
+
+def phase_trained(name) -> None:
+    """Trained under the chip's constraints: the hardware-aware search on
+    churn (GBDT and RF), and one GBDT on gas (129 features, 6 classes)."""
+    from repro_torch.core.quantize import FeatureQuantizer
+    from repro_torch.core.trees import GBDTParams, train_gbdt
+    from repro_torch.data import make_dataset
+
+    ds = make_dataset("churn")
+    for kind in ("gbdt", "rf"):
+        res, n, secs = search_trials(ds, kind, 30.0)
+        print(f"models in [{name}] random_search(churn, kind={kind!r}): {n} trials in "
+              f"{secs:.1f} s host; best valid score {res.best.valid_score}, params "
+              f"{res.best.params}", flush=True)
+        serve_trained(f"churn {kind} search winner", res.ensemble, res.quantizer, ds, name)
+    gas = make_dataset("gas")
+    quant = FeatureQuantizer.fit(gas.x_train, 256)
+    t0 = time.perf_counter()
+    ens = train_gbdt(quant.transform(gas.x_train), gas.y_train, task=gas.task, n_bins=256,
+                     n_classes=gas.n_classes, params=GBDTParams(n_rounds=3, max_depth=8))
+    print(f"models in [{name}] train_gbdt(gas, n_rounds=3, max_depth=8): {ens.n_trees} trees "
+          f"in {time.perf_counter() - t0:.1f} s host", flush=True)
+    serve_trained("gas gbdt", ens, quant, gas, name)
+
+
+# (label, engine overrides) of the wide model, every variant past its window
+WIDE_TIMED = [("uint8/inclusive", {}), ("uint16/inclusive", {"table_dtype": "uint16"}),
+              ("int32/direct", {"table_dtype": "int32"}), ("int32/msb_lsb", {"mode": "msb_lsb"}),
+              ("int32/two_cycle", {"mode": "two_cycle"})]
+
+
+def phase_wide_model(name, stats) -> None:
+    """A model 8,000 features wide (F_pad 8,064, past every variant's
+    staged query window) through ``raw_margin`` in every hard variant and
+    the soft mode, and the soft engine's ``raw_moments``, each driven with
+    the counts set to 0 just before and read just after, held to the host
+    traversal or the plain version and timed; beside it the uint8 kernel
+    on the same shape at 130 features (F_pad 256, no wide path)."""
+    ens = random_deep_ensemble(n_trees=64, depth=8, n_features=WIDE_FEATURES, n_bins=256,
+                               task="multiclass", n_classes=4, seed=SEED + 50)
+    cm = repro_torch.build(ens)
+    rng = np.random.default_rng(SEED + 51)
+    x = rng.integers(0, 256, size=(WIDE_BATCH, WIDE_FEATURES)).astype(np.uint8)
+    want = ens.raw_margin(x)
+    lines = []
+    for label, overrides in WIDE_TIMED:
+        reset_launches()
+        m = cm.raw_margin(x, **overrides)
+        launches = counted(f"wide {label}")
+        if not np.array_equal(m, want):
+            fail(f"wide {label}: margins differ from Ensemble.raw_margin")
+        eng = cm.engine(**overrides)
+        qp = eng._prep_queries(x)
+        a = eng.arrays
+        fn = lambda: K.cam_match_cuda(qp, a.cells, a.leaf, eng._bias,  # noqa: E731
+                                      mode=eng.kernel_mode)
+        ms = cold_time(fn, 10)
+        plain_ms = sync_time(lambda: ref.cam_match_ref(qp, a.low, a.high, a.leaf,
+                                                       mode=eng.kernel_mode), 1, warmup=1)
+        bnd, by, _ = bound_ms(eng, WIDE_BATCH, *match_stats(eng, qp))
+        print(f"times [{name}] wide cam_match {label} B={WIDE_BATCH} (R={a.r_pad}, F_pad={a.f_pad}, "
+              f"K={a.cells.k}): margins == Ensemble.raw_margin, {launches} launches; kernel "
+              f"{ms:.4f} ms L2 flushed, plain {plain_ms:.3f} ms, bound {bnd:.4f} ms by {by}",
+              flush=True)
+        lines.append(kernel_entry(f"cam_match[{label}, F_pad={a.f_pad}]", "cam_match.cu",
+                                  launches, 0.0, ms, plain_ms, bnd, by))
+        if not overrides:
+            per_cell = ms / (listed_cells(a.cells) * WIDE_BATCH) * 1e9  # ps a cell x query
+    twin = repro_torch.build(random_deep_ensemble(n_trees=64, depth=8, n_features=130, n_bins=256,
+                                                  task="multiclass", n_classes=4,
+                                                  seed=SEED + 50))
+    teng = twin.engine()
+    ta = teng.arrays
+    tq = teng._prep_queries(rng.integers(0, 256, size=(WIDE_BATCH, 130)).astype(np.uint8))
+    twin_ms = cold_time(lambda: K.cam_match_cuda(tq, ta.cells, ta.leaf, teng._bias,
+                                                 mode=teng.kernel_mode), 10)
+    twin_cell = twin_ms / (listed_cells(ta.cells) * WIDE_BATCH) * 1e9
+    print(f"times [{name}] wide uint8/inclusive B={WIDE_BATCH}: {per_cell:.2f} ps a listed cell "
+          f"x query at F_pad 8,064; the same shape at 130 features (F_pad {ta.f_pad}, R={ta.r_pad}) "
+          f"{twin_ms:.4f} ms, {twin_cell:.2f} ps (wide / narrow {per_cell / twin_cell:.2f})",
+          flush=True)
+    sfu, _ = sfu_per_s()
+    for tau, what in ((0.0, "margin"), (SOFT_TAU, "margin"), (SOFT_TAU, "moments")):
+        reset_launches()
+        eng = cm.engine(mode="soft", tau=tau)
+        if what == "margin":
+            m = cm.raw_margin(x, mode="soft", tau=tau)
+        else:
+            m = eng.raw_moments(x).cpu().numpy()
+        launches = counted(f"wide soft {tau} {what}")
+        a = eng.arrays
+        qp = eng._prep_queries(x)
+        leaf, bias = (a.leaf, eng._bias) if what == "margin" else (eng._moments, None)
+        plain = ref.cam_match_ref(qp, a.low, a.high, leaf, mode="soft", tau=tau)
+        if what == "margin":  # the epilogue's base score
+            plain = plain + float(np.float32(cm.table.base_score))
+        c = m.shape[1]
+        err = (torch.from_numpy(m).cuda() - plain[:, :c]).abs().double()
+        if tau == 0.0:
+            if not np.array_equal(m, want):
+                fail("wide soft tau=0: margins differ from Ensemble.raw_margin")
+        else:
+            s_ref = ref.soft_scores_ref(qp, a.low, a.high, tau=tau)
+            lim = ref.soft_margin_bound(s_ref, leaf, a.f_pad, K.n_splits(a.r_pad) + 2)
+            lim = lim + 2 * F32_EPS * plain.abs().double()
+            if bool((err > lim[:, :c]).any()):
+                fail(f"wide soft tau={tau} {what}: off the plain version by {float(err.max())}")
+        fn = lambda: K.cam_match_soft_cuda(qp, a.cells, leaf, bias, tau=tau)  # noqa: E731
+        ms = cold_time(fn, 10)
+        plain_ms = sync_time(lambda: ref.cam_match_ref(qp, a.low, a.high, leaf, mode="soft",
+                                                       tau=tau), 1, warmup=1)
+        distinct = 0 if tau else int((K.soft_scores_cuda(qp, a.cells, tau=0.0) > 0)
+                                     .any(dim=0).sum())
+        bnd, by, _ = soft_bound_ms(eng, WIDE_BATCH, tau, leaf, sfu, distinct)
+        label = f"tau={tau}" + (" moments" if what == "moments" else "")
+        print(f"times [{name}] wide cam_match_soft {label} B={WIDE_BATCH} (R={a.r_pad}, F_pad={a.f_pad}, "
+              f"C={leaf.shape[1]}): " + ("== Ensemble.raw_margin" if tau == 0.0 else
+                                         "within the bound of the plain version")
+              + f" (max |err| {float(err.max()):.3g}), {launches} launches; kernel {ms:.4f} ms "
+              f"L2 flushed, plain {plain_ms:.3f} ms, bound {bnd:.4f} ms by {by}", flush=True)
+        lines.append(kernel_entry(f"cam_match_soft[{label}, F_pad={a.f_pad}]",
+                                  "cam_match_soft.cu", launches, float(err.max()), ms, plain_ms,
+                                  bnd, by))
+    stats["wide_lines"] = lines
+
+
+def kernel_entry(name, source, launches, err, ms, plain_ms, bnd, by) -> dict:
+    """One object of the kernels line: ``source`` a file of kernels/csrc,
+    every time measured in this run, no single PyTorch call to compare."""
+    return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": "src/repro/kernels/cam_match.py:90", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+            "bound_by": by, "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1025,12 +1514,20 @@ def main() -> int:
     for label, phase in (("serving", lambda: phase_serving(cm, soft, name, stats)),
                          ("cluster", lambda: phase_cluster(cm, name, stats)),
                          ("scoring", lambda: phase_scoring(cm, name)),
-                         ("traversal", lambda: phase_traversal(ens, cm, batches, name))):
+                         ("traversal", lambda: phase_traversal(ens, cm, batches, name)),
+                         ("goldens", lambda: phase_goldens(name)),
+                         ("ingested", lambda: phase_ingested(ens, name, stats)),
+                         ("compression levels", lambda: phase_compress_levels(name, stats)),
+                         ("degenerate tables", lambda: phase_degenerate(name)),
+                         ("trained", lambda: phase_trained(name)),
+                         ("wide model", lambda: phase_wide_model(name, stats))):
         t0 = time.perf_counter()
         phase()
         print(f"{label} phase {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print(json.dumps({"kernels": [stats["kernel_line"], stats["soft_kernel_line"]]}), flush=True)
+    lines = [stats["kernel_line"], stats["soft_kernel_line"], *stats["variant_lines"],
+             *stats["soft_variant_lines"], *stats["wide_lines"]]
+    print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,8 +3,10 @@
 The port of the JAX package ``repro`` to one NVIDIA H100, grown slice by
 slice beside it (ROADMAP.md).  It imports ``torch`` and never ``jax`` or
 anything of ``repro``; artifacts are exchanged through the shared on-disk
-format.  It carries the main path: compiled artifact -> engine -> Hopper
-CAM-match kernel -> ``predict``, and in the soft cell mode
+format.  It carries the main path: a model in (a dump file, a trained
+ensemble or a hardware-aware search), then lowering, compile and
+compression, then engine -> Hopper CAM-match kernel -> ``predict``, and in
+the soft cell mode
 ``predict_proba`` and the leaf-spread uncertainty; on top of the engine,
 the serving tier (``TableRegistry`` -> ``MicroBatcher`` -> ``ServeLoop``,
 and the replicated ``ClusterServer``), streaming ``score_file`` and the
@@ -12,9 +14,14 @@ and the replicated ``ClusterServer``), streaming ``score_file`` and the
 
     repro_torch.api      ``build`` -> ``CompiledModel`` (save/load/predict)
     repro_torch.convert  artifact state <-> the port's ``CompiledModel``
-    repro_torch.core     trees, compiler, placement, NoC/perf models,
-                         precision cells, defect injection, the
-                         single-device engine and the traversal baseline
+    repro_torch.ingest   XGBoost JSON / LightGBM text / sklearn-forest
+                         importers and the lowering onto a bin grid
+    repro_torch.core     trees and their trainers, the hardware-aware
+                         search, compiler, compression, placement,
+                         NoC/perf models, precision cells, defect
+                         injection, the single-device engine and the
+                         traversal baseline
+    repro_torch.data     the synthetic tabular datasets (Table II analogs)
     repro_torch.kernels  table prep, the plain PyTorch version and the
                          CUDA kernels (``kernels/csrc/cam_match.cu``,
                          ``kernels/csrc/cam_match_soft.cu``)

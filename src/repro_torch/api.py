@@ -17,9 +17,16 @@ arrays and the same JSON sidecar), so either package loads what the other
 saved; ``repro_torch.convert`` assembles the port's objects from them.
 ``engine()`` binds an artifact once per (device, overrides), under a lock,
 so serving replicas that bind at once share one engine.
-Not ported yet (ROADMAP.md): compression levels other than 'off', the
-ingestion frontend, tuning plans (carried through save/load, and a
-``batch_hint`` is accepted, but none is applied), meshes.
+Models come in as a native or trained ``Ensemble``, a pre-compiled
+``CAMTable``, an ``ImportedEnsemble`` or a path to a model dump (XGBoost
+JSON, LightGBM text, sklearn-forest dict), and ``compress=`` runs the
+table compression pass ('prune', 'merge', 'full' or 'auto'):
+
+    cm = repro_torch.build("model.json", compress="auto")
+    pred = cm.predict(x_float)                  # binned by the ingested grid
+
+Not ported yet (ROADMAP.md): tuning plans (carried through save/load, and
+a ``batch_hint`` is accepted, but none is applied), meshes.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from repro_torch.core.compile import (
     order_columns_by_activity,
     pack_cores,
 )
+from repro_torch.core.compress import compress_table, resolve_level
 from repro_torch.core.deploy import DeployConfig
 from repro_torch.core.noc import NoCPlan, plan_noc
 from repro_torch.core.perfmodel import PerfReport, xtime_perf
@@ -75,9 +83,10 @@ class CompiledModel:
       perf: analytic chip numbers for this exact mapping (``xtime_perf``).
       deploy: execution knobs; ``engine()`` binds them to a device.
       quantizer: the float -> bin grid, when the artifact carries one.
-      ingest / tuning / compression: sidecar provenance of the JAX
-        package's ingestion, autotune and compression passes, carried
-        through save/load unchanged.
+      ingest / compression: the lowering report of an ingested dump and
+        the compression pass's report (``build`` fills both).
+      tuning: the JAX package's autotune plan, carried through save/load
+        unchanged.
     """
 
     table: CAMTable
@@ -337,39 +346,62 @@ def _sibling(base: Path, suffix: str) -> Path:
 
 
 def build(
-    model: Ensemble | CAMTable,
+    model,
     *,
     deploy: DeployConfig | None = None,
     chip: ChipSpec | None = None,
+    n_bins: int = 256,
+    on_overflow: str = "merge",
     quantizer: FeatureQuantizer | None = None,
     compress: str | None = None,
     cluster_columns: bool = False,
 ) -> CompiledModel:
-    """Compile ``model`` (an ``Ensemble`` or a pre-compiled ``CAMTable``)
-    into a ``CompiledModel`` — the same tables, placement, NoC plan and
-    perf report as ``repro.api.build`` on the same model.
+    """Compile ``model`` into a ``CompiledModel`` — the same tables,
+    placement, NoC plan, perf report and sidecar as ``repro.api.build`` on
+    the same model.
+
+    ``model`` may be a native ``Ensemble``, a pre-compiled ``CAMTable``,
+    an ``ImportedEnsemble`` or a path to a model dump (XGBoost JSON /
+    LightGBM text / sklearn-forest dict).  The last two run the ingestion
+    frontend: the model is lowered onto an ``n_bins`` threshold grid built
+    from its own split points (``on_overflow`` governs grids that don't
+    fit), and the artifact carries the grid and the lowering report.
+    ``quantizer`` attaches a float->bin grid to a natively trained model.
+
+    ``compress`` (or ``deploy.compress``; the explicit argument wins) runs
+    the compression pass between compile and packing: 'prune', 'merge',
+    'full' or 'auto' (= 'full'), keyed on the artifact's own grid; the
+    ``CompressionReport`` rides the sidecar, and placement, the NoC plan
+    and the perf report are computed on the compressed shapes.
 
     ``cluster_columns`` moves all-wildcard feature columns into trailing
-    tiles (``order_columns_by_activity``, recorded on ``col_perm``).
-    Only ``compress='off'`` is ported; the compression pass and the
-    ingestion frontend (dump paths, imported ensembles) are later slices
-    (ROADMAP.md).
+    tiles after compression (``order_columns_by_activity``, recorded on
+    ``col_perm``).
     """
     deploy = deploy or DeployConfig()
-    level = deploy.compress if compress is None else compress
-    if level != "off":
-        raise NotImplementedError(
-            f"compress={level!r}: table compression is not ported yet "
-            "(ROADMAP.md, 'compression and ingest copies'); build with "
-            "compress='off', or load an artifact the JAX package compressed"
-        )
+    level = resolve_level(deploy.compress if compress is None else compress)
+    deploy = deploy.replace(compress=level)
+    ingest_report = None
     if not isinstance(model, (Ensemble, CAMTable)):
-        raise TypeError(
-            "build() takes an Ensemble or CAMTable; the ingestion frontend "
-            "is not ported yet (ROADMAP.md, 'compression and ingest "
-            f"copies'), got {type(model).__name__}"
+        # the parsers load only when a dump or an imported model comes in
+        from repro_torch.ingest import ImportedEnsemble, load_model, lower_to_ensemble
+
+        if isinstance(model, (str, Path)):
+            model = load_model(model)
+        if not isinstance(model, ImportedEnsemble):
+            raise TypeError(
+                "build() takes an Ensemble, CAMTable, ImportedEnsemble or "
+                f"dump path, got {type(model).__name__}"
+            )
+        model, quantizer, report = lower_to_ensemble(
+            model, n_bins=n_bins, on_overflow=on_overflow
         )
+        ingest_report = report.to_dict()
     table = model if isinstance(model, CAMTable) else compile_ensemble(model)
+    compression = None
+    if level != "off":
+        table, creport = compress_table(table, quantizer, level=level)
+        compression = creport.to_dict()
     if cluster_columns:
         table = order_columns_by_activity(table, f_blk=deploy.f_blk)
     placement = pack_cores(table, chip)
@@ -377,5 +409,5 @@ def build(
     perf = xtime_perf(table, placement, noc)
     return CompiledModel(
         table=table, placement=placement, noc=noc, perf=perf, deploy=deploy,
-        quantizer=quantizer,
+        quantizer=quantizer, ingest=ingest_report, compression=compression,
     )

@@ -27,7 +27,10 @@
 // and each query's matched rows are added in ascending row order (set bits
 // of its row mask, `__ffs`), into the block's own slice of a [splits, B, C]
 // workspace; a second kernel sums the splits in index order and adds
-// `bias`.  No float atomics and no tensor cores: every term
+// `bias`.  A table wider than the staged query window runs the kernel's
+// kWide instance, which reads the queries of cells past the window from
+// device memory (cam_match_common.cuh).  No float atomics and no tensor
+// cores: every term
 // is `leaf` or nothing, in one fixed order, so the result is bit-identical
 // run to run, fused bias against bias added afterwards, packed uint8/uint16
 // tables against int32 ones, and the soft kernel at tau = 0 (the same
@@ -98,7 +101,8 @@ struct TwoCycle {
 };
 
 // grid = (ceil(B / 32), splits); block = kThreads; dynamic shared memory
-// Layout<T>::bytes(F, kMatchBytes).
+// Layout<T>::bytes(F, kMatchBytes); kWide where the query window is not
+// the whole width.
 //   q     (B, F) table dtype     cells: the table's cell list, (R, K)
 //   leaf  (R, C) float32 or null
 //   ws    [splits, B, C] partials or null
@@ -110,7 +114,7 @@ constexpr size_t kMatchBytes = (kChunk + kQueries * (kChunk / 32) + 4) * 4;
 template <typename T>
 constexpr int kMinBlocks = sizeof(T) == 4 ? 4 : 8;
 
-template <typename T, typename Cell>
+template <typename T, typename Cell, bool kWide>
 __global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
 cam_match_kernel(const T* __restrict__ q, CellArgs<T> cells,
                  const float* __restrict__ leaf, int B, int R, int F, int C,
@@ -119,7 +123,8 @@ cam_match_kernel(const T* __restrict__ q, CellArgs<T> cells,
   using W = typename Wide<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_q = reinterpret_cast<T*>(smem);
-  unsigned char* area = smem + Layout<T>::queries(F);
+  const int Fs = Layout<T>::window(F, kMatchBytes);
+  unsigned char* area = smem + Layout<T>::queries(F, kMatchBytes);
   const Staged<T> st(area);
   float* s_leaf = reinterpret_cast<float*>(area);  // after the compares
   uint32_t* s_match = reinterpret_cast<uint32_t*>(area + Layout<T>::chunk);
@@ -134,7 +139,7 @@ cam_match_kernel(const T* __restrict__ q, CellArgs<T> cells,
   const int row_begin = blockIdx.y * rows_per_split;
   const int row_end = min(R, row_begin + rows_per_split);
   float* part = zeroed_partials(ws, B, C, q0, nq);
-  stage_queries(q, s_q, F, q0, nq);
+  stage_queries(q, s_q, F, Fs, q0, nq);
 
   for (int r0 = row_begin; r0 < row_end; r0 += kChunk) {
     const int nr = min(kChunk, row_end - r0);
@@ -149,7 +154,7 @@ cam_match_kernel(const T* __restrict__ q, CellArgs<T> cells,
         const int r = p % nr, b = p / nr;
         bool ok = true;
         walk_row(cells, st, r0, r, [&](int f, T lo, T hi) {
-          ok &= Cell::match(W(s_q[f * kQStride + b]), W(lo), W(hi));
+          ok &= Cell::match(W(query_at<kWide>(s_q, q, F, Fs, q0, nq, f, b)), W(lo), W(hi));
         });
         if (ok) {
           atomicOr(&s_match[r], 1u << b);
@@ -160,7 +165,8 @@ cam_match_kernel(const T* __restrict__ q, CellArgs<T> cells,
       for (int r = warp; r < nr; r += kWarps) {
         bool ok = lane < nq;
         walk_row(cells, st, r0, r, [&](int f, T lo, T hi) {
-          ok &= Cell::match(W(s_q[f * kQStride + lane]), W(lo), W(hi));
+          ok &= Cell::match(W(query_at<kWide>(s_q, q, F, Fs, q0, nq, f, lane)), W(lo),
+                            W(hi));
         });
         const uint32_t word = __ballot_sync(kFull, ok);
         if (lane == 0) {
@@ -208,19 +214,33 @@ cam_match_kernel(const T* __restrict__ q, CellArgs<T> cells,
   }
 }
 
+template <typename T, typename Cell, bool kWide>
+cudaError_t launch_as(const T* q, const CellArgs<T>& cells, const float* leaf, int B,
+                      int R, int F, int C, int rows_per_split, float* ws,
+                      uint32_t* bits, cudaStream_t stream) {
+  const size_t smem = Layout<T>::bytes(F, kMatchBytes);
+  cudaError_t err = allow_smem(cam_match_kernel<T, Cell, kWide>, smem);
+  if (err != cudaSuccess) return err;
+  cam_match_kernel<T, Cell, kWide><<<match_grid(B, R, rows_per_split), kThreads, smem,
+                                     stream>>>(q, cells, leaf, B, R, F, C,
+                                               rows_per_split, ws, bits);
+  return cudaGetLastError();
+}
+
 template <typename T, typename Cell>
 cudaError_t launch(const void* q, const int32_t* count, const uint16_t* feat,
                    const void* lo, const void* hi, int K, const float* leaf,
                    int B, int R, int F, int C, int rows_per_split, float* ws,
                    uint32_t* bits, cudaStream_t stream) {
-  const size_t smem = Layout<T>::bytes(F, kMatchBytes);
-  cudaError_t err = allow_smem(cam_match_kernel<T, Cell>, smem);
-  if (err != cudaSuccess) return err;
   const CellArgs<T> cells{count, feat, static_cast<const T*>(lo),
                           static_cast<const T*>(hi), K};
-  cam_match_kernel<T, Cell><<<match_grid(B, R, rows_per_split), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), cells, leaf, B, R, F, C, rows_per_split, ws, bits);
-  return cudaGetLastError();
+  const T* qt = static_cast<const T*>(q);
+  if (Layout<T>::window(F, kMatchBytes) < F) {
+    return launch_as<T, Cell, true>(qt, cells, leaf, B, R, F, C, rows_per_split, ws,
+                                    bits, stream);
+  }
+  return launch_as<T, Cell, false>(qt, cells, leaf, B, R, F, C, rows_per_split, ws, bits,
+                                   stream);
 }
 
 }  // namespace

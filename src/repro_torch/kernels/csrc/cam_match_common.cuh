@@ -5,6 +5,15 @@
 // per-split partials.  The two kernels differ only in what a lane does per
 // listed cell and in how a chunk's leaf product is taken.
 //
+// Tables of any width: a block stages its queries [feature][query] for the
+// first `window` features, as many as fit beside the chunk area and the
+// kernel's own bytes (all of them up to F_pad = 6,400 uint8, 3,200 uint16,
+// 1,536 int32, 1,408 soft).  A wider table launches the kernel's kWide
+// instance, which reads a listed cell's query past the window from device
+// memory instead (`query_at`), as the walk reads cells past kStagedCells.
+// The compare is the same whichever memory the query came from, so the
+// results do not depend on the window.
+//
 // The cell list (kernels/ops.py `binding_cells`) holds each table row's
 // non-wildcard cells in ascending feature order, in K slots a row:
 //   count (R,) int32, feat (R, K) uint16, lo / hi (R, K) in the table dtype.
@@ -61,9 +70,11 @@ struct CellArgs {
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
 // Dynamic shared memory of one block, in this order: the queries
-// [feature][query] (F x kQStride of T); one area that holds a chunk's staged
-// cell lists and, once its compares are done, its staged leaf rows; then
-// `extra` bytes of the kernel's own (match words, or scores).
+// [feature][query] of the first window(F) features (x kQStride of T); one
+// area that holds a chunk's staged cell lists and, once its compares are
+// done, its staged leaf rows; then `extra` bytes of the kernel's own (match
+// words, or scores).  The window is F where F fits, else as many features
+// as fill the block's 227 KB.
 template <typename T>
 struct Layout {
   static constexpr size_t cells =
@@ -71,11 +82,16 @@ struct Layout {
       2 * align16(kChunk * kCellStride * sizeof(T));
   static constexpr size_t leaf = kChunk * kLeafCols * 4;
   static constexpr size_t chunk = cells > leaf ? cells : leaf;
-  __host__ __device__ static size_t queries(int F) {
-    return align16((size_t)F * kQStride * sizeof(T));
+  __host__ __device__ static int window(int F, size_t extra) {
+    const size_t room = ((size_t)kMaxSmem - chunk - extra) & ~size_t(15);
+    const size_t fit = room / (kQStride * sizeof(T));
+    return (size_t)F < fit ? F : (int)fit;
+  }
+  __host__ __device__ static size_t queries(int F, size_t extra) {
+    return align16((size_t)window(F, extra) * kQStride * sizeof(T));
   }
   __host__ __device__ static size_t bytes(int F, size_t extra) {
-    return queries(F) + chunk + extra;
+    return queries(F, extra) + chunk + extra;
   }
 };
 
@@ -108,15 +124,26 @@ __device__ __forceinline__ float* zeroed_partials(float* ws, int B, int C,
   return part;
 }
 
-// The block's queries at full width into s_q[f * kQStride + b] (padding
-// lanes 0), with coalesced loads.  Readers wait for a later barrier.
+// The block's queries of features [0, Fs) into s_q[f * kQStride + b]
+// (padding lanes 0), with coalesced loads.  Readers wait for a later
+// barrier.
 template <typename T>
 __device__ __forceinline__ void stage_queries(const T* __restrict__ q, T* s_q,
-                                              int F, int q0, int nq) {
-  for (int i = threadIdx.x; i < kQueries * F; i += kThreads) {
-    const int b = i / F, f = i % F;
+                                              int F, int Fs, int q0, int nq) {
+  for (int i = threadIdx.x; i < kQueries * Fs; i += kThreads) {
+    const int b = i / Fs, f = i % Fs;
     s_q[f * kQStride + b] = b < nq ? q[(size_t)(q0 + b) * F + f] : T(0);
   }
+}
+
+// Query b of the tile at feature f: staged below the window Fs; past it
+// (kWide only) from device memory, 0 for a padding lane.  Without kWide
+// the window is the whole width and this is the staged read alone.
+template <bool kWide, typename T>
+__device__ __forceinline__ T query_at(const T* s_q, const T* __restrict__ q, int F,
+                                      int Fs, int q0, int nq, int f, int b) {
+  if (!kWide || f < Fs) return s_q[f * kQStride + b];
+  return b < nq ? q[(size_t)(q0 + b) * F + f] : T(0);
 }
 
 // The counts and first min(K, kStagedCells) cells of rows [r0, r0 + nr):

@@ -27,7 +27,10 @@
 // The chunk's scores expf(sum) go to shared memory, its leaf rows are
 // staged with coalesced loads, and the block adds score * leaf in row order
 // into its slice of the [splits, B, C] workspace; the shared reduce kernel
-// sums the splits in index order and adds the bias.  No atomics, no tensor
+// sums the splits in index order and adds the bias.  A table wider than the
+// staged query window runs the kWide instance, which reads the queries of
+// cells past the window from device memory (cam_match_common.cuh).  No
+// atomics, no tensor
 // cores, no fast-math intrinsics (expf/log1pf, as the plain version's
 // exp/log1p): the result is identical run to run.  At tau = 0 every score
 // is exactly 0 or 1, so the partial sums are the very float adds of the
@@ -75,12 +78,13 @@ __device__ __forceinline__ float soft_logscore(float q, float lo, float hi,
 constexpr size_t kScoreBytes = kChunk * kQStride * 4;
 
 // grid = (ceil(B / 32), splits); block = kThreads; dynamic shared memory
-// Layout<float>::bytes(F, kScoreBytes).
+// Layout<float>::bytes(F, kScoreBytes); kWide where the query window is
+// not the whole width.
 //   q      (B, F) float32 bins     cells: the soft table's cell list, (R, K)
 //   leaf   (R, C) float32 or null
 //   ws     [splits, B, C] partials or null
 //   scores (B, R) row scores or null
-template <bool kTauZero>
+template <bool kTauZero, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 cam_match_soft_kernel(const float* __restrict__ q, CellArgs<float> cells,
                       const float* __restrict__ leaf, int B, int R, int F, int C,
@@ -88,7 +92,8 @@ cam_match_soft_kernel(const float* __restrict__ q, CellArgs<float> cells,
                       float* __restrict__ scores) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_q = reinterpret_cast<float*>(smem);
-  unsigned char* area = smem + Layout<float>::queries(F);
+  const int Fs = Layout<float>::window(F, kScoreBytes);
+  unsigned char* area = smem + Layout<float>::queries(F, kScoreBytes);
   const Staged<float> st(area);
   float* s_leaf = reinterpret_cast<float*>(area);  // after the log-scores
   float* s_score = reinterpret_cast<float*>(area + Layout<float>::chunk);  // [row][query]
@@ -100,7 +105,7 @@ cam_match_soft_kernel(const float* __restrict__ q, CellArgs<float> cells,
   const int row_begin = blockIdx.y * rows_per_split;
   const int row_end = min(R, row_begin + rows_per_split);
   float* part = zeroed_partials(ws, B, C, q0, nq);
-  stage_queries(q, s_q, F, q0, nq);
+  stage_queries(q, s_q, F, Fs, q0, nq);
 
   for (int r0 = row_begin; r0 < row_end; r0 += kChunk) {
     const int nr = min(kChunk, row_end - r0);
@@ -113,7 +118,8 @@ cam_match_soft_kernel(const float* __restrict__ q, CellArgs<float> cells,
         const int r = p % nr, b = p / nr;
         float acc = 0.f;
         walk_row(cells, st, r0, r, [&](int f, float lo, float hi) {
-          acc += soft_logscore<kTauZero>(s_q[f * kQStride + b], lo, hi, inv);
+          acc += soft_logscore<kTauZero>(query_at<kWide>(s_q, q, F, Fs, q0, nq, f, b), lo,
+                                         hi, inv);
         });
         const float s = expf(acc);
         s_score[r * kQStride + b] = s;
@@ -126,7 +132,8 @@ cam_match_soft_kernel(const float* __restrict__ q, CellArgs<float> cells,
         // tau = 0 they are cheaper to run
         if (kTauZero || lane < nq) {
           walk_row(cells, st, r0, r, [&](int f, float lo, float hi) {
-            acc += soft_logscore<kTauZero>(s_q[f * kQStride + lane], lo, hi, inv);
+            acc += soft_logscore<kTauZero>(
+                query_at<kWide>(s_q, q, F, Fs, q0, nq, f, lane), lo, hi, inv);
           });
         }
         const float s = expf(acc);
@@ -152,18 +159,32 @@ cam_match_soft_kernel(const float* __restrict__ q, CellArgs<float> cells,
   }
 }
 
+template <bool kTauZero, bool kWide>
+cudaError_t launch_soft_as(const float* q, const CellArgs<float>& cells,
+                           const float* leaf, int B, int R, int F, int C,
+                           int rows_per_split, float inv, float* ws, float* scores,
+                           cudaStream_t stream) {
+  const size_t smem = Layout<float>::bytes(F, kScoreBytes);
+  cudaError_t err = allow_smem(cam_match_soft_kernel<kTauZero, kWide>, smem);
+  if (err != cudaSuccess) return err;
+  cam_match_soft_kernel<kTauZero, kWide><<<match_grid(B, R, rows_per_split), kThreads,
+                                           smem, stream>>>(q, cells, leaf, B, R, F, C,
+                                                           rows_per_split, inv, ws,
+                                                           scores);
+  return cudaGetLastError();
+}
+
 template <bool kTauZero>
 cudaError_t launch_soft(const float* q, const CellArgs<float>& cells,
                         const float* leaf, int B, int R, int F, int C,
                         int rows_per_split, float inv, float* ws, float* scores,
                         cudaStream_t stream) {
-  const size_t smem = Layout<float>::bytes(F, kScoreBytes);
-  cudaError_t err = allow_smem(cam_match_soft_kernel<kTauZero>, smem);
-  if (err != cudaSuccess) return err;
-  cam_match_soft_kernel<kTauZero><<<match_grid(B, R, rows_per_split), kThreads, smem,
-                                    stream>>>(q, cells, leaf, B, R, F, C,
-                                              rows_per_split, inv, ws, scores);
-  return cudaGetLastError();
+  if (Layout<float>::window(F, kScoreBytes) < F) {
+    return launch_soft_as<kTauZero, true>(q, cells, leaf, B, R, F, C, rows_per_split, inv,
+                                          ws, scores, stream);
+  }
+  return launch_soft_as<kTauZero, false>(q, cells, leaf, B, R, F, C, rows_per_split, inv,
+                                         ws, scores, stream);
 }
 
 }  // namespace

@@ -65,7 +65,7 @@ def test_ingest_golden_through_the_port(dump, tmp_path):
     np.testing.assert_allclose(margin, exp["raw_margin"], rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("compress", ["off", "full"])
+@pytest.mark.parametrize("compress", ["off", "prune", "merge", "full"])
 def test_artifacts_cross_both_ways(compress, tmp_path):
     """JAX save -> port load -> port save, and back through JAX: the same
     arrays, the same sidecar bytes, the same predictions."""
@@ -115,12 +115,24 @@ def test_port_build_equals_jax_build(task, n_classes, tmp_path):
     _assert_same_arrays(tmp_path / "t.npz", tmp_path / "j.npz")
 
 
-def test_port_build_rejects_unported_levels():
-    ens = t_random_deep_ensemble(n_trees=2, depth=2, n_features=3, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        repro_torch.build(ens, compress="full")
-    with pytest.raises(TypeError, match="ROADMAP"):
-        repro_torch.build(str(FIXTURES / "xgb_deep.json"))
+def test_port_build_takes_compression_and_dumps(tmp_path):
+    """The inputs the port's ``build`` once refused — an ensemble at
+    ``compress='full'`` and the ``xgb_deep.json`` dump path — build the
+    JAX package's artifacts byte for byte."""
+    kw = dict(n_trees=2, depth=2, n_features=3, seed=0)
+    repro_torch.build(t_random_deep_ensemble(**kw), compress="full").save(tmp_path / "t")
+    japi.build(j_random_deep_ensemble(**kw), compress="full").save(tmp_path / "j")
+    assert (tmp_path / "t.json").read_bytes() == (tmp_path / "j.json").read_bytes()
+    _assert_same_arrays(tmp_path / "t.npz", tmp_path / "j.npz")
+    dump = FIXTURES / "xgb_deep.json"
+    tcm, jcm = repro_torch.build(str(dump)), japi.build(str(dump))
+    tcm.save(tmp_path / "td")
+    jcm.save(tmp_path / "jd")
+    assert (tmp_path / "td.json").read_bytes() == (tmp_path / "jd.json").read_bytes()
+    _assert_same_arrays(tmp_path / "td.npz", tmp_path / "jd.npz")
+    assert tcm.ingest["exact"] is True and tcm.quantizer is not None
+    x = _expected(dump)["x"]
+    np.testing.assert_array_equal(tcm.predict(x, device="cpu"), np.asarray(jcm.predict(x)))
 
 
 def test_whole_slice_at_smoke_widths():

@@ -269,3 +269,70 @@ def test_engine_binds_the_list_of_its_tables(mode):
                      (a.cells.lo, want.lo), (a.cells.hi, want.hi)):
         assert got.device == a.low.device and torch.equal(got, torch.from_numpy(ref))
     assert (a.cells.count[table.n_rows:] == 1).all()
+
+
+# -- (d) tables wider than the kernels stage -----------------------------------
+
+WIDE_F, WIDE_R, WIDE_B = 8192, 64, 5
+
+
+def _wide_problem(seed, dtype, inclusive, n_bins, *, normal=False):
+    """A table 8,192 features wide, every cell a wildcard but 12 a row at
+    random features (each row one past 6,400, beyond what any kernel
+    variant could stage before its wide-table path); every 4th row
+    widened to hold a query."""
+    rng = np.random.default_rng(seed)
+    low = np.zeros((WIDE_R, WIDE_F), np.int32)
+    high = np.full((WIDE_R, WIDE_F), n_bins, np.int32)
+    q = rng.integers(0, n_bins, size=(WIDE_B, WIDE_F))
+    for r in range(WIDE_R):
+        f = rng.choice(WIDE_F, size=12, replace=False)
+        f[0] = rng.integers(6400, WIDE_F)
+        a = rng.integers(0, n_bins - 1, size=12)
+        b = np.minimum(n_bins, a + rng.integers(1, n_bins // 2, size=12))
+        if r % 4 == 0:
+            a, b = np.minimum(a, q[r % WIDE_B, f]), np.maximum(b, q[r % WIDE_B, f] + 1)
+        low[r, f], high[r, f] = a, b
+    if normal:
+        leaf = rng.normal(size=(WIDE_R, C)).astype(np.float32)
+    else:
+        leaf = (rng.integers(-16, 17, size=(WIDE_R, C)) / 16.0).astype(np.float32)
+    lo, hi, lm = _packed(low, high, leaf, dtype, inclusive, n_bins)
+    qp = np.zeros((WIDE_B, lo.shape[1]), dtype=lo.dtype)
+    qp[:, :WIDE_F] = q
+    cells = tops.binding_cells(lo, hi, n_bins=n_bins, inclusive=inclusive,
+                               n_real_rows=WIDE_R)
+    return qp, lo, hi, lm, cells
+
+
+@pytest.mark.parametrize("dtype,mode,n_bins,tau", [
+    *((d, m, n, 0.0) for d, m, n in HARD), ("float32", "soft", 256, 0.0),
+    ("float32", "soft", 256, 0.1),
+])
+def test_wide_table_list_and_plain_version(dtype, mode, n_bins, tau):
+    """At F = 8,192 the list holds each row's cells, the features past the
+    staged window included, and the plain version (``ops.cam_match`` on
+    the CPU) gives the JAX reference's margins."""
+    qp, lo, hi, lm, cells = _wide_problem(8, dtype, mode == "inclusive", n_bins,
+                                          normal=tau > 0)
+    assert cells.width == WIDE_F and cells.k >= 12
+    assert (cells.feat[:WIDE_R] >= 6400).any(axis=1).all()
+    q = torch.from_numpy(qp)
+    got = tops.cam_match(q, torch.from_numpy(lo), torch.from_numpy(hi), torch.from_numpy(lm),
+                         cells, out_b=WIDE_B, out_c=C, mode=mode, tau=tau).numpy()
+    want = np.asarray(j_ref(*_jax(qp, lo, hi, lm), mode=mode, tau=tau))[:, :C]
+    if mode == "soft":
+        scores = list_scores(q, cells, tau)
+        if tau == 0.0:
+            np.testing.assert_array_equal(got, want)
+            assert scores.numpy().any()
+        else:
+            s_ref = torch.from_numpy(np.array(jprec.soft_match_scores(*_jax(qp, lo, hi), tau)))
+            assert ((scores - s_ref).abs().double() <= soft_score_bound(s_ref, WIDE_F)).all()
+            lim = soft_margin_bound(s_ref, torch.from_numpy(lm[:, :C]), WIDE_F, extra=2)
+            assert (torch.from_numpy(got - want).abs().double() <= lim).all()
+        return
+    bits = list_bits(q, cells, mode).numpy()
+    np.testing.assert_array_equal(bits, np.asarray(j_bits_ref(*_jax(qp, lo, hi), mode=mode)))
+    assert bits.any() and not bits.all()
+    np.testing.assert_array_equal(got, want)

@@ -303,6 +303,137 @@ def test_soft_engine_and_moments_pass_on_the_card(card, tau):
         assert (err <= lim[:, :15]).all()
 
 
+
+# -- tables wider than the kernels stage ---------------------------------------------
+
+WIDE_WIDTHS = (2048, 8192)  # past the staged query window: int32 and soft; all variants
+
+
+def _wide_tables(f: int, n_bins: int, *, b: int = 40, r: int = 512, normal: bool = False):
+    """A table ``f`` features wide: every cell a wildcard but 12 a row at
+    random features, one of them among the last 512 (past every variant's
+    staged window at 8,192); every 4th row widened to hold a query.  B = 40
+    gives a tile of 32 queries (a warp a row) and one of 8 (a thread a
+    (row, query) pair)."""
+    rng = np.random.default_rng(f)
+    low = np.zeros((r, f), np.int32)
+    high = np.full((r, f), n_bins, np.int32)
+    q = rng.integers(0, n_bins, size=(b, f))
+    for i in range(r):
+        cols = [*rng.choice(f - 512, size=11, replace=False).tolist(),
+                int(rng.integers(f - 512, f))]
+        lo = rng.integers(0, n_bins - 1, size=12)
+        hi = np.minimum(n_bins, lo + rng.integers(1, n_bins // 2, size=12))
+        if i % 4 == 0:
+            lo, hi = np.minimum(lo, q[i % b, cols]), np.maximum(hi, q[i % b, cols] + 1)
+        low[i, cols], high[i, cols] = lo, hi
+    if normal:
+        leaf = rng.normal(size=(r, C)).astype(np.float32)
+    else:
+        leaf = (rng.integers(-16, 17, size=(r, C)) / 16.0).astype(np.float32)
+    return low, high, leaf, q
+
+
+def _wide_operands(dtype, mode, n_bins, f, dev, *, normal=False):
+    """``_wide_tables`` in the kernel layout of ``dtype`` (float32: the soft
+    layout), with the cell list, on ``dev``."""
+    low, high, leaf, q = _wide_tables(f, n_bins, normal=normal)
+    incl = mode == "inclusive"
+    if incl or dtype == "float32":
+        lo, hi, lm, _ = ops.pack_tables(low, high, leaf, r_blk=128, f_blk=128, n_bins=n_bins,
+                                        dtype=dtype, inclusive=True if incl else None)
+    else:
+        lo, hi, lm = ops.pad_tables(low, high, leaf, r_blk=128, f_blk=128, n_bins=n_bins)
+        lo, hi = lo.astype(dtype), hi.astype(dtype)
+    assert lo.shape[1] == f
+    cells = ops.binding_cells(lo, hi, n_bins=n_bins, inclusive=incl, n_real_rows=low.shape[0])
+    assert cells.k == 12 and (cells.feat[: low.shape[0]] >= f - 512).any(axis=1).all()
+    qp = ops.pad_queries(q, f, dtype=dtype, device=dev)
+    return (qp, *(torch.from_numpy(a).to(dev) for a in (lo, hi, lm)), cells.to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", WIDE_WIDTHS)
+@pytest.mark.parametrize("dtype,mode,n_bins", VARIANTS)
+def test_cuda_kernel_wide_table(card, dtype, mode, n_bins, f):
+    """Every hard variant at F_pad = 2,048 and 8,192: bits and k/16 margins
+    equal the plain version (``_check_hard``), packed equals int32."""
+    from repro_torch.kernels import cam_match as K
+
+    q, lo, hi, lm, cells = _wide_operands(dtype, mode, n_bins, f, card)
+    out = _check_hard(K, q, lo, hi, lm, cells, mode, card)
+    if dtype != "int32":
+        q32, _, _, lm32, cells32 = _wide_operands("int32", mode, n_bins, f, card)
+        assert torch.equal(out, K.cam_match_cuda(q32, cells32, lm32, mode=mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", WIDE_WIDTHS)
+@pytest.mark.parametrize("tau,leaf", [(0.0, "margins"), (0.1, "margins"), (0.1, "moments")])
+def test_cuda_soft_kernel_wide_table(card, tau, leaf, f):
+    """The soft kernel and its moments pass at F_pad = 2,048 and 8,192
+    against the plain version (``_check_soft``); at tau = 0 equal to the
+    int32 ``direct`` kernel bit for bit."""
+    from repro_torch.kernels import cam_match as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, lo, hi, lm, cells = _wide_operands("float32", "soft", 256, f, card, normal=tau > 0)
+    if leaf == "moments":
+        lm = torch.cat([lm, lm * lm, (lm != 0).float()], dim=1).contiguous()
+    _check_soft(K, q, lo, hi, lm, cells, tau, card)
+    if tau == 0.0:
+        iq, _, _, ilm, icells = _wide_operands("int32", "direct", 256, f, card)
+        assert torch.equal(K.cam_match_soft_cuda(q, cells, lm, tau=0.0),
+                           K.cam_match_cuda(iq, icells, ilm, mode="direct"))
+
+
+# -- models in: dumps and trained ensembles on the card ------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level", ["off", "full"])
+def test_ingested_goldens_on_the_card(card, level):
+    """Every golden dump through ``build(path, compress=level)`` predicts
+    its recorded answers on the card."""
+    import json
+    from pathlib import Path
+
+    fixtures = Path(__file__).parent / "fixtures" / "ingest"
+    dumps = sorted(p for p in fixtures.iterdir()
+                   if p.suffix in (".json", ".txt") and ".expected" not in p.name)
+    assert len(dumps) == 8
+    for dump in dumps:
+        exp = json.loads(dump.with_name(dump.name.rsplit(".", 1)[0] + ".expected.json")
+                         .read_text())
+        x = np.asarray(exp["x"], dtype=np.float64)
+        cm = repro_torch.build(str(dump), compress=level)
+        pred, margin = cm.predict(x), cm.raw_margin(x)
+        if cm.table.task == "regression":
+            np.testing.assert_allclose(pred, exp["predict"], rtol=1e-5, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(pred, np.asarray(exp["predict"]).astype(pred.dtype))
+        np.testing.assert_allclose(margin, exp["raw_margin"], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_trained_forest_with_long_rows_on_the_card(card):
+    """A random forest deeper than the 8 staged cells a row, trained,
+    compressed and served on the card, equals the numpy ensemble."""
+    from repro_torch.core.quantize import FeatureQuantizer
+    from repro_torch.core.trees import RFParams, train_rf
+
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(600, 12))
+    y = (x[:, 0] * x[:, 1] + x[:, 2] > 0).astype(np.int64)
+    quant = FeatureQuantizer.fit(x, 256)
+    xb = quant.transform(x)
+    ens = train_rf(xb, y, task="binary", n_bins=256, n_classes=2,
+                   params=RFParams(n_trees=12, max_depth=13, seed=1))
+    cm = repro_torch.build(ens, quantizer=quant, compress="auto")
+    assert int(cm.engine().arrays.cells.count.max()) > 8
+    np.testing.assert_array_equal(cm.predict(x), ens.predict(xb))
+
+
 # -- the serving, scoring and baseline tiers on the card ----------------------------
 
 

@@ -41,7 +41,14 @@ def test_every_module_is_listed():
                  "repro_torch.serve.batching", "repro_torch.serve.registry",
                  "repro_torch.serve.traffic", "repro_torch.serve.loop",
                  "repro_torch.serve.cluster", "repro_torch.score.reader",
-                 "repro_torch.score.writer", "repro_torch.score.pipeline"):
+                 "repro_torch.score.writer", "repro_torch.score.pipeline",
+                 "repro_torch.ingest", "repro_torch.ingest.ir",
+                 "repro_torch.ingest.xgboost_json", "repro_torch.ingest.lightgbm_text",
+                 "repro_torch.ingest.sklearn_dict", "repro_torch.ingest.lower",
+                 "repro_torch.core.compress", "repro_torch.core.trees",
+                 "repro_torch.core.perfmodel", "repro_torch.data",
+                 "repro_torch.data.tabular", "repro_torch.tools.widths",
+                 "repro_torch.tools.compress_time"):
         assert want in mods
 
 
