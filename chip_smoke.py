@@ -12,7 +12,8 @@ Phases, one line (or block) each:
      int32 `direct` kernel, the moments pass), each on the table's cell
      list as built and widened past the staged slots, bias fused and
      unfused, at b256/r16384/f130/c8, a ragged small shape and tables
-     2,048 and 8,192 features wide (past the staged query window);
+     2,048 and 8,192 features wide (past the staged query window), with
+     each instance's launches;
   4. the main paths at the full width of xtime-tabular (4096 trees of
      depth 8, 130 features, 256 bins, 8 classes), each with the launch
      counts set to 0 just before it and read just after:
@@ -29,7 +30,10 @@ Phases, one line (or block) each:
      cache flushed before it (and back to back, warm, beside it), beside
      the least time the card could take: the main path's uint8/inclusive
      kernel at batch 256, 1 and 1024 (fused bias on and off), the uint16
-     and int32 instantiations at batch 256, the soft kernel at batch 1 and
+     and int32 instantiations at batch 256 (int32 'inclusive' through
+     ``cm.raw_margin(x, table_dtype="int32", mode="inclusive")``), the two
+     instances no engine binds — uint8 and uint16 'direct' — on the full
+     table (uint8 on it clipped to a 255-bin grid), the soft kernel at batch 1 and
      256 for tau 0 and 0.1 and its moments pass at batch 256, each beside
      its plain version and beside what the cell-list design evaluates
      (listed cells x queries); the cell lists' K, cells per row, bytes and
@@ -64,7 +68,22 @@ Phases, one line (or block) each:
      ``Ensemble.predict``; a model 8,000 features wide (past every
      variant's staged query window) through every hard variant and the
      soft kernel and its moments pass, held to the traversal or the plain
-     version and timed.
+     version and timed;
+  8. the operator's tools, on the phase 4 artifacts (launch counts set to
+     0 just before the tuned path and read just after): ``autotune_kernel``
+     at full width on batch 256 with buckets 1, 16 and 1024 (each layout's
+     median per bucket, the spread of its (b_blk, r_blk) twins, the
+     dispatch, the engines bound, its seconds); ``with_tuning`` -> save ->
+     load, whose ``predict``/``raw_margin`` at batch 1, 16, 256 and 1024
+     equal the untuned artifact's bit for bit, with each variant's
+     launches and one engine for buckets sharing a winner; a JAX-style
+     plan that applies no dispatch entry; the soft artifact's sweep at
+     batch 256; the command lines as subprocesses on the card
+     (``python -m repro_torch.cli.ingest --expected`` on the 8 golden
+     dumps, ``cli.score --expected`` on xgb_deep, ``cli.ingest --autotune
+     1,256``, the four examples, all at once; then ``cli.score
+     --out`` of the saved tuned artifact over 262,144 uint8 rows, == 
+     ``cm.predict``).
 
 Every check that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object of the kernels and the contract line
@@ -74,12 +93,15 @@ lines are a JSON object of the kernels and the contract line
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -275,6 +297,7 @@ WIDE_K = 40  # past the 8 cells a row the kernels stage
 
 def phase_kernel(dev, stats) -> None:
     rng = np.random.default_rng(SEED)
+    launched = {}
     for p in problems(rng, dev):
         normal = rng.normal(size=p["leaf"].shape).astype(np.float32)
         normal[p["leaf"] == 0] = 0.0  # keep the class routing of each row
@@ -285,6 +308,7 @@ def phase_kernel(dev, stats) -> None:
                 continue
             q, lo, hi, lm, cells = dyadic
             _, _, _, lm_n, _ = operands(p, dtype, incl, normal, dev)
+            before = K.cam_match_cuda.launches + K.cam_match_bits_cuda.launches
             bias = torch.full((1, lm.shape[1]), 0.3125, device=dev)
             bits_ref = ref.cam_match_bits_ref(q, lo, hi, mode=mode)
             out_ref = ref.cam_match_ref(q, lo, hi, lm, mode=mode)
@@ -316,11 +340,15 @@ def phase_kernel(dev, stats) -> None:
                     int32_out.setdefault(enc, out_n)
                 elif not torch.equal(out_n, int32_out[enc]):
                     fail(f"{tag}: packed {dtype} != int32 {enc} margins")
+            launched[dtype, mode] = launched.get((dtype, mode), 0) + (
+                K.cam_match_cuda.launches + K.cam_match_bits_cuda.launches - before)
             print(f"kernel {p['name']} {dtype}/{mode}: bits, k/16 margins, "
                   f"fused bias, cell list K={cells.k} and widened to {WIDE_K}, rerun "
                   f"exact; normal leaves "
                   f"within 2(n+splits)·u·Σ|leaf| (max |err| so far "
                   f"{stats['max_abs_err']:.3g})", flush=True)
+    print("kernel launches in this phase, by instance: " + ", ".join(
+        f"{d}/{m} {n}" for (d, m), n in launched.items()), flush=True)
 
 
 def soft_operands(p, leaf, dev):
@@ -708,6 +736,7 @@ TIMED = [
     ("uint8/inclusive", {}),
     ("uint16/inclusive", {"table_dtype": "uint16"}),
     ("int32/direct", {"table_dtype": "int32"}),
+    ("int32/inclusive", {"table_dtype": "int32", "mode": "inclusive"}),
     ("int32/msb_lsb", {"mode": "msb_lsb"}),
     ("int32/two_cycle", {"mode": "two_cycle"}),
 ]
@@ -767,6 +796,45 @@ def phase_times(cm, batches, name, stats) -> None:
         for label, overrides in TIMED if overrides]
     print(f"times [{name}] variant paths cm.raw_margin(x, **overrides) at B=256 == the main "
           f"path's margins; launches {variant_launches}", flush=True)
+
+
+def phase_direct_packed_times(cm, batches, name) -> None:
+    """The two instances no engine binds — uint8 and uint16 with exclusive
+    upper bounds ('direct'), which phase 3 alone launches — at full width,
+    B = 256, against the plain version: uint16 on the main path's table,
+    uint8 on it clipped to a 255-bin grid (an exclusive bound of 256 does
+    not fit uint8; the clip leaves the shape and nearly every cell)."""
+    t = cm.table
+    for dtype, n_bins in (("uint16", t.n_bins), ("uint8", t.n_bins - 1)):
+        low, high = np.minimum(t.low, n_bins - 1), np.minimum(t.high, n_bins)
+        lo, hi, lm = ops.pad_tables(low, high, t.leaf_matrix(), r_blk=256, f_blk=128,
+                                    n_bins=n_bins)
+        lo, hi = lo.astype(dtype), hi.astype(dtype)
+        cells = ops.binding_cells(lo, hi, n_bins=n_bins, inclusive=False,
+                                  n_real_rows=t.n_rows).to("cuda")
+        qp = ops.pad_queries(np.minimum(batches[256], n_bins - 1), lo.shape[1], dtype=dtype,
+                             device="cuda")
+        lo_d, hi_d, lm_d = (torch.from_numpy(a).cuda() for a in (lo, hi, lm))
+        fn = lambda: K.cam_match_cuda(qp, cells, lm_d, mode="direct")  # noqa: E731
+        plain = lambda: ref.cam_match_ref(qp, lo_d, hi_d, lm_d, mode="direct")  # noqa: E731
+        if not torch.equal(fn(), plain()):
+            fail(f"{dtype}/direct at full width: margins differ from the plain version")
+        ms, warm = cold_time(fn, 10), sync_time(fn, 10)
+        plain_ms = sync_time(plain, 2, warmup=1)
+        shim = SimpleNamespace(  # what bound_ms and match_stats read of an engine
+            arrays=SimpleNamespace(cells=cells, c_pad=lm.shape[1], f_pad=lo.shape[1],
+                                   r_pad=lo.shape[0]),
+            table_dtype=dtype, kernel_mode="direct",
+            table=SimpleNamespace(low=low, high=high, n_bins=n_bins))
+        bnd, by, design = bound_ms(shim, 256, *match_stats(shim, qp))
+        print(f"times [{name}] cam_match {dtype}/direct B=256 (R={lo.shape[0]}, "
+              f"F_pad={lo.shape[1]}, K={cells.k}, {n_bins} bins"
+              f"{', clipped' if n_bins < t.n_bins else ''}): == plain version; kernel "
+              f"{ms:.4f} ms L2 flushed (warm {warm:.4f} ms), plain {plain_ms:.3f} ms, bound "
+              f"{bnd:.4f} ms by {by} ({bnd / ms:.1%} of bound); the cell-list design "
+              f"evaluates {listed_cells(cells) * 256} cells x queries: {design:.4f} ms of "
+              f"compares; launched by phase 3 only", flush=True)
+        del cells, lo_d, hi_d, lm_d
 
 
 def finite_bounds(eng: XTimeEngine) -> int:
@@ -1002,7 +1070,7 @@ def phase_cluster(cm, name, stats):
             fail("cluster: the injected crash caused no failover")
 
 
-def phase_scoring(cm, name):
+def phase_scoring(cm, name, stats):
     from repro_torch.score import score_file
 
     xs = np.random.default_rng(SEED + 30).integers(0, 256, size=(SCORE_ROWS, 130)).astype(np.uint8)
@@ -1022,6 +1090,7 @@ def phase_scoring(cm, name):
                   f"({xs.nbytes / 1e6:.1f} MB .npy), chunk_rows {SCORE_CHUNK} (bucket {r.bucket}), "
                   f"double buffer {db}: {r.rows_per_s} rows/s ({r.elapsed_s} s, "
                   f"{r.n_chunks} chunks, {launches} launches); == cm.predict", flush=True)
+    stats["score_rows"] = xs, want  # phase 8's command line scores the same rows
 
 
 def phase_traversal(ens, cm, batches, name):
@@ -1468,6 +1537,218 @@ def phase_wide_model(name, stats) -> None:
     stats["wide_lines"] = lines
 
 
+# -- phase 8: the operator's tools ----------------------------------------------
+
+
+ROOT = Path(__file__).resolve().parent
+TUNE_BATCH, TUNE_BUCKETS = 256, (1, 16, 1024)
+# a JAX-package plan's env: timed on another platform by another package
+FOREIGN_ENV = {"platform": "tpu", "n_devices": 1, "jax": "0.4.37"}
+
+
+class BindCount:
+    """Engines bound while the ``with`` lasts (``XTimeEngine.__init__``)."""
+
+    def __enter__(self):
+        self.n, init = 0, XTimeEngine.__init__
+
+        def counting(eng, *args, **kwargs):
+            self.n += 1
+            init(eng, *args, **kwargs)
+
+        self._init, XTimeEngine.__init__ = init, counting
+        return self
+
+    def __exit__(self, *exc):
+        XTimeEngine.__init__ = self._init
+
+
+def layout(entry: dict) -> str:
+    """The kernel instance a trial or dispatch entry runs: packed dtypes
+    always compare inclusive bounds."""
+    mode = "inclusive" if np.dtype(entry["table_dtype"]).kind == "u" else entry["mode"]
+    return f"{entry['table_dtype']}/{mode}"
+
+
+def sweep_lines(plan, name: str, label: str) -> dict:
+    """Each layout's median microseconds per bucket over its (b_blk, r_blk)
+    twins — the same kernel on the same shapes, so their spread (max/min)
+    is the timer's noise — and the dispatch."""
+    groups: dict[tuple, list[float]] = {}
+    for t in plan.trials:
+        groups.setdefault((layout(t), t["batch"]), []).append(t["us_per_call"])
+    for (lay, b), us in groups.items():
+        print(f"tools [{name}] {label} sweep {lay} B={b}: median {float(np.median(us))} us "
+              f"over {len(us)} (b_blk, r_blk) twins, min {min(us)}, max {max(us)}, spread "
+              f"max/min {max(us) / min(us):.4f}", flush=True)
+    print(f"tools [{name}] {label} dispatch: " + "; ".join(
+        f"B={e['batch']} -> {layout(e)} (mode {e['mode']}, b_blk {e['b_blk']}, r_blk "
+        f"{e['r_blk']}) {e['us_per_call']} us" for e in plan.dispatch), flush=True)
+    return groups
+
+
+def run_together(cmds: list[list[str]], env: dict, timeout: float) -> list[tuple]:
+    """Start every command at once, wait for all: (rc, stdout, stderr,
+    seconds) each.  Every process is ended before this returns."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=env, cwd=str(ROOT)) for c in cmds]
+    out = []
+    try:
+        for proc in procs:
+            o, e = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            out.append((proc.returncode, o, e, time.perf_counter() - t0))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def phase_tools(cm, soft, batches, name, stats) -> None:
+    """Phase 8: the autotuner and its per-bucket dispatch, the command
+    lines and the examples on the card."""
+    from repro_torch import TunePlan, autotune_kernel
+
+    with BindCount() as binds:
+        t0 = time.perf_counter()
+        plan = autotune_kernel(cm, batch=TUNE_BATCH, batches=TUNE_BUCKETS)
+        secs = time.perf_counter() - t0
+    if not plan.timed_on("cuda") or plan.env["device_name"] != torch.cuda.get_device_name(0):
+        fail(f"autotune: the plan's env {plan.env} does not name this card")
+    groups = sweep_lines(plan, name, "hard")
+    layouts = {lay for lay, _ in groups}
+    if binds.n != len(layouts) or len(plan.trials) != 9 * len(layouts) * 4:
+        fail(f"autotune: {binds.n} engines bound for {len(layouts)} layouts, "
+             f"{len(plan.trials)} trials")
+    print(f"tools [{name}] hard sweep: {len(plan.trials)} trials, {binds.n} engines bound "
+          f"({', '.join(sorted(layouts))}), {secs} s", flush=True)
+
+    xs = {1: batches[1], 16: batches[37][:16], 256: batches[256], 1024: batches[1024]}
+    want = {b: (cm.predict(x), cm.raw_margin(x)) for b, x in xs.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        base = Path(tmp) / "tuned"
+        t0 = time.perf_counter()
+        cm.with_tuning(plan).save(base)
+        loaded = repro_torch.CompiledModel.load(base)
+        save_s = time.perf_counter() - t0
+        if loaded.tune_plan() != plan:
+            fail("tuned artifact: the plan differs after save -> load")
+        reset_launches()  # count only the tuned path's launches
+        per_variant: dict[str, int] = {}
+        with BindCount() as tbinds:
+            for b, x in xs.items():
+                before = K.cam_match_cuda.launches
+                if not (np.array_equal(loaded.predict(x), want[b][0])
+                        and np.array_equal(loaded.raw_margin(x), want[b][1])):
+                    fail(f"tuned artifact B={b}: predict/raw_margin differ from the untuned")
+                eng, e = loaded.engine(batch_hint=b), plan.dispatch_for(b)
+                if (eng.table_dtype, eng.mode, eng.b_blk, eng.r_blk) != (
+                        e["table_dtype"], e["mode"], e["b_blk"], e["r_blk"]):
+                    fail(f"tuned artifact B={b}: bound {eng.table_dtype}/{eng.mode} "
+                         f"{eng.b_blk}/{eng.r_blk}, not the bucket's winner {e}")
+                lay = f"{eng.table_dtype}/{eng.kernel_mode}"
+                per_variant[lay] = per_variant.get(lay, 0) + K.cam_match_cuda.launches - before
+            torch.cuda.synchronize()
+        launches = counted("tuned path")
+        winners = {b: tuple(plan.dispatch_for(b)[k] for k in ("b_blk", "r_blk", "table_dtype",
+                                                                "mode")) for b in xs}
+        engines = {b: loaded.engine(batch_hint=b) for b in xs}
+        shared = all((winners[a] == winners[b]) == (engines[a] is engines[b])
+                     for a in xs for b in xs)
+        if launches != 2 * len(xs) or not shared or tbinds.n != len(set(winners.values())):
+            fail(f"tuned path: {launches} launches, {tbinds.n} engines for "
+                 f"{len(set(winners.values()))} distinct winners, shared {shared}")
+        print(f"tools [{name}] tuned artifact: with_tuning -> save -> load {save_s} s; "
+              f"predict + raw_margin at B = {', '.join(map(str, xs))} == untuned bit for "
+              f"bit; launches by variant {per_variant}; {tbinds.n} engines bound for "
+              f"{len(set(winners.values()))} distinct bucket winners (buckets with one "
+              f"winner share one engine)", flush=True)
+        del loaded, engines, eng
+
+        own = cm.with_tuning(plan)
+        foreign = cm.with_tuning(TunePlan.from_dict({**plan.to_dict(), "env": FOREIGN_ENV}))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            moved = {label: [b for b in xs if a.resolved_deploy(b, device="cuda")
+                             != a.resolved_deploy(device="cuda")]
+                     for label, a in (("own", own), ("foreign", foreign))}
+        n_warn = sum(issubclass(w.category, UserWarning) for w in caught)
+        if moved["foreign"] or n_warn != 1:
+            fail(f"foreign plan: dispatch applied at {moved['foreign']}, {n_warn} warnings")
+        print(f"tools [{name}] a JAX-style plan (env {FOREIGN_ENV}) applies no dispatch entry "
+              f"(the port's own moves buckets {moved['own']} off the primary winner); "
+              f"{n_warn} UserWarning", flush=True)
+        del own, foreign
+
+        with BindCount() as sbinds:
+            t0 = time.perf_counter()
+            splan = autotune_kernel(soft, batch=TUNE_BATCH)
+            ssecs = time.perf_counter() - t0
+        sgroups = sweep_lines(splan, name, f"soft tau={SOFT_TAU}")
+        if sbinds.n != 1 or len(sgroups) != 1:
+            fail(f"soft autotune: {sbinds.n} binds, {len(sgroups)} layouts")
+        (us,) = sgroups.values()
+        print(f"tools [{name}] soft sweep: {len(splan.trials)} trials, 1 engine bound, "
+              f"{ssecs} s; whole call median {float(np.median(us)) / 1e3:.4f} ms against "
+              f"phase 5's kernel alone (L2 flushed) "
+              f"{stats['soft_kernel_line']['ms']:.4f} ms", flush=True)
+        phase_commands(base, name, stats)
+
+
+def phase_commands(tuned_base: Path, name: str, stats) -> None:
+    """The command lines and the four examples as subprocesses on the card."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    work = tuned_base.parent
+    deep = FIXTURES / "xgb_deep.json"
+    golden = FIXTURES / "xgb_deep.expected.json"
+    repro_torch.build(str(deep)).save(work / "xgb_deep")
+    py = [sys.executable, "-m"]
+    cmds = {}
+    for dump in sorted(p for p in FIXTURES.iterdir()
+                       if p.suffix in (".json", ".txt") and ".expected" not in p.name):
+        exp = FIXTURES / (dump.name.rsplit(".", 1)[0] + ".expected.json")
+        cmds[f"ingest {dump.name}"] = py + ["repro_torch.cli.ingest", str(dump), "--out",
+                                            str(work / f"g_{dump.stem}"), "--expected", str(exp)]
+    cmds["score xgb_deep"] = py + [
+        "repro_torch.cli.score", str(work / "xgb_deep"),
+        str(ROOT / "tests" / "fixtures" / "score" / "xgb_deep_x.npy"),
+        "--expected", str(golden), "--chunk-rows", "10"]
+    cmds["ingest --autotune"] = py + ["repro_torch.cli.ingest", str(deep), "--out",
+                                      str(work / "deep_tuned"), "--autotune", "1,256"]
+    for ex in ("torch_quickstart", "torch_ingest_quickstart", "torch_xtime_serving",
+               "torch_xtime_cluster"):
+        cmds[ex] = [sys.executable, str(ROOT / "examples" / f"{ex}.py")]
+    # one host thread a process: 14 processes with a thread pool the size
+    # of the host each would oversubscribe its cores
+    results = run_together(list(cmds.values()), {**env, "OMP_NUM_THREADS": "1"}, timeout=300)
+    for (label, cmd), (rc, out, err, secs) in zip(cmds.items(), results):
+        if rc != 0 or ("--expected" in cmd and "[verify]  OK" not in out):
+            fail(f"{label}: rc {rc}\n{out[-2000:]}{err[-2000:]}")
+        last = out.strip().splitlines()[-1] if out.strip() else ""
+        print(f"tools [{name}] {label}: rc 0, {secs:.1f} s (all {len(cmds)} started together); "
+              f"{last}", flush=True)
+    plan = repro_torch.CompiledModel.load(work / "deep_tuned").tune_plan()
+    if plan is None or not plan.timed_on("cuda") or [e["batch"] for e in plan.dispatch] != [1, 256]:
+        fail("ingest --autotune: the saved artifact carries no plan timed on the card")
+
+    xs, want = stats["score_rows"]
+    rows, out_path = work / "rows.npy", work / "preds.npy"
+    np.save(rows, xs)
+    (rc, out, err, secs), = run_together(
+        [py + ["repro_torch.cli.score", str(tuned_base), str(rows), "--out", str(out_path),
+               "--chunk-rows", str(SCORE_CHUNK)]], env, timeout=300)
+    if rc != 0 or not np.array_equal(np.load(out_path), want):
+        fail(f"score --out at full width: rc {rc}, output == cm.predict: "
+             f"{rc == 0 and np.array_equal(np.load(out_path), want)}\n{out}{err}")
+    print(f"tools [{name}] score --out of the tuned full-width artifact, {SCORE_ROWS} x 130 "
+          f"uint8 rows, chunk rows {SCORE_CHUNK}: rc 0, {secs:.1f} s in all; == cm.predict; "
+          + " | ".join(out.strip().splitlines()), flush=True)
+
+
 def kernel_entry(name, source, launches, err, ms, plain_ms, bnd, by) -> dict:
     """One object of the kernels line: ``source`` a file of kernels/csrc,
     every time measured in this run, no single PyTorch call to compare."""
@@ -1510,17 +1791,20 @@ def main() -> int:
     soft = phase_soft_main_path(ens, cm, batches, stats)
     print(f"soft path phase {time.perf_counter() - t0:.1f} s", flush=True)
     phase_times(cm, batches, name, stats)
+    phase_direct_packed_times(cm, batches, name)
     phase_soft_times(soft, batches, name, stats)
     for label, phase in (("serving", lambda: phase_serving(cm, soft, name, stats)),
                          ("cluster", lambda: phase_cluster(cm, name, stats)),
-                         ("scoring", lambda: phase_scoring(cm, name)),
+                         ("scoring", lambda: phase_scoring(cm, name, stats)),
                          ("traversal", lambda: phase_traversal(ens, cm, batches, name)),
                          ("goldens", lambda: phase_goldens(name)),
                          ("ingested", lambda: phase_ingested(ens, name, stats)),
                          ("compression levels", lambda: phase_compress_levels(name, stats)),
                          ("degenerate tables", lambda: phase_degenerate(name)),
                          ("trained", lambda: phase_trained(name)),
-                         ("wide model", lambda: phase_wide_model(name, stats))):
+                         ("wide model", lambda: phase_wide_model(name, stats)),
+                         ("operator's tools", lambda: phase_tools(cm, soft, batches, name,
+                                                                  stats))):
         t0 = time.perf_counter()
         phase()
         print(f"{label} phase {time.perf_counter() - t0:.1f} s", flush=True)

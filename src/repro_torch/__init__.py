@@ -10,7 +10,9 @@ the soft cell mode
 ``predict_proba`` and the leaf-spread uncertainty; on top of the engine,
 the serving tier (``TableRegistry`` -> ``MicroBatcher`` -> ``ServeLoop``,
 and the replicated ``ClusterServer``), streaming ``score_file`` and the
-``TraversalBaseline`` the paper compares against.
+``TraversalBaseline`` the paper compares against; the kernel autotuner
+(``autotune_kernel`` -> ``TunePlan`` -> ``CompiledModel.with_tuning``),
+and the ``ingest`` and ``score`` command lines (``repro_torch.cli``).
 
     repro_torch.api      ``build`` -> ``CompiledModel`` (save/load/predict)
     repro_torch.convert  artifact state <-> the port's ``CompiledModel``
@@ -29,6 +31,7 @@ and the replicated ``ClusterServer``), streaming ``score_file`` and the
                          async cluster and traffic replay
     repro_torch.score    streaming offline scoring of columnar files
     repro_torch.ft       heartbeats and straggler detection
+    repro_torch.cli      ``python -m repro_torch.cli.ingest`` / ``.score``
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
@@ -37,10 +40,12 @@ from repro_torch.api import CompiledModel, build
 from repro_torch.core.baselines import TraversalBaseline
 from repro_torch.core.deploy import DeployConfig
 from repro_torch.core.engine import XTimeEngine
+from repro_torch.core.tune import TunePlan, autotune_kernel
 from repro_torch.score import score_file
 from repro_torch.serve import ClusterServer, ServeLoop, TableRegistry
 
 __all__ = [
     "ClusterServer", "CompiledModel", "DeployConfig", "ServeLoop", "TableRegistry",
-    "TraversalBaseline", "XTimeEngine", "build", "score_file",
+    "TraversalBaseline", "TunePlan", "XTimeEngine", "autotune_kernel", "build",
+    "score_file",
 ]

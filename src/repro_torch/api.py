@@ -15,8 +15,8 @@ The port's counterpart of ``repro.api``:
 Artifacts are the JAX package's format byte for byte (the same ``.npz``
 arrays and the same JSON sidecar), so either package loads what the other
 saved; ``repro_torch.convert`` assembles the port's objects from them.
-``engine()`` binds an artifact once per (device, overrides), under a lock,
-so serving replicas that bind at once share one engine.
+``engine()`` binds an artifact once per (device, resolved ``DeployConfig``),
+under a lock, so serving replicas that bind at once share one engine.
 Models come in as a native or trained ``Ensemble``, a pre-compiled
 ``CAMTable``, an ``ImportedEnsemble`` or a path to a model dump (XGBoost
 JSON, LightGBM text, sklearn-forest dict), and ``compress=`` runs the
@@ -25,8 +25,16 @@ table compression pass ('prune', 'merge', 'full' or 'auto'):
     cm = repro_torch.build("model.json", compress="auto")
     pred = cm.predict(x_float)                  # binned by the ingested grid
 
-Not ported yet (ROADMAP.md): tuning plans (carried through save/load, and
-a ``batch_hint`` is accepted, but none is applied), meshes.
+A kernel autotune (``repro_torch.core.tune.autotune_kernel``) folds into
+the artifact with ``with_tuning`` and rides the sidecar; ``predict``,
+``predict_proba``, ``raw_margin`` and ``engine(batch_hint=)`` then bind the
+measured winner of the batch's bucket — for plans the port timed itself on
+the engine's device type, and for no other plan:
+
+    plan = autotune_kernel(cm, batch=256, batches=(1, 16, 1024))
+    tuned = cm.with_tuning(plan)                # knobs folded into deploy
+
+Not ported yet (ROADMAP.md): meshes.
 """
 
 from __future__ import annotations
@@ -85,8 +93,10 @@ class CompiledModel:
       quantizer: the float -> bin grid, when the artifact carries one.
       ingest / compression: the lowering report of an ingested dump and
         the compression pass's report (``build`` fills both).
-      tuning: the JAX package's autotune plan, carried through save/load
-        unchanged.
+      tuning: the serialized ``TunePlan`` whose primary winner is
+        folded into ``deploy`` (``with_tuning``), carried through
+        save/load unchanged; its dispatch applies where the port timed it
+        (``resolved_deploy``).
     """
 
     table: CAMTable
@@ -104,6 +114,7 @@ class CompiledModel:
         # (frozen dataclass => set via object)
         object.__setattr__(self, "_engines", {})
         object.__setattr__(self, "_engine_lock", threading.Lock())
+        object.__setattr__(self, "_warned_foreign_plan", False)
 
     @property
     def chip(self) -> ChipSpec:
@@ -111,18 +122,47 @@ class CompiledModel:
 
     # -- execution binding ---------------------------------------------------
 
-    def resolved_deploy(self, **overrides) -> DeployConfig:
-        """The effective config an engine binds: ``overrides`` applied,
-        then 'auto' noc_config resolved from the compiled NoC plan
-        ('batch' degrades to 'accumulate' on one device) and 'auto' spmd
-        to 'gspmd' (no mesh)."""
+    def resolved_deploy(self, batch_hint=None, *, device=None, **overrides) -> DeployConfig:
+        """The effective config an engine on ``device`` binds: the tuned
+        dispatch entry for ``batch_hint`` folded in first, then
+        ``overrides`` (explicit knobs outrank the dispatch), then 'auto'
+        noc_config resolved from the compiled NoC plan ('batch' degrades
+        to 'accumulate' on one device) and 'auto' spmd to 'gspmd' (no
+        mesh).
+
+        The dispatch applies only for a plan the port timed itself on the
+        device's type (``TunePlan.timed_on``).  A foreign plan — the JAX
+        package's, or one timed on the other device type — measured other
+        kernels: its primary winner is already in ``deploy``
+        (``with_tuning``), and a hint then binds that, with one
+        ``UserWarning`` per artifact naming the plan's platform."""
         for knob in ("batching", "compress"):
             if knob in overrides:
                 raise ValueError(
                     f"{knob!r} is fixed at build time; rebuild the artifact "
                     "to change it"
                 )
-        cfg = self.deploy.replace(**overrides) if overrides else self.deploy
+        cfg = self.deploy
+        if batch_hint is not None and self.tuning is not None:
+            from repro_torch.core.engine import resolve_device
+
+            plan, dev_type = self.tune_plan(), resolve_device(device).type
+            if plan.timed_on(dev_type):
+                cfg = plan.apply(cfg, batch=int(batch_hint))
+            elif not self._warned_foreign_plan:
+                object.__setattr__(self, "_warned_foreign_plan", True)
+                by = "torch" if "torch" in plan.env else "jax" if "jax" in plan.env else "?"
+                warnings.warn(
+                    f"the artifact's tuning plan was timed on platform "
+                    f"{plan.env.get('platform')!r} ({by}), not by this package on "
+                    f"{dev_type!r}: its per-batch dispatch is not applied and the "
+                    "primary winner in deploy binds; re-run autotune_kernel to "
+                    "tune for this device",
+                    UserWarning,
+                    stacklevel=3,
+                )
+        if overrides:
+            cfg = cfg.replace(**overrides)
         if cfg.noc_config == "auto":
             noc_cfg = self.noc.engine_noc_config
             cfg = cfg.replace(noc_config="accumulate" if noc_cfg == "batch" else noc_cfg)
@@ -132,13 +172,18 @@ class CompiledModel:
 
     def engine(self, device=None, *, mesh=None, batch_hint=None, **overrides) -> "XTimeEngine":
         """Lazily bind this artifact to an ``XTimeEngine`` on ``device``
-        (``None``: the card).  Repeated calls with the same device and
-        overrides return the same engine; concurrent first calls bind it
-        once (the others wait for it).
+        (``None``: the card).  Engines are cached per (device, resolved
+        ``DeployConfig``): calls that resolve to the same configuration
+        return the same engine, and concurrent first calls bind it once
+        (the others wait for it).
 
-        ``batch_hint`` is accepted for the JAX package's signature and
-        applies nothing: tuning plans are carried, not applied, until the
-        autotuner is ported (ROADMAP.md).  ``mesh`` raises: the
+        ``batch_hint`` engages a tuned artifact's DISPATCH table: the
+        engine binds the measured winner of that batch's bucket
+        (``TunePlan.dispatch_for``) when the port timed the plan on this
+        device type (see ``resolved_deploy``).  Buckets whose winners are
+        the same configuration share one engine, and so one copy of the
+        table on the device — the JAX package keys its cache on the bucket
+        instead; both bind the same bits.  ``mesh`` raises: the
         multi-device engine is not ported yet."""
         from repro_torch.core.engine import XTimeEngine, resolve_device
 
@@ -148,13 +193,12 @@ class CompiledModel:
                 "'multi-device engine'); bind one device with device=..."
             )
         dev = resolve_device(device)
-        key = (str(dev), tuple(sorted(overrides.items())))
+        cfg = self.resolved_deploy(batch_hint, device=dev, **overrides)
+        key = (str(dev), cfg)
         with self._engine_lock:
             cached = self._engines.get(key)
             if cached is None:
-                cached = XTimeEngine.from_config(
-                    self.table, self.resolved_deploy(**overrides), device=dev
-                )
+                cached = XTimeEngine.from_config(self.table, cfg, device=dev)
                 self._engines[key] = cached
         return cached
 
@@ -176,6 +220,25 @@ class CompiledModel:
         noc = plan_noc(self.table, self.placement, batching=deploy.batching)
         perf = xtime_perf(self.table, self.placement, noc)
         return dataclasses.replace(self, noc=noc, perf=perf, deploy=deploy)
+
+    def with_tuning(self, plan) -> "CompiledModel":
+        """Fold an ``autotune_kernel`` winner into the artifact.
+
+        The plan's knobs (b_blk/r_blk/table_dtype/mode/backend) replace
+        the deploy config's, and the full plan rides the sidecar so
+        reloaded artifacts — and ``TableRegistry`` cold starts — bind
+        engines in the tuned configuration without re-searching.
+        """
+        tuned = self.with_deploy(plan.apply(self.deploy))
+        return dataclasses.replace(tuned, tuning=plan.to_dict())
+
+    def tune_plan(self):
+        """The persisted ``TunePlan`` (None when never autotuned)."""
+        if self.tuning is None:
+            return None
+        from repro_torch.core.tune import TunePlan  # lazy: keeps load light
+
+        return TunePlan.from_dict(self.tuning)
 
     # -- persistence ---------------------------------------------------------
 
@@ -235,7 +298,7 @@ class CompiledModel:
         uncertainty at each row's predicted channel (one more kernel
         launch, over the moments matrix)."""
         q = self._binned(x, "predict")
-        eng = self.engine(device, **overrides)
+        eng = self.engine(device, batch_hint=q.shape[0], **overrides)
         if return_uncertainty and eng.kernel_mode != "soft":
             raise ValueError(
                 "predict(return_uncertainty=True) requires cell_mode="
@@ -260,7 +323,7 @@ class CompiledModel:
         via the softmax, both in float64 on the host.  Hard modes and
         regression raise."""
         q = self._binned(x, "predict_proba")
-        eng = self.engine(device, **overrides)
+        eng = self.engine(device, batch_hint=q.shape[0], **overrides)
         if eng.kernel_mode != "soft":
             raise ValueError(
                 "predict_proba requires cell_mode='soft' (this binding "
@@ -285,7 +348,8 @@ class CompiledModel:
         """Raw ``(B, n_outputs)`` float32 margins for float (or pre-binned)
         rows."""
         q = self._binned(x, "raw_margin")
-        return self.engine(device, **overrides).raw_margin(q).cpu().numpy()
+        eng = self.engine(device, batch_hint=q.shape[0], **overrides)
+        return eng.raw_margin(q).cpu().numpy()
 
     def bin(self, x: np.ndarray) -> np.ndarray:
         """Deprecated: float queries -> integer bins.  Call :meth:`predict`

@@ -438,3 +438,20 @@ def pack_cores(table: CAMTable, spec: ChipSpec | None = None) -> CorePlacement:
         n_feature_segments=n_seg,
         replication=replication,
     )
+
+
+def padded_table(
+    table: CAMTable, row_multiple: int = 256
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """Pad rows to a multiple (tile/shard size). Padding rows can never match
+    (low=1 > high=0 for every feature).  Returns (low, high, leaf_matrix, R_pad).
+    """
+    R = table.n_rows
+    R_pad = int(np.ceil(R / row_multiple)) * row_multiple
+    low = np.ones((R_pad, table.n_cols), dtype=np.int32)
+    high = np.zeros((R_pad, table.n_cols), dtype=np.int32)
+    low[:R] = table.low
+    high[:R] = table.high
+    leaf_m = np.zeros((R_pad, table.n_outputs), dtype=np.float32)
+    leaf_m[:R] = table.leaf_matrix()
+    return low, high, leaf_m, R_pad

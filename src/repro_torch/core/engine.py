@@ -354,3 +354,11 @@ class XTimeEngine:
             return m if kind == "margin" else self._predict_from_margin(m)
 
         return run
+
+    def predict_padded(self, q_padded) -> torch.Tensor:
+        """``predict`` on a pre-padded bucket; returns padded outputs."""
+        return self.padded_fn("predict")(q_padded)
+
+    def raw_margin_padded(self, q_padded) -> torch.Tensor:
+        """``raw_margin`` on a pre-padded bucket; returns padded outputs."""
+        return self.padded_fn("margin")(q_padded)

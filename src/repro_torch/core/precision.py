@@ -92,6 +92,21 @@ def match_two_cycle(q: torch.Tensor, t_low: torch.Tensor, t_high: torch.Tensor) 
     return mal_after_1 & (qm >= tlm) & ((qm - 1) < thm)
 
 
+def macro_cell_count(n_features: int, n_bits: int = 8) -> int:
+    """aCAM sub-cells per row for the given precision (area model input).
+
+    Direct unary extension would need 2^(N-M) cells per threshold; the
+    paper's scheme needs exactly 2 sub-cells per macro-cell (×2 thresholds
+    folded into one macro-cell pair) — doubling area and search latency
+    rather than exponentiating them (§III-B).
+    """
+    if n_bits <= M_BITS:
+        return n_features  # single sub-cell per feature
+    if n_bits <= 2 * M_BITS:
+        return 2 * n_features  # the paper's macro-cell
+    raise ValueError(">8-bit thresholds are out of the paper's design space")
+
+
 def encode_soft_bounds(
     low, high, n_bins: int
 ) -> tuple[np.ndarray, np.ndarray]:

@@ -12,8 +12,11 @@ maximum rows/s (DESIGN.md §14).  On the card the pipeline is
 
 with two pinned host buffers and two device buffers, so at most two
 chunks are in flight and host→device transfer and host binning overlap
-the kernel.  Every chunk (tail included) pads to one bucket, sized to
-``chunk_rows`` rounded up to ``lcm(b_blk, batch_multiple)``.  On the CPU
+the kernel.  The engine is bound with ``batch_hint=chunk_rows``, so a
+tuned artifact scores with the measured winner of that bucket (where the
+port timed the plan on the device's type).  Every chunk (tail included)
+pads to one bucket, sized to ``chunk_rows`` rounded up to
+``lcm(b_blk, batch_multiple)`` of that engine.  On the CPU
 (``device="cpu"``) the chunks run one after another through the plain
 version.
 

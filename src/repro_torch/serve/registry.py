@@ -31,6 +31,7 @@ serializes concurrent swaps of the same name.
 from __future__ import annotations
 
 import threading
+import warnings
 from dataclasses import dataclass
 
 from repro_torch.api import CompiledModel, build
@@ -51,6 +52,7 @@ class ServedModel:
     artifact: CompiledModel
     engine: XTimeEngine
     batching: bool = False  # retained across hot swaps
+    engine_overrides: dict | None = None  # loose register() kwargs, retained across hot swaps
 
     # artifact views (kept as properties so the artifact stays the single
     # source of truth; ``entry.table`` etc. remain stable public names)
@@ -78,8 +80,12 @@ class ServedModel:
 
     @property
     def tuning(self) -> dict | None:
-        """Persisted autotune plan of the artifact (carried, not applied:
-        the autotuner is not ported yet); None when never autotuned."""
+        """Persisted autotune plan the engine was cold-started with
+        (``repro_torch.core.tune.autotune_kernel`` →
+        ``CompiledModel.with_tuning``, or the JAX package's); its primary
+        winner is in ``deploy``, and ``TableRegistry.engine_for_batch``
+        binds its per-bucket winners where the port timed it.  None when
+        the artifact was never autotuned."""
         return self.artifact.tuning
 
     @property
@@ -99,7 +105,16 @@ class TableRegistry:
         device=None,
         chip_spec: ChipSpec | None = None,
         deploy: DeployConfig | None = None,
+        **engine_kwargs,
     ) -> None:
+        if engine_kwargs:
+            warnings.warn(
+                "loose TableRegistry engine kwargs are deprecated; pass "
+                "deploy=DeployConfig(...)",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+            deploy = (deploy or DeployConfig()).replace(**engine_kwargs)
         self.device = resolve_device(device)
         self.chip_spec = chip_spec
         self.deploy = deploy  # None => per-model defaults / artifact config
@@ -115,6 +130,7 @@ class TableRegistry:
         *,
         batching: bool | None = None,
         deploy: DeployConfig | None = None,
+        **engine_overrides,
     ) -> ServedModel:
         """Install ``model`` under ``name`` (compiling only if needed).
 
@@ -125,9 +141,20 @@ class TableRegistry:
         atomically and its version incremented, with the previous
         registration's ``batching``/deploy settings carried over unless
         overridden.
+
+        ``engine_overrides`` (loose ``b_blk=...`` kwargs) are deprecated
+        in favor of ``deploy=DeployConfig(...)`` but still honored.
         """
+        if engine_overrides:
+            warnings.warn(
+                "loose register() engine kwargs are deprecated; pass "
+                "deploy=DeployConfig(...)",
+                DeprecationWarning,
+                stacklevel=2,
+            )
         with self._lock:
-            return self._register_locked(name, model, batching=batching, deploy=deploy)
+            return self._register_locked(name, model, batching=batching, deploy=deploy,
+                                         **engine_overrides)
 
     def _register_locked(
         self,
@@ -136,8 +163,13 @@ class TableRegistry:
         *,
         batching: bool | None = None,
         deploy: DeployConfig | None = None,
+        **engine_overrides,
     ) -> ServedModel:
         prev = self._models.get(name)
+        if prev is not None and deploy is None:
+            # carry the previous loose overrides forward — but an explicit
+            # deploy= is a full reset, so stale kwargs must not outrank it
+            engine_overrides = {**(prev.engine_overrides or {}), **engine_overrides}
         # base config precedence: explicit deploy > carried-over previous
         # registration > the artifact's own config > registry default
         if deploy is not None:
@@ -150,7 +182,7 @@ class TableRegistry:
             base = self.deploy or DeployConfig()
         if batching is None:
             batching = base.batching
-        cfg = base.replace(batching=batching)
+        cfg = base.replace(batching=batching, **engine_overrides)
 
         if isinstance(model, CompiledModel):
             artifact = model.with_deploy(cfg)  # never recompiles the table
@@ -163,6 +195,7 @@ class TableRegistry:
             artifact=artifact,
             engine=artifact.engine(self.device),
             batching=batching,
+            engine_overrides=dict(engine_overrides),
         )
         self._models[name] = entry
         return entry
@@ -200,11 +233,19 @@ class TableRegistry:
         return self.get(name).engine
 
     def engine_for_batch(self, name: str, batch: int) -> XTimeEngine:
-        """The engine serving ``batch``-sized requests of ``name``: the
-        entry's engine, since the port applies no tuning plan yet (a
-        tuned artifact's per-bucket dispatch waits for the autotuner,
-        ROADMAP.md)."""
-        return self.get(name).engine
+        """The engine serving ``batch``-sized requests of ``name``.
+
+        A tuned artifact carries a measured per-batch-bucket dispatch
+        table in its ``TunePlan``; this binds (and memoizes, via the
+        artifact's engine cache) the winning kernel configuration for the
+        bucket covering ``batch`` — where the port timed the plan on this
+        registry's device type (``CompiledModel.resolved_deploy``).
+        Untuned artifacts fall back to the entry's default engine.
+        """
+        entry = self.get(name)
+        if entry.artifact.tuning is None:
+            return entry.engine
+        return entry.artifact.engine(self.device, batch_hint=int(batch))
 
     def artifact(self, name: str) -> CompiledModel:
         return self.get(name).artifact

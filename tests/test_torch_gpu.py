@@ -559,3 +559,53 @@ def test_eight_threads_bind_one_engine_on_the_card(card):
     assert len(engines) == 8 and all(e is engines[0] for e in engines)
     assert len(cm._engines) == 1
     np.testing.assert_array_equal(engines[0].predict(q).cpu().numpy(), cm.predict(q))
+
+
+@pytest.mark.gpu
+def test_autotune_on_the_card_and_tuned_bits(card):
+    """A sweep on the card records platform 'cuda'; its plan applies per
+    bucket and every bucket gives the untuned artifact's bits."""
+    from repro_torch.kernels import cam_match as K
+
+    ens = random_deep_ensemble(n_trees=32, depth=6, n_features=30, n_bins=256,
+                               task="multiclass", n_classes=4, seed=8)
+    cm = repro_torch.build(ens)
+    plan = repro_torch.autotune_kernel(cm, batch=256, batches=(1, 16), b_blks=(64,),
+                                       r_blks=(128, 256))
+    assert plan.env["platform"] == "cuda" and plan.env["device_name"] == \
+        torch.cuda.get_device_name(0)
+    assert plan.timed_on("cuda") and len(plan.trials) == 3 * 2 * 3
+    tuned = cm.with_tuning(plan)
+    q = np.random.default_rng(9).integers(0, 256, size=(256, 30)).astype(np.uint8)
+    before = K.cam_match_cuda.launches
+    for b in (1, 16, 256):
+        np.testing.assert_array_equal(tuned.raw_margin(q[:b]), cm.raw_margin(q[:b]))
+        np.testing.assert_array_equal(tuned.predict(q[:b]), ens.predict(q[:b]))
+        assert tuned.engine(batch_hint=b).table_dtype == plan.dispatch_for(b)["table_dtype"]
+    assert K.cam_match_cuda.launches == before + 9
+
+
+@pytest.mark.gpu
+def test_ingest_score_commands_on_the_card(card, tmp_path):
+    """``python -m repro_torch.cli.ingest`` -> ``...score --expected`` with
+    ``--device cuda`` in subprocesses."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    fixtures = root / "tests" / "fixtures"
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    for argv in (
+        ["repro_torch.cli.ingest", str(fixtures / "ingest" / "xgb_deep.json"),
+         "--out", str(tmp_path / "art"), "--device", "cuda",
+         "--expected", str(fixtures / "ingest" / "xgb_deep.expected.json")],
+        ["repro_torch.cli.score", str(tmp_path / "art"), str(fixtures / "score" / "xgb_deep_x.npy"),
+         "--expected", str(fixtures / "ingest" / "xgb_deep.expected.json"),
+         "--chunk-rows", "10", "--device", "cuda"],
+    ):
+        r = subprocess.run([sys.executable, "-m", *argv], capture_output=True, text=True,
+                           env=env, timeout=600)
+        assert r.returncode == 0, r.stdout + r.stderr
+        assert "[verify]  OK" in r.stdout

@@ -1,8 +1,10 @@
 """The port's import boundary and its default device.
 
-(a) importing every ``repro_torch`` module loads no ``jax`` and nothing
-of ``repro``; (h) entry points called without ``device`` run on the card,
-so with no card they raise instead of falling back to the CPU.
+(a) importing every ``repro_torch`` module, ``chip_smoke.py`` or the
+``examples/torch_*.py`` loads no ``jax`` and nothing of ``repro``; (h)
+entry points called without ``device`` — the command lines and
+``autotune_kernel`` too — run on the card, so with no card they raise
+instead of falling back to the CPU.
 """
 
 import json
@@ -48,24 +50,39 @@ def test_every_module_is_listed():
                  "repro_torch.core.compress", "repro_torch.core.trees",
                  "repro_torch.core.perfmodel", "repro_torch.data",
                  "repro_torch.data.tabular", "repro_torch.tools.widths",
-                 "repro_torch.tools.compress_time"):
+                 "repro_torch.tools.compress_time", "repro_torch.cli",
+                 "repro_torch.cli._common", "repro_torch.cli.ingest",
+                 "repro_torch.cli.score"):
         assert want in mods
 
 
-@pytest.mark.parametrize("entry", ["package", "chip_smoke"])
+EXAMPLES = ("torch_quickstart", "torch_ingest_quickstart", "torch_xtime_serving",
+            "torch_xtime_cluster")
+
+
+def _exec_file(path: Path) -> str:
+    """Interpreter lines that import ``path`` as a module (its ``__main__``
+    guard keeps it from running)."""
+    return (
+        "import importlib.util\n"
+        f"spec = importlib.util.spec_from_file_location({path.stem!r}, {str(path)!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+    )
+
+
+@pytest.mark.parametrize("entry", ["package", "chip_smoke", "examples"])
 def test_no_jax_and_no_repro_loaded(entry):
-    """A fresh interpreter imports every port module (or chip_smoke.py)
-    and then holds no ``jax*`` and no ``repro``/``repro.*`` module — the
-    ``repro_torch`` prefix is not ``repro``."""
+    """A fresh interpreter imports every port module (or chip_smoke.py, or
+    the port's four examples) and then holds no ``jax*`` and no
+    ``repro``/``repro.*`` module — the ``repro_torch`` prefix is not
+    ``repro``."""
     if entry == "package":
         body = "\n".join(f"import {m}" for m in _all_modules())
+    elif entry == "chip_smoke":
+        body = _exec_file(ROOT / "chip_smoke.py")
     else:
-        body = (
-            "import importlib.util\n"
-            f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
-            "mod = importlib.util.module_from_spec(spec)\n"
-            "spec.loader.exec_module(mod)\n"
-        )
+        body = "".join(_exec_file(ROOT / "examples" / f"{name}.py") for name in EXAMPLES)
     code = (
         "import sys, json\n"
         f"sys.path.insert(0, {str(SRC)!r})\n"
@@ -152,3 +169,30 @@ def test_cuda_tensor_in_soft_mode_goes_to_the_soft_kernel(monkeypatch):
         ops.cam_match(FakeCuda(), None, None, None, None, out_b=1, out_c=1, mode="soft",
                       tau=0.25)
     assert calls == [0.25]
+
+
+def test_cli_and_autotune_default_to_the_card(monkeypatch, tmp_path):
+    """The command lines' ``--expected``/``--autotune`` and
+    ``autotune_kernel`` without a device bind CUDA, and with no card they
+    raise; ingesting alone uses no device."""
+    from repro_torch.cli import ingest, score
+    from repro_torch.core.tune import autotune_kernel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, cm = _small_model()
+    dump = ROOT / "tests" / "fixtures" / "ingest" / "xgb_deep.json"
+    golden = dump.parent / "xgb_deep.expected.json"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        autotune_kernel(cm, batch=4, b_blks=(4,), r_blks=(8,))
+    for argv in ([str(dump), "--out", str(tmp_path / "a"), "--expected", str(golden)],
+                 [str(dump), "--out", str(tmp_path / "b"), "--autotune", "1,4"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ingest.main(argv)
+    assert ingest.main([str(dump), "--out", str(tmp_path / "c")]) == 0  # no device used
+    for extra in ([], ["--expected", str(golden)]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            score.main([str(tmp_path / "c"), str(ROOT / "tests" / "fixtures" / "score" /
+                                                 "xgb_deep_x.npy"), *extra])
+    # the CPU only when asked for
+    assert autotune_kernel(cm, device="cpu", batch=4, b_blks=(4,), r_blks=(8,),
+                           iters=1).env["platform"] == "cpu"
