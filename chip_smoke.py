@@ -83,7 +83,30 @@ Phases, one line (or block) each:
      dumps, ``cli.score --expected`` on xgb_deep, ``cli.ingest --autotune
      1,256``, the four examples, all at once; then ``cli.score
      --out`` of the saved tuned artifact over 262,144 uint8 rows, == 
-     ``cm.predict``).
+     ``cm.predict``);
+  9. the multi-device engine and checkpoint/restart, on the phase 4
+     artifacts (launch counts set to 0 just before the mesh path and read
+     just after): ``make_host_mesh(2, 4, devices=[card] * 8)`` — 8 logical
+     shards of the card, one copy of the table on it (device bytes of an
+     engine against one copy) — under accumulate, batch and hybrid
+     (shard_map) and accumulate and batch (gspmd): ``cm.raw_margin`` /
+     ``cm.predict(x, mesh=)`` at batch 1, 37, 256 and 1024, each call 8
+     launches, == the single-device engine and ``Ensemble.raw_margin``; the
+     median ms a call at batch 256 beside the single-device engine's; one
+     accumulate call on a (4, 2) mesh with axes ("model", "data"); save ->
+     load -> ``engine(mesh=)``; ``TableRegistry(mesh=)`` + ``ServeLoop`` and
+     ``ClusterServer(mesh=, n_replicas=2)`` on the first 500 requests of
+     phase 6's trace (== its results); ``score_file(mesh=)`` of phase 6's
+     rows (== ``cm.predict``, rows/s beside phase 6's); then, with
+     ``python -m repro_torch.tools.paper_scale_smoke`` and
+     ``examples/torch_xtime_multichip.py`` running as subprocesses on the
+     card: soft tau = 0.1 on the mesh (margins, ``predict_proba``,
+     ``raw_moments``, uncertainty within the derived bound of the
+     single-device engine; tau = 0 == the hard main path), and a checkpoint
+     of CUDA tensors (float32, bfloat16, int64) restored onto the card and
+     through a placer onto the mesh's devices, and a
+     ``FaultTolerantRunner`` crashed and resumed on the card (== an
+     uninterrupted run).
 
 Every check that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object of the kernels and the contract line
@@ -1086,6 +1109,7 @@ def phase_scoring(cm, name, stats):
                 fail(f"scoring: {launches} launches for {r.n_chunks} chunks")
             if not np.array_equal(r.values, want):
                 fail(f"scoring (double buffer {db}): differs from cm.predict in 1024-row batches")
+            stats.setdefault("score_rps", []).append(r.rows_per_s)
             print(f"score [{name}] score_file {SCORE_ROWS} x 130 uint8 rows "
                   f"({xs.nbytes / 1e6:.1f} MB .npy), chunk_rows {SCORE_CHUNK} (bucket {r.bucket}), "
                   f"double buffer {db}: {r.rows_per_s} rows/s ({r.elapsed_s} s, "
@@ -1587,12 +1611,21 @@ def sweep_lines(plan, name: str, label: str) -> dict:
     return groups
 
 
+def start_together(cmds: list[list[str]], env: dict) -> list[subprocess.Popen]:
+    return [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                             env=env, cwd=str(ROOT)) for c in cmds]
+
+
 def run_together(cmds: list[list[str]], env: dict, timeout: float) -> list[tuple]:
     """Start every command at once, wait for all: (rc, stdout, stderr,
     seconds) each.  Every process is ended before this returns."""
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                              env=env, cwd=str(ROOT)) for c in cmds]
+    return wait_together(start_together(cmds, env), t0, timeout)
+
+
+def wait_together(procs: list[subprocess.Popen], t0: float, timeout: float) -> list[tuple]:
+    """Wait for every process started at ``t0``: (rc, stdout, stderr,
+    seconds) each.  Every process is ended before this returns."""
     out = []
     try:
         for proc in procs:
@@ -1749,6 +1782,365 @@ def phase_commands(tuned_base: Path, name: str, stats) -> None:
           + " | ".join(out.strip().splitlines()), flush=True)
 
 
+# -- phase 9: the multi-device engine, and checkpoint and restart -----------------------
+
+
+MESH_PROGRAMS = [("accumulate", "shard_map"), ("batch", "shard_map"), ("hybrid", "shard_map"),
+                 ("accumulate", "gspmd"), ("batch", "gspmd")]
+MESH_REQUESTS = 500  # the head of phase 6's trace, replayed on the mesh
+CARD = torch.device("cuda", 0)  # the card every logical shard shares
+
+
+SPIN_CYCLES = 10_000_000  # ~5 ms of device spin: longer than the host takes to enqueue a call
+
+
+def program_ms(fn, iters: int = 11) -> tuple[float, float, float]:
+    """Median milliseconds of one call of ``fn`` (after a warm-up), three
+    ways: the whole call as its caller sees it — CUDA events around it on
+    an idle card, so the host's time to enqueue it counts; the card's time
+    alone — a device spin before the first event lets the host enqueue the
+    whole call first, as ``cold_time`` does; and the host's time to enqueue
+    it (host clock, no synchronize)."""
+    fn()
+    whole, device, host = [], [], []
+    for _ in range(iters):
+        for spin, times in ((0, whole), (SPIN_CYCLES, device)):
+            torch.cuda.synchronize()
+            if spin:
+                torch.cuda._sleep(spin)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            fn()
+            if not spin:
+                host.append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    return tuple(float(np.median(t)) for t in (whole, device, host))
+
+
+def card_mesh(shape=(2, 4), axes=("data", "model")):
+    """A mesh of logical shards that all share the one card."""
+    from repro_torch.launch.mesh import Mesh
+
+    grid = np.empty(8, dtype=object)
+    grid[:] = [CARD] * 8
+    return Mesh(grid.reshape(shape), axes)
+
+
+def table_bytes(a) -> int:
+    """Bytes of one copy of what the kernels read: the tables and the cell list."""
+    c = a.cells
+    return sum(t.numel() * t.element_size()
+               for t in (a.low, a.high, a.leaf, c.count, c.feat, c.lo, c.hi))
+
+
+def counted_call(fn, per_call: int, label: str):
+    """``fn()`` with the hard and soft kernels' launches counted: exactly
+    ``per_call`` (one a shard), or the run fails."""
+    before = K.cam_match_cuda.launches + K.cam_match_soft_cuda.launches
+    out = fn()
+    n = K.cam_match_cuda.launches + K.cam_match_soft_cuda.launches - before
+    if n != per_call:
+        fail(f"{label}: {n} kernel launches, want {per_call} (one a shard)")
+    return out
+
+
+def phase_mesh(ens, cm, batches, name) -> None:
+    """Phase 9, step 1: every NoC program at full width on 8 logical shards
+    of the card, bit-equal to the single-device engine and the traversal."""
+    mesh = card_mesh()
+    one = cm.engine()
+    want_m = {b: cm.raw_margin(x) for b, x in batches.items()}
+    want_p = {b: cm.predict(x) for b, x in batches.items()}
+    trav = {b: ens.raw_margin(x[:64]) for b, x in batches.items()}
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engines = {prog: cm.engine(mesh=mesh, noc_config=prog[0], spmd=prog[1])
+               for prog in MESH_PROGRAMS}
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    held = (torch.cuda.memory_allocated() - m0) / len(engines)
+    copy = table_bytes(engines[MESH_PROGRAMS[0]].arrays)
+    if not copy <= held <= 1.02 * copy + (1 << 20):
+        fail(f"mesh: an engine holds {held:.0f} bytes on the card, one copy of its table is "
+             f"{copy} (logical shards must be views of one copy)")
+    print(f"mesh [{name}] (2, 4) mesh of 8 logical shards of the card; {len(engines)} engines "
+          f"bound in {bind_s:.1f} s (host); each holds {held:.0f} bytes on the card, one copy "
+          f"of its table {copy} (shards are views), the single-device engine "
+          f"{table_bytes(one.arrays)} + tile mask + bias", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # count only the mesh path's launches
+    for (noc, spmd), eng in engines.items():
+        if (eng.noc_config, eng.spmd, eng.fuse_epilogue) != (noc, spmd, False):
+            fail(f"mesh {noc}/{spmd}: engine resolved to {eng.noc_config}/{eng.spmd}, "
+                 f"fused bias {eng.fuse_epilogue}")
+        rows = {s.low.shape[0] for row in eng.shards for s in row}
+        for b, x in batches.items():
+            m = counted_call(lambda: cm.raw_margin(x, mesh=mesh, noc_config=noc, spmd=spmd),
+                             mesh.size, f"mesh {noc}/{spmd} raw_margin B={b}")
+            p = counted_call(lambda: cm.predict(x, mesh=mesh, noc_config=noc, spmd=spmd),
+                             mesh.size, f"mesh {noc}/{spmd} predict B={b}")
+            if not (np.array_equal(m, want_m[b]) and np.array_equal(p, want_p[b])):
+                fail(f"mesh {noc}/{spmd} B={b}: differs from the single-device engine")
+            if not np.array_equal(m[:64], trav[b]):
+                fail(f"mesh {noc}/{spmd} B={b}: margins differ from Ensemble.raw_margin")
+        print(f"mesh [{name}] {noc}/{spmd}: rows a shard {sorted(rows)}, batch_multiple "
+              f"{eng.batch_multiple}; raw_margin + predict at B = 1, 37, 256, 1024 == the "
+              f"single-device engine (all rows) and Ensemble.raw_margin (64 rows), "
+              f"{mesh.size} launches a call", flush=True)
+    torch.cuda.synchronize()
+    launches = K.cam_match_cuda.launches
+    if launches == 0:
+        fail("mesh: the mesh path never launched the cam_match kernel")
+    print(f"mesh [{name}] mesh path: {launches} cam_match launches over "
+          f"{2 * len(batches) * len(engines)} calls; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    x = batches[256]
+    q1 = one._prep_queries(x)
+    base = program_ms(lambda: one._margin_padded(q1))
+    times = {}
+    for (noc, spmd), eng in engines.items():
+        qp = eng._prep_queries(x)
+        times[f"{noc}/{spmd}"] = program_ms(lambda: eng._margin_padded(qp))
+    print(f"mesh [{name}] B=256 median ms a call — whole call on an idle card / the card "
+          f"alone (enqueued behind a spin) / the host's enqueue (host clock); CUDA events, warm; "
+          f"8 logical shards of one card, so the partitioned program's own cost, not "
+          f"scale-out; queries on the card: single device "
+          f"{base[0]:.4f} / {base[1]:.4f} / {base[2]:.4f}; " + "; ".join(
+              f"{k} {w:.4f} / {d:.4f} / {h:.4f} (card alone {d / base[1]:.3f}x)"
+              for k, (w, d, h) in times.items()), flush=True)
+
+    # the axis-order trap: the batch splits by the batch spec, not the mesh's order
+    trap = card_mesh((4, 2), ("model", "data"))
+    eng = cm.engine(mesh=trap, noc_config="accumulate")
+    got = counted_call(lambda: cm.raw_margin(x, mesh=trap, noc_config="accumulate"), 8,
+                       "mesh (4, 2) ('model', 'data')")
+    if not np.array_equal(got, want_m[256]) or len(eng.shards) != 2:
+        fail("mesh (4, 2) ('model', 'data') accumulate: differs from the single-device engine")
+    print(f"mesh [{name}] (4, 2) mesh with axes ('model', 'data'), accumulate: 2 batch "
+          f"groups over 'data' x 4 row shards over 'model'; B=256 == the single-device "
+          f"engine, 8 launches", flush=True)
+
+
+def uncertainty_bound(mom: np.ndarray, dmom: np.ndarray, C: int) -> np.ndarray:
+    """(B, C) limit on |uncertainty - uncertainty'| when the float32 moments
+    ``[m1 | m2 | mass]`` agree within ``dmom``: to first order
+    ``|d var| <= (d m2 + (m2/mass) d mass + 2|mean| (d m1 + |mean| d mass))
+    / mass``, a factor 2 for the second-order terms; the std moves by at
+    most ``min(sqrt|d var|, |d var| / std)``, and each side's float32 cast
+    by ``u std`` (tests/test_torch_soft.py derives the same)."""
+    m1, m2 = mom[:, :C], mom[:, C:2 * C]
+    mass = np.maximum(mom[:, 2 * C:3 * C], 1e-12)
+    d1, d2, dmass = dmom[:, :C], dmom[:, C:2 * C], dmom[:, 2 * C:3 * C]
+    mean = np.abs(m1 / mass)
+    dvar = 2.0 * (d2 + (m2 / mass) * dmass + 2.0 * mean * (d1 + mean * dmass)) / mass
+    std = np.sqrt(np.maximum(m2 / mass - mean * mean, 0.0))
+    return np.minimum(np.sqrt(dvar), dvar / np.maximum(std, 1e-300)) + 2.0 * F32_EPS * std
+
+
+def phase_mesh_soft(cm, soft, batches, name) -> None:
+    """Phase 9, step 2: the soft tau = 0.1 artifact on the (2, 4) mesh,
+    within the derived bound of the single-device engine; tau = 0 bit-equal
+    to the hard ('direct'-equal) margins."""
+    mesh = card_mesh()
+    t0 = time.perf_counter()
+    eng, one = soft.engine(mesh=mesh), soft.engine()
+    bind_s = time.perf_counter() - t0
+    a = one.arrays
+    extra = K.n_splits(a.r_pad) + 8  # the split merges, the shard adds, the bias add
+    reset_launches()
+    worst = 0.0
+    for b in (1, 37):
+        x = batches[b]
+        qp = one._prep_queries(x)
+        scores = ref.soft_scores_ref(qp, a.low, a.high, tau=SOFT_TAU)
+        lim = ref.summation_bound(scores, a.leaf, extra)[:, :8].cpu().numpy()
+        dmom = ref.summation_bound(scores, one._moments, extra)[:, :24].cpu().numpy()
+        m = counted_call(lambda: soft.raw_margin(x, mesh=mesh), 8, f"soft mesh B={b}")
+        err = np.abs(m.astype(np.float64) - one.raw_margin(x).cpu().numpy())
+        p = counted_call(lambda: soft.predict_proba(x, mesh=mesh), 8, f"soft mesh proba B={b}")
+        perr = np.abs(p.astype(np.float64) - soft.predict_proba(x))
+        plim = 0.5 * lim.max(axis=1, keepdims=True) + 2.0 * 2.0 ** -24
+        mom = counted_call(lambda: eng.raw_moments(x), 8, f"soft mesh moments B={b}")
+        mom1 = one.raw_moments(x).cpu().numpy().astype(np.float64)
+        merr = np.abs(mom.cpu().numpy() - mom1)
+        u = counted_call(lambda: eng.uncertainty(x), 8, f"soft mesh uncertainty B={b}")
+        uerr = np.abs(u.numpy().astype(np.float64) - one.uncertainty(x).numpy())
+        ulim = uncertainty_bound(mom1, dmom, 8)
+        for label, e, l in (("margins", err, lim), ("predict_proba", perr, plim),
+                            ("raw_moments", merr, dmom), ("uncertainty", uerr, ulim)):
+            if (e > l).any():
+                fail(f"soft mesh B={b}: {label} off the single-device engine by "
+                     f"{e.max()}, worst err/bound {(e / l).max()}")
+            worst = max(worst, float((e / l).max()))
+    # tau = 0: the exact limit, bit-equal to the hard main path ('direct' bits)
+    for b in (37, 256):
+        m0 = counted_call(lambda: soft.raw_margin(batches[b], mesh=mesh, tau=0.0), 8,
+                          f"soft mesh tau=0 B={b}")
+        if not np.array_equal(m0, cm.raw_margin(batches[b])):
+            fail(f"soft mesh tau=0 B={b}: margins differ from the hard main path")
+    print(f"mesh [{name}] soft tau={SOFT_TAU} on the (2, 4) mesh (bound in {bind_s:.1f} s, "
+          f"host): margins, predict_proba, raw_moments and uncertainty at "
+          f"B = 1, 37 within the derived bound of the single-device engine (summation bound, "
+          f"extra {extra}; worst err/bound {worst:.3g}); tau=0 == the hard main path at "
+          f"B = 37, 256; {K.cam_match_soft_cuda.launches} soft launches", flush=True)
+
+
+def phase_mesh_tiers(cm, name, stats) -> None:
+    """Phase 9, step 3: the tiers on the (2, 4) mesh, each equal to phase 6."""
+    from dataclasses import replace
+
+    from repro_torch.score import score_file
+    from repro_torch.serve import ClusterServer, ServeLoop, TableRegistry, replay_trace
+
+    mesh = card_mesh()
+    xs_score, want_score = stats["score_rows"]
+    with tempfile.TemporaryDirectory() as tmp:
+        cm.save(Path(tmp) / "xtime")
+        loaded = repro_torch.CompiledModel.load(Path(tmp) / "xtime")
+        x = xs_score[:1024]
+        if not np.array_equal(loaded.predict(x, mesh=mesh), want_score[:1024]):
+            fail("mesh: save -> load -> engine(mesh=) predictions differ")
+        del loaded
+        print(f"mesh [{name}] save -> load -> engine(mesh=) at B=1024 == cm.predict", flush=True)
+
+        trace, xs = serve_trace()
+        trace = replace(trace, requests=trace.requests[:MESH_REQUESTS])
+        want = np.concatenate(stats["serve_results"][:MESH_REQUESTS])
+        reg = TableRegistry(mesh=mesh)
+        if reg.register("xtime", cm).engine is not cm.engine(mesh=mesh):
+            fail("mesh serving: the registry bound a second engine")
+        loop = ServeLoop(reg, flush_rows=256)
+        reset_launches()
+        res = replay_trace(loop.submit, trace, {"xtime": xs}, speed=1.0)
+        loop.drain()
+        launches = counted("mesh serving")
+        if not np.array_equal(np.concatenate([loop.result(h) for h in res.handles]), want):
+            fail("mesh serving: ServeLoop results differ from phase 6's")
+        print(f"mesh [{name}] TableRegistry(mesh=) + ServeLoop(flush_rows=256), the first "
+              f"{MESH_REQUESTS} requests of phase 6's trace at its pace: "
+              f"{latency(loop.stats('xtime'))}; {launches} launches; == phase 6", flush=True)
+
+        with ClusterServer(n_replicas=2, mesh=mesh, flush_rows=256) as srv:
+            srv.register("xtime", cm)
+            reset_launches()
+            res = replay_trace(srv.submit, trace, {"xtime": xs}, speed=1.0)
+            srv.drain(timeout=120)
+            launches = counted("mesh cluster")
+            got = np.concatenate([h.result(10) for h in res.handles])
+            s = srv.stats("xtime")
+        if not np.array_equal(got, want):
+            fail("mesh cluster: results differ from phase 6's")
+        print(f"mesh [{name}] ClusterServer(mesh=, n_replicas=2), the same requests: "
+              f"{latency(s)}; {launches} launches; == phase 6", flush=True)
+
+        path = Path(tmp) / "rows.npy"
+        np.save(path, xs_score)
+        reset_launches()
+        r = score_file(cm, path, kind="predict", chunk_rows=SCORE_CHUNK, mesh=mesh)
+        launches = counted("mesh scoring")
+        if not np.array_equal(r.values, want_score) or launches != 8 * r.n_chunks:
+            fail(f"mesh scoring: == cm.predict {np.array_equal(r.values, want_score)}, "
+                 f"{launches} launches for {r.n_chunks} chunks")
+        print(f"mesh [{name}] score_file(mesh=) {SCORE_ROWS} x 130 rows, chunk_rows "
+              f"{SCORE_CHUNK} (bucket {r.bucket}), {r.engine['noc_config']}/{r.engine['spmd']} "
+              f"over {r.engine['devices']} shards: {r.rows_per_s} rows/s ({r.elapsed_s} s, "
+              f"{launches} launches); phase 6 on one device: "
+              f"{', '.join(str(v) for v in stats['score_rps'])} rows/s; == cm.predict",
+              flush=True)
+
+
+def phase_checkpoint(name) -> None:
+    """Phase 9, step 5: checkpoint and restart on the card."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.ft.runtime import FaultTolerantRunner, InjectedFailure
+
+    dev = CARD
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    tree = {"params": {"w": torch.randn(1024, 512, device=dev, generator=g),
+                       "emb": torch.randn(4096, 64, device=dev, generator=g).to(torch.bfloat16)},
+            "opt": {"step": torch.arange(1000, device=dev, dtype=torch.int64)}}
+    mesh = card_mesh()
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, 3, tree)
+        _, back = restore_checkpoint(tmp, tree)
+        _, placed = restore_checkpoint(tmp, tree, placer=lambda t: [
+            {k: v.to(d) for k, v in t["params"].items()} for d in mesh.devices.flat])
+        for t, leaves in ((back["params"], "card"), *((p, "mesh device") for p in placed)):
+            for k, v in t.items():
+                want = tree["params"][k]
+                if not (v.device == dev and v.dtype == want.dtype and torch.equal(v, want)):
+                    fail(f"checkpoint: {k} restored onto the {leaves} differs")
+        step_leaf = back["opt"]["step"]
+        if not (step_leaf.device == dev and torch.equal(step_leaf, tree["opt"]["step"])):
+            fail("checkpoint: the int64 leaf differs")
+
+        def step(state, i):
+            new = {"x": state["x"] * 1.01 + i, "n": state["n"] + 1}
+            return new, {"loss": float(new["x"].sum())}
+
+        def init():
+            return {"x": torch.ones(256, device=dev), "n": torch.zeros((), dtype=torch.int32,
+                                                                       device=dev)}
+
+        run, ref_dir = str(Path(tmp) / "run"), str(Path(tmp) / "ref")
+        try:
+            FaultTolerantRunner(run, step, init, ckpt_every=5).run(20, failure_at=12)
+            fail("checkpoint: the injected failure did not stop the run")
+        except InjectedFailure:
+            pass
+        s2, h2 = FaultTolerantRunner(run, step, init, ckpt_every=5).run(20)
+        s3, h3 = FaultTolerantRunner(ref_dir, step, init, ckpt_every=5).run(20)
+        by_step = {h["step"]: h["loss"] for h in h3}
+        if not (s2["x"].device == dev and torch.equal(s2["x"], s3["x"]) and h2[0]["step"] == 10
+                and all(h["loss"] == by_step[h["step"]] for h in h2)):
+            fail("checkpoint: the resumed run's history differs from an uninterrupted run's")
+    print(f"checkpoint [{name}] nested CUDA tensors (float32, bfloat16, int64) saved and "
+          f"restored onto the card and onto the mesh's devices through a placer, bit-exact; "
+          f"FaultTolerantRunner on the card crashed after step 12, resumed from step 10, "
+          f"history == an uninterrupted run's", flush=True)
+
+
+def start_entry_points() -> tuple[dict, list, float]:
+    """The two entry points that need a mesh, as subprocesses on the card."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    env["OMP_NUM_THREADS"] = "2"
+    cmds = {"paper_scale_smoke": [sys.executable, "-m", "repro_torch.tools.paper_scale_smoke"],
+            "torch_xtime_multichip": [sys.executable,
+                                      str(ROOT / "examples" / "torch_xtime_multichip.py")]}
+    return cmds, start_together(list(cmds.values()), env), time.perf_counter()
+
+
+def finish_entry_points(started, name) -> None:
+    cmds, procs, t0 = started
+    for label, (rc, out, err, secs) in zip(cmds, wait_together(procs, t0, timeout=300)):
+        if rc != 0:
+            fail(f"{label}: rc {rc}\n{out[-2000:]}{err[-2000:]}")
+        print(f"mesh [{name}] {label} on the card: rc 0, {secs:.1f} s (both started "
+              f"together); " + " | ".join(out.strip().splitlines()), flush=True)
+
+
+def phase_mesh_all(ens, cm, soft, batches, name, stats) -> None:
+    """Phase 9: the mesh path, the tiers on it, then the two entry points
+    (in the background, once the timed steps are done), soft on the mesh
+    and checkpoint and restart."""
+    phase_mesh(ens, cm, batches, name)
+    phase_mesh_tiers(cm, name, stats)
+    started = start_entry_points()
+    try:
+        phase_mesh_soft(cm, soft, batches, name)
+        phase_checkpoint(name)
+    finally:
+        finish_entry_points(started, name)
+
+
 def kernel_entry(name, source, launches, err, ms, plain_ms, bnd, by) -> dict:
     """One object of the kernels line: ``source`` a file of kernels/csrc,
     every time measured in this run, no single PyTorch call to compare."""
@@ -1804,7 +2196,9 @@ def main() -> int:
                          ("trained", lambda: phase_trained(name)),
                          ("wide model", lambda: phase_wide_model(name, stats)),
                          ("operator's tools", lambda: phase_tools(cm, soft, batches, name,
-                                                                  stats))):
+                                                                  stats)),
+                         ("mesh and checkpoint", lambda: phase_mesh_all(ens, cm, soft, batches,
+                                                                        name, stats))):
         t0 = time.perf_counter()
         phase()
         print(f"{label} phase {time.perf_counter() - t0:.1f} s", flush=True)

@@ -12,7 +12,9 @@ the serving tier (``TableRegistry`` -> ``MicroBatcher`` -> ``ServeLoop``,
 and the replicated ``ClusterServer``), streaming ``score_file`` and the
 ``TraversalBaseline`` the paper compares against; the kernel autotuner
 (``autotune_kernel`` -> ``TunePlan`` -> ``CompiledModel.with_tuning``),
-and the ``ingest`` and ``score`` command lines (``repro_torch.cli``).
+the ``ingest`` and ``score`` command lines (``repro_torch.cli``), the
+multi-device engine (``mesh=`` on the engine, the artifact, the serving
+tier and ``score_file``), and checkpoint and restart.
 
     repro_torch.api      ``build`` -> ``CompiledModel`` (save/load/predict)
     repro_torch.convert  artifact state <-> the port's ``CompiledModel``
@@ -21,8 +23,8 @@ and the ``ingest`` and ``score`` command lines (``repro_torch.cli``).
     repro_torch.core     trees and their trainers, the hardware-aware
                          search, compiler, compression, placement,
                          NoC/perf models, precision cells, defect
-                         injection, the single-device engine and the
-                         traversal baseline
+                         injection, the engine (one device or a mesh)
+                         and the traversal baseline
     repro_torch.data     the synthetic tabular datasets (Table II analogs)
     repro_torch.kernels  table prep, the plain PyTorch version and the
                          CUDA kernels (``kernels/csrc/cam_match.cu``,
@@ -30,7 +32,12 @@ and the ``ingest`` and ``score`` command lines (``repro_torch.cli``).
     repro_torch.serve    registry, micro-batching, the serving loop, the
                          async cluster and traffic replay
     repro_torch.score    streaming offline scoring of columnar files
-    repro_torch.ft       heartbeats and straggler detection
+    repro_torch.launch   device meshes (``make_host_mesh``; logical shards
+                         may share one device)
+    repro_torch.checkpoint  atomic, async checkpoints in the JAX package's
+                         format
+    repro_torch.ft       heartbeats, straggler detection and the
+                         checkpoint/restart runner
     repro_torch.cli      ``python -m repro_torch.cli.ingest`` / ``.score``
 
 Entry points run on the card unless the caller passes ``device="cpu"``.

@@ -15,8 +15,9 @@ The port's counterpart of ``repro.api``:
 Artifacts are the JAX package's format byte for byte (the same ``.npz``
 arrays and the same JSON sidecar), so either package loads what the other
 saved; ``repro_torch.convert`` assembles the port's objects from them.
-``engine()`` binds an artifact once per (device, resolved ``DeployConfig``),
-under a lock, so serving replicas that bind at once share one engine.
+``engine()`` binds an artifact once per (device or mesh, resolved
+``DeployConfig``), under a lock, so serving replicas that bind at once
+share one engine.
 Models come in as a native or trained ``Ensemble``, a pre-compiled
 ``CAMTable``, an ``ImportedEnsemble`` or a path to a model dump (XGBoost
 JSON, LightGBM text, sklearn-forest dict), and ``compress=`` runs the
@@ -34,7 +35,11 @@ the engine's device type, and for no other plan:
     plan = autotune_kernel(cm, batch=256, batches=(1, 16, 1024))
     tuned = cm.with_tuning(plan)                # knobs folded into deploy
 
-Not ported yet (ROADMAP.md): meshes.
+On a mesh of devices (``repro_torch.launch.mesh``) the same calls run the
+compiled NoC program as a shard program (DESIGN.md §8):
+
+    mesh = make_host_mesh(2, 4, devices=["cuda:0"] * 8)  # logical shards
+    pred = cm.predict(x, mesh=mesh)             # == cm.predict(x), bit for bit
 """
 
 from __future__ import annotations
@@ -122,13 +127,14 @@ class CompiledModel:
 
     # -- execution binding ---------------------------------------------------
 
-    def resolved_deploy(self, batch_hint=None, *, device=None, **overrides) -> DeployConfig:
-        """The effective config an engine on ``device`` binds: the tuned
-        dispatch entry for ``batch_hint`` folded in first, then
+    def resolved_deploy(self, batch_hint=None, *, device=None, mesh=None,
+                        **overrides) -> DeployConfig:
+        """The effective config an engine on ``device`` (or ``mesh``) binds:
+        the tuned dispatch entry for ``batch_hint`` folded in first, then
         ``overrides`` (explicit knobs outrank the dispatch), then 'auto'
         noc_config resolved from the compiled NoC plan ('batch' degrades
-        to 'accumulate' on one device) and 'auto' spmd to 'gspmd' (no
-        mesh).
+        to 'accumulate' without a mesh to replicate over) and 'auto' spmd
+        from the mesh ('shard_map' on a mesh, 'gspmd' without one).
 
         The dispatch applies only for a plan the port timed itself on the
         device's type (``TunePlan.timed_on``).  A foreign plan — the JAX
@@ -146,7 +152,8 @@ class CompiledModel:
         if batch_hint is not None and self.tuning is not None:
             from repro_torch.core.engine import resolve_device
 
-            plan, dev_type = self.tune_plan(), resolve_device(device).type
+            dev = mesh.devices.flat[0] if mesh is not None else resolve_device(device)
+            plan, dev_type = self.tune_plan(), dev.type
             if plan.timed_on(dev_type):
                 cfg = plan.apply(cfg, batch=int(batch_hint))
             elif not self._warned_foreign_plan:
@@ -165,17 +172,21 @@ class CompiledModel:
             cfg = cfg.replace(**overrides)
         if cfg.noc_config == "auto":
             noc_cfg = self.noc.engine_noc_config
-            cfg = cfg.replace(noc_config="accumulate" if noc_cfg == "batch" else noc_cfg)
+            if noc_cfg == "batch" and mesh is None:
+                noc_cfg = "accumulate"
+            cfg = cfg.replace(noc_config=noc_cfg)
         if cfg.spmd == "auto":
-            cfg = cfg.replace(spmd="gspmd")
+            cfg = cfg.replace(spmd="gspmd" if mesh is None else "shard_map")
         return cfg
 
     def engine(self, device=None, *, mesh=None, batch_hint=None, **overrides) -> "XTimeEngine":
         """Lazily bind this artifact to an ``XTimeEngine`` on ``device``
-        (``None``: the card).  Engines are cached per (device, resolved
-        ``DeployConfig``): calls that resolve to the same configuration
-        return the same engine, and concurrent first calls bind it once
-        (the others wait for it).
+        (``None``: the card) or on ``mesh`` (a
+        ``repro_torch.launch.mesh.Mesh``; the two are exclusive).  Engines
+        are cached per (mesh or device, resolved ``DeployConfig``) — a mesh
+        by its value, so equal meshes share one engine: calls that resolve
+        to the same configuration return the same engine, and concurrent
+        first calls bind it once (the others wait for it).
 
         ``batch_hint`` engages a tuned artifact's DISPATCH table: the
         engine binds the measured winner of that batch's bucket
@@ -183,22 +194,23 @@ class CompiledModel:
         device type (see ``resolved_deploy``).  Buckets whose winners are
         the same configuration share one engine, and so one copy of the
         table on the device — the JAX package keys its cache on the bucket
-        instead; both bind the same bits.  ``mesh`` raises: the
-        multi-device engine is not ported yet."""
+        instead; both bind the same bits."""
         from repro_torch.core.engine import XTimeEngine, resolve_device
+        from repro_torch.launch.mesh import check_mesh
 
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh engines are not ported yet (ROADMAP.md, queue 1, "
-                "'multi-device engine'); bind one device with device=..."
-            )
-        dev = resolve_device(device)
-        cfg = self.resolved_deploy(batch_hint, device=dev, **overrides)
-        key = (str(dev), cfg)
+            dev, where = None, check_mesh(mesh)
+            if device is not None:
+                raise ValueError("pass device= or mesh=, not both")
+        else:
+            dev = resolve_device(device)
+            where = str(dev)
+        cfg = self.resolved_deploy(batch_hint, device=dev, mesh=mesh, **overrides)
+        key = (where, cfg)
         with self._engine_lock:
             cached = self._engines.get(key)
             if cached is None:
-                cached = XTimeEngine.from_config(self.table, cfg, device=dev)
+                cached = XTimeEngine.from_config(self.table, cfg, device=dev, mesh=mesh)
                 self._engines[key] = cached
         return cached
 
@@ -287,18 +299,20 @@ class CompiledModel:
         x: np.ndarray,
         *,
         device=None,
+        mesh=None,
         return_uncertainty: bool = False,
         **overrides,
     ) -> np.ndarray | tuple[np.ndarray, np.ndarray]:
         """Final predictions for a batch of float (or pre-binned) rows:
-        ``(B,)`` int32 class ids, or float32 values for regression.
+        ``(B,)`` int32 class ids, or float32 values for regression, on
+        ``device`` or on ``mesh``.
 
         With ``return_uncertainty=True`` (soft cell mode only — DESIGN.md
         §15) returns ``(pred, unc)``, ``unc`` the ``(B,)`` leaf-spread
         uncertainty at each row's predicted channel (one more kernel
         launch, over the moments matrix)."""
         q = self._binned(x, "predict")
-        eng = self.engine(device, batch_hint=q.shape[0], **overrides)
+        eng = self.engine(device, mesh=mesh, batch_hint=q.shape[0], **overrides)
         if return_uncertainty and eng.kernel_mode != "soft":
             raise ValueError(
                 "predict(return_uncertainty=True) requires cell_mode="
@@ -315,7 +329,8 @@ class CompiledModel:
             unc = u[np.arange(pred.shape[0]), pred.astype(np.int64)]
         return pred, unc
 
-    def predict_proba(self, x: np.ndarray, *, device=None, **overrides) -> np.ndarray:
+    def predict_proba(self, x: np.ndarray, *, device=None, mesh=None,
+                      **overrides) -> np.ndarray:
         """Class probabilities for a batch of float (or pre-binned) rows.
 
         Soft cell mode only: binary single-logit models return ``(B, 2)``
@@ -323,7 +338,7 @@ class CompiledModel:
         via the softmax, both in float64 on the host.  Hard modes and
         regression raise."""
         q = self._binned(x, "predict_proba")
-        eng = self.engine(device, batch_hint=q.shape[0], **overrides)
+        eng = self.engine(device, mesh=mesh, batch_hint=q.shape[0], **overrides)
         if eng.kernel_mode != "soft":
             raise ValueError(
                 "predict_proba requires cell_mode='soft' (this binding "
@@ -344,11 +359,12 @@ class CompiledModel:
         e = np.exp(z)
         return (e / e.sum(axis=1, keepdims=True)).astype(np.float32)
 
-    def raw_margin(self, x: np.ndarray, *, device=None, **overrides) -> np.ndarray:
+    def raw_margin(self, x: np.ndarray, *, device=None, mesh=None,
+                   **overrides) -> np.ndarray:
         """Raw ``(B, n_outputs)`` float32 margins for float (or pre-binned)
         rows."""
         q = self._binned(x, "raw_margin")
-        eng = self.engine(device, batch_hint=q.shape[0], **overrides)
+        eng = self.engine(device, mesh=mesh, batch_hint=q.shape[0], **overrides)
         return eng.raw_margin(q).cpu().numpy()
 
     def bin(self, x: np.ndarray) -> np.ndarray:

@@ -1,6 +1,7 @@
-"""X-TIME inference engine on one device: compiled CAM table -> predictions.
+"""X-TIME inference engine: compiled CAM table -> predictions, on one
+device or on a mesh of devices.
 
-The single-device half of ``repro.core.engine``.  At bind time the engine
+The port of ``repro.core.engine``.  At bind time the engine
 packs the canonical int32 exclusive-high table into the narrowest dtype
 the grid permits (``resolve_table_dtype`` — uint8 for ≤256 bins, inclusive
 upper bounds, compared natively; float32 half-integer bounds for the soft
@@ -14,15 +15,38 @@ base score rides its epilogue; on the CPU the plain PyTorch version runs.
 unless ``device="cpu"`` is given; there is no fallback from a missing card
 to the CPU.
 
+Scale-out (``mesh=``, a ``repro_torch.launch.mesh.Mesh``; DESIGN.md §8):
+the CAM rows (cores) shard over ``config.row_axis`` and the query batch
+over ``config.batch_axis`` (× ``pod``), and the §III-D H-tree router
+program runs as one explicit shard program, driven from this process:
+
+  * ``accumulate`` — batch group i runs the kernel on its queries against
+    every row shard j; the partials move to the device of (i, 0) and are
+    added in ascending j (the JAX package's ``psum``);
+  * ``batch`` — the table is replicated, every device runs its piece of
+    the query stream against all of it, the outputs are concatenated;
+  * ``hybrid`` — within group i the row-axis query pieces are gathered in
+    j order, the kernel runs on each row shard, and piece p of the sum is
+    added in ascending j on the device of (i, p) (``all_gather`` +
+    ``psum_scatter``).
+
+The queries split in the batch spec's axis order (``pod``, ``batch_axis``,
+then ``row_axis`` for batch and hybrid), and the outputs land on the
+mesh's first device (``engine.device``), where the epilogue runs once.
+Partials are summed as plain tensor adds in that fixed order — no float
+atomics, no library collective — so results are the same from run to
+run.  ``spmd='gspmd'`` runs the same program (PyTorch has no implicit
+partitioner), so the two modes are bit-identical by construction.
+
 The engine reproduces ``Ensemble.raw_margin`` / ``Ensemble.predict`` on
 binned inputs — bit-for-bit on dyadic (k/16) leaves, within float32
-reassociation otherwise; soft engines also give the raw moments and the
-leaf-spread uncertainty of DESIGN.md §15.  The mesh paths are not ported
-yet (ROADMAP.md).
+reassociation otherwise, on one device and on a mesh; soft engines also
+give the raw moments and the leaf-spread uncertainty of DESIGN.md §15.
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Callable
 
@@ -33,6 +57,7 @@ from repro_torch.core.compile import CAMTable
 from repro_torch.core.deploy import DeployConfig
 from repro_torch.core.precision import get_cell_mode
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import Mesh, check_mesh
 
 DEFAULT_DEVICE = "cuda"
 
@@ -77,6 +102,10 @@ def resolve_table_dtype(table: CAMTable, config: DeployConfig) -> str:
 
 @dataclass
 class EngineArrays:
+    """The whole bound table: on ``engine.device``, or on a mesh the
+    logical (unsharded) table on the host, from which the shards were
+    placed (``XTimeEngine.shards``)."""
+
     low: torch.Tensor  # (R_pad, F_pad) table dtype
     high: torch.Tensor  # (inclusive upper bounds when packed)
     leaf: torch.Tensor  # (R_pad, C_pad) float32
@@ -89,15 +118,44 @@ class EngineArrays:
     inclusive: bool = False  # high bounds stored inclusive?
 
 
+@dataclass
+class Shard:
+    """One mesh position of a bound engine: its device and the rows of the
+    tables it matches (views of one copy per device)."""
+
+    device: torch.device
+    low: torch.Tensor
+    high: torch.Tensor
+    leaf: torch.Tensor
+    cells: kops.CellList
+    moments: torch.Tensor | None  # soft engines' moments matrix rows
+
+
+def _ordered_sum(parts: list[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """``parts`` moved to ``device`` and added in list order."""
+    acc = parts[0].to(device)
+    for p in parts[1:]:
+        acc = acc + p.to(device)
+    return acc
+
+
 class XTimeEngine:
     """Batched tree-ensemble inference on a compiled CAM table.
 
     Args:
       table: compiled ensemble.
       config: the ``DeployConfig`` (``mode``, ``r_blk``, ``f_blk``,
-        ``c_mult``, ``table_dtype``, ``fuse_epilogue`` are read).
+        ``c_mult``, ``table_dtype``, ``fuse_epilogue``, ``noc_config``,
+        ``spmd``, ``row_axis``, ``batch_axis`` are read).  'auto'
+        noc_config resolves to 'accumulate' here; the artifact layer
+        resolves it from the compiled NoC plan before binding.
       device: where the tables live and the kernel runs; ``None`` is the
         card.
+      mesh: a ``repro_torch.launch.mesh.Mesh`` instead of ``device``: the
+        rows shard over ``config.row_axis`` and the batch over
+        ``config.batch_axis`` (+ a leading ``pod`` axis), and
+        ``config.noc_config`` picks the shard program (module docstring).
+        Outputs land on the mesh's first device, ``engine.device``.
     """
 
     def __init__(
@@ -106,9 +164,16 @@ class XTimeEngine:
         *,
         config: DeployConfig | None = None,
         device=None,
+        mesh: Mesh | None = None,
     ) -> None:
         config = config or DeployConfig()
-        self.device = resolve_device(device)
+        if mesh is not None:
+            self.device = check_mesh(mesh).devices.flat[0]
+            if device is not None:
+                raise ValueError("pass device= or mesh=, not both")
+        else:
+            self.device = resolve_device(device)
+        self.mesh = mesh
         self.table = table
         self.config = config
         # compressed tables may have dropped all-wildcard feature columns:
@@ -128,11 +193,30 @@ class XTimeEngine:
         self.b_blk = config.b_blk
         self.r_blk = config.r_blk
         self.f_blk = config.f_blk
-        # carried for reports: the port dispatches on the device, runs one
-        # device, and so always the single-device collective plan
+        # carried for reports: the port dispatches on the device
         self.backend = config.backend
-        self.spmd = "gspmd"
+        self.row_axis = config.row_axis
+        self.batch_axis = config.batch_axis
         self.noc_config = "accumulate" if config.noc_config == "auto" else config.noc_config
+        # 'auto' partitioning resolves at bind time, as in the JAX package:
+        # explicit shard collectives on a mesh, the plain program without
+        # one; on a mesh 'gspmd' runs the same shard program
+        if mesh is None:
+            self.spmd = "gspmd"
+        elif config.spmd == "auto":
+            self.spmd = "shard_map"
+        else:
+            self.spmd = config.spmd
+        if mesh is not None:
+            missing = [ax for ax in (self.row_axis, self.batch_axis)
+                       if ax not in mesh.axis_names]
+            if missing:
+                raise ValueError(f"mesh {mesh.axis_names} lacks configured axes {missing}")
+            if self.noc_config == "hybrid" and self.spmd != "shard_map":
+                raise ValueError(
+                    "noc_config='hybrid' (all-gather + psum_scatter) is only "
+                    "expressible with spmd='shard_map'"
+                )
         self.table_dtype = resolve_table_dtype(table, config)
         if get_cell_mode(config.mode).soft:
             self.kernel_mode = "soft"
@@ -144,21 +228,27 @@ class XTimeEngine:
         # hard modes, which ignore it
         self.tau = float(config.tau) if self.kernel_mode == "soft" else 0.0
         # the base-score add rides the kernel's split reduction whenever
-        # the kernel runs (bit-identical to the separate add)
-        eligible = self.device.type == "cuda"
+        # the kernel runs on one device (bit-identical to the separate add);
+        # under a mesh each row shard's partial would carry it once
+        eligible = self.device.type == "cuda" and mesh is None
         if config.fuse_epilogue == "auto":
             self.fuse_epilogue = eligible
         else:
             self.fuse_epilogue = bool(config.fuse_epilogue)
             if self.fuse_epilogue and not eligible:
                 raise ValueError(
-                    "fuse_epilogue=True needs the CUDA kernel (a CUDA "
-                    "device); use 'auto' to fuse only when eligible"
+                    "fuse_epilogue=True needs the CUDA kernel on one device "
+                    "(a row-sharded reduction would multiply the base score); "
+                    "use 'auto' to fuse only when eligible"
                 )
 
+        # row padding must also be divisible by the row-shard count
+        row_mult = self.r_blk
+        if mesh is not None and self.noc_config in ("accumulate", "hybrid"):
+            row_mult = self.r_blk * mesh.shape[self.row_axis]
         low, high, leaf, inclusive = kops.pack_tables(
             table.low, table.high, table.leaf_matrix(),
-            r_blk=self.r_blk, c_mult=config.c_mult, n_bins=table.n_bins,
+            r_blk=row_mult, c_mult=config.c_mult, n_bins=table.n_bins,
             f_blk=self.f_blk, dtype=self.table_dtype,
             inclusive=(True if self.kernel_mode == "inclusive" else None),
         )
@@ -171,12 +261,16 @@ class XTimeEngine:
             n_real_rows=table.n_rows,
         )
 
+        # on a mesh the whole table stays on the host and the shards are
+        # placed from it (``_place_on_mesh``)
+        home = torch.device("cpu") if mesh is not None else self.device
+
         def put(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(a).to(self.device)
+            return torch.from_numpy(a).to(home)
 
         self.arrays = EngineArrays(
             low=put(low), high=put(high), leaf=put(leaf),
-            tile_mask=put(tile_mask), cells=cells.to(self.device),
+            tile_mask=put(tile_mask), cells=cells.to(home),
             r_pad=low.shape[0], f_pad=low.shape[1], c_pad=leaf.shape[1],
             table_dtype=self.table_dtype, inclusive=inclusive,
         )
@@ -202,17 +296,70 @@ class XTimeEngine:
             m_pad = np.zeros((self.arrays.r_pad, c3_pad), dtype=np.float32)
             m_pad[:R, : 3 * C] = np.concatenate([lm, lm * lm, onehot], axis=1)
             self._moments = put(m_pad)
-        if self.device.type == "cuda":
-            # the tables are complete before any stream reads them (serving
-            # replicas launch on streams of their own)
-            torch.cuda.synchronize(self.device)
+        self.shards: list[list[Shard]] = []
+        if mesh is not None:
+            self._place_on_mesh()
+        for dev in {self.device} if mesh is None else set(mesh.devices.flat):
+            if dev.type == "cuda":
+                # the tables are complete before any stream reads them
+                # (serving replicas launch on streams of their own)
+                torch.cuda.synchronize(dev)
 
     @classmethod
     def from_config(
-        cls, table: CAMTable, config: DeployConfig, *, device=None
+        cls, table: CAMTable, config: DeployConfig, *, device=None, mesh: Mesh | None = None
     ) -> "XTimeEngine":
-        """Canonical constructor: bind a compiled table + deploy config."""
-        return cls(table, config=config, device=device)
+        """Canonical constructor: bind a compiled table + deploy config to a
+        device or a mesh."""
+        return cls(table, config=config, device=device, mesh=mesh)
+
+    # -- placement on a mesh ---------------------------------------------------
+
+    @property
+    def n_row_shards(self) -> int:
+        """Row shards of the table: the row axis's size, 1 for the
+        replicated 'batch' program and without a mesh."""
+        if self.mesh is None or self.noc_config == "batch":
+            return 1
+        return self.mesh.shape[self.row_axis]
+
+    def _group_coords(self) -> list[dict[str, int]]:
+        """The batch groups in the batch spec's order (``pod``, then
+        ``batch_axis``, row-major), each as mesh coordinates."""
+        shape = self.mesh.shape
+        axes = (["pod"] if "pod" in self.mesh.axis_names else []) + [self.batch_axis]
+        return [dict(zip(axes, idx))
+                for idx in itertools.product(*(range(shape[ax]) for ax in axes))]
+
+    def _place_on_mesh(self) -> None:
+        """Fill ``shards[g][j]`` (batch group g, row-axis index j): each
+        device gets the rows of every shard it holds in one copy, and each
+        shard is a view of it — ``.to`` on the same device returns the same
+        tensor, so logical shards on one card share one copy of the table."""
+        mesh, a = self.mesh, self.arrays
+        per = a.r_pad // self.n_row_shards
+        # (g, j) -> the device and first row of the shard it holds
+        where = {(g, j): (mesh.device_at({**coords, self.row_axis: j}),
+                          0 if self.noc_config == "batch" else j * per)
+                 for g, coords in enumerate(self._group_coords())
+                 for j in range(mesh.shape[self.row_axis])}
+        need: dict[torch.device, tuple[int, int]] = {}  # device -> the rows it holds
+        for dev, r0 in where.values():
+            lo, hi = need.get(dev, (r0, r0 + per))
+            need[dev] = (min(lo, r0), max(hi, r0 + per))
+        held = {}
+        for dev, (r0, r1) in need.items():
+            held[dev] = (r0, a.low[r0:r1].to(dev), a.high[r0:r1].to(dev),
+                         a.leaf[r0:r1].to(dev), a.cells.rows(r0, r1).to(dev),
+                         None if self._moments is None else self._moments[r0:r1].to(dev))
+        for (g, j), (dev, r0) in where.items():
+            base, low, high, leaf, cells, mom = held[dev]
+            s0, s1 = r0 - base, r0 - base + per
+            if j == 0:
+                self.shards.append([])
+            self.shards[g].append(Shard(dev, low[s0:s1], high[s0:s1], leaf[s0:s1],
+                                        cells.rows(s0, s1),
+                                        None if mom is None else mom[s0:s1]))
 
     # -- compute -----------------------------------------------------------
 
@@ -228,15 +375,50 @@ class XTimeEngine:
             out = out / torch.tensor(np.float32(max(1, table.n_trees)), device=out.device)
         return out
 
-    def _kernel(self, q: torch.Tensor, leaf: torch.Tensor, bias, out_c: int) -> torch.Tensor:
-        a = self.arrays
+    def _kernel(self, q: torch.Tensor, s, leaf: torch.Tensor, bias) -> torch.Tensor:
+        """(B, C) raw leaf sums of the rows of ``s`` (the engine's arrays or
+        a shard) on ``q`` — no epilogue, no reduction across shards."""
         return kops.cam_match(
-            q, a.low, a.high, leaf, a.cells, bias,
-            out_b=q.shape[0], out_c=out_c, mode=self.kernel_mode, tau=self.tau,
+            q, s.low, s.high, leaf, s.cells, bias,
+            out_b=q.shape[0], out_c=leaf.shape[1], mode=self.kernel_mode, tau=self.tau,
         )
 
+    def _reduced(self, q: torch.Tensor, moments: bool = False) -> torch.Tensor:
+        """(B_pad, C) raw sums over every table row, on ``self.device``: the
+        kernel on one device, or the NoC program on a mesh (module
+        docstring).  ``moments`` runs the soft moments matrix with no bias
+        (a base score has no place in raw moment sums).  Shared by margin,
+        predict and moments, as the JAX package's ``_reduced_fn`` is."""
+        if self.mesh is None:
+            a = self.arrays
+            if moments:
+                return self._kernel(q, a, self._moments, None)
+            return self._kernel(q, a, a.leaf, self._bias)
+
+        def run(qs: torch.Tensor, s: Shard) -> torch.Tensor:
+            return self._kernel(qs.to(s.device), s, s.moments if moments else s.leaf, None)
+
+        n_rows = len(self.shards[0])
+        per_group = q.shape[0] // len(self.shards)
+        piece = per_group // n_rows  # batch, hybrid: a device's share of a group
+        outs = []
+        for g, row in enumerate(self.shards):
+            qg = q[g * per_group:(g + 1) * per_group]
+            if self.noc_config == "batch":
+                outs += [run(qg[j * piece:(j + 1) * piece], s) for j, s in enumerate(row)]
+                continue
+            # accumulate, hybrid: the group's queries (its row-axis pieces
+            # gathered in j order) against every row shard
+            parts = [run(qg, s) for s in row]
+            if self.noc_config == "accumulate":
+                outs.append(_ordered_sum(parts, row[0].device))
+            else:  # hybrid: piece p of the sum reduces onto the device of (g, p)
+                outs += [_ordered_sum([part[p * piece:(p + 1) * piece] for part in parts],
+                                      s.device) for p, s in enumerate(row)]
+        return torch.cat([o.to(self.device) for o in outs])
+
     def _margin_padded(self, q: torch.Tensor) -> torch.Tensor:
-        return self._epilogue(self._kernel(q, self.arrays.leaf, self._bias, self.arrays.c_pad))
+        return self._epilogue(self._reduced(q))
 
     def _predict_from_margin(self, m: torch.Tensor) -> torch.Tensor:
         table = self.table
@@ -274,14 +456,15 @@ class XTimeEngine:
         return q
 
     def _prep_queries(self, q_bins) -> torch.Tensor:
+        # pad the batch to what the mesh's batch split accepts
         return kops.pad_queries(
-            self.select_features(q_bins), self.arrays.f_pad,
+            self.select_features(q_bins), self.arrays.f_pad, b_blk=self.batch_multiple,
             dtype=self.table_dtype, device=self.device,
         )
 
     def raw_margin(self, q_bins) -> torch.Tensor:
         """(B, n_outputs) — matches ``Ensemble.raw_margin`` on binned input."""
-        return self._margin_padded(self._prep_queries(q_bins))
+        return self._margin_padded(self._prep_queries(q_bins))[: q_bins.shape[0]]
 
     def predict(self, q_bins) -> torch.Tensor:
         """Final predictions — matches ``Ensemble.predict``."""
@@ -303,8 +486,8 @@ class XTimeEngine:
                 f"(this engine runs mode={self.mode!r}); rebind with "
                 "DeployConfig(mode='soft')"
             )
-        return self._kernel(self._prep_queries(q_bins), self._moments, None,
-                            3 * self.table.n_outputs)
+        q = self._prep_queries(q_bins)
+        return self._reduced(q, moments=True)[: q_bins.shape[0], : 3 * self.table.n_outputs]
 
     def uncertainty(self, q_bins) -> torch.Tensor:
         """(B, n_outputs) calibrated uncertainty: the score-weighted
@@ -324,10 +507,20 @@ class XTimeEngine:
 
     @property
     def batch_multiple(self) -> int:
-        """Smallest batch granularity a serving bucket must respect: 1 —
-        the CUDA kernel tiles the batch in 32-query words and masks the
-        ragged edge, and the plain version takes any batch."""
-        return 1
+        """Smallest batch granularity a serving bucket must respect.
+
+        On one device 1: the CUDA kernel tiles the batch in 32-query words
+        and masks the ragged edge, and the plain version takes any batch.
+        On a mesh the batch splits evenly over its batch shards — ``pod`` ×
+        ``batch_axis``, times ``row_axis`` for the batch and hybrid
+        programs — the JAX package's rule for an engine that tiles no
+        batch itself."""
+        if self.mesh is None:
+            return 1
+        shards = len(self.shards)
+        if self.noc_config in ("batch", "hybrid"):
+            shards *= self.mesh.shape[self.row_axis]
+        return shards
 
     def padded_fn(self, kind: str = "predict") -> Callable:
         """Bucket-aware entry for the serving layer: a callable of one
@@ -346,6 +539,11 @@ class XTimeEngine:
             # packed engines compare queries in the table dtype (soft ones
             # as float32 bins); a narrowing cast is wrap-checked (a wrapped
             # out-of-range bin would match rows it must not)
+            if q_padded.shape[0] % self.batch_multiple:
+                raise ValueError(
+                    f"bucket {q_padded.shape[0]} not a multiple of "
+                    f"batch_multiple={self.batch_multiple}"
+                )
             q = kops.pad_to_bucket(
                 q_padded, q_padded.shape[0], a.f_pad,
                 dtype=self.table_dtype, device=self.device,

@@ -1,1 +1,2 @@
-"""Fault-tolerance runtime of the port (see ``repro_torch.ft.runtime``)."""
+"""Fault-tolerance runtime of the port: heartbeats, stragglers and the
+checkpoint/restart runner (see ``repro_torch.ft.runtime``)."""

@@ -1,7 +1,7 @@
-"""Liveness and straggler detection for the serving cluster.
+"""Fault-tolerance runtime: checkpoint/restart runner, heartbeats,
+straggler detection.
 
-The two pieces of ``repro.ft.runtime`` that the serving tier uses, copied
-(numpy and the standard library only):
+The port of ``repro.ft.runtime`` (numpy, torch and the standard library):
 
   * ``Heartbeat`` — per-worker liveness file with a monotonic counter;
     ``dead_workers`` flags anything past the timeout (the file protocol is
@@ -10,11 +10,13 @@ The two pieces of ``repro.ft.runtime`` that the serving tier uses, copied
     rolling-window median baseline, or with ``ewma_alpha`` an O(1) EWMA
     baseline that excludes flagged samples, so a persistently slow
     replica cannot drag its own baseline up and hide.
+  * ``FaultTolerantRunner`` — wraps a step function with periodic async
+    checkpoints (``repro_torch.checkpoint``) and replays from the latest
+    checkpoint after a (simulated or real) crash; data is a pure function
+    of step, so the resumed loss trajectory is bit-identical (tested).
 
 ``repro_torch.serve.cluster`` replicas beat the liveness files and feed
-per-row flush times into one shared EWMA monitor (DESIGN.md §12).  The
-checkpoint/restart driver of the JAX module waits for the checkpoint
-port (ROADMAP.md).
+per-row flush times into one shared EWMA monitor (DESIGN.md §12).
 """
 
 from __future__ import annotations
@@ -23,8 +25,11 @@ import json
 import os
 import time
 from dataclasses import dataclass, field
+from typing import Any, Callable
 
 import numpy as np
+
+from repro_torch.checkpoint.ckpt import CheckpointManager, latest_step, restore_checkpoint
 
 
 class Heartbeat:
@@ -125,3 +130,79 @@ class StragglerMonitor:
             a = self.ewma_alpha
             self._ewma = a * float(dt) + (1.0 - a) * base
         return flagged
+
+
+class InjectedFailure(RuntimeError):
+    pass
+
+
+class FaultTolerantRunner:
+    """Checkpoint/restart training loop.
+
+    step_fn: (state, step) -> (state, metrics); state is a tree of
+    tensors (``repro_torch.checkpoint``).  The runner checkpoints every
+    ``ckpt_every`` steps (async), restores from the latest checkpoint on
+    (re)start, and records straggler events.  ``failure_at`` injects a
+    crash after that step completes (tests).
+    """
+
+    def __init__(
+        self,
+        run_dir: str,
+        step_fn: Callable[[Any, int], tuple[Any, dict]],
+        init_state: Callable[[], Any],
+        *,
+        ckpt_every: int = 10,
+        keep: int = 3,
+        worker_id: int = 0,
+    ):
+        self.run_dir = run_dir
+        self.step_fn = step_fn
+        self.init_state = init_state
+        self.ckpt_every = ckpt_every
+        self.mgr = CheckpointManager(os.path.join(run_dir, "ckpt"), keep=keep)
+        self.heartbeat = Heartbeat(run_dir, worker_id)
+        self.straggler = StragglerMonitor()
+
+    def resume_or_init(self, placer: Callable | None = None) -> tuple[int, Any]:
+        """(first step, state): the latest checkpoint restored into the
+        structure (and devices) of ``init_state()``, then ``placer``; or
+        step 0 and ``init_state()`` when there is none."""
+        ckpt_dir = os.path.join(self.run_dir, "ckpt")
+        step = latest_step(ckpt_dir)
+        template = self.init_state()
+        if step is None:
+            return 0, template
+        step, state = restore_checkpoint(ckpt_dir, template, step, placer)
+        return step, state
+
+    def run(
+        self,
+        n_steps: int,
+        *,
+        failure_at: int | None = None,
+        placer: Callable | None = None,
+        on_metrics: Callable[[int, dict], None] | None = None,
+    ) -> tuple[Any, list[dict]]:
+        start, state = self.resume_or_init(placer)
+        history: list[dict] = []
+        for step in range(start, n_steps):
+            t0 = time.time()
+            state, metrics = self.step_fn(state, step)
+            dt = time.time() - t0
+            flagged = self.straggler.record(step, dt)
+            metrics = {**metrics, "step": step, "dt": dt, "straggler": flagged}
+            history.append(metrics)
+            if on_metrics:
+                on_metrics(step, metrics)
+            self.heartbeat.beat()
+            done = step + 1
+            if done % self.ckpt_every == 0 or done == n_steps:
+                self.mgr.save(done, state, extra={"metrics": {
+                    k: float(v) for k, v in metrics.items() if isinstance(v, (int, float))
+                }})
+            if failure_at is not None and done == failure_at:
+                self.mgr.wait()
+                raise InjectedFailure(f"injected crash after step {failure_at}")
+        self.mgr.wait()
+        return state, history

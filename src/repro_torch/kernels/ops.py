@@ -277,6 +277,12 @@ class CellList:
     def k(self) -> int:
         return int(self.feat.shape[1])
 
+    def rows(self, start: int, stop: int) -> "CellList":
+        """Rows ``[start, stop)`` of the list, as views; K and the width
+        stay the table's (a row shard of the mesh engine)."""
+        return CellList(self.count[start:stop], self.feat[start:stop], self.lo[start:stop],
+                        self.hi[start:stop], self.width)
+
     def to(self, device) -> "CellList":
         """The same list as tensors on ``device``."""
         def put(a):

@@ -1,7 +1,7 @@
 """Streaming offline batch scoring: saved artifact × columnar file.
 
 The port of ``repro.score``: the throughput tier (DESIGN.md §14), on the
-card unless ``device="cpu"`` is given.  ``score_file`` is the entry
+card unless ``device="cpu"`` (or a device mesh, ``mesh=``) is given.  ``score_file`` is the entry
 point; the reader/writer pieces are exported for callers that compose
 their own pipelines::
 

@@ -18,7 +18,9 @@ port timed the plan on the device's type).  Every chunk (tail included)
 pads to one bucket, sized to ``chunk_rows`` rounded up to
 ``lcm(b_blk, batch_multiple)`` of that engine.  On the CPU
 (``device="cpu"``) the chunks run one after another through the plain
-version.
+version.  On a mesh (``mesh=``) each chunk fans out under the ``batch``
+NoC program unless ``noc_config`` says otherwise, and the pipeline runs on
+the mesh's first device, where the engine's outputs land.
 
 Bit-equivalence contract: every CAM row match and leaf accumulation is
 per-query-row independent, so the concatenated streamed outputs are
@@ -124,7 +126,10 @@ def score_file(
         (preallocated memmap — bounded memory at any file size).
       device: where the engine runs; ``None`` is the card (raises where
         there is none), ``"cpu"`` the plain version.
-      mesh: not ported yet (the multi-device engine); raises.
+      mesh: a ``repro_torch.launch.mesh.Mesh`` instead of ``device``;
+        chunks then fan out under the ``batch`` NoC program (replicated
+        tables, each device a piece of the chunk) unless ``noc_config``
+        is given.
       double_buffer: keep one chunk in flight while the host prepares
         the next.  ``False`` drains every chunk before reading the next
         — same bits, no overlap.
@@ -133,12 +138,6 @@ def score_file(
     Returns a :class:`ScoreResult`; ``.values`` is the full output array
     (memmap-backed when ``out`` was given).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "score_file(mesh=...): mesh engines are not ported yet "
-            "(ROADMAP.md, queue 1, 'multi-device engine'); score on one "
-            "device with device=..."
-        )
     if kind not in KINDS:
         raise ValueError(f"kind {kind!r} not in {KINDS}")
     if chunk_rows < 1:
@@ -171,7 +170,9 @@ def score_file(
                 elapsed_s=0.0, engine={},
             )
 
-        engine = model.engine(device, batch_hint=chunk_rows, **overrides)
+        if mesh is not None and "noc_config" not in overrides:
+            overrides = {"noc_config": "batch", **overrides}
+        engine = model.engine(device, mesh=mesh, batch_hint=chunk_rows, **overrides)
         # one bucket for every chunk (tail included)
         mult = int(np.lcm(engine.b_blk, engine.batch_multiple))
         bucket = int(np.ceil(min(chunk_rows, n_rows) / mult)) * mult
@@ -203,7 +204,7 @@ def score_file(
                 "kernel": kernel_version(engine.table_dtype),
                 "spmd": engine.spmd,
                 "noc_config": engine.noc_config,
-                "devices": 1,
+                "devices": 1 if mesh is None else int(mesh.size),
                 "device": str(engine.device),
             },
         )
@@ -232,7 +233,14 @@ def _stream_cuda(run, chunks, padded, writer, device, double_buffer) -> int:
     waits for nothing.  Both device buffers are allocated before the first
     launch: one allocated later could reuse memory that a running kernel
     of the compute stream was given and has released to the allocator,
-    and the copy stream would overwrite it while that kernel reads it."""
+    and the copy stream would overwrite it while that kernel reads it.
+
+    A mesh engine whose shards sit on other cards stays in this order: its
+    copies between cards (the query pieces out, the partials and outputs
+    back to ``device``) are PyTorch peer copies, which wait for the current
+    streams of both cards and make them wait for the copy — so the kernels
+    on the other cards run after ``main`` has the chunk, and ``done[s]``,
+    recorded on ``main`` after the gather, follows every shard's work."""
     main = torch.cuda.current_stream(device)
     copy = torch.cuda.Stream(device=device)
     host_q: list[torch.Tensor] = []

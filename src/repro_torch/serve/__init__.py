@@ -1,12 +1,12 @@
 """Production serving layer over the X-TIME CAM engine (DESIGN.md §6, §12).
 
 The port of ``repro.serve``, on one device (``device=``; ``None`` is the
-card):
+card) or one device mesh (``mesh=``):
 
-    TableRegistry  — hold/hot-swap many named models, one device; accepts a
-                     trained Ensemble, a CAMTable, or a CompiledModel
-                     artifact (disk cold-start, zero recompilation);
-                     thread-safe for concurrent swap/lookup
+    TableRegistry  — hold/hot-swap many named models, one device or
+                     mesh; accepts a trained Ensemble, a CAMTable, or a
+                     CompiledModel artifact (disk cold-start, zero
+                     recompilation); thread-safe for concurrent swap/lookup
     MicroBatcher   — shape-bucketed request coalescing per engine
                      (thread-safe enqueue/flush)
     ServeLoop      — synchronous single-threaded driver with p50/p99

@@ -41,9 +41,9 @@ class BucketSpec:
     """The admissible padded batch sizes for one served model.
 
     ``multiple`` comes from ``XTimeEngine.batch_multiple``: 1 for the
-    port's engines (the CUDA kernel masks a ragged batch edge); the JAX
-    package's Pallas and mesh engines need ``b_blk`` or shard-count
-    multiples.  Large buckets step by ``lcm(b_blk, multiple)`` so every
+    port's single-device engines (the CUDA kernel masks a ragged batch
+    edge), the batch-shard count for a mesh engine; the JAX package's
+    Pallas engines need ``b_blk`` multiples.  Large buckets step by ``lcm(b_blk, multiple)`` so every
     constraint holds simultaneously.
     """
 

@@ -2,10 +2,11 @@
 engine (DESIGN.md §12).
 
 The port of ``repro.serve.cluster``.  Its replicas are worker threads on
-one device: each runs its flushes on a CUDA stream of its own (the
-kernels launch on the current stream, and the copy of a flush's outputs
-to the host waits for that stream only), and all of them share the one
-engine that the artifact binds once.
+one device (or one mesh, ``mesh=``): each runs its flushes on a CUDA
+stream of its own on that device, the mesh's first one (the kernels
+launch on the current stream, and the copy of a flush's outputs to the
+host waits for that stream only), and all of them share the one engine
+that the artifact binds once.
 
 ``ClusterServer`` is the production layer the synchronous ``ServeLoop``
 deliberately deferred: the same flush discipline (full coalescing bucket
@@ -67,6 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import resolve_device
+from repro_torch.launch.mesh import check_mesh
 from repro_torch.ft.runtime import Heartbeat, StragglerMonitor
 from repro_torch.serve.batching import MicroBatcher
 from repro_torch.serve.loop import LatencyStats, RequestRecord
@@ -231,7 +233,8 @@ class Replica:
     ) -> None:
         self.id = replica_id
         self.registry = TableRegistry(
-            device=server.device, chip_spec=server.chip_spec, deploy=server.deploy
+            chip_spec=server.chip_spec, deploy=server.deploy,
+            **({"mesh": server.mesh} if server.mesh is not None else {"device": server.device}),
         )
         self.stream = (
             torch.cuda.Stream(device=server.device)
@@ -339,9 +342,10 @@ class ClusterServer:
 
     Args:
       n_replicas: serving replicas, each with a full registry copy.
-      device / chip_spec / deploy: forwarded to every replica's
-        ``TableRegistry``; ``device`` (``None``: the card) is shared by
-        all replicas, each on its own stream.
+      device / mesh / chip_spec / deploy: forwarded to every replica's
+        ``TableRegistry``; ``device`` (``None``: the card) or ``mesh``
+        (exclusive with it) is shared by all replicas, each on its own
+        stream of that device (of the mesh's first device).
       kind: 'predict' (bit-equal contract) or 'margin'.
       flush_rows: coalescing bucket target — a model's queue flushes when
         it holds this many rows (same meaning as ``ServeLoop``).
@@ -363,6 +367,7 @@ class ClusterServer:
         *,
         n_replicas: int = 2,
         device=None,
+        mesh=None,
         chip_spec=None,
         deploy=None,
         kind: str = "predict",
@@ -382,7 +387,10 @@ class ClusterServer:
     ) -> None:
         if n_replicas < 1:
             raise ValueError("need at least one replica")
-        self.device = resolve_device(device)
+        self.mesh = None if mesh is None else check_mesh(mesh)
+        if mesh is not None and device is not None:
+            raise ValueError("pass device= or mesh=, not both")
+        self.device = mesh.devices.flat[0] if mesh is not None else resolve_device(device)
         self.chip_spec = chip_spec
         self.deploy = deploy
         self.kind = kind

@@ -1,14 +1,17 @@
 """Multi-model table registry for the serving engine.
 
 The port of ``repro.serve.registry``.  One serving process holds MANY
-compiled models (one per customer table / model version) on one device.
+compiled models (one per customer table / model version) on one device or
+one device mesh.
 Each entry is a ``ServedModel`` wrapped around a
 ``repro_torch.api.CompiledModel`` artifact — the registry accepts a
 trained ``Ensemble`` (compiles it), a raw ``CAMTable`` (places it), or a
 ``CompiledModel`` loaded from disk (the cold-start path: installed as-is,
 zero recompilation, no training imports), and binds the artifact's
 ``DeployConfig`` to the registry's ``device`` (``None``: the card, which
-raises where there is none).  The artifact binds each engine once, so
+raises where there is none) or its ``mesh``.  On a mesh that binding
+resolves ``spmd='auto'`` to the shard program, so a mesh registry serves
+it with no caller changes.  The artifact binds each engine once, so
 registries that install the same artifact (the cluster's replicas) share
 one engine.
 
@@ -41,6 +44,7 @@ from repro_torch.core.engine import XTimeEngine, resolve_device
 from repro_torch.core.noc import NoCPlan
 from repro_torch.core.perfmodel import PerfReport
 from repro_torch.core.trees import Ensemble
+from repro_torch.launch.mesh import Mesh, check_mesh
 
 
 @dataclass
@@ -97,12 +101,15 @@ class ServedModel:
 
 
 class TableRegistry:
-    """Compile/load, hold and hot-swap named models sharing one device."""
+    """Compile/load, hold and hot-swap named models sharing one device (or
+    one mesh: ``mesh=``, exclusive with ``device``; ``device`` is then the
+    mesh's first device, where outputs land)."""
 
     def __init__(
         self,
         *,
         device=None,
+        mesh: Mesh | None = None,
         chip_spec: ChipSpec | None = None,
         deploy: DeployConfig | None = None,
         **engine_kwargs,
@@ -115,7 +122,10 @@ class TableRegistry:
                 stacklevel=2,
             )
             deploy = (deploy or DeployConfig()).replace(**engine_kwargs)
-        self.device = resolve_device(device)
+        self.mesh = None if mesh is None else check_mesh(mesh)
+        if mesh is not None and device is not None:
+            raise ValueError("pass device= or mesh=, not both")
+        self.device = mesh.devices.flat[0] if mesh is not None else resolve_device(device)
         self.chip_spec = chip_spec
         self.deploy = deploy  # None => per-model defaults / artifact config
         self._models: dict[str, ServedModel] = {}
@@ -193,7 +203,7 @@ class TableRegistry:
             name=name,
             version=self.version(name) + 1,
             artifact=artifact,
-            engine=artifact.engine(self.device),
+            engine=self._bind(artifact),
             batching=batching,
             engine_overrides=dict(engine_overrides),
         )
@@ -245,7 +255,12 @@ class TableRegistry:
         entry = self.get(name)
         if entry.artifact.tuning is None:
             return entry.engine
-        return entry.artifact.engine(self.device, batch_hint=int(batch))
+        return self._bind(entry.artifact, batch_hint=int(batch))
+
+    def _bind(self, artifact: CompiledModel, **kw) -> XTimeEngine:
+        if self.mesh is not None:
+            return artifact.engine(mesh=self.mesh, **kw)
+        return artifact.engine(self.device, **kw)
 
     def artifact(self, name: str) -> CompiledModel:
         return self.get(name).artifact

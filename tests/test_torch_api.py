@@ -183,5 +183,5 @@ def test_summary_with_deploy_bin_and_engine_match_jax(tmp_path):
     for name in ("b_blk", "backend", "spmd", "noc_config", "batch_multiple", "table_dtype"):
         assert getattr(eng, name) == getattr(jeng, name), name
     assert tcm.engine("cpu", batch_hint=4096) is eng
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tcm.engine("cpu", mesh=object())
+    with pytest.raises(TypeError, match="Mesh"):
+        tcm.engine(mesh=object())

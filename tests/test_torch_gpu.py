@@ -609,3 +609,143 @@ def test_ingest_score_commands_on_the_card(card, tmp_path):
                            env=env, timeout=600)
         assert r.returncode == 0, r.stdout + r.stderr
         assert "[verify]  OK" in r.stdout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("noc,spmd", [("accumulate", "shard_map"), ("accumulate", "gspmd"),
+                                      ("batch", "shard_map"), ("batch", "gspmd"),
+                                      ("hybrid", "shard_map")])
+def test_mesh_of_logical_card_shards(card, noc, spmd):
+    """8 logical shards of the card ((2, 4) mesh): one kernel launch a
+    shard a call, k/16 margins and predictions equal to the single-device
+    engine's, the shards views of one copy of the table on the card."""
+    from repro_torch.kernels import cam_match as K
+    from repro_torch.launch.mesh import make_host_mesh
+
+    ens = random_deep_ensemble(n_trees=40, depth=6, n_features=30, n_bins=256,
+                               task="multiclass", n_classes=5, seed=3)
+    cm = repro_torch.build(ens)
+    q = np.random.default_rng(4).integers(0, 256, size=(45, 30)).astype(np.uint8)
+    mesh = make_host_mesh(2, 4, devices=[card] * 8)
+    eng = cm.engine(mesh=mesh, noc_config=noc, spmd=spmd)
+    assert eng.device.type == "cuda" and not eng.fuse_epilogue
+    assert all(s.device.type == "cuda" and s.cells.count.is_cuda
+               for row in eng.shards for s in row)
+    base = eng.shards[0][0].low.data_ptr()
+    per = eng.arrays.r_pad // eng.n_row_shards * eng.arrays.f_pad * eng.arrays.low.element_size()
+    assert eng.shards[1][-1].low.data_ptr() == base + (eng.n_row_shards - 1) * per
+    before = K.cam_match_cuda.launches
+    m = eng.raw_margin(q)
+    assert K.cam_match_cuda.launches == before + 8 and m.is_cuda
+    np.testing.assert_array_equal(m.cpu().numpy(), cm.raw_margin(q))
+    np.testing.assert_array_equal(eng.predict(q).cpu().numpy(), ens.predict(q))
+    assert torch.equal(eng.raw_margin(q), m)
+
+
+@pytest.mark.gpu
+def test_soft_mesh_on_the_card(card):
+    """Soft tau = 0.1 on 8 logical card shards, within the summation bound
+    of the single-device kernel; tau = 0 bit-equal to 'direct'."""
+    from repro_torch.kernels import cam_match as K
+    from repro_torch.kernels.ref import summation_bound
+    from repro_torch.launch.mesh import make_host_mesh
+
+    ens = random_deep_ensemble(n_trees=40, depth=6, n_features=30, n_bins=256,
+                               task="multiclass", n_classes=5, seed=3)
+    soft = repro_torch.build(ens, deploy=repro_torch.DeployConfig(mode="soft", tau=0.1))
+    q = np.random.default_rng(5).integers(0, 256, size=(37, 30)).astype(np.uint8)
+    mesh = make_host_mesh(2, 4, devices=[card] * 8)
+    one, eng = soft.engine(), soft.engine(mesh=mesh)
+    a = one.arrays
+    scores = soft_scores_ref(one._prep_queries(q), a.low, a.high, tau=0.1)
+    lim = summation_bound(scores, a.leaf, K.n_splits(a.r_pad) + 8)[:, :5].cpu()
+    err = (eng.raw_margin(q).cpu() - one.raw_margin(q).cpu()).abs().double()
+    assert bool((err <= lim).all())
+    direct = soft.engine(mesh=mesh, mode="direct", table_dtype="int32")
+    assert torch.equal(soft.engine(mesh=mesh, tau=0.0).raw_margin(q), direct.raw_margin(q))
+
+
+@pytest.mark.gpu
+def test_checkpoint_on_the_card(card, tmp_path):
+    """A nested dict of CUDA tensors restores bit-exact onto the card and,
+    through a placer, onto a mesh's devices; a runner on the card resumes
+    to an uninterrupted run's history."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.ft.runtime import FaultTolerantRunner, InjectedFailure
+    from repro_torch.launch.mesh import make_host_mesh
+
+    g = torch.Generator(device=card).manual_seed(0)
+    tree = {"w": torch.randn(64, 32, device=card, generator=g),
+            "emb": torch.randn(16, 8, device=card, generator=g).to(torch.bfloat16),
+            "opt": {"step": torch.arange(5, device=card, dtype=torch.int64)}}
+    save_checkpoint(str(tmp_path / "a"), 1, tree)
+    _, back = restore_checkpoint(str(tmp_path / "a"), tree)
+    for k in ("w", "emb"):
+        assert back[k].is_cuda and back[k].dtype == tree[k].dtype and torch.equal(back[k], tree[k])
+    assert torch.equal(back["opt"]["step"], tree["opt"]["step"])
+    mesh = make_host_mesh(2, 4, devices=[card] * 8)
+    _, placed = restore_checkpoint(
+        str(tmp_path / "a"), tree,
+        placer=lambda t: {d: {k: v.to(d) for k, v in t.items() if k != "opt"}
+                          for d in set(mesh.devices.flat)})
+    assert all(torch.equal(v, tree[k]) for d in placed.values() for k, v in d.items())
+
+    def step(state, i):
+        new = {"x": state["x"] * 1.01 + i, "n": state["n"] + 1}
+        return new, {"loss": float(new["x"].sum())}
+
+    def init():
+        return {"x": torch.ones(4, device=card), "n": torch.zeros((), dtype=torch.int32,
+                                                                 device=card)}
+
+    with pytest.raises(InjectedFailure):
+        FaultTolerantRunner(str(tmp_path / "r"), step, init, ckpt_every=5).run(20, failure_at=12)
+    s2, h2 = FaultTolerantRunner(str(tmp_path / "r"), step, init, ckpt_every=5).run(20)
+    s3, h3 = FaultTolerantRunner(str(tmp_path / "ref"), step, init, ckpt_every=5).run(20)
+    assert s2["x"].is_cuda and torch.equal(s2["x"], s3["x"])
+    ref = {h["step"]: h["loss"] for h in h3}
+    assert h2[0]["step"] == 10 and all(h["loss"] == ref[h["step"]] for h in h2)
+
+
+@pytest.mark.gpu
+def test_mesh_across_cards(card):
+    """A mesh over distinct cards (run on a machine with 2 or more): every
+    NoC program equal to one card bit for bit, each card holding only the
+    rows of its shards, and the streamed scoring and the replicated
+    cluster — whose copies between cards must follow every shard's
+    kernel — equal to ``cm.predict``."""
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    from repro_torch.score import score_file
+    from repro_torch.serve import ClusterServer
+
+    n = min(4, torch.cuda.device_count())
+    if n < 2:
+        pytest.skip("needs 2 or more CUDA cards")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    ens = random_deep_ensemble(n_trees=64, depth=6, n_features=30, n_bins=256,
+                               task="multiclass", n_classes=5, seed=6)
+    cm = repro_torch.build(ens)
+    q = np.random.default_rng(7).integers(0, 256, size=(16384, 30)).astype(np.uint8)
+    want_m, want_p = cm.raw_margin(q[:1000]), cm.predict(q)
+    grid = np.empty(n, dtype=object)
+    grid[:] = cards
+    meshes = [make_host_mesh(devices=cards)]
+    if n % 2 == 0:
+        meshes.append(Mesh(grid.reshape(2, n // 2), ("data", "model")))
+    for mesh in meshes:
+        for noc in ("accumulate", "batch", "hybrid"):
+            eng = cm.engine(mesh=mesh, noc_config=noc)
+            assert {s.device for row in eng.shards for s in row} == set(cards)
+            if noc != "batch":  # a card holds its row shard, not the table
+                for row in eng.shards:
+                    for s in row:
+                        assert s.low.shape[0] == eng.arrays.r_pad // eng.n_row_shards
+            np.testing.assert_array_equal(eng.raw_margin(q[:1000]).cpu().numpy(), want_m)
+            r = score_file(cm, q, kind="predict", chunk_rows=1024, mesh=mesh, noc_config=noc)
+            np.testing.assert_array_equal(r.values, want_p)
+    with ClusterServer(n_replicas=2, mesh=meshes[-1], flush_rows=64) as srv:
+        srv.register("m", cm)
+        handles = [srv.submit("m", row) for row in q[:300]]
+        srv.drain(timeout=60)
+        np.testing.assert_array_equal(np.concatenate([h.result(10) for h in handles]),
+                                      want_p[:300])

@@ -52,12 +52,14 @@ def test_every_module_is_listed():
                  "repro_torch.data.tabular", "repro_torch.tools.widths",
                  "repro_torch.tools.compress_time", "repro_torch.cli",
                  "repro_torch.cli._common", "repro_torch.cli.ingest",
-                 "repro_torch.cli.score"):
+                 "repro_torch.cli.score", "repro_torch.launch", "repro_torch.launch.mesh",
+                 "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+                 "repro_torch.tools.paper_scale_smoke"):
         assert want in mods
 
 
 EXAMPLES = ("torch_quickstart", "torch_ingest_quickstart", "torch_xtime_serving",
-            "torch_xtime_cluster")
+            "torch_xtime_cluster", "torch_xtime_multichip")
 
 
 def _exec_file(path: Path) -> str:
@@ -74,7 +76,7 @@ def _exec_file(path: Path) -> str:
 @pytest.mark.parametrize("entry", ["package", "chip_smoke", "examples"])
 def test_no_jax_and_no_repro_loaded(entry):
     """A fresh interpreter imports every port module (or chip_smoke.py, or
-    the port's four examples) and then holds no ``jax*`` and no
+    the port's five examples) and then holds no ``jax*`` and no
     ``repro``/``repro.*`` module — the ``repro_torch`` prefix is not
     ``repro``."""
     if entry == "package":
@@ -108,7 +110,9 @@ def _small_model():
 def test_default_device_is_the_card(monkeypatch):
     """Without ``device`` every entry point binds CUDA; with no card it
     raises a clear error and never continues on the CPU."""
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.serve import ClusterServer, TableRegistry
+    from repro_torch.tools import paper_scale_smoke
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ens, cm = _small_model()
@@ -117,7 +121,8 @@ def test_default_device_is_the_card(monkeypatch):
                  lambda: cm.engine(), lambda: XTimeEngine(cm.table),
                  lambda: TableRegistry(), lambda: ClusterServer(n_replicas=1),
                  lambda: repro_torch.score_file(cm, x),
-                 lambda: repro_torch.TraversalBaseline(ens)):
+                 lambda: repro_torch.TraversalBaseline(ens), lambda: make_host_mesh(),
+                 lambda: paper_scale_smoke.main([])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # the CPU is used only when asked for

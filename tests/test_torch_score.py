@@ -191,8 +191,8 @@ def test_error_surface(binary):
         score_file(cm, q, kind="margins", device="cpu")
     with pytest.raises(ValueError, match="chunk_rows"):
         score_file(cm, q, chunk_rows=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        score_file(cm, q, mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
+        score_file(cm, q, mesh=object())
     with pytest.raises(TypeError, match="CompiledModel"):
         score_file(object(), q, device="cpu")
 
