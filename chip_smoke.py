@@ -106,7 +106,27 @@ Phases, one line (or block) each:
      of CUDA tensors (float32, bfloat16, int64) restored onto the card and
      through a placer onto the mesh's devices, and a
      ``FaultTolerantRunner`` crashed and resumed on the card (== an
-     uninterrupted run).
+     uninterrupted run);
+ 10. the LM half's serving path (no kernel of its own: the same torch ops
+     as on the CPU), each model built from the port's seeded initialiser on
+     the card and freed before the next: ``generate`` on llama3.2-3b at full
+     width and depth (bfloat16, B = 4 prompts of 128 tokens, 32 new, greedy,
+     twice and bit-equal) with the prefill ms, the decode ms a step (CUDA
+     events), tokens/s and peak memory beside their bounds; the same model
+     in float32, where the greedy run's last token is the argmax of
+     ``prefill`` over prompt + generated[:-1] and that step's decode logits
+     match it within 2e-3 of their largest; llama3.2-3b cut to depth 2 in
+     float32, the card against the port on the CPU (prefill + 4
+     teacher-forced decode steps, 1e-4, TF32 off); gemma3-1b (a 1,024-token
+     prompt past its 512 window, 5:1 local:global, qk-norm, tied head,
+     GeGLU, sandwich norms) and deepseek-v3 cut to depth 2 (1 dense + 1 MoE
+     layer at full width: 256 experts top-8, MLA) timed the same way and
+     checked decode against the full forward in float32 (deepseek at B = 1
+     with room for every token in every expert); then the JAX package's
+     recorded answers (tests/fixtures/torch_lm) for the smoke configs of
+     llama3.2-3b, gemma3-1b, deepseek-v3 and llava-next replayed on the
+     card from the same numpy seed (equal greedy tokens, logits within
+     1e-4).
 
 Every check that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object of the kernels and the contract line
@@ -115,6 +135,8 @@ lines are a JSON object of the kernels and the contract line
 
 from __future__ import annotations
 
+import gc
+import importlib
 import json
 import os
 import re
@@ -132,11 +154,22 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import repro_torch  # noqa: E402
+from repro_torch.config import ShapeCell, get_config  # noqa: E402
+from repro_torch.convert import (  # noqa: E402
+    leaf_checksums,
+    lm_params_from_numpy,
+    seeded_numpy_params,
+)
 from repro_torch.core.engine import XTimeEngine  # noqa: E402
 from repro_torch.core.compile import compile_ensemble  # noqa: E402
 from repro_torch.core.trees import random_deep_ensemble  # noqa: E402
 from repro_torch.kernels import cam_match as K  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.launch import model_flops as lm_flops  # noqa: E402
+from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.models import common as lm_common  # noqa: E402
+from repro_torch.models import registry as lm_registry  # noqa: E402
+from repro_torch.models import transformer as lm_transformer  # noqa: E402
 
 SEED = 0
 SOFT_TAU = 0.1  # the soft main path's temperature, in bin units
@@ -486,16 +519,19 @@ def phase_soft_kernel(dev, stats) -> None:
 
 def phase_main_path(dev, stats):
     t0 = time.perf_counter()
-    ens = random_deep_ensemble(n_trees=4096, depth=8, n_features=130, n_bins=256,
-                               task="multiclass", n_classes=8, seed=SEED)
+    xt = get_config("xtime-tabular")
+    ens = random_deep_ensemble(n_trees=xt.n_trees, depth=xt.max_leaves.bit_length() - 1,
+                               n_features=xt.n_features, n_bins=xt.n_bins, task=xt.task,
+                               n_classes=xt.n_classes, seed=SEED)
     t1 = time.perf_counter()
     cm = repro_torch.build(ens)
     t2 = time.perf_counter()
-    print(f"main path: xtime-tabular 4096 trees x depth 8, 130 features, 8 classes "
-          f"-> {cm.table.n_rows} CAM rows; ensemble {t1 - t0:.1f} s, build "
+    print(f"main path: {xt.name} {xt.n_trees} trees x depth "
+          f"{xt.max_leaves.bit_length() - 1}, {xt.n_features} features, {xt.n_classes} "
+          f"classes -> {cm.table.n_rows} CAM rows; ensemble {t1 - t0:.1f} s, build "
           f"{t2 - t1:.1f} s (host)", flush=True)
     rng = np.random.default_rng(SEED + 2)
-    batches = {b: rng.integers(0, 256, size=(b, 130)).astype(np.uint8)
+    batches = {b: rng.integers(0, xt.n_bins, size=(b, xt.n_features)).astype(np.uint8)
                for b in (1, 37, 256, 1024)}
     torch.cuda.reset_peak_memory_stats()
     reset_launches()  # count only the main path's launches
@@ -518,14 +554,14 @@ def phase_main_path(dev, stats):
             fail(f"batch {b}: margins differ from Ensemble.raw_margin")
         if not np.array_equal(preds[b][:64], ens.predict(head)):
             fail(f"batch {b}: predictions differ from Ensemble.predict")
-        if not np.isfinite(margins[b]).all() or margins[b].shape != (b, 8):
-            fail(f"batch {b}: margins not finite of shape ({b}, 8)")
+        if not np.isfinite(margins[b]).all() or margins[b].shape != (b, xt.n_classes):
+            fail(f"batch {b}: margins not finite of shape ({b}, {xt.n_classes})")
     # the plain version on the card, all rows
     a = eng.arrays
     for b, x in batches.items():
         qp = eng._prep_queries(x)
         plain = ref.cam_match_ref(qp, a.low, a.high, a.leaf, mode=eng.kernel_mode)
-        plain = (plain + eng._bias)[:, :8].cpu().numpy()  # the separate epilogue
+        plain = (plain + eng._bias)[:, :xt.n_classes].cpu().numpy()  # the separate epilogue
         if not np.array_equal(margins[b], plain):
             fail(f"batch {b}: margins differ from the plain version on the card")
         stats["max_abs_err"] = max(stats["max_abs_err"],
@@ -2141,6 +2177,308 @@ def phase_mesh_all(ens, cm, soft, batches, name, stats) -> None:
         finish_entry_points(started, name)
 
 
+# -- phase 10: LM serving ----------------------------------------------------------------
+
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 128, 32
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
+FIXTURE_LM = ROOT / "tests" / "fixtures" / "torch_lm"
+
+
+def lm_free() -> None:
+    """Return the cached blocks of the models just dropped to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max|got - ref| / max|ref| in float64 on the host."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def lm_param_bytes(params, cfg, batch: int) -> int:
+    """Bytes of the parameters one decode step must read: every weight but
+    the mtp block, the untied embedding's gathered rows only, and of each
+    MoE layer's experts at most batch x top_k (the routed ones)."""
+    total = 0
+    for key, p in params.named_parameters():
+        n = p.numel() * p.element_size()
+        if key.startswith("mtp."):
+            continue
+        if key == "embed" and not cfg.tie_embeddings:
+            n = batch * p.shape[1] * p.element_size()
+        elif ".ffn.w_" in key and p.ndim == 3:  # (E, ., .) expert weights
+            n = n * min(cfg.n_experts, batch * cfg.moe_top_k) // cfg.n_experts
+        total += n
+    return total
+
+
+def lm_kv_bytes(cfg, batch: int, pos: int) -> int:
+    """Cache bytes attention must read at position ``pos`` (each layer's
+    window where it has one)."""
+    per_pos = ((cfg.kv_lora_rank + cfg.qk_rope_dim) if cfg.use_mla
+               else 2 * cfg.n_kv_heads * cfg.resolved_head_dim)
+    item = torch.tensor([], dtype=lm_common.dtype_of(cfg.dtype)).element_size()
+    total = 0
+    for kind, n, off in lm_transformer.segments_of(cfg):
+        windows, _ = lm_transformer.layer_meta(cfg, n, off)
+        total += sum(min(int(w), pos + 1) if w > 0 else pos + 1 for w in windows)
+    return total * per_pos * item * batch
+
+
+def lm_times(bundle, params, prompts, toks) -> tuple[float, list[float]]:
+    """CUDA-event ms of the prefill (median of 3) and of each decode step
+    of ``toks`` fed back (the work of a greedy run), on the card."""
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    with torch.inference_mode():
+        p = torch.as_tensor(prompts, device=bundle.device)
+        t = torch.as_tensor(toks, device=bundle.device).long()
+        s, n = p.shape[1], t.shape[1]
+        pre = []
+        for _ in range(3):
+            a, b = ev(), ev()
+            a.record()
+            _, cache = bundle.prefill(params, {"tokens": p})
+            b.record()
+            pre.append((a, b))
+        cache = lm_serve._pad_cache_seq(bundle.cfg, cache, s, s + n)
+        steps = []
+        for i in range(n - 1):
+            a, b = ev(), ev()
+            a.record()
+            bundle.decode_step(params, cache, t[:, i], s + i)
+            b.record()
+            steps.append((a, b))
+        torch.cuda.synchronize()
+    pre_ms = float(np.median([a.elapsed_time(b) for a, b in pre]))
+    return pre_ms, [a.elapsed_time(b) for a, b in steps]
+
+
+def lm_device_ms(bundle, params, prompts, toks, steps: int = 4) -> tuple[float, float]:
+    """Device time and kernels a decode step, from ``torch.profiler`` over
+    ``steps`` steps fed ``toks`` (NaN where the trace holds no device
+    event)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        p = torch.as_tensor(prompts, device=bundle.device)
+        t = torch.as_tensor(toks, device=bundle.device).long()
+        s = p.shape[1]
+        _, cache = bundle.prefill(params, {"tokens": p})
+        cache = lm_serve._pad_cache_seq(bundle.cfg, cache, s, s + steps + 1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(steps):
+                bundle.decode_step(params, cache, t[:, i], s + i)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return float("nan"), float("nan")
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    return busy_us / 1e3 / steps, len(kernels) / steps
+
+
+def lm_serve_run(label, cfg, prompt_len, name, stats, seed=0) -> None:
+    """``generate`` at full width on the port's seeded weights, twice
+    (bit-equal), then its prefill and decode steps timed, beside their
+    bounds; one ``lm`` JSON line."""
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    bundle = lm_build(cfg)
+    params = bundle.init_params(seed)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 10)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, prompt_len))
+    runs = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = lm_serve.generate(bundle, params, prompts, max_new=LM_NEW)
+        runs.append((toks, time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() - base  # this model's weights and work
+    if not np.array_equal(runs[0][0], runs[1][0]):
+        fail(f"{label}: two greedy runs differ")
+    toks = runs[0][0]
+    if toks.shape != (LM_BATCH, LM_NEW) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        fail(f"{label}: generated tokens of shape {toks.shape} outside the vocabulary")
+    pre_ms, steps = lm_times(bundle, params, prompts, toks)
+    step_ms = float(np.median(steps))
+    gen_s = min(r[1] for r in runs)
+    pbytes = lm_param_bytes(params, cfg, LM_BATCH)
+    kv = float(np.mean([lm_kv_bytes(cfg, LM_BATCH, prompt_len + i) for i in range(LM_NEW - 1)]))
+    dec_bound = (pbytes + kv) / HBM_BYTES_PER_S * 1e3
+    flops = lm_flops.model_flops(cfg, ShapeCell("prefill", prompt_len, LM_BATCH, "prefill"),
+                                 bundle)
+    all_bytes = sum(p.numel() * p.element_size() for k, p in params.named_parameters()
+                    if not k.startswith("mtp."))
+    pre_ops, pre_bytes = flops / BF16_FLOPS_PER_S * 1e3, all_bytes / HBM_BYTES_PER_S * 1e3
+    pre_bound, pre_by = max((pre_ops, "operations"), (pre_bytes, "bytes"))
+    line = {"model": label, "dtype": cfg.dtype, "layers": cfg.n_layers, "batch": LM_BATCH,
+            "prompt": prompt_len, "new": LM_NEW, "init_s": t_init,
+            "generate_s": [r[1] for r in runs], "tokens_per_s": LM_BATCH * LM_NEW / gen_s,
+            "prefill_ms": pre_ms, "prefill_bound_ms": pre_bound, "prefill_bound_by": pre_by,
+            "prefill_ops_ms": pre_ops, "prefill_bytes_ms": pre_bytes,
+            "prefill_share": pre_bound / pre_ms, "decode_ms": step_ms,
+            "decode_ms_min": min(steps), "decode_ms_max": max(steps),
+            "decode_bound_ms": dec_bound, "decode_share": dec_bound / step_ms,
+            "param_bytes_read": pbytes, "kv_bytes_read": kv, "model_flops": flops,
+            "peak_bytes": peak, "card": name}
+    stats.setdefault("lm", []).append(line)
+    print(f"lm [{name}] {label}: {cfg.n_layers} layers {cfg.dtype}, init {t_init:.1f} s; "
+          f"generate B={LM_BATCH} prompt {prompt_len} + {LM_NEW} new greedy "
+          f"{runs[0][1]:.3f} / {runs[1][1]:.3f} s (bit-equal), {line['tokens_per_s']:.1f} "
+          f"tokens/s; prefill {pre_ms:.3f} ms (bound {pre_bound:.3f} ms by {pre_by}, "
+          f"{100 * pre_bound / pre_ms:.1f}%); decode {step_ms:.3f} ms/step median "
+          f"({min(steps):.3f}-{max(steps):.3f}; bound {dec_bound:.3f} ms, "
+          f"{100 * dec_bound / step_ms:.1f}%); peak {peak / 2**30:.2f} GiB", flush=True)
+    del bundle, params
+    lm_free()
+
+
+def lm_profile(label, cfg, prompt_len, name, line, seed=0) -> None:
+    """The card's busy time and kernels a decode step (``torch.profiler``),
+    after every timed run: a profiler run may leave its tracing hooks
+    on the launches that follow it."""
+    bundle = lm_build(cfg)
+    params = bundle.init_params(seed)
+    rng = np.random.default_rng(SEED + 13)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, prompt_len))
+    toks = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_NEW))
+    busy_ms, kernels = lm_device_ms(bundle, params, prompts, toks)
+    line.update(decode_device_ms=busy_ms, decode_kernels=kernels,
+                decode_device_share=busy_ms / line["decode_ms"])
+    print(f"lm [{name}] {label}: a decode step keeps the card busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / line['decode_ms']:.1f}% of its {line['decode_ms']:.3f} ms), "
+          f"{kernels:.0f} kernels a step (torch.profiler over 4 steps)", flush=True)
+    print("lm " + json.dumps(line), flush=True)
+    del bundle, params
+    lm_free()
+
+
+def lm_build(cfg, device=None):
+    return lm_registry.build_model(cfg, device=CARD if device is None else device)
+
+
+def lm_decode_equals_forward(label, cfg, batch, prompt_len, name, seed=1) -> None:
+    """A greedy run's last token == the argmax of ``prefill`` over prompt +
+    generated[:-1], and that step's decode logits match the prefill's within
+    max|Δ| / max|ref| < 2e-3 (float32)."""
+    bundle = lm_build(cfg)
+    params = bundle.init_params(seed)
+    rng = np.random.default_rng(SEED + 11)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
+    toks = lm_serve.generate(bundle, params, prompts, max_new=LM_NEW)
+    steps = lm_serve.teacher_forced(bundle, params, {"tokens": prompts}, toks)
+    if not np.array_equal(steps.argmax(-1).T.cpu().numpy(), toks):
+        fail(f"{label}: the teacher-forced decode's argmax differs from the greedy tokens")
+    full = np.concatenate([prompts, toks[:, :-1]], axis=1)
+    logits, _ = bundle.prefill(params, {"tokens": torch.as_tensor(full, device=CARD)})
+    if not np.array_equal(logits.argmax(-1).cpu().numpy(), toks[:, -1]):
+        fail(f"{label}: the last greedy token != argmax of prefill over the sequence")
+    err = lm_rel(steps[-1], logits)
+    if not err < 2e-3:
+        fail(f"{label}: decode logits vs the full forward max|d|/max|ref| {err:.3g} >= 2e-3")
+    print(f"lm [{name}] {label} float32 B={batch}: greedy last token == argmax of prefill "
+          f"over {full.shape[1]} tokens; decode vs full forward max|d|/max|ref| {err:.3g} "
+          f"(< 2e-3)", flush=True)
+    del bundle, params, steps, logits
+    lm_free()
+
+
+def lm_card_equals_cpu(name) -> None:
+    """llama3.2-3b at full width cut to depth 2, float32: prefill and 4
+    teacher-forced decode steps on the card == the port on the CPU."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for float32 products")
+    cfg = get_config("llama3.2-3b").replace(n_layers=2, dtype="float32")
+    bundle = lm_build(cfg)
+    params = bundle.init_params(2)
+    rng = np.random.default_rng(SEED + 12)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 32))
+    nxt = rng.integers(0, cfg.vocab_size, (2, 5))
+    t0 = time.perf_counter()
+    got = lm_serve.teacher_forced(bundle, params, {"tokens": prompts}, nxt).cpu()
+    on_cpu = lm_build(cfg, "cpu")
+    params_cpu = on_cpu.model.empty_params()
+    params_cpu.load_state_dict(params.state_dict())
+    ref = lm_serve.teacher_forced(on_cpu, params_cpu, {"tokens": prompts}, nxt)
+    err = lm_rel(got, ref)
+    if not err < 1e-4:
+        fail(f"card vs CPU: max|d|/max|ref| {err:.3g} >= 1e-4")
+    print(f"lm [{name}] llama3.2-3b depth 2 float32 B=2 S=32, prefill + 4 teacher-forced "
+          f"decode steps: card vs CPU max|d|/max|ref| {err:.3g} (< 1e-4), TF32 off "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    del bundle, params, params_cpu
+    lm_free()
+
+
+def lm_fixture(name) -> None:
+    """The JAX package's recorded answers for four smoke configs
+    (tests/fixtures/torch_lm), replayed on the card from the same numpy
+    seed: equal weight checksums, equal greedy tokens, each teacher-forced
+    step's logits within 1e-4."""
+    manifest = json.loads((FIXTURE_LM / "manifest.json").read_text())
+    out = []
+    for arch, entry in manifest["configs"].items():
+        with np.load(FIXTURE_LM / entry["file"]) as z:
+            fx = {k: z[k] for k in z.files}
+        cfg = importlib.import_module(
+            f"repro_torch.configs.{entry['file'].removesuffix('.npz')}").smoke().replace(
+            dtype="float32")
+        tree = seeded_numpy_params(cfg, entry["seed"])
+        if leaf_checksums(tree) != entry["checksums"]:
+            fail(f"fixture {arch}: the seeded weights' checksums differ (numpy stream?)")
+        bundle = lm_build(cfg)
+        params = lm_params_from_numpy(cfg, tree, device=CARD)
+        batch = {k: fx[k] for k in ("tokens", "embeds") if k in fx}
+        logits = lm_serve.teacher_forced(bundle, params, batch, fx["greedy"]).cpu()
+        err = lm_rel(logits, torch.from_numpy(fx["logits"]))
+        if not err < 1e-4:
+            fail(f"fixture {arch}: logits vs the reference max|d|/max|ref| {err:.3g}")
+        if not np.array_equal(logits.argmax(-1).T.numpy(), fx["greedy"]):
+            fail(f"fixture {arch}: greedy tokens differ from the reference's")
+        if "tokens" in fx and not np.array_equal(
+                lm_serve.generate(bundle, params, fx["tokens"],
+                                  max_new=fx["greedy"].shape[1]), fx["greedy"]):
+            fail(f"fixture {arch}: generate's tokens differ from the reference's")
+        out.append(f"{arch} {err:.2g}")
+    print(f"lm [{name}] the JAX package's answers (tests/fixtures/torch_lm) on the card: "
+          f"greedy tokens equal, teacher-forced logits max|d|/max|ref| " + ", ".join(out),
+          flush=True)
+
+
+def phase_lm(name, stats) -> None:
+    """Phase 10: the LM half's serving path at full width."""
+    llama = get_config("llama3.2-3b")
+    gemma = get_config("gemma3-1b")
+    # deepseek-v3 cut to depth 2 (1 dense + 1 MoE layer), every width kept
+    deepseek = get_config("deepseek-v3-671b").replace(n_layers=2, first_dense_layers=1)
+    # (label, config, prompt length): gemma's 1,024-token prompt is two
+    # 512-token flash blocks, past its 512 window
+    runs = [("llama3.2-3b", llama, LM_PROMPT), ("gemma3-1b", gemma, 2 * gemma.sliding_window),
+            ("deepseek-v3-671b depth 2", deepseek, LM_PROMPT)]
+    for label, cfg, prompt_len in runs:
+        lm_serve_run(label, cfg, prompt_len, name, stats)
+    lm_decode_equals_forward("llama3.2-3b", llama.replace(dtype="float32"), LM_BATCH,
+                             LM_PROMPT, name)
+    lm_decode_equals_forward("gemma3-1b", gemma.replace(dtype="float32"), LM_BATCH,
+                             gemma.sliding_window + 64, name)
+    # one sequence, and room for every prefill token in every expert: no
+    # assignment dropped on either side, so the two paths compute alike
+    lm_decode_equals_forward(
+        "deepseek-v3-671b depth 2",
+        deepseek.replace(dtype="float32",
+                         capacity_factor=deepseek.n_experts / deepseek.moe_top_k),
+        1, LM_PROMPT, name)
+    lm_card_equals_cpu(name)
+    lm_fixture(name)
+    for (label, cfg, prompt_len), line in zip(runs, stats["lm"]):
+        lm_profile(label, cfg, prompt_len, name, line)
+
+
 def kernel_entry(name, source, launches, err, ms, plain_ms, bnd, by) -> dict:
     """One object of the kernels line: ``source`` a file of kernels/csrc,
     every time measured in this run, no single PyTorch call to compare."""
@@ -2202,6 +2540,14 @@ def main() -> int:
         t0 = time.perf_counter()
         phase()
         print(f"{label} phase {time.perf_counter() - t0:.1f} s", flush=True)
+    # the LM models need the card's memory: drop the tabular artifacts first
+    del ens, cm, soft, batches, phase
+    lm_free()
+    print(f"LM serving: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
+          f"after phases 1-9", flush=True)
+    t0 = time.perf_counter()
+    phase_lm(name, stats)
+    print(f"LM serving phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     lines = [stats["kernel_line"], stats["soft_kernel_line"], *stats["variant_lines"],
              *stats["soft_variant_lines"], *stats["wide_lines"]]

@@ -1,4 +1,5 @@
-"""Artifact state <-> the port's ``CompiledModel``.
+"""Artifact state <-> the port's ``CompiledModel``, and LM parameters
+<-> the JAX package's ``init_params`` pytree.
 
 The JAX package stores an artifact as NumPy arrays (the ``.npz``) plus a
 JSON sidecar dict.  ``from_state`` assembles the port's objects from that
@@ -12,6 +13,14 @@ when present, ``feature_ids``, ``col_perm`` and the quantizer's
 ``low``/``high`` in its narrow ``table_dtype`` with INCLUSIVE upper
 bounds.  ``to_state`` reads only attributes both packages share, so it
 also turns ``repro``'s in-memory ``CompiledModel`` into this state.
+
+LM parameters cross as nested dicts of numpy arrays in the JAX layout
+(``lm_params_from_numpy`` / ``lm_params_to_numpy``): the NamedTuples
+(``AttnParams``, ``FFNParams``, ``MoEParams``, ``MLAParams``) as their
+``_asdict()`` with None kept, each segment's leaves stacked on a leading
+layer axis.  Both directions are exact, bfloat16 included.
+``seeded_numpy_params`` makes such a tree from a numpy seed, so both
+packages can be given the same weights without either's initialiser.
 """
 
 from __future__ import annotations
@@ -19,7 +28,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Mapping
 
+import hashlib
+
 import numpy as np
+import torch
 
 from repro_torch.api import (
     FORMAT,
@@ -31,9 +43,17 @@ from repro_torch.api import (
 )
 from repro_torch.core.compile import CAMTable, ChipSpec, CorePlacement
 from repro_torch.core.deploy import DeployConfig
+from repro_torch.core.engine import resolve_device
 from repro_torch.core.noc import NoCPlan
 from repro_torch.core.perfmodel import PerfReport
 from repro_torch.core.quantize import FeatureQuantizer
+from repro_torch.models.transformer import (
+    TransformerLM,
+    TransformerParams,
+    jax_layout,
+    layout_leaves,
+    layout_shape,
+)
 
 
 def from_state(
@@ -146,3 +166,113 @@ def to_state(cm: CompiledModel) -> tuple[dict[str, np.ndarray], dict]:
     if cm.compression is not None:
         sidecar["compression"] = cm.compression
     return arrays, sidecar
+
+
+# ---------------------------------------------------------------------------
+# LM parameters
+# ---------------------------------------------------------------------------
+
+
+def _tensor_of(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor with ``arr``'s bits (numpy's bfloat16 from ml_dtypes
+    arrives as its 16-bit words)."""
+    arr = np.require(arr, requirements=["C", "W"])  # a copy when read-only
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _numpy_of(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().to("cpu")
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy's bfloat16; needed only for bfloat16 leaves
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _fill(layout, tree, path: str) -> None:
+    if layout is None or tree is None:
+        if layout is not None or tree is not None:
+            raise ValueError(f"{path}: None on one side only")
+        return
+    if isinstance(layout, dict):
+        if not isinstance(tree, dict) or set(tree) != set(layout):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+            raise ValueError(f"{path}: keys {got} != {sorted(layout)}")
+        for k in layout:
+            _fill(layout[k], tree[k], f"{path}[{k!r}]")
+        return
+    src = _tensor_of(np.asarray(tree))
+    dests = layout if isinstance(layout, list) else [layout]
+    want = ((len(dests),) if isinstance(layout, list) else ()) + tuple(dests[0].shape)
+    if tuple(src.shape) != want or src.dtype != dests[0].dtype:
+        raise ValueError(f"{path}: got {tuple(src.shape)} {src.dtype}, "
+                         f"want {want} {dests[0].dtype}")
+    with torch.no_grad():
+        if isinstance(layout, list):
+            for i, d in enumerate(dests):
+                d.copy_(src[i])
+        else:
+            layout.copy_(src)
+
+
+def lm_params_from_numpy(cfg, tree: Mapping, *, device=None) -> TransformerParams:
+    """The port's parameters of ``cfg`` on ``device`` (None: the card) from
+    the JAX package's ``init_params`` pytree as nested dicts of numpy
+    arrays.  Every leaf must have the port's shape and dtype; the stacked
+    (n_layers, ...) segment leaves become the per-layer modules."""
+    params = TransformerLM(cfg, device=resolve_device(device)).empty_params()
+    _fill(jax_layout(params), tree, "params")
+    return params
+
+
+def lm_params_to_numpy(params: TransformerParams) -> dict:
+    """The inverse of ``lm_params_from_numpy``: the JAX layout as nested
+    dicts of numpy arrays (bfloat16 as ml_dtypes' bfloat16)."""
+    def conv(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return np.stack([_numpy_of(t) for t in node])
+        return _numpy_of(node)
+
+    return conv(jax_layout(params))
+
+
+_NORM_KEYS = frozenset({"ln1", "ln2", "post_ln1", "post_ln2", "final_norm", "q_norm",
+                        "k_norm", "q_ln", "kv_ln", "ln"})
+
+
+def seeded_numpy_params(cfg, seed: int) -> dict:
+    """Weights for ``cfg`` in the JAX layout from ``np.random.default_rng(seed)``:
+    one ``standard_normal`` draw per leaf, leaves in sorted path order;
+    norm scales x 0.1, ``embed`` / sqrt(d_model), every other matrix /
+    sqrt(shape[-2]) (its fan-in); cast to each leaf's dtype."""
+    layout = jax_layout(TransformerLM(cfg, device="meta").empty_params())
+    rng = np.random.default_rng(seed)
+    drawn = {}
+    for path, leaf in layout_leaves(layout):
+        shape = layout_shape(leaf)
+        w = rng.standard_normal(shape)
+        if path[-1] in _NORM_KEYS:
+            w = 0.1 * w
+        else:
+            w = w / np.sqrt(shape[-1] if path[-1] == "embed" else shape[-2])
+        dtype = (leaf[0] if isinstance(leaf, list) else leaf).dtype
+        drawn[path] = _numpy_of(torch.from_numpy(w.astype(np.float32)).to(dtype))
+
+    def tree(node, path):
+        if node is None or not isinstance(node, dict):
+            return None if node is None else drawn[path]
+        return {k: tree(v, path + (k,)) for k, v in node.items()}
+
+    return tree(layout, ())
+
+
+def leaf_checksums(tree: Mapping) -> dict[str, str]:
+    """sha256 of each leaf's bytes, keyed by its '/'-joined path."""
+    return {"/".join(path): hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+            for path, a in layout_leaves(tree)}

@@ -1,0 +1,267 @@
+"""Attention: GQA/MQA with RoPE, sliding windows, flash-style chunking.
+
+The port of ``repro.models.attention`` as the same algorithms in torch
+ops (no library attention kernel: its masking, softcap and window rules
+and its numerics would not be the reference's):
+
+  * ``flash_attention`` — train/prefill.  Python loops over query blocks
+    and over the causal KV prefix with an online softmax; it falls back to
+    ``full_attention`` unless ``S > blk`` and ``S % blk == 0``.
+  * ``decode_attention`` — one new token against the KV cache.
+  * ``full_attention`` — the short-sequence path.
+
+Scores and softmax are float32; masked scores are ``-1e30``.  ``window``
+(0 = none) and the logit softcap apply in every path.  Decode writes the
+new token's k/v into the cache in place and returns the same tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import common
+
+_NO_WINDOW = 2**30
+_MASKED = -1e30
+
+
+class AttnParams(nn.Module):
+    """wq (d, H*D), wk/wv (d, KV*D), wo (H*D, d); q_norm/k_norm (D,) rms
+    scales when ``qk_norm``, else None."""
+
+    FIELDS = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
+
+    def __init__(self, d_model: int, n_heads: int, n_kv: int, head_dim: int, dtype,
+                 qk_norm: bool = False, *, device, generator=None):
+        super().__init__()
+        init = dict(generator=generator, device=device)
+        self.wq = nn.Parameter(common.dense_init((d_model, n_heads * head_dim), dtype, **init))
+        self.wk = nn.Parameter(common.dense_init((d_model, n_kv * head_dim), dtype, **init))
+        self.wv = nn.Parameter(common.dense_init((d_model, n_kv * head_dim), dtype, **init))
+        self.wo = nn.Parameter(common.dense_init((n_heads * head_dim, d_model), dtype, **init))
+        for name in ("q_norm", "k_norm"):
+            scale = torch.zeros((head_dim,), dtype=dtype, device=device)
+            self.register_parameter(name, nn.Parameter(scale) if qk_norm else None)
+
+
+def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, -1)
+
+
+def _gqa_expand(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(B, S, H, D) -> (B, S, KV, G, D) where G = H // KV."""
+    b, s, h, d = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, d)
+
+
+def _window_span(window) -> int:
+    window = int(window)
+    return window if window > 0 else _NO_WINDOW
+
+
+# ---------------------------------------------------------------------------
+# Full attention (short sequences / smoke)
+# ---------------------------------------------------------------------------
+
+
+def full_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, KV, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window=0,
+    q_offset: int = 0,
+    logit_softcap: float = 0.0,
+) -> torch.Tensor:
+    b, sq, h, d = q.shape
+    dv = v.shape[-1]  # may differ from d (MLA)
+    n_kv = k.shape[2]
+    qq = _gqa_expand(q, n_kv) * (d ** -0.5)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qq.float(), k.float())
+    scores = common.softcap(scores, logit_softcap)
+    qi = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kj = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = kj > qi - _window_span(window)
+    if causal:
+        mask &= kj <= qi
+    scores = torch.where(mask[None, None, None], scores, _MASKED)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(b, sq, h, dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Flash-style chunked attention (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, S, KV, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window=0,
+    logit_softcap: float = 0.0,
+    blk: int = 512,
+) -> torch.Tensor:
+    b, sq, h, d = q.shape
+    sk = k.shape[1]  # may differ from sq (cross-attention)
+    dv = v.shape[-1]  # may differ from d (MLA)
+    n_kv = k.shape[2]
+    if causal and sq != sk:
+        raise ValueError(f"causal flash requires sq == sk, got {sq} vs {sk}")
+    if sq <= blk or sq % blk or sk % blk:
+        return full_attention(
+            q, k, v, causal=causal, window=window, logit_softcap=logit_softcap
+        )
+    n_blocks = sq // blk
+    n_kv_blocks = sk // blk
+    g = h // n_kv
+    scale = d ** -0.5
+    span = _window_span(window)
+    ar = torch.arange(blk, device=q.device)
+
+    # (nb, B, blk, KV, G, D) query blocks, fp32 math inside
+    qb = _gqa_expand(q, n_kv).reshape(b, n_blocks, blk, n_kv, g, d).transpose(0, 1)
+    kb = k.reshape(b, n_kv_blocks, blk, n_kv, d).transpose(0, 1)
+    vb = v.reshape(b, n_kv_blocks, blk, n_kv, dv).transpose(0, 1)
+
+    outs = []
+    for i in range(n_blocks):
+        qi = (qb[i] * scale).float()  # (B, blk, KV, G, D)
+        q_pos = i * blk + ar
+        n_kv_chunks = (i + 1) if causal else n_kv_blocks
+        m = torch.full((b, n_kv, g, blk), _MASKED, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, n_kv, g, blk), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, n_kv, g, blk, dv), dtype=torch.float32, device=q.device)
+        for cid in range(n_kv_chunks):
+            sc = torch.einsum("bqkgd,bskd->bkgqs", qi, kb[cid].float())
+            sc = common.softcap(sc, logit_softcap)
+            k_pos = cid * blk + ar
+            mask = k_pos[None, :] > q_pos[:, None] - span
+            if causal:
+                mask &= k_pos[None, :] <= q_pos[:, None]
+            sc = torch.where(mask[None, None, None], sc, _MASKED)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, vb[cid].float())
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]  # (B, KV, G, blk, Dv)
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, blk, h, dv))
+
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode (single token, KV cache)
+# ---------------------------------------------------------------------------
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, H, D)
+    k_cache: torch.Tensor,  # (B, S, KV, D)
+    v_cache: torch.Tensor,
+    pos: int,  # current position (number of valid cache entries - 1)
+    *,
+    window=0,
+    logit_softcap: float = 0.0,
+) -> torch.Tensor:
+    b, _, h, d = q.shape
+    n_kv = k_cache.shape[2]
+    qq = _gqa_expand(q, n_kv)[:, 0] * (d ** -0.5)  # (B, KV, G, D)
+    scores = torch.einsum("bkgd,bskd->bkgs", qq.float(), k_cache.float())
+    scores = common.softcap(scores, logit_softcap)
+    kj = torch.arange(k_cache.shape[1], device=q.device)
+    mask = (kj <= pos) & (kj > pos - _window_span(window))
+    scores = torch.where(mask[None, None, None], scores, _MASKED)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Block-level forward (projection + rope + attend + out-proj)
+# ---------------------------------------------------------------------------
+
+
+def attention_forward(
+    p: AttnParams,
+    x: torch.Tensor,  # (B, S, d)
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    rope_theta,
+    positions: torch.Tensor,  # (B, S) or (S,)
+    causal: bool = True,
+    window=0,
+    logit_softcap: float = 0.0,
+    norm_eps: float = 1e-6,
+    flash_blk: int = 512,
+    kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,  # cross-attn
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Returns (output (B,S,d), (k, v) for cache)."""
+    q = _split_heads(x @ p.wq, n_heads)
+    if kv_override is None:
+        k = _split_heads(x @ p.wk, n_kv)
+        v = _split_heads(x @ p.wv, n_kv)
+    else:
+        k, v = kv_override
+    if p.q_norm is not None:
+        q = common.rms_norm(q, p.q_norm, norm_eps)
+        k = common.rms_norm(k, p.k_norm, norm_eps) if kv_override is None else k
+    if rope_theta is not None:
+        if positions.ndim == 1:
+            positions = positions[None, :]
+        q = common.apply_rope(q, positions, rope_theta)
+        if kv_override is None:
+            k = common.apply_rope(k, positions, rope_theta)
+    out = flash_attention(
+        q, k, v, causal=causal, window=window, logit_softcap=logit_softcap, blk=flash_blk
+    )
+    return out.reshape(*x.shape[:2], -1) @ p.wo, (k, v)
+
+
+def attention_decode(
+    p: AttnParams,
+    x: torch.Tensor,  # (B, 1, d)
+    k_cache: torch.Tensor,  # (B, S, KV, D)
+    v_cache: torch.Tensor,
+    pos: int,  # write/read position
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    rope_theta,
+    window=0,
+    logit_softcap: float = 0.0,
+    norm_eps: float = 1e-6,
+    update_cache: bool = True,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """One token; with ``update_cache`` its k/v are written into the caches
+    at ``pos`` in place.  Returns (output (B,1,d), (k_cache, v_cache))."""
+    q = _split_heads(x @ p.wq, n_heads)
+    at = torch.full((1, 1), pos, device=x.device)
+    if update_cache:
+        k_new = _split_heads(x @ p.wk, n_kv)
+        v_new = _split_heads(x @ p.wv, n_kv)
+        if p.q_norm is not None:
+            k_new = common.rms_norm(k_new, p.k_norm, norm_eps)
+        if rope_theta is not None:
+            k_new = common.apply_rope(k_new, at, rope_theta)
+        k_cache[:, pos:pos + 1] = k_new.to(k_cache.dtype)
+        v_cache[:, pos:pos + 1] = v_new.to(v_cache.dtype)
+    if p.q_norm is not None:
+        q = common.rms_norm(q, p.q_norm, norm_eps)
+    if rope_theta is not None:
+        q = common.apply_rope(q, at, rope_theta)
+    out = decode_attention(
+        q, k_cache, v_cache, pos, window=window, logit_softcap=logit_softcap
+    )
+    return out.reshape(x.shape[0], 1, -1) @ p.wo, (k_cache, v_cache)

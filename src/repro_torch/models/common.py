@@ -1,0 +1,153 @@
+"""Shared building blocks: norms, RoPE, embeddings, init, dtype policy.
+
+The port of ``repro.models.common`` in torch ops.  The math follows the
+JAX functions step for step: norms and RoPE in float32, cast back to the
+input's dtype; ``gelu`` is the tanh approximation (``jax.nn.gelu``'s
+default).  Initialisers draw from an explicit ``torch.Generator``; they
+follow the JAX package's rules (truncated normal, fan-in scaling) but not
+its bits — weights are carried across with
+``repro_torch.convert.lm_params_from_numpy``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+# elements of the float32 scratch one initialiser chunk may hold
+_INIT_CHUNK = 1 << 26
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# Initializers (all params created in the config dtype)
+# ---------------------------------------------------------------------------
+
+
+def _truncated_normal(shape, std: float, dtype: torch.dtype, *, generator, device):
+    """N(0, std²) truncated to ±2 std (inverse-CDF draw in float32, cast to
+    ``dtype``), filled in chunks of the leading axis so the float32 scratch
+    stays small.  With no ``generator`` (or on the meta device) the tensor
+    is left uninitialised."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if generator is None or out.device.type == "meta" or out.numel() == 0:
+        return out
+    cdf_2 = (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0  # Φ(2); Φ(-2) = 1 - Φ(2)
+    lead = shape[0] if len(shape) else 1
+    per_row = max(1, out.numel() // max(1, lead))
+    step = max(1, _INIT_CHUNK // per_row)
+    flat = out.reshape(lead, -1) if len(shape) else out.reshape(1, 1)
+    for i in range(0, lead, step):
+        rows = flat[i:i + step]
+        tmp = torch.empty(rows.shape, dtype=torch.float32, device=out.device)
+        tmp.uniform_(1.0 - 2.0 * cdf_2, 2.0 * cdf_2 - 1.0, generator=generator)
+        tmp.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2.0 * std, 2.0 * std)
+        rows.copy_(tmp)
+    return out
+
+
+def dense_init(shape, dtype, *, generator, device, in_axis: int = 0) -> torch.Tensor:
+    """Truncated-normal fan-in scaling (maxtext-style)."""
+    fan_in = shape[in_axis] if isinstance(in_axis, int) else int(
+        np.prod([shape[a] for a in in_axis])
+    )
+    return _truncated_normal(shape, 1.0 / np.sqrt(fan_in), dtype,
+                             generator=generator, device=device)
+
+
+def embed_init(shape, dtype, *, generator, device) -> torch.Tensor:
+    """std = 1/sqrt(d_model): keeps tied-head logits O(1) at init."""
+    return _truncated_normal(shape, 1.0 / np.sqrt(shape[1]), dtype,
+                             generator=generator, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in fp32 math, cast back to input dtype; scales by 1 + scale."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta, device=None) -> torch.Tensor:
+    """(head_dim/2,) float32 inverse frequencies; ``theta`` is taken as a
+    float32 scalar (the JAX package's per-layer thetas are float32)."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    base = torch.tensor(float(theta), dtype=torch.float32, device=device)
+    return 1.0 / torch.pow(base, exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta) -> torch.Tensor:
+    """x: (..., S, H, D) with D even; positions: broadcastable to (..., S).
+    Rotates the two halves of D (not interleaved pairs)."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, device=x.device)  # (D/2,)
+    ang = positions[..., :, None, None].float() * inv  # (..., S, 1, D/2)
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu(approximate=True)
+
+
+def act_fn(name: str):
+    return {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu}[name]
+
+
+def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap <= 0:
+        return logits
+    return cap * torch.tanh(logits / cap)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean cross entropy in fp32; logits (..., V), labels (...)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -1,0 +1,48 @@
+"""Gated feed-forward (SwiGLU / GeGLU) blocks — the port of
+``repro.models.ffn``: the parameters are ``nn.Module``s with the JAX
+NamedTuples' field names, the forwards plain functions on tensors."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import common
+
+
+class FFNParams(nn.Module):
+    """w_gate (d, f), w_up (d, f), w_down (f, d)."""
+
+    FIELDS = ("w_gate", "w_up", "w_down")
+
+    def __init__(self, d_model: int, d_ff: int, dtype, *, device, generator=None):
+        super().__init__()
+        init = dict(generator=generator, device=device)
+        self.w_gate = nn.Parameter(common.dense_init((d_model, d_ff), dtype, **init))
+        self.w_up = nn.Parameter(common.dense_init((d_model, d_ff), dtype, **init))
+        self.w_down = nn.Parameter(common.dense_init((d_ff, d_model), dtype, **init))
+
+
+def ffn_forward(p: FFNParams, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    a = common.act_fn(act)
+    return (a(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+
+
+class MLPParams(nn.Module):
+    """Ungated two-matrix MLP (whisper-style fc1/fc2): w1 (d, f), b1 (f,),
+    w2 (f, d), b2 (d,)."""
+
+    FIELDS = ("w1", "b1", "w2", "b2")
+
+    def __init__(self, d_model: int, d_ff: int, dtype, *, device, generator=None):
+        super().__init__()
+        init = dict(generator=generator, device=device)
+        self.w1 = nn.Parameter(common.dense_init((d_model, d_ff), dtype, **init))
+        self.b1 = nn.Parameter(torch.zeros((d_ff,), dtype=dtype, device=device))
+        self.w2 = nn.Parameter(common.dense_init((d_ff, d_model), dtype, **init))
+        self.b2 = nn.Parameter(torch.zeros((d_model,), dtype=dtype, device=device))
+
+
+def mlp_forward(p: MLPParams, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
+    a = common.act_fn(act)
+    return a(x @ p.w1 + p.b1) @ p.w2 + p.b2

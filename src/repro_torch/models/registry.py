@@ -1,0 +1,98 @@
+"""Uniform model bundle: config -> (init, prefill, decode, specs).
+
+The port of ``repro.models.registry``.  ``build_model(cfg)`` returns an
+``LMBundle`` whose members are what the server consumes, on the card
+unless ``device="cpu"`` is given.  The shape stand-ins of the JAX bundle
+(``params_shape``, ``cache_shape``, ``input_specs``) are tensors on the
+``meta`` device.  Only the transformer families (dense, moe, vlm) are
+ported; the hybrid, ssm and audio families raise ``NotImplementedError``
+(ROADMAP.md, queue 1 item 3), and ``loss_fn`` comes with the training
+slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.config import ModelConfig, ShapeCell
+from repro_torch.core.engine import resolve_device
+from repro_torch.models import common
+from repro_torch.models.transformer import TransformerLM
+
+META = torch.device("meta")
+NOT_PORTED = {
+    "hybrid": "zamba2's Mamba2 backbone (models/hybrid.py, models/mamba2.py)",
+    "ssm": "RWKV6 (models/rwkv6.py, models/rwkv_model.py)",
+    "audio": "whisper's encoder-decoder (models/encdec.py)",
+}
+
+
+@dataclass
+class LMBundle:
+    cfg: ModelConfig
+    model: Any
+    init_params: Callable  # (seed) -> params module on the model's device
+    prefill: Callable  # (params, batch) -> (logits, cache)
+    decode_step: Callable  # (params, cache, token, pos) -> (logits, cache)
+    init_cache: Callable  # (batch, seq) -> cache
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    # -- shape stand-ins (meta device) ----------------------------------------
+
+    def params_shape(self):
+        return self.model.empty_params(device=META)
+
+    def cache_shape(self, batch: int, seq: int):
+        return self.model.init_cache(batch, seq, device=META)
+
+    def input_specs(self, cell: ShapeCell) -> dict:
+        """Meta-device stand-ins for every input of one (arch x shape) cell."""
+        cfg = self.cfg
+        b, s = cell.global_batch, cell.seq_len
+        dt = common.dtype_of(cfg.dtype)
+
+        def spec(shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device=META)
+
+        if cell.kind == "decode":  # one new token against a seq_len cache
+            return {"cache": self.cache_shape(b, s), "token": spec((b,)),
+                    "pos": spec(())}
+        out = {}
+        if cfg.is_encoder_decoder:
+            sd = max(64, s // 8)  # decoder tokens per frame window
+            out = {"frames": spec((b, s, cfg.d_model), dt), "tokens": spec((b, sd))}
+            lab = (b, sd)
+        elif cfg.embeddings_input:
+            out = {"embeds": spec((b, s, cfg.d_model), dt)}
+            lab = (b, s)
+        else:
+            out = {"tokens": spec((b, s))}
+            lab = (b, s)
+        if cell.kind == "train":
+            out["labels"] = spec(lab)
+        return out
+
+
+def build_model(cfg: ModelConfig, flash_blk: int = 512, *, device=None) -> LMBundle:
+    """The bundle of ``cfg``'s model on ``device`` (None: the card, which
+    raises where torch sees none)."""
+    if cfg.family in NOT_PORTED:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family ({NOT_PORTED[cfg.family]}) is not "
+            "ported to repro_torch yet; see ROADMAP.md, queue 1 item 3 (the LM half)"
+        )
+    m = TransformerLM(cfg, flash_blk, device=resolve_device(device))  # dense | moe | vlm
+    return LMBundle(
+        cfg=cfg,
+        model=m,
+        init_params=m.init_params,
+        prefill=m.prefill,
+        decode_step=m.decode_step,
+        init_cache=m.init_cache,
+    )

@@ -1,0 +1,402 @@
+"""Decoder-only transformer LM covering the dense / MoE / MLA / VLM
+architectures (gemma3, phi3, granite, llama3.2, deepseek-v3, arctic,
+llava-next) — the port of ``repro.models.transformer``'s serving half.
+
+The layer stack is split into the JAX package's homogeneous *segments*
+(e.g. deepseek-v3 = 3 dense layers + 58 MoE layers), but each layer is its
+own ``BlockParams`` module and a segment runs as a Python loop over its
+layers (no scan).  Per-layer heterogeneity (gemma3's 5:1 local:global
+windows and dual RoPE thetas) comes from ``layer_meta`` as in the JAX
+package.  Parameters live in a ``TransformerParams`` module;
+``TransformerLM`` holds the config and the functions, as the JAX class
+does, so ``prefill(params, batch)`` and ``decode_step(params, cache,
+token, pos)`` keep the reference's call shape.  The cache layout is the
+JAX one: one (k, v) pair per segment, each (n_layers, B, S, KV, D); for MLA
+(ckv (n, B, S, kv_lora), k_rope (n, B, S, rope)).  Decode writes the new
+token into it in place.
+
+``loss_fn``, ``_chunked_ce`` and the MTP loss come with the training slice;
+the ``mtp`` parameters are created and carried across already.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import common
+from repro_torch.models.attention import AttnParams, attention_decode, attention_forward
+from repro_torch.models.ffn import FFNParams, ffn_forward
+from repro_torch.models.mla import MLAParams, mla_decode, mla_forward
+from repro_torch.models.moe import MoEParams, moe_forward
+
+# MoE capacity factor at decode: tiny T, generous capacity (as the reference)
+DECODE_CAPACITY_FACTOR = 4.0
+
+
+# ---------------------------------------------------------------------------
+# Per-layer metadata (windows / thetas) for heterogeneous stacks
+# ---------------------------------------------------------------------------
+
+
+def layer_meta(cfg: ModelConfig, n_layers: int, offset: int = 0):
+    """(windows (L,) int32, thetas (L,) float32) as numpy."""
+    windows = np.zeros((n_layers,), np.int32)
+    thetas = np.full((n_layers,), cfg.rope_theta, np.float32)
+    if cfg.local_global_period > 0 and cfg.sliding_window > 0:
+        for i in range(n_layers):
+            gi = i + offset
+            is_global = (gi + 1) % cfg.local_global_period == 0
+            windows[i] = 0 if is_global else cfg.sliding_window
+            thetas[i] = (
+                cfg.rope_theta_global if (is_global and cfg.rope_theta_global) else cfg.rope_theta
+            )
+    elif cfg.sliding_window > 0:
+        windows[:] = cfg.sliding_window
+    return windows, thetas
+
+
+def segments_of(cfg: ModelConfig) -> list[tuple[str, int, int]]:
+    """(kind, n_layers, global_layer_offset) of each homogeneous segment."""
+    if cfg.is_moe and cfg.first_dense_layers > 0:
+        return [
+            ("dense", cfg.first_dense_layers, 0),
+            ("moe", cfg.n_layers - cfg.first_dense_layers, cfg.first_dense_layers),
+        ]
+    if cfg.is_moe:
+        return [("moe", cfg.n_layers, 0)]
+    return [("dense", cfg.n_layers, 0)]
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def _norm(cfg, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros((cfg.d_model,), dtype=dtype, device=device))
+
+
+class BlockParams(nn.Module):
+    """One layer's params.  kind: 'dense' | 'moe'.  ``FIELDS`` lists the
+    keys the JAX package's block dict has for this config."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, *, device, generator=None):
+        super().__init__()
+        init = dict(device=device, generator=generator)
+        dtype = common.dtype_of(cfg.dtype)
+        fields = ["ln1", "ln2", "attn", "ffn"]
+        self.ln1 = _norm(cfg, dtype, device)
+        self.ln2 = _norm(cfg, dtype, device)
+        if cfg.use_mla:
+            self.attn = MLAParams(cfg, dtype, **init)
+        else:
+            self.attn = AttnParams(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.resolved_head_dim, dtype, cfg.qk_norm, **init)
+        if kind == "moe":
+            self.ffn = MoEParams(cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts,
+                                 cfg.n_shared_experts, dtype, **init)
+            if cfg.moe_dense_residual:
+                self.dense_ffn = FFNParams(cfg.d_model, cfg.d_ff, dtype, **init)
+                fields.append("dense_ffn")
+        else:
+            ff = cfg.dense_d_ff if (cfg.dense_d_ff and cfg.is_moe) else cfg.d_ff
+            self.ffn = FFNParams(cfg.d_model, ff, dtype, **init)
+        if cfg.name.startswith("gemma"):  # gemma3 sandwich norms
+            self.post_ln1 = _norm(cfg, dtype, device)
+            self.post_ln2 = _norm(cfg, dtype, device)
+            fields += ["post_ln1", "post_ln2"]
+        self.FIELDS = tuple(fields)
+
+
+class MTPParams(nn.Module):
+    """DeepSeek-V3 multi-token prediction (depth 1): proj (2d, d), one
+    dense block, ln (d,)."""
+
+    FIELDS = ("proj", "block", "ln")
+
+    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+        super().__init__()
+        dtype = common.dtype_of(cfg.dtype)
+        self.proj = nn.Parameter(common.dense_init(
+            (2 * cfg.d_model, cfg.d_model), dtype, generator=generator, device=device))
+        self.block = nn.ModuleList([BlockParams(cfg, "dense", device=device,
+                                                generator=generator)])
+        self.ln = _norm(cfg, dtype, device)
+
+
+class TransformerParams(nn.Module):
+    """Every parameter of a ``TransformerLM``: ``segs[s][i]`` is layer i of
+    segment s.  With ``generator`` None the tensors are left uninitialised
+    (filled by ``repro_torch.convert.lm_params_from_numpy``); on the meta
+    device they are shapes only."""
+
+    def __init__(self, cfg: ModelConfig, *, device, generator=None):
+        super().__init__()
+        dtype = common.dtype_of(cfg.dtype)
+        init = dict(generator=generator, device=device)
+        self.embed = nn.Parameter(common.embed_init((cfg.vocab_size, cfg.d_model), dtype,
+                                                    **init))
+        self.final_norm = _norm(cfg, dtype, device)
+        self.register_parameter(
+            "lm_head",
+            None if cfg.tie_embeddings else nn.Parameter(
+                common.dense_init((cfg.d_model, cfg.vocab_size), dtype, **init)),
+        )
+        self.segs = nn.ModuleList(
+            nn.ModuleList(BlockParams(cfg, kind, **init) for _ in range(n))
+            for kind, n, _off in segments_of(cfg)
+        )
+        self.mtp = MTPParams(cfg, **init) if cfg.mtp_depth > 0 else None
+
+
+# ---------------------------------------------------------------------------
+# Block definitions
+# ---------------------------------------------------------------------------
+
+
+def _block_forward(
+    cfg: ModelConfig,
+    kind: str,
+    x: torch.Tensor,
+    prm: BlockParams,
+    window: int,
+    theta: float,
+    positions: torch.Tensor,
+    flash_blk: int,
+):
+    """Full-sequence block.  Returns (x, (k, v) cache entry, aux loss)."""
+    h = common.rms_norm(x, prm.ln1, cfg.norm_eps)
+    if cfg.use_mla:
+        h, kv = mla_forward(prm.attn, h, cfg, positions, flash_blk=flash_blk)
+    else:
+        h, kv = attention_forward(
+            prm.attn, h,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+            rope_theta=theta, positions=positions, causal=True, window=window,
+            logit_softcap=cfg.attn_logit_softcap, norm_eps=cfg.norm_eps,
+            flash_blk=flash_blk,
+        )
+    if "post_ln1" in prm.FIELDS:
+        h = common.rms_norm(h, prm.post_ln1, cfg.norm_eps)
+    x = x + h
+
+    f_in = common.rms_norm(x, prm.ln2, cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "moe":
+        f, aux = moe_forward(
+            prm.ffn, f_in, top_k=cfg.moe_top_k,
+            capacity_factor=cfg.capacity_factor, act=cfg.act,
+        )
+        if cfg.moe_dense_residual:
+            f = f + ffn_forward(prm.dense_ffn, f_in, cfg.act)
+    else:
+        f = ffn_forward(prm.ffn, f_in, cfg.act)
+    if "post_ln2" in prm.FIELDS:
+        f = common.rms_norm(f, prm.post_ln2, cfg.norm_eps)
+    return x + f, kv, aux
+
+
+def _block_decode(cfg: ModelConfig, kind: str, x, prm: BlockParams, cache, window: int,
+                  theta: float, pos: int):
+    """Single-token block.  cache: this layer's (k, v) or (ckv, k_rope)
+    views, written in place."""
+    h = common.rms_norm(x, prm.ln1, cfg.norm_eps)
+    if cfg.use_mla:
+        h, cache = mla_decode(prm.attn, h, cache[0], cache[1], pos, cfg)
+    else:
+        h, cache = attention_decode(
+            prm.attn, h, cache[0], cache[1], pos,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+            rope_theta=theta, window=window,
+            logit_softcap=cfg.attn_logit_softcap, norm_eps=cfg.norm_eps,
+        )
+    if "post_ln1" in prm.FIELDS:
+        h = common.rms_norm(h, prm.post_ln1, cfg.norm_eps)
+    x = x + h
+
+    f_in = common.rms_norm(x, prm.ln2, cfg.norm_eps)
+    if kind == "moe":
+        f, _ = moe_forward(
+            prm.ffn, f_in, top_k=cfg.moe_top_k,
+            capacity_factor=DECODE_CAPACITY_FACTOR, act=cfg.act,
+        )
+        if cfg.moe_dense_residual:
+            f = f + ffn_forward(prm.dense_ffn, f_in, cfg.act)
+    else:
+        f = ffn_forward(prm.ffn, f_in, cfg.act)
+    if "post_ln2" in prm.FIELDS:
+        f = common.rms_norm(f, prm.post_ln2, cfg.norm_eps)
+    return x + f, cache
+
+
+# ---------------------------------------------------------------------------
+# The model
+# ---------------------------------------------------------------------------
+
+
+class TransformerLM:
+    def __init__(self, cfg: ModelConfig, flash_blk: int = 512, *, device: torch.device):
+        self.cfg = cfg
+        self.flash_blk = flash_blk
+        self.device = torch.device(device)
+        # segments: list of (kind, n_layers, global_layer_offset)
+        self.segments = segments_of(cfg)
+
+    # -- params ------------------------------------------------------------
+
+    def init_params(self, seed: int = 0) -> TransformerParams:
+        """Seeded random parameters on the model's device (truncated-normal
+        fan-in init, zero norm scales, as the JAX package; not its bits)."""
+        g = torch.Generator(device=self.device)
+        g.manual_seed(int(seed))
+        return TransformerParams(self.cfg, device=self.device, generator=g)
+
+    def empty_params(self, device=None) -> TransformerParams:
+        """Uninitialised parameters of the right shapes and dtypes
+        (``device="meta"``: shapes only)."""
+        return TransformerParams(self.cfg, device=self.device if device is None else device)
+
+    def _head(self, params: TransformerParams) -> torch.Tensor:
+        return params.embed.T if self.cfg.tie_embeddings else params.lm_head
+
+    def embed_tokens(self, params: TransformerParams, tokens: torch.Tensor) -> torch.Tensor:
+        x = params.embed[tokens]
+        if self.cfg.name.startswith("gemma"):
+            # the scale rounded to the embedding dtype before the product
+            x = x * torch.tensor(np.sqrt(self.cfg.d_model), dtype=x.dtype, device=x.device)
+        return x
+
+    # -- forward (train / prefill) ------------------------------------------
+
+    def hidden_states(self, params: TransformerParams, x: torch.Tensor,
+                      positions: torch.Tensor, collect_cache: bool = False):
+        """x: (B, S, d) embeddings.  Returns (hidden, caches, aux_sum)."""
+        cfg = self.cfg
+        caches = []
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for (kind, n, off), seg in zip(self.segments, params.segs):
+            windows, thetas = layer_meta(cfg, n, off)
+            ks, vs = [], []
+            for i, prm in enumerate(seg):
+                x, kv, aux = _block_forward(cfg, kind, x, prm, int(windows[i]),
+                                            float(thetas[i]), positions, self.flash_blk)
+                aux_total = aux_total + aux
+                if collect_cache:
+                    ks.append(kv[0])
+                    vs.append(kv[1])
+            if collect_cache:
+                caches.append((torch.stack(ks), torch.stack(vs)))
+        x = common.rms_norm(x, params.final_norm, cfg.norm_eps)
+        return x, caches, aux_total
+
+    # -- serving --------------------------------------------------------------
+
+    @torch.no_grad()
+    def prefill(self, params: TransformerParams, batch: dict):
+        """batch: {'tokens' (B, S)} or, for embeddings-input configs,
+        {'embeds' (B, S, d)}.  Returns (last-token logits (B, V) float32,
+        cache)."""
+        cfg = self.cfg
+        x = (
+            batch["embeds"] if cfg.embeddings_input
+            else self.embed_tokens(params, batch["tokens"])
+        )
+        positions = torch.arange(x.shape[1], device=x.device)
+        hidden, caches, _ = self.hidden_states(params, x, positions, collect_cache=True)
+        logits = hidden[:, -1, :] @ self._head(params)
+        return logits.float(), caches
+
+    def init_cache(self, batch: int, seq: int, device=None):
+        cfg = self.cfg
+        dtype = common.dtype_of(cfg.dtype)
+        device = self.device if device is None else device
+        caches = []
+        for _kind, n, _off in self.segments:
+            if cfg.use_mla:
+                caches.append((
+                    torch.zeros((n, batch, seq, cfg.kv_lora_rank), dtype=dtype, device=device),
+                    torch.zeros((n, batch, seq, cfg.qk_rope_dim), dtype=dtype, device=device),
+                ))
+            else:
+                kvh = (n, batch, seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+                caches.append((torch.zeros(kvh, dtype=dtype, device=device),
+                               torch.zeros(kvh, dtype=dtype, device=device)))
+        return caches
+
+    @torch.no_grad()
+    def decode_step(self, params: TransformerParams, cache, token: torch.Tensor, pos: int):
+        """token: (B,) int (or (B, 1, d) embeds); pos: the position written.
+        Returns (logits (B, V) float32, cache) — the same cache tensors,
+        updated in place."""
+        cfg = self.cfg
+        if cfg.embeddings_input and token.ndim == 3:
+            x = token
+        else:
+            x = self.embed_tokens(params, token[:, None])
+        pos = int(pos)
+        for (kind, n, off), seg, c in zip(self.segments, params.segs, cache):
+            windows, thetas = layer_meta(cfg, n, off)
+            for i, prm in enumerate(seg):
+                x, _ = _block_decode(cfg, kind, x, prm, (c[0][i], c[1][i]),
+                                     int(windows[i]), float(thetas[i]), pos)
+        x = common.rms_norm(x, params.final_norm, cfg.norm_eps)
+        logits = x[:, 0, :] @ self._head(params)
+        return logits.float(), cache
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's parameter layout
+# ---------------------------------------------------------------------------
+
+
+def _stacked(mods: list[nn.Module]) -> dict:
+    """The JAX layout of one module type across ``mods`` (the layers of a
+    segment): a dict with, for each field, None, a nested dict, or the list
+    of per-layer tensors (stacked on a leading axis in the JAX layout)."""
+    out = {}
+    for name in mods[0].FIELDS:
+        val = getattr(mods[0], name)
+        if val is None:
+            out[name] = None
+        elif isinstance(val, nn.Module):
+            out[name] = _stacked([getattr(m, name) for m in mods])
+        else:
+            out[name] = [getattr(m, name) for m in mods]
+    return out
+
+
+def jax_layout(params: TransformerParams) -> dict:
+    """``params`` arranged as the JAX package's ``init_params`` pytree, with
+    its NamedTuples as dicts (None kept): top-level leaves are tensors and
+    each segment leaf is the list of its layers' tensors."""
+    tree: dict = {"embed": params.embed, "final_norm": params.final_norm}
+    if params.lm_head is not None:
+        tree["lm_head"] = params.lm_head
+    for si, seg in enumerate(params.segs):
+        tree[f"seg{si}"] = _stacked(list(seg))
+    if params.mtp is not None:
+        tree["mtp"] = {"proj": params.mtp.proj, "block": _stacked(list(params.mtp.block)),
+                       "ln": params.mtp.ln}
+    return tree
+
+
+def layout_leaves(tree: dict, path: tuple = ()):
+    """(path, leaf) of every leaf of a JAX-layout tree that is not None, in
+    sorted key order (a leaf: a tensor, an array or a list of tensors)."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from layout_leaves(v, path + (k,))
+        elif v is not None:
+            yield path + (k,), v
+
+
+def layout_shape(leaf) -> tuple[int, ...]:
+    """A layout leaf's shape in the JAX layout (a list of per-layer tensors
+    stacks on a leading axis)."""
+    if isinstance(leaf, list):
+        return (len(leaf),) + tuple(leaf[0].shape)
+    return tuple(leaf.shape)

@@ -5,10 +5,10 @@ card unless ``device="cpu"`` (or a device mesh, ``mesh=``) is given.  ``score_fi
 point; the reader/writer pieces are exported for callers that compose
 their own pipelines::
 
-    from repro.score import score_file
+    from repro_torch.score import score_file
 
     res = score_file("model_artifact", "rows.npy", kind="predict",
-                     chunk_rows=8192, out="preds.npy")
+                     chunk_rows=8192, out="preds.npy", device="cuda")
     print(f"{res.n_rows} rows at {res.rows_per_s:,.0f} rows/s")
 
 Importing this package touches no device — sources open, inputs are

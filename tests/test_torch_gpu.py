@@ -7,6 +7,9 @@ it runs there on its own:
     python -m pytest -m gpu tests/test_torch_gpu.py
 """
 
+import copy
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -749,3 +752,89 @@ def test_mesh_across_cards(card):
         srv.drain(timeout=60)
         np.testing.assert_array_equal(np.concatenate([h.result(10) for h in handles]),
                                       want_p[:300])
+
+
+# -- the LM half (no kernel of its own: the same torch ops on the card) --------
+
+LM_FIXTURE = Path(__file__).resolve().parent / "fixtures" / "torch_lm"
+
+
+def _lm_smoke(module: str, **replace):
+    import importlib
+
+    return importlib.import_module(f"repro_torch.configs.{module}").smoke().replace(**replace)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["llama3.2-3b", "gemma3-1b", "deepseek-v3-671b",
+                                  "llava-next-mistral-7b"])
+def test_lm_fixture_replay_on_the_card(card, name):
+    """The JAX package's recorded answers (tests/fixtures/torch_lm) on the
+    card: the same seeded weights, each teacher-forced step's logits within
+    1e-4, equal greedy tokens."""
+    import json
+
+    from repro_torch.convert import leaf_checksums, lm_params_from_numpy, seeded_numpy_params
+    from repro_torch.launch.serve import generate, teacher_forced
+    from repro_torch.models import build_model
+
+    entry = json.loads((LM_FIXTURE / "manifest.json").read_text())["configs"][name]
+    with np.load(LM_FIXTURE / entry["file"]) as z:
+        fx = {k: z[k] for k in z.files}
+    module = entry["file"].removesuffix(".npz")
+    cfg = _lm_smoke(module, dtype="float32")
+    tree = seeded_numpy_params(cfg, entry["seed"])
+    assert leaf_checksums(tree) == entry["checksums"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bundle = build_model(cfg, device=card)
+    params = lm_params_from_numpy(cfg, tree, device=card)
+    batch = {k: fx[k] for k in ("tokens", "embeds") if k in fx}
+    logits = teacher_forced(bundle, params, batch, fx["greedy"]).cpu().numpy()
+    err = np.abs(logits - fx["logits"]).max() / np.abs(fx["logits"]).max()
+    assert err < 1e-4, err
+    np.testing.assert_array_equal(logits.argmax(-1).T, fx["greedy"])
+    if "tokens" in fx:
+        np.testing.assert_array_equal(
+            generate(bundle, params, fx["tokens"], max_new=fx["greedy"].shape[1]), fx["greedy"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("module", ["llama32_3b", "gemma3_1b", "deepseek_v3", "arctic_480b"])
+def test_lm_card_equals_cpu(card, module):
+    """One set of weights, made on the card: prefill and 4 teacher-forced
+    decode steps on the card within 1e-4 of the port on the CPU (float32,
+    TF32 off); two greedy runs on the card bit-equal."""
+    from repro_torch.launch.serve import generate, teacher_forced
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_smoke(module, dtype="float32")
+    on_card = build_model(cfg, flash_blk=16, device=card)
+    params = on_card.init_params(3)
+    on_cpu = build_model(cfg, flash_blk=16, device="cpu")
+    params_cpu = copy.deepcopy(params).to("cpu")  # Module.to moves in place
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, cfg.vocab_size, (2, 32))
+    nxt = rng.integers(0, cfg.vocab_size, (2, 5))
+    got = teacher_forced(on_card, params, {"tokens": prompt}, nxt).cpu().numpy()
+    ref = teacher_forced(on_cpu, params_cpu, {"tokens": prompt}, nxt).numpy()
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+    a = generate(on_card, params, prompt, max_new=6)
+    np.testing.assert_array_equal(a, generate(on_card, params, prompt, max_new=6))
+
+
+@pytest.mark.gpu
+def test_lm_serve_command_on_the_card():
+    import os
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the H100)")
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--max-new", "8"],
+        capture_output=True, text=True, cwd=str(root), timeout=600,
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1].startswith("generated (4, 8) tokens in ")

@@ -2,9 +2,10 @@
 
 (a) importing every ``repro_torch`` module, ``chip_smoke.py`` or the
 ``examples/torch_*.py`` loads no ``jax`` and nothing of ``repro``; (h)
-entry points called without ``device`` — the command lines and
-``autotune_kernel`` too — run on the card, so with no card they raise
-instead of falling back to the CPU.
+entry points called without ``device`` — the command lines,
+``autotune_kernel`` and the LM half's ``build_model``/``init_params``,
+``lm_params_from_numpy`` and ``launch.serve`` too — run on the card, so
+with no card they raise instead of falling back to the CPU.
 """
 
 import json
@@ -54,7 +55,18 @@ def test_every_module_is_listed():
                  "repro_torch.cli._common", "repro_torch.cli.ingest",
                  "repro_torch.cli.score", "repro_torch.launch", "repro_torch.launch.mesh",
                  "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
-                 "repro_torch.tools.paper_scale_smoke"):
+                 "repro_torch.tools.paper_scale_smoke", "repro_torch.config",
+                 "repro_torch.configs", "repro_torch.configs.arctic_480b",
+                 "repro_torch.configs.deepseek_v3", "repro_torch.configs.gemma3_1b",
+                 "repro_torch.configs.granite_20b", "repro_torch.configs.llama32_3b",
+                 "repro_torch.configs.llava_next_mistral", "repro_torch.configs.phi3_mini",
+                 "repro_torch.configs.rwkv6_1p6b", "repro_torch.configs.whisper_tiny",
+                 "repro_torch.configs.xtime_tabular", "repro_torch.configs.zamba2_2p7b",
+                 "repro_torch.models", "repro_torch.models.common", "repro_torch.models.ffn",
+                 "repro_torch.models.attention", "repro_torch.models.moe",
+                 "repro_torch.models.mla", "repro_torch.models.transformer",
+                 "repro_torch.models.registry", "repro_torch.launch.model_flops",
+                 "repro_torch.launch.serve"):
         assert want in mods
 
 
@@ -110,23 +122,33 @@ def _small_model():
 def test_default_device_is_the_card(monkeypatch):
     """Without ``device`` every entry point binds CUDA; with no card it
     raises a clear error and never continues on the CPU."""
+    from repro_torch.config import get_config
+    from repro_torch.configs import llama32_3b
+    from repro_torch.convert import lm_params_from_numpy, seeded_numpy_params
+    from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
     from repro_torch.serve import ClusterServer, TableRegistry
     from repro_torch.tools import paper_scale_smoke
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ens, cm = _small_model()
     x = np.zeros((3, 5), dtype=np.uint8)
+    lm = llama32_3b.smoke()
     for call in (lambda: cm.predict(x), lambda: cm.raw_margin(x),
                  lambda: cm.engine(), lambda: XTimeEngine(cm.table),
                  lambda: TableRegistry(), lambda: ClusterServer(n_replicas=1),
                  lambda: repro_torch.score_file(cm, x),
                  lambda: repro_torch.TraversalBaseline(ens), lambda: make_host_mesh(),
-                 lambda: paper_scale_smoke.main([])):
+                 lambda: paper_scale_smoke.main([]),
+                 lambda: build_model(get_config("llama3.2-3b")).init_params(0),
+                 lambda: lm_params_from_numpy(lm, seeded_numpy_params(lm, 0)),
+                 lambda: serve.main(["--batch", "1", "--prompt-len", "4", "--max-new", "2"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # the CPU is used only when asked for
     np.testing.assert_array_equal(cm.predict(x, device="cpu"), ens.predict(x))
+    assert build_model(lm, device="cpu").init_params(0).embed.device.type == "cpu"
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
