@@ -126,7 +126,25 @@ Phases, one line (or block) each:
      recorded answers (tests/fixtures/torch_lm) for the smoke configs of
      llama3.2-3b, gemma3-1b, deepseek-v3 and llava-next replayed on the
      card from the same numpy seed (equal greedy tokens, logits within
-     1e-4).
+     1e-4);
+ 11. the LM half's last three families, each built from the port's seeded
+     initialiser on the card at full width and depth and freed before the
+     next: zamba2-2.7b (54 mamba layers in 9 groups of 6 and the shared
+     attention block) and rwkv6-1.6b (24 layers) through ``generate``,
+     whisper-tiny (4 + 4 layers, 1,500 frames x 384 from a numpy seed,
+     a 64-token decoder prompt) through ``prefill`` + ``decode_step``;
+     bfloat16, B = 4, 32 new greedy tokens, twice and bit-equal, timed as
+     phase 10 beside the decode bound (weights + state/cache bytes / HBM
+     rate); a 4,096-token prompt at B = 1 for zamba2 and rwkv6 (32 SSD
+     chunks of 128, 256 WKV chunks of 16): prefill ms and decode ms a
+     step; decode against the full forward in float32 at full depth
+     (225-token prompts: the forward over 256 positions takes two SSD
+     chunks and the chunked WKV); the card against the port on the CPU in
+     float32, TF32 off (zamba2 and rwkv6 cut to depth 2 — zamba2 one group
+     of 2 mamba layers and the shared block — whisper whole); the JAX
+     package's recorded answers for the three smoke configs.  Then the
+     card's busy share and kernels a decode step (``torch.profiler``) of
+     every phase 10 and 11 model, after all their timed runs.
 
 Every check that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object of the kernels and the contract line
@@ -168,6 +186,7 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import model_flops as lm_flops  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.models import common as lm_common  # noqa: E402
+from repro_torch.models import mamba2 as lm_mamba2  # noqa: E402
 from repro_torch.models import registry as lm_registry  # noqa: E402
 from repro_torch.models import transformer as lm_transformer  # noqa: E402
 
@@ -2182,6 +2201,10 @@ def phase_mesh_all(ens, cm, soft, batches, name, stats) -> None:
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 128, 32
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 FIXTURE_LM = ROOT / "tests" / "fixtures" / "torch_lm"
+FIXTURE_TRANSFORMERS = ["llama3.2-3b", "gemma3-1b", "deepseek-v3-671b", "llava-next-mistral-7b"]
+FIXTURE_FAMILIES = ["zamba2-2.7b", "rwkv6-1.6b", "whisper-tiny"]
+WHISPER_FRAMES, WHISPER_PROMPT = 1500, 64  # the 30 s window; the decoder's prompt
+LONG_PROMPT = 4096  # phase 11's long prompt: 32 SSD chunks of 128, 256 WKV chunks of 16
 
 
 def lm_free() -> None:
@@ -2198,14 +2221,17 @@ def lm_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 def lm_param_bytes(params, cfg, batch: int) -> int:
     """Bytes of the parameters one decode step must read: every weight but
-    the mtp block, the untied embedding's gathered rows only, and of each
-    MoE layer's experts at most batch x top_k (the routed ones)."""
+    the mtp block (and whisper's encoder and cross k/v projections, used at
+    prefill only), the untied embedding's gathered rows only (whisper's
+    head is its embedding), and of each MoE layer's experts at most batch
+    x top_k (the routed ones)."""
     total = 0
     for key, p in params.named_parameters():
         n = p.numel() * p.element_size()
-        if key.startswith("mtp."):
+        if key.startswith(("mtp.", "enc.", "enc_norm")) or key.endswith(("xattn.wk",
+                                                                        "xattn.wv")):
             continue
-        if key == "embed" and not cfg.tie_embeddings:
+        if key == "embed" and not (cfg.tie_embeddings or cfg.is_encoder_decoder):
             n = batch * p.shape[1] * p.element_size()
         elif ".ffn.w_" in key and p.ndim == 3:  # (E, ., .) expert weights
             n = n * min(cfg.n_experts, batch * cfg.moe_top_k) // cfg.n_experts
@@ -2226,19 +2252,49 @@ def lm_kv_bytes(cfg, batch: int, pos: int) -> int:
     return total * per_pos * item * batch
 
 
-def lm_times(bundle, params, prompts, toks) -> tuple[float, list[float]]:
-    """CUDA-event ms of the prefill (median of 3) and of each decode step
-    of ``toks`` fed back (the work of a greedy run), on the card."""
+def lm_state_bytes(cfg, batch: int, pos: int, enc_len: int = 0) -> int:
+    """State and cache bytes a decode step at ``pos`` must move: the
+    recurrent states read and written (zamba2's ssm and conv states, rwkv's
+    S and token shifts), attention's k/v read (zamba2's shared block once a
+    group, whisper's self and cross caches), else ``lm_kv_bytes``."""
+    item = torch.tensor([], dtype=lm_common.dtype_of(cfg.dtype)).element_size()
+    if cfg.family == "hybrid":
+        _, h, conv_dim = lm_mamba2.dims(cfg)
+        ssm = h * cfg.ssm_head_dim * cfg.ssm_state * 4 + (cfg.ssm_conv_width - 1) * conv_dim * item
+        kv = (pos + 1) * 2 * cfg.n_kv_heads * cfg.resolved_head_dim * item
+        return batch * (2 * cfg.n_layers * ssm + cfg.n_layers // cfg.shared_attn_period * kv)
+    if cfg.family == "ssm":
+        h = cfg.d_model // cfg.rwkv_head_dim
+        per_layer = h * cfg.rwkv_head_dim ** 2 * 4 + 2 * cfg.d_model * item
+        return batch * 2 * cfg.n_layers * per_layer
+    if cfg.is_encoder_decoder:
+        return (batch * cfg.n_layers * (pos + 1 + enc_len) * 2 * cfg.n_kv_heads
+                * cfg.resolved_head_dim * item)
+    return lm_kv_bytes(cfg, batch, pos)
+
+
+def lm_on_card(bundle, batch: dict) -> dict:
+    """A prompt dict (numpy) on the model's device: integers as int64,
+    floats (embeddings, frames) in the model's dtype."""
+    dt = lm_common.dtype_of(bundle.cfg.dtype)
+    return {k: torch.as_tensor(v, device=bundle.device).long() if v.dtype.kind == "i"
+            else torch.as_tensor(v, device=bundle.device).to(dt) for k, v in batch.items()}
+
+
+def lm_times(bundle, params, batch, toks) -> tuple[float, list[float]]:
+    """CUDA-event ms of the prefill of ``batch`` (a prompt dict; median of
+    3) and of each decode step of ``toks`` fed back (the work of a greedy
+    run), on the card."""
     ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
     with torch.inference_mode():
-        p = torch.as_tensor(prompts, device=bundle.device)
+        p = lm_on_card(bundle, batch)
         t = torch.as_tensor(toks, device=bundle.device).long()
-        s, n = p.shape[1], t.shape[1]
+        s, n = p["tokens"].shape[1], t.shape[1]
         pre = []
         for _ in range(3):
             a, b = ev(), ev()
             a.record()
-            _, cache = bundle.prefill(params, {"tokens": p})
+            _, cache = bundle.prefill(params, p)
             b.record()
             pre.append((a, b))
         cache = lm_serve._pad_cache_seq(bundle.cfg, cache, s, s + n)
@@ -2254,18 +2310,18 @@ def lm_times(bundle, params, prompts, toks) -> tuple[float, list[float]]:
     return pre_ms, [a.elapsed_time(b) for a, b in steps]
 
 
-def lm_device_ms(bundle, params, prompts, toks, steps: int = 4) -> tuple[float, float]:
+def lm_device_ms(bundle, params, batch, toks, steps: int = 4) -> tuple[float, float]:
     """Device time and kernels a decode step, from ``torch.profiler`` over
-    ``steps`` steps fed ``toks`` (NaN where the trace holds no device
-    event)."""
+    ``steps`` steps fed ``toks`` after the prompt dict ``batch`` (NaN where
+    the trace holds no device event)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
-        p = torch.as_tensor(prompts, device=bundle.device)
+        p = lm_on_card(bundle, batch)
         t = torch.as_tensor(toks, device=bundle.device).long()
-        s = p.shape[1]
-        _, cache = bundle.prefill(params, {"tokens": p})
+        s = p["tokens"].shape[1]
+        _, cache = bundle.prefill(params, p)
         cache = lm_serve._pad_cache_seq(bundle.cfg, cache, s, s + steps + 1)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2279,62 +2335,165 @@ def lm_device_ms(bundle, params, prompts, toks, steps: int = 4) -> tuple[float, 
     return busy_us / 1e3 / steps, len(kernels) / steps
 
 
-def lm_serve_run(label, cfg, prompt_len, name, stats, seed=0) -> None:
-    """``generate`` at full width on the port's seeded weights, twice
-    (bit-equal), then its prefill and decode steps timed, beside their
-    bounds; one ``lm`` JSON line."""
+def whisper_frames(cfg, batch: int, seed: int) -> np.ndarray:
+    """(batch, 1,500, d_model) stub frame embeddings from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((batch, WHISPER_FRAMES, cfg.d_model)).astype(np.float32)
+
+
+def lm_prompt(cfg, batch: int, prompt_len: int, seed: int) -> dict:
+    """Token prompts, and whisper's frames beside its decoder prompt."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, prompt_len))}
+    if cfg.is_encoder_decoder:
+        out["frames"] = whisper_frames(cfg, batch, seed + 1)
+    return out
+
+
+def lm_greedy(bundle, params, batch: dict, n: int) -> np.ndarray:
+    """``n`` greedy tokens: ``generate`` for token prompts, else (whisper)
+    ``prefill`` + ``decode_step`` fed each argmax, as a user serves it."""
+    if set(batch) == {"tokens"}:
+        return lm_serve.generate(bundle, params, batch["tokens"], max_new=n)
+    with torch.inference_mode():
+        p = lm_on_card(bundle, batch)
+        s = p["tokens"].shape[1]
+        logits, cache = bundle.prefill(params, p)
+        cache = lm_serve._pad_cache_seq(bundle.cfg, cache, s, s + n)
+        out = [logits.argmax(-1)]
+        for i in range(n - 1):
+            logits, cache = bundle.decode_step(params, cache, out[-1], s + i)
+            out.append(logits.argmax(-1))
+        return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+
+
+def lm_serve_run(label, cfg, prompt_len, name, stats, seed=0) -> tuple:
+    """A model at full width from the port's seeded initialiser: B = 4
+    prompts served greedily twice (bit-equal), prefill and decode steps
+    timed beside their bounds; for the O(1)-state families also one
+    4,096-token prompt at B = 1.  Appends an ``lm`` line to stats and
+    returns what ``lm_profile`` takes."""
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     bundle = lm_build(cfg)
     params = bundle.init_params(seed)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    rng = np.random.default_rng(SEED + 10)
-    prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, prompt_len))
+    batch = lm_prompt(cfg, LM_BATCH, prompt_len, SEED + 20)
     runs = []
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        toks = lm_serve.generate(bundle, params, prompts, max_new=LM_NEW)
+        toks = lm_greedy(bundle, params, batch, LM_NEW)
         runs.append((toks, time.perf_counter() - t0))
-    peak = torch.cuda.max_memory_allocated() - base  # this model's weights and work
+    peak = torch.cuda.max_memory_allocated() - base
     if not np.array_equal(runs[0][0], runs[1][0]):
         fail(f"{label}: two greedy runs differ")
     toks = runs[0][0]
     if toks.shape != (LM_BATCH, LM_NEW) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
         fail(f"{label}: generated tokens of shape {toks.shape} outside the vocabulary")
-    pre_ms, steps = lm_times(bundle, params, prompts, toks)
+    pre_ms, steps = lm_times(bundle, params, batch, toks)
     step_ms = float(np.median(steps))
     gen_s = min(r[1] for r in runs)
+    enc_len = WHISPER_FRAMES if cfg.is_encoder_decoder else 0
     pbytes = lm_param_bytes(params, cfg, LM_BATCH)
-    kv = float(np.mean([lm_kv_bytes(cfg, LM_BATCH, prompt_len + i) for i in range(LM_NEW - 1)]))
-    dec_bound = (pbytes + kv) / HBM_BYTES_PER_S * 1e3
-    flops = lm_flops.model_flops(cfg, ShapeCell("prefill", prompt_len, LM_BATCH, "prefill"),
+    state = float(np.mean([lm_state_bytes(cfg, LM_BATCH, prompt_len + i, enc_len)
+                           for i in range(LM_NEW - 1)]))
+    dec_bound = (pbytes + state) / HBM_BYTES_PER_S * 1e3
+    # whisper's prefill cell: the frames are its sequence (model_flops' rule)
+    cell_len = WHISPER_FRAMES if cfg.is_encoder_decoder else prompt_len
+    flops = lm_flops.model_flops(cfg, ShapeCell("prefill", cell_len, LM_BATCH, "prefill"),
                                  bundle)
     all_bytes = sum(p.numel() * p.element_size() for k, p in params.named_parameters()
                     if not k.startswith("mtp."))
     pre_ops, pre_bytes = flops / BF16_FLOPS_PER_S * 1e3, all_bytes / HBM_BYTES_PER_S * 1e3
     pre_bound, pre_by = max((pre_ops, "operations"), (pre_bytes, "bytes"))
     line = {"model": label, "dtype": cfg.dtype, "layers": cfg.n_layers, "batch": LM_BATCH,
-            "prompt": prompt_len, "new": LM_NEW, "init_s": t_init,
-            "generate_s": [r[1] for r in runs], "tokens_per_s": LM_BATCH * LM_NEW / gen_s,
-            "prefill_ms": pre_ms, "prefill_bound_ms": pre_bound, "prefill_bound_by": pre_by,
+            "prompt": prompt_len, "frames": enc_len or None, "new": LM_NEW,
+            "init_s": t_init, "generate_s": [r[1] for r in runs],
+            "tokens_per_s": LM_BATCH * LM_NEW / gen_s, "prefill_ms": pre_ms,
+            "prefill_bound_ms": pre_bound, "prefill_bound_by": pre_by,
             "prefill_ops_ms": pre_ops, "prefill_bytes_ms": pre_bytes,
             "prefill_share": pre_bound / pre_ms, "decode_ms": step_ms,
             "decode_ms_min": min(steps), "decode_ms_max": max(steps),
             "decode_bound_ms": dec_bound, "decode_share": dec_bound / step_ms,
-            "param_bytes_read": pbytes, "kv_bytes_read": kv, "model_flops": flops,
+            "param_bytes_read": pbytes, "state_bytes_moved": state, "model_flops": flops,
             "peak_bytes": peak, "card": name}
-    stats.setdefault("lm", []).append(line)
     print(f"lm [{name}] {label}: {cfg.n_layers} layers {cfg.dtype}, init {t_init:.1f} s; "
-          f"generate B={LM_BATCH} prompt {prompt_len} + {LM_NEW} new greedy "
-          f"{runs[0][1]:.3f} / {runs[1][1]:.3f} s (bit-equal), {line['tokens_per_s']:.1f} "
-          f"tokens/s; prefill {pre_ms:.3f} ms (bound {pre_bound:.3f} ms by {pre_by}, "
-          f"{100 * pre_bound / pre_ms:.1f}%); decode {step_ms:.3f} ms/step median "
-          f"({min(steps):.3f}-{max(steps):.3f}; bound {dec_bound:.3f} ms, "
-          f"{100 * dec_bound / step_ms:.1f}%); peak {peak / 2**30:.2f} GiB", flush=True)
+          f"B={LM_BATCH} prompt {prompt_len}" + (f" + {enc_len} frames" if enc_len else "")
+          + f" + {LM_NEW} new greedy {runs[0][1]:.3f} / {runs[1][1]:.3f} s (bit-equal), "
+          f"{line['tokens_per_s']:.1f} tokens/s; prefill {pre_ms:.3f} ms (bound "
+          f"{pre_bound:.3f} ms by {pre_by}, {100 * pre_bound / pre_ms:.1f}%); decode "
+          f"{step_ms:.3f} ms/step median ({min(steps):.3f}-{max(steps):.3f}; bound "
+          f"{dec_bound:.3f} ms, {100 * dec_bound / step_ms:.1f}%); peak {peak / 2**30:.2f} GiB",
+          flush=True)
+    if cfg.family in ("hybrid", "ssm"):
+        long = lm_prompt(cfg, 1, LONG_PROMPT, SEED + 21)
+        long_toks = np.random.default_rng(SEED + 22).integers(0, cfg.vocab_size, (1, 9))
+        torch.cuda.reset_peak_memory_stats()
+        long_pre, long_steps = lm_times(bundle, params, long, long_toks)
+        long_peak = torch.cuda.max_memory_allocated() - base
+        line.update(long_prompt=LONG_PROMPT, long_prefill_ms=long_pre,
+                    long_decode_ms=float(np.median(long_steps)), long_peak_bytes=long_peak)
+        print(f"lm [{name}] {label}: B=1 prompt {LONG_PROMPT}: prefill {long_pre:.3f} ms, "
+              f"decode {line['long_decode_ms']:.3f} ms/step median of 8 (prompt "
+              f"{prompt_len} at B={LM_BATCH}: {step_ms:.3f}); peak "
+              f"{long_peak / 2**30:.2f} GiB", flush=True)
+    stats.setdefault("lm", []).append(line)
     del bundle, params
+    lm_free()
+    return label, cfg, prompt_len, line
+
+
+def lm_decode_equals_forward(label, cfg, batch_size, prompt_len, name, seed=1) -> None:
+    """Float32: a greedy run's teacher-forced steps give its tokens, and a
+    prefill over prompt + generated[:-1] gives the last step's logits
+    within 2e-3 of their largest and the last token as argmax."""
+    bundle = lm_build(cfg)
+    params = bundle.init_params(seed)
+    batch = lm_prompt(cfg, batch_size, prompt_len, SEED + 23)
+    toks = lm_greedy(bundle, params, batch, LM_NEW)
+    steps = lm_serve.teacher_forced(bundle, params, batch, toks)
+    if not np.array_equal(steps.argmax(-1).T.cpu().numpy(), toks):
+        fail(f"{label}: the teacher-forced decode's argmax differs from the greedy tokens")
+    full = {**batch, "tokens": np.concatenate([batch["tokens"], toks[:, :-1]], axis=1)}
+    with torch.inference_mode():
+        logits, _ = bundle.prefill(params, lm_on_card(bundle, full))
+    if not np.array_equal(logits.argmax(-1).cpu().numpy(), toks[:, -1]):
+        fail(f"{label}: the last greedy token != argmax of prefill over the sequence")
+    err = lm_rel(steps[-1], logits)
+    if not err < 2e-3:
+        fail(f"{label}: decode logits vs the full forward max|d|/max|ref| {err:.3g} >= 2e-3")
+    print(f"lm [{name}] {label} float32 B={batch_size}: greedy last token == argmax of prefill "
+          f"over {full['tokens'].shape[1]} tokens; decode vs full forward max|d|/max|ref| "
+          f"{err:.3g} (< 2e-3)", flush=True)
+    del bundle, params, steps, logits
+    lm_free()
+
+
+def lm_card_equals_cpu(label, cfg, name) -> None:
+    """Float32, TF32 off: prefill and 4 teacher-forced decode steps on the
+    card within 1e-4 of the port on the CPU, one set of weights."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for float32 products")
+    bundle = lm_build(cfg)
+    params = bundle.init_params(2)
+    batch = lm_prompt(cfg, 2, 32, SEED + 24)
+    nxt = np.random.default_rng(SEED + 25).integers(0, cfg.vocab_size, (2, 5))
+    t0 = time.perf_counter()
+    got = lm_serve.teacher_forced(bundle, params, batch, nxt).cpu()
+    on_cpu = lm_build(cfg, "cpu")
+    params_cpu = on_cpu.model.empty_params()
+    params_cpu.load_state_dict(params.state_dict())
+    ref = lm_serve.teacher_forced(on_cpu, params_cpu, batch, nxt)
+    err = lm_rel(got, ref)
+    if not err < 1e-4:
+        fail(f"{label} card vs CPU: max|d|/max|ref| {err:.3g} >= 1e-4")
+    print(f"lm [{name}] {label} float32 B=2 S=32: prefill + 4 teacher-forced decode steps: "
+          f"card vs CPU max|d|/max|ref| {err:.3g} (< 1e-4), TF32 off "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    del bundle, params, params_cpu
     lm_free()
 
 
@@ -2345,9 +2504,11 @@ def lm_profile(label, cfg, prompt_len, name, line, seed=0) -> None:
     bundle = lm_build(cfg)
     params = bundle.init_params(seed)
     rng = np.random.default_rng(SEED + 13)
-    prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, prompt_len))
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (LM_BATCH, prompt_len))}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = whisper_frames(cfg, LM_BATCH, SEED + 13)
     toks = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_NEW))
-    busy_ms, kernels = lm_device_ms(bundle, params, prompts, toks)
+    busy_ms, kernels = lm_device_ms(bundle, params, batch, toks)
     line.update(decode_device_ms=busy_ms, decode_kernels=kernels,
                 decode_device_share=busy_ms / line["decode_ms"])
     print(f"lm [{name}] {label}: a decode step keeps the card busy {busy_ms:.3f} ms "
@@ -2362,67 +2523,15 @@ def lm_build(cfg, device=None):
     return lm_registry.build_model(cfg, device=CARD if device is None else device)
 
 
-def lm_decode_equals_forward(label, cfg, batch, prompt_len, name, seed=1) -> None:
-    """A greedy run's last token == the argmax of ``prefill`` over prompt +
-    generated[:-1], and that step's decode logits match the prefill's within
-    max|Δ| / max|ref| < 2e-3 (float32)."""
-    bundle = lm_build(cfg)
-    params = bundle.init_params(seed)
-    rng = np.random.default_rng(SEED + 11)
-    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
-    toks = lm_serve.generate(bundle, params, prompts, max_new=LM_NEW)
-    steps = lm_serve.teacher_forced(bundle, params, {"tokens": prompts}, toks)
-    if not np.array_equal(steps.argmax(-1).T.cpu().numpy(), toks):
-        fail(f"{label}: the teacher-forced decode's argmax differs from the greedy tokens")
-    full = np.concatenate([prompts, toks[:, :-1]], axis=1)
-    logits, _ = bundle.prefill(params, {"tokens": torch.as_tensor(full, device=CARD)})
-    if not np.array_equal(logits.argmax(-1).cpu().numpy(), toks[:, -1]):
-        fail(f"{label}: the last greedy token != argmax of prefill over the sequence")
-    err = lm_rel(steps[-1], logits)
-    if not err < 2e-3:
-        fail(f"{label}: decode logits vs the full forward max|d|/max|ref| {err:.3g} >= 2e-3")
-    print(f"lm [{name}] {label} float32 B={batch}: greedy last token == argmax of prefill "
-          f"over {full.shape[1]} tokens; decode vs full forward max|d|/max|ref| {err:.3g} "
-          f"(< 2e-3)", flush=True)
-    del bundle, params, steps, logits
-    lm_free()
-
-
-def lm_card_equals_cpu(name) -> None:
-    """llama3.2-3b at full width cut to depth 2, float32: prefill and 4
-    teacher-forced decode steps on the card == the port on the CPU."""
-    if torch.backends.cuda.matmul.allow_tf32:
-        fail("TF32 is on for float32 products")
-    cfg = get_config("llama3.2-3b").replace(n_layers=2, dtype="float32")
-    bundle = lm_build(cfg)
-    params = bundle.init_params(2)
-    rng = np.random.default_rng(SEED + 12)
-    prompts = rng.integers(0, cfg.vocab_size, (2, 32))
-    nxt = rng.integers(0, cfg.vocab_size, (2, 5))
-    t0 = time.perf_counter()
-    got = lm_serve.teacher_forced(bundle, params, {"tokens": prompts}, nxt).cpu()
-    on_cpu = lm_build(cfg, "cpu")
-    params_cpu = on_cpu.model.empty_params()
-    params_cpu.load_state_dict(params.state_dict())
-    ref = lm_serve.teacher_forced(on_cpu, params_cpu, {"tokens": prompts}, nxt)
-    err = lm_rel(got, ref)
-    if not err < 1e-4:
-        fail(f"card vs CPU: max|d|/max|ref| {err:.3g} >= 1e-4")
-    print(f"lm [{name}] llama3.2-3b depth 2 float32 B=2 S=32, prefill + 4 teacher-forced "
-          f"decode steps: card vs CPU max|d|/max|ref| {err:.3g} (< 1e-4), TF32 off "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    del bundle, params, params_cpu
-    lm_free()
-
-
-def lm_fixture(name) -> None:
-    """The JAX package's recorded answers for four smoke configs
+def lm_fixture(name, archs) -> None:
+    """The JAX package's recorded answers for the smoke configs ``archs``
     (tests/fixtures/torch_lm), replayed on the card from the same numpy
     seed: equal weight checksums, equal greedy tokens, each teacher-forced
     step's logits within 1e-4."""
     manifest = json.loads((FIXTURE_LM / "manifest.json").read_text())
     out = []
-    for arch, entry in manifest["configs"].items():
+    for arch in archs:
+        entry = manifest["configs"][arch]
         with np.load(FIXTURE_LM / entry["file"]) as z:
             fx = {k: z[k] for k in z.files}
         cfg = importlib.import_module(
@@ -2433,14 +2542,14 @@ def lm_fixture(name) -> None:
             fail(f"fixture {arch}: the seeded weights' checksums differ (numpy stream?)")
         bundle = lm_build(cfg)
         params = lm_params_from_numpy(cfg, tree, device=CARD)
-        batch = {k: fx[k] for k in ("tokens", "embeds") if k in fx}
+        batch = {k: fx[k] for k in ("tokens", "embeds", "frames") if k in fx}
         logits = lm_serve.teacher_forced(bundle, params, batch, fx["greedy"]).cpu()
         err = lm_rel(logits, torch.from_numpy(fx["logits"]))
         if not err < 1e-4:
             fail(f"fixture {arch}: logits vs the reference max|d|/max|ref| {err:.3g}")
         if not np.array_equal(logits.argmax(-1).T.numpy(), fx["greedy"]):
             fail(f"fixture {arch}: greedy tokens differ from the reference's")
-        if "tokens" in fx and not np.array_equal(
+        if set(batch) == {"tokens"} and not np.array_equal(
                 lm_serve.generate(bundle, params, fx["tokens"],
                                   max_new=fx["greedy"].shape[1]), fx["greedy"]):
             fail(f"fixture {arch}: generate's tokens differ from the reference's")
@@ -2451,7 +2560,8 @@ def lm_fixture(name) -> None:
 
 
 def phase_lm(name, stats) -> None:
-    """Phase 10: the LM half's serving path at full width."""
+    """Phase 10: the LM half's serving path at full width (the profiles of
+    its models wait for ``phase_lm_profiles``)."""
     llama = get_config("llama3.2-3b")
     gemma = get_config("gemma3-1b")
     # deepseek-v3 cut to depth 2 (1 dense + 1 MoE layer), every width kept
@@ -2460,8 +2570,8 @@ def phase_lm(name, stats) -> None:
     # 512-token flash blocks, past its 512 window
     runs = [("llama3.2-3b", llama, LM_PROMPT), ("gemma3-1b", gemma, 2 * gemma.sliding_window),
             ("deepseek-v3-671b depth 2", deepseek, LM_PROMPT)]
-    for label, cfg, prompt_len in runs:
-        lm_serve_run(label, cfg, prompt_len, name, stats)
+    stats["lm_profiles"] = [lm_serve_run(label, cfg, prompt_len, name, stats)
+                            for label, cfg, prompt_len in runs]
     lm_decode_equals_forward("llama3.2-3b", llama.replace(dtype="float32"), LM_BATCH,
                              LM_PROMPT, name)
     lm_decode_equals_forward("gemma3-1b", gemma.replace(dtype="float32"), LM_BATCH,
@@ -2473,9 +2583,39 @@ def phase_lm(name, stats) -> None:
         deepseek.replace(dtype="float32",
                          capacity_factor=deepseek.n_experts / deepseek.moe_top_k),
         1, LM_PROMPT, name)
-    lm_card_equals_cpu(name)
-    lm_fixture(name)
-    for (label, cfg, prompt_len), line in zip(runs, stats["lm"]):
+    lm_card_equals_cpu("llama3.2-3b depth 2", llama.replace(n_layers=2, dtype="float32"), name)
+    lm_fixture(name, FIXTURE_TRANSFORMERS)
+
+
+# -- phase 11: the LM half's last three families ------------------------------------------
+
+
+def phase_lm_families(name, stats) -> None:
+    """Phase 11: zamba2, rwkv6 and whisper at full width and depth."""
+    zamba = get_config("zamba2-2.7b")
+    rwkv = get_config("rwkv6-1.6b")
+    whisper = get_config("whisper-tiny")
+    for label, cfg, prompt_len in (("zamba2-2.7b", zamba, LM_PROMPT),
+                                   ("rwkv6-1.6b", rwkv, LM_PROMPT),
+                                   ("whisper-tiny", whisper, WHISPER_PROMPT)):
+        stats["lm_profiles"].append(lm_serve_run(label, cfg, prompt_len, name, stats))
+    # 225 + 31 = 256 positions: two SSD chunks of 128, 16 WKV chunks
+    for label, cfg, prompt_len in (("zamba2-2.7b", zamba, 225), ("rwkv6-1.6b", rwkv, 225),
+                                   ("whisper-tiny", whisper, WHISPER_PROMPT)):
+        lm_decode_equals_forward(label, cfg.replace(dtype="float32"), LM_BATCH, prompt_len,
+                                 name)
+    # depth 2: zamba2 one group of 2 mamba layers + the shared block
+    for label, cfg in (("zamba2-2.7b depth 2", zamba.replace(n_layers=2, shared_attn_period=2)),
+                       ("rwkv6-1.6b depth 2", rwkv.replace(n_layers=2)),
+                       ("whisper-tiny", whisper)):
+        lm_card_equals_cpu(label, cfg.replace(dtype="float32"), name)
+    lm_fixture(name, FIXTURE_FAMILIES)
+
+
+def phase_lm_profiles(name, stats) -> None:
+    """The card's busy share and kernels a decode step of every phase 10
+    and 11 model, after all their timed runs."""
+    for label, cfg, prompt_len, line in stats["lm_profiles"]:
         lm_profile(label, cfg, prompt_len, name, line)
 
 
@@ -2489,6 +2629,7 @@ def kernel_entry(name, source, launches, err, ms, plain_ms, bnd, by) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
@@ -2548,6 +2689,13 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_lm(name, stats)
     print(f"LM serving phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_lm_families(name, stats)
+    print(f"LM families phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_lm_profiles(name, stats)
+    print(f"LM profiles {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     lines = [stats["kernel_line"], stats["soft_kernel_line"], *stats["variant_lines"],
              *stats["soft_variant_lines"], *stats["wide_lines"]]

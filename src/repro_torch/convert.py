@@ -15,10 +15,12 @@ bounds.  ``to_state`` reads only attributes both packages share, so it
 also turns ``repro``'s in-memory ``CompiledModel`` into this state.
 
 LM parameters cross as nested dicts of numpy arrays in the JAX layout
-(``lm_params_from_numpy`` / ``lm_params_to_numpy``): the NamedTuples
-(``AttnParams``, ``FFNParams``, ``MoEParams``, ``MLAParams``) as their
-``_asdict()`` with None kept, each segment's leaves stacked on a leading
-layer axis.  Both directions are exact, bfloat16 included.
+(``lm_params_from_numpy`` / ``lm_params_to_numpy``), for every LM family
+through its parameters' ``jax_layout()``: the NamedTuples (``AttnParams``,
+``FFNParams``, ``MoEParams``, ``MLAParams``, ``Mamba2Params``,
+``RWKV6Params``, ...) as their ``_asdict()`` with None kept, a stack's
+leaves on a leading layer axis (the hybrid's mamba leaves two deep, (G, P,
+...)).  Both directions are exact, bfloat16 included.
 ``seeded_numpy_params`` makes such a tree from a numpy seed, so both
 packages can be given the same weights without either's initialiser.
 """
@@ -47,13 +49,8 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.core.noc import NoCPlan
 from repro_torch.core.perfmodel import PerfReport
 from repro_torch.core.quantize import FeatureQuantizer
-from repro_torch.models.transformer import (
-    TransformerLM,
-    TransformerParams,
-    jax_layout,
-    layout_leaves,
-    layout_shape,
-)
+from repro_torch.models.common import first_leaf, layout_leaves, layout_shape
+from repro_torch.models.registry import lm_model
 
 
 def from_state(
@@ -191,6 +188,14 @@ def _numpy_of(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _copy_into(dest, src: torch.Tensor) -> None:
+    if isinstance(dest, list):  # a stack: one tensor per index of the leading axis
+        for i, d in enumerate(dest):
+            _copy_into(d, src[i])
+    else:
+        dest.copy_(src)
+
+
 def _fill(layout, tree, path: str) -> None:
     if layout is None or tree is None:
         if layout is not None or tree is not None:
@@ -204,30 +209,24 @@ def _fill(layout, tree, path: str) -> None:
             _fill(layout[k], tree[k], f"{path}[{k!r}]")
         return
     src = _tensor_of(np.asarray(tree))
-    dests = layout if isinstance(layout, list) else [layout]
-    want = ((len(dests),) if isinstance(layout, list) else ()) + tuple(dests[0].shape)
-    if tuple(src.shape) != want or src.dtype != dests[0].dtype:
-        raise ValueError(f"{path}: got {tuple(src.shape)} {src.dtype}, "
-                         f"want {want} {dests[0].dtype}")
+    want, dtype = layout_shape(layout), first_leaf(layout).dtype
+    if tuple(src.shape) != want or src.dtype != dtype:
+        raise ValueError(f"{path}: got {tuple(src.shape)} {src.dtype}, want {want} {dtype}")
     with torch.no_grad():
-        if isinstance(layout, list):
-            for i, d in enumerate(dests):
-                d.copy_(src[i])
-        else:
-            layout.copy_(src)
+        _copy_into(layout, src)
 
 
-def lm_params_from_numpy(cfg, tree: Mapping, *, device=None) -> TransformerParams:
-    """The port's parameters of ``cfg`` on ``device`` (None: the card) from
-    the JAX package's ``init_params`` pytree as nested dicts of numpy
-    arrays.  Every leaf must have the port's shape and dtype; the stacked
-    (n_layers, ...) segment leaves become the per-layer modules."""
-    params = TransformerLM(cfg, device=resolve_device(device)).empty_params()
-    _fill(jax_layout(params), tree, "params")
+def lm_params_from_numpy(cfg, tree: Mapping, *, device=None):
+    """The port's parameters of ``cfg`` (any LM family) on ``device`` (None:
+    the card) from the JAX package's ``init_params`` pytree as nested dicts
+    of numpy arrays.  Every leaf must have the port's shape and dtype; the
+    stacked leaves become the per-layer modules."""
+    params = lm_model(cfg, device=resolve_device(device)).empty_params()
+    _fill(params.jax_layout(), tree, "params")
     return params
 
 
-def lm_params_to_numpy(params: TransformerParams) -> dict:
+def lm_params_to_numpy(params) -> dict:
     """The inverse of ``lm_params_from_numpy``: the JAX layout as nested
     dicts of numpy arrays (bfloat16 as ml_dtypes' bfloat16)."""
     def conv(node):
@@ -236,33 +235,67 @@ def lm_params_to_numpy(params: TransformerParams) -> dict:
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, list):
-            return np.stack([_numpy_of(t) for t in node])
+            return np.stack([conv(t) for t in node])
         return _numpy_of(node)
 
-    return conv(jax_layout(params))
+    return conv(params.jax_layout())
 
 
 _NORM_KEYS = frozenset({"ln1", "ln2", "post_ln1", "post_ln2", "final_norm", "q_norm",
-                        "k_norm", "q_ln", "kv_ln", "ln"})
+                        "k_norm", "q_ln", "kv_ln", "ln", "norm", "mamba_ln", "ln_x",
+                        "enc_norm"})
+
+
+def _sigmoid(z):
+    return 1.0 / (1.0 + np.exp(-z))
+
+
+# the recurrent families' leaves that are not weight matrices, from z
+_SPECIAL = {
+    # mamba2: A = -exp(a_log) in (-16, -1), as the init's log U(1, 16)
+    "a_log": lambda z: np.log(1.0 + 15.0 * _sigmoid(z)),
+    # inverse softplus of a step in (1e-3, 0.1), as the init's
+    "dt_bias": lambda z: np.log(np.expm1(1e-3 + 0.099 * _sigmoid(z))),
+    "d_skip": lambda z: 1.0 + 0.1 * z,
+    # rwkv6: token-shift mixes in (0, 1); base decay around e^-2 (so
+    # w = exp(-exp(w0 + lora)) in (e^-4, 1) after the cap)
+    **{k: _sigmoid for k in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "mu_ck", "mu_cr")},
+    "w0": lambda z: -2.0 + 0.5 * z,
+    "ln_scale": lambda z: 1.0 + 0.1 * z,
+    "ln_in": lambda z: 1.0 + 0.1 * z,
+    # biases and the rwkv bonus
+    **{k: lambda z: 0.1 * z for k in ("conv_b", "u", "ln_bias", "ln_in_b", "b1", "b2")},
+}
 
 
 def seeded_numpy_params(cfg, seed: int) -> dict:
-    """Weights for ``cfg`` in the JAX layout from ``np.random.default_rng(seed)``:
-    one ``standard_normal`` draw per leaf, leaves in sorted path order;
-    norm scales x 0.1, ``embed`` / sqrt(d_model), every other matrix /
-    sqrt(shape[-2]) (its fan-in); cast to each leaf's dtype."""
-    layout = jax_layout(TransformerLM(cfg, device="meta").empty_params())
+    """Weights for ``cfg`` (any LM family) in the JAX layout from
+    ``np.random.default_rng(seed)``: one ``standard_normal`` draw z per
+    leaf, leaves in sorted path order, cast to each leaf's dtype.  Norm
+    scales are 0.1 z, ``embed`` z / sqrt(d_model), a weight matrix z /
+    sqrt(shape[-2]) (its fan-in).  The recurrent families' other leaves
+    (``_SPECIAL``) keep their init's range, so the models stay stable:
+    mamba2's ``a_log`` = log(1 + 15 σ(z)), ``dt_bias`` the inverse softplus
+    of 1e-3 + 0.099 σ(z), ``d_skip`` 1 + 0.1 z; rwkv6's ``mu_*`` σ(z), ``w0``
+    -2 + 0.5 z, ``ln_scale``/``ln_in`` 1 + 0.1 z; biases (``conv_b``,
+    ``ln_bias``, ``ln_in_b``, ``b1``, ``b2``) and rwkv6's bonus ``u`` 0.1 z.
+    The transformer families have none of those leaves, so their draws
+    are those of the rule before it was extended."""
+    layout = lm_model(cfg, device="meta").empty_params().jax_layout()
     rng = np.random.default_rng(seed)
     drawn = {}
     for path, leaf in layout_leaves(layout):
         shape = layout_shape(leaf)
         w = rng.standard_normal(shape)
-        if path[-1] in _NORM_KEYS:
+        key = path[-1]
+        if key in _NORM_KEYS:
             w = 0.1 * w
+        elif key in _SPECIAL:
+            w = _SPECIAL[key](w)
         else:
-            w = w / np.sqrt(shape[-1] if path[-1] == "embed" else shape[-2])
-        dtype = (leaf[0] if isinstance(leaf, list) else leaf).dtype
-        drawn[path] = _numpy_of(torch.from_numpy(w.astype(np.float32)).to(dtype))
+            w = w / np.sqrt(shape[-1] if key == "embed" else shape[-2])
+        drawn[path] = _numpy_of(torch.from_numpy(w.astype(np.float32)).to(
+            first_leaf(leaf).dtype))
 
     def tree(node, path):
         if node is None or not isinstance(node, dict):

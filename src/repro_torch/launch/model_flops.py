@@ -15,12 +15,13 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.config import ModelConfig, ShapeCell
-from repro_torch.models.transformer import jax_layout, layout_leaves, layout_shape
+from repro_torch.models.common import layout_leaves, layout_shape
 
 
 def _leaf_shapes(bundle):
-    """(key, shape) of every parameter leaf in the JAX layout."""
-    for path, leaf in layout_leaves(jax_layout(bundle.params_shape())):
+    """(key, shape) of every parameter leaf of the bundle's model in the
+    JAX layout."""
+    for path, leaf in layout_leaves(bundle.params_shape().jax_layout()):
         yield "/".join(path), layout_shape(leaf)
 
 

@@ -23,7 +23,16 @@ from repro_torch.models.registry import LMBundle, build_model
 
 
 def _pad_cache_seq(cfg, cache, prefill_len: int, total_len: int):
-    """Grow every per-position cache leaf from prefill_len to total_len."""
+    """Grow every per-position cache leaf from prefill_len to total_len.
+
+    The transformer's segment leaves grow where axis 2 is the prompt's
+    length, as in the reference.  Of the hybrid's and whisper's dicts only
+    the self-attention ``k``/``v`` grow.  The reference pads every leaf
+    of ndim >= 4 whose axis 2 equals the prompt length, which also catches
+    the hybrid's ``ssm``/``conv`` when B == S (axis 2 is their batch) and
+    whisper's cross cache ``xk``/``xv`` when T == S (whose zero keys are
+    then attended); the port does not (a deliberate difference).  rwkv's
+    recurrent state has no positions."""
     extra = total_len - prefill_len
 
     def pad(leaf):
@@ -33,6 +42,8 @@ def _pad_cache_seq(cfg, cache, prefill_len: int, total_len: int):
 
     if cfg.family == "ssm":
         return cache  # recurrent state only
+    if isinstance(cache, dict):  # hybrid, audio
+        return {k: pad(v) if k in ("k", "v") else v for k, v in cache.items()}
     return [tuple(pad(leaf) for leaf in seg) for seg in cache]
 
 
@@ -85,15 +96,16 @@ def generate(
 
 def teacher_forced(bundle: LMBundle, params, batch: dict, tokens) -> torch.Tensor:
     """The logits of a decode fed ``tokens`` (B, N) after the prompt
-    ``batch`` ({'tokens' (B, S)} or {'embeds' (B, S, d)}): step 0 is the
-    prefill's last-token logits, step i the decode of ``tokens[:, i-1]`` at
-    position S+i-1.  Returns (N, B, V) float32 on the model's device; with a
-    greedy run's tokens, step i's argmax is its token i."""
+    ``batch`` ({'tokens' (B, S)}, {'embeds' (B, S, d)} or whisper's
+    {'frames' (B, T, d), 'tokens' (B, S)}): step 0 is the prefill's
+    last-token logits, step i the decode of ``tokens[:, i-1]`` at position
+    S+i-1.  Returns (N, B, V) float32 on the model's device; with a greedy
+    run's tokens, step i's argmax is its token i."""
     dev = bundle.device
     with torch.inference_mode():
         batch = {k: _on(dev, v) for k, v in batch.items()}
         tokens = _on(dev, tokens).long()
-        s = next(iter(batch.values())).shape[1]
+        s = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[1]
         n = tokens.shape[1]
         logits, cache = bundle.prefill(params, batch)
         cache = _pad_cache_seq(bundle.cfg, cache, s, s + n)

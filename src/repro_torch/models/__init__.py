@@ -1,4 +1,5 @@
-"""LM substrate: the port of ``repro.models`` (the transformer families).
+"""LM substrate: the port of ``repro.models`` (every LM family: the
+transformers, the zamba2 hybrid, rwkv6 and whisper).
 
 Parameters are ``nn.Module``s, layers are plain functions on tensors, a
 layer stack is a Python loop over its layers, and every model is built on

@@ -16,6 +16,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -67,6 +68,21 @@ def embed_init(shape, dtype, *, generator, device) -> torch.Tensor:
     """std = 1/sqrt(d_model): keeps tied-head logits O(1) at init."""
     return _truncated_normal(shape, 1.0 / np.sqrt(shape[1]), dtype,
                              generator=generator, device=device)
+
+
+def uniform_init(shape, low: float, high: float, *, generator, device,
+                 dtype=torch.float32) -> torch.Tensor:
+    """U(low, high) in ``dtype`` (left uninitialised without a generator or
+    on the meta device, as ``_truncated_normal``)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if generator is not None and out.device.type != "meta":
+        out.uniform_(low, high, generator=generator)
+    return out
+
+
+def const_param(shape, value: float, dtype, device) -> nn.Parameter:
+    """A parameter filled with ``value`` (zeros and ones of the inits)."""
+    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -151,3 +167,59 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's parameter layout
+# ---------------------------------------------------------------------------
+
+
+def _nested(fn, x):
+    """``fn`` over the modules of ``x``: a module or a (nested) list of them."""
+    return [_nested(fn, v) for v in x] if isinstance(x, list) else fn(x)
+
+
+def first_leaf(x):
+    """The first element of a (nested) list, or ``x`` itself."""
+    while isinstance(x, list):
+        x = x[0]
+    return x
+
+
+def stacked_layout(mods) -> dict:
+    """The JAX layout of one module type: a dict with, for each of its
+    ``FIELDS``, None, a nested dict, or its tensor.  ``mods`` is one module
+    (tensor leaves), a list of modules (the layers of a stack: a list of
+    per-layer tensors, stacked on a leading axis in the JAX layout) or a
+    list of lists (stacked two deep)."""
+    out = {}
+    first = first_leaf(mods)
+    for name in first.FIELDS:
+        val = getattr(first, name)
+        if val is None:
+            out[name] = None
+        elif isinstance(val, nn.Module):
+            out[name] = stacked_layout(_nested(lambda m: getattr(m, name), mods))
+        else:
+            out[name] = _nested(lambda m: getattr(m, name), mods)
+    return out
+
+
+def layout_leaves(tree: dict, path: tuple = ()):
+    """(path, leaf) of every leaf of a JAX-layout tree that is not None, in
+    sorted key order (a leaf: a tensor, an array or a nested list of
+    tensors)."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from layout_leaves(v, path + (k,))
+        elif v is not None:
+            yield path + (k,), v
+
+
+def layout_shape(leaf) -> tuple[int, ...]:
+    """A layout leaf's shape in the JAX layout (each list level stacks on a
+    leading axis)."""
+    if isinstance(leaf, list):
+        return (len(leaf),) + layout_shape(leaf[0])
+    return tuple(leaf.shape)

@@ -1,0 +1,200 @@
+"""Zamba2-style hybrid: a Mamba-2 backbone with a *shared* attention block
+applied every ``cfg.shared_attn_period`` layers (arXiv:2411.15242) — the
+port of ``repro.models.hybrid``'s serving half.
+
+The reference's simplifications are kept (DESIGN.md): the shared block
+reuses one full parameter set (the original adds per-invocation LoRA
+deltas and concatenates the initial embeddings into its input), with
+rotary positions.
+
+Execution: a Python loop over the G = n_layers / period groups, each a
+loop over its P mamba layers and then one application of the shared
+block, where the JAX package nests two ``lax.scan``s over (G, P, ...)
+stacked parameters.  ``mamba[g][i]`` is layer i of group g; the JAX
+layout (``HybridParams.jax_layout``) stacks them two deep.  The reference's
+``jax.checkpoint`` under ``cfg.remat`` is a training device and is left
+out here.
+
+The cache is the reference's dict: ``ssm`` (G, P, B, H, Pd, N) float32,
+``conv`` (G, P, B, W-1, C), ``k``/``v`` (G, B, S, KV, D).  Decode writes
+every entry in place.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import common
+from repro_torch.models.attention import AttnParams, attention_decode, attention_forward
+from repro_torch.models.ffn import FFNParams, ffn_forward
+from repro_torch.models.mamba2 import Mamba2Params, mamba2_decode, mamba2_forward
+from repro_torch.models.mamba2 import dims as mamba_dims
+
+
+class SharedBlock(nn.Module):
+    """The shared transformer block: ln1, attn, ln2, ffn."""
+
+    FIELDS = ("ln1", "attn", "ln2", "ffn")
+
+    def __init__(self, cfg: ModelConfig, dtype, *, device, generator=None):
+        super().__init__()
+        init = dict(device=device, generator=generator)
+        self.ln1 = common.const_param((cfg.d_model,), 0.0, dtype, device)
+        self.attn = AttnParams(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.resolved_head_dim, dtype, **init)
+        self.ln2 = common.const_param((cfg.d_model,), 0.0, dtype, device)
+        self.ffn = FFNParams(cfg.d_model, cfg.d_ff, dtype, **init)
+
+
+class HybridParams(nn.Module):
+    """Every parameter of a ``HybridLM``; ``mamba_ln`` is the (G, P, d)
+    stack of the mamba layers' pre-norm scales."""
+
+    def __init__(self, cfg: ModelConfig, n_groups: int, period: int, *, device,
+                 generator=None):
+        super().__init__()
+        dtype = common.dtype_of(cfg.dtype)
+        init = dict(device=device, generator=generator)
+        self.embed = nn.Parameter(common.embed_init((cfg.vocab_size, cfg.d_model), dtype,
+                                                    **init))
+        self.final_norm = common.const_param((cfg.d_model,), 0.0, dtype, device)
+        self.lm_head = nn.Parameter(common.dense_init((cfg.d_model, cfg.vocab_size), dtype,
+                                                      **init))
+        self.mamba = nn.ModuleList(
+            nn.ModuleList(Mamba2Params(cfg, dtype, **init) for _ in range(period))
+            for _ in range(n_groups))
+        self.mamba_ln = common.const_param((n_groups, period, cfg.d_model), 0.0, dtype,
+                                           device)
+        self.shared = SharedBlock(cfg, dtype, **init)
+
+    def jax_layout(self) -> dict:
+        """These parameters as the JAX package's ``init_params`` pytree (the
+        mamba leaves as lists of G lists of P tensors)."""
+        return {"embed": self.embed, "final_norm": self.final_norm,
+                "lm_head": self.lm_head,
+                "mamba": common.stacked_layout([list(g) for g in self.mamba]),
+                "mamba_ln": self.mamba_ln,
+                "shared": common.stacked_layout(self.shared)}
+
+
+class HybridLM:
+    def __init__(self, cfg: ModelConfig, flash_blk: int = 512, *, device: torch.device):
+        if cfg.shared_attn_period <= 0 or cfg.n_layers % cfg.shared_attn_period:
+            raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a multiple of "
+                             f"shared_attn_period {cfg.shared_attn_period}")
+        self.cfg = cfg
+        self.flash_blk = flash_blk
+        self.device = torch.device(device)
+        self.n_groups = cfg.n_layers // cfg.shared_attn_period
+        self.period = cfg.shared_attn_period
+
+    # -- params ------------------------------------------------------------
+
+    def init_params(self, seed: int = 0) -> HybridParams:
+        """Seeded random parameters on the model's device (the JAX
+        package's init rules, not its bits)."""
+        g = torch.Generator(device=self.device)
+        g.manual_seed(int(seed))
+        return HybridParams(self.cfg, self.n_groups, self.period, device=self.device,
+                            generator=g)
+
+    def empty_params(self, device=None) -> HybridParams:
+        return HybridParams(self.cfg, self.n_groups, self.period,
+                            device=self.device if device is None else device)
+
+    # -- full sequence -------------------------------------------------------
+
+    def _shared_block(self, shared: SharedBlock, x, positions):
+        cfg = self.cfg
+        h, kv = attention_forward(
+            shared.attn, common.rms_norm(x, shared.ln1, cfg.norm_eps),
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+            rope_theta=cfg.rope_theta, positions=positions, causal=True, window=0,
+            norm_eps=cfg.norm_eps, flash_blk=self.flash_blk,
+        )
+        x = x + h
+        x = x + ffn_forward(shared.ffn, common.rms_norm(x, shared.ln2, cfg.norm_eps))
+        return x, kv
+
+    def hidden_states(self, params: HybridParams, x, positions, collect_cache: bool = False):
+        """x: (B, S, d) embeddings.  Returns (hidden, cache dict or None)."""
+        cfg = self.cfg
+        ssm, conv, ks, vs = [], [], [], []
+        for g, group in enumerate(params.mamba):
+            states, tails = [], []
+            for i, prm in enumerate(group):
+                out, state, tail = mamba2_forward(
+                    prm, common.rms_norm(x, params.mamba_ln[g, i], cfg.norm_eps), cfg)
+                x = x + out
+                states.append(state)
+                tails.append(tail)
+            x, kv = self._shared_block(params.shared, x, positions)
+            if collect_cache:
+                ssm.append(torch.stack(states))
+                conv.append(torch.stack(tails))
+                ks.append(kv[0])
+                vs.append(kv[1])
+        x = common.rms_norm(x, params.final_norm, cfg.norm_eps)
+        if not collect_cache:
+            return x, None
+        return x, {"ssm": torch.stack(ssm), "conv": torch.stack(conv),
+                   "k": torch.stack(ks), "v": torch.stack(vs)}
+
+    # -- serving ---------------------------------------------------------------
+
+    def init_cache(self, batch: int, seq: int, device=None):
+        cfg = self.cfg
+        dtype = common.dtype_of(cfg.dtype)
+        device = self.device if device is None else device
+        di, h, conv_dim = mamba_dims(cfg)
+        g, p = self.n_groups, self.period
+        kvh = (g, batch, seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {
+            "ssm": torch.zeros((g, p, batch, h, cfg.ssm_head_dim, cfg.ssm_state),
+                               dtype=torch.float32, device=device),
+            "conv": torch.zeros((g, p, batch, cfg.ssm_conv_width - 1, conv_dim), dtype=dtype,
+                                device=device),
+            "k": torch.zeros(kvh, dtype=dtype, device=device),
+            "v": torch.zeros(kvh, dtype=dtype, device=device),
+        }
+
+    @torch.no_grad()
+    def prefill(self, params: HybridParams, batch: dict):
+        """batch: {'tokens' (B, S)}.  Returns (last-token logits (B, V)
+        float32, cache)."""
+        x = params.embed[batch["tokens"]]
+        positions = torch.arange(x.shape[1], device=x.device)
+        hidden, cache = self.hidden_states(params, x, positions, collect_cache=True)
+        logits = hidden[:, -1, :] @ params.lm_head
+        return logits.float(), cache
+
+    @torch.no_grad()
+    def decode_step(self, params: HybridParams, cache: dict, token: torch.Tensor, pos: int):
+        """token: (B,) int; pos: the position written.  Returns (logits
+        (B, V) float32, cache) — the same cache tensors, updated in place."""
+        cfg = self.cfg
+        shared = params.shared
+        pos = int(pos)
+        x = params.embed[token[:, None]]
+        for g, group in enumerate(params.mamba):
+            for i, prm in enumerate(group):
+                out, s2, c2 = mamba2_decode(
+                    prm, common.rms_norm(x, params.mamba_ln[g, i], cfg.norm_eps),
+                    cache["ssm"][g, i], cache["conv"][g, i], cfg)
+                cache["ssm"][g, i] = s2
+                cache["conv"][g, i] = c2
+                x = x + out
+            a, _ = attention_decode(
+                shared.attn, common.rms_norm(x, shared.ln1, cfg.norm_eps),
+                cache["k"][g], cache["v"][g], pos,
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                norm_eps=cfg.norm_eps,
+            )
+            x = x + a
+            x = x + ffn_forward(shared.ffn, common.rms_norm(x, shared.ln2, cfg.norm_eps))
+        x = common.rms_norm(x, params.final_norm, cfg.norm_eps)
+        logits = x[:, 0, :] @ params.lm_head
+        return logits.float(), cache

@@ -4,9 +4,11 @@ The port of ``repro.models.registry``.  ``build_model(cfg)`` returns an
 ``LMBundle`` whose members are what the server consumes, on the card
 unless ``device="cpu"`` is given.  The shape stand-ins of the JAX bundle
 (``params_shape``, ``cache_shape``, ``input_specs``) are tensors on the
-``meta`` device.  Only the transformer families (dense, moe, vlm) are
-ported; the hybrid, ssm and audio families raise ``NotImplementedError``
-(ROADMAP.md, queue 1 item 3), and ``loss_fn`` comes with the training
+``meta`` device.  Every LM family is served: dense, moe and vlm by
+``TransformerLM``, hybrid (zamba2) by ``HybridLM``, ssm (rwkv6) by
+``RWKVLM`` and audio (whisper) by ``EncDecLM``.  A model's cache is the
+reference's: a list of per-segment (k, v) tuples, the hybrid's and
+whisper's dicts, rwkv's 3-tuple.  ``loss_fn`` comes with the training
 slice.
 """
 
@@ -20,14 +22,12 @@ import torch
 from repro_torch.config import ModelConfig, ShapeCell
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import common
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.hybrid import HybridLM
+from repro_torch.models.rwkv_model import RWKVLM
 from repro_torch.models.transformer import TransformerLM
 
 META = torch.device("meta")
-NOT_PORTED = {
-    "hybrid": "zamba2's Mamba2 backbone (models/hybrid.py, models/mamba2.py)",
-    "ssm": "RWKV6 (models/rwkv6.py, models/rwkv_model.py)",
-    "audio": "whisper's encoder-decoder (models/encdec.py)",
-}
 
 
 @dataclass
@@ -79,15 +79,22 @@ class LMBundle:
         return out
 
 
+def lm_model(cfg: ModelConfig, flash_blk: int = 512, *, device: torch.device):
+    """The model object of ``cfg``'s family on ``device`` (not resolved:
+    'meta' gives shape stand-ins)."""
+    if cfg.family == "hybrid":
+        return HybridLM(cfg, flash_blk, device=device)
+    if cfg.family == "ssm":
+        return RWKVLM(cfg, device=device)
+    if cfg.family == "audio":
+        return EncDecLM(cfg, flash_blk, device=device)
+    return TransformerLM(cfg, flash_blk, device=device)  # dense | moe | vlm
+
+
 def build_model(cfg: ModelConfig, flash_blk: int = 512, *, device=None) -> LMBundle:
     """The bundle of ``cfg``'s model on ``device`` (None: the card, which
     raises where torch sees none)."""
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family ({NOT_PORTED[cfg.family]}) is not "
-            "ported to repro_torch yet; see ROADMAP.md, queue 1 item 3 (the LM half)"
-        )
-    m = TransformerLM(cfg, flash_blk, device=resolve_device(device))  # dense | moe | vlm
+    m = lm_model(cfg, flash_blk, device=resolve_device(device))
     return LMBundle(
         cfg=cfg,
         model=m,

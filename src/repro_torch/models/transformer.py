@@ -151,6 +151,9 @@ class TransformerParams(nn.Module):
         )
         self.mtp = MTPParams(cfg, **init) if cfg.mtp_depth > 0 else None
 
+    def jax_layout(self) -> dict:
+        return jax_layout(self)
+
 
 # ---------------------------------------------------------------------------
 # Block definitions
@@ -352,22 +355,6 @@ class TransformerLM:
 # ---------------------------------------------------------------------------
 
 
-def _stacked(mods: list[nn.Module]) -> dict:
-    """The JAX layout of one module type across ``mods`` (the layers of a
-    segment): a dict with, for each field, None, a nested dict, or the list
-    of per-layer tensors (stacked on a leading axis in the JAX layout)."""
-    out = {}
-    for name in mods[0].FIELDS:
-        val = getattr(mods[0], name)
-        if val is None:
-            out[name] = None
-        elif isinstance(val, nn.Module):
-            out[name] = _stacked([getattr(m, name) for m in mods])
-        else:
-            out[name] = [getattr(m, name) for m in mods]
-    return out
-
-
 def jax_layout(params: TransformerParams) -> dict:
     """``params`` arranged as the JAX package's ``init_params`` pytree, with
     its NamedTuples as dicts (None kept): top-level leaves are tensors and
@@ -376,27 +363,9 @@ def jax_layout(params: TransformerParams) -> dict:
     if params.lm_head is not None:
         tree["lm_head"] = params.lm_head
     for si, seg in enumerate(params.segs):
-        tree[f"seg{si}"] = _stacked(list(seg))
+        tree[f"seg{si}"] = common.stacked_layout(list(seg))
     if params.mtp is not None:
-        tree["mtp"] = {"proj": params.mtp.proj, "block": _stacked(list(params.mtp.block)),
+        tree["mtp"] = {"proj": params.mtp.proj,
+                       "block": common.stacked_layout(list(params.mtp.block)),
                        "ln": params.mtp.ln}
     return tree
-
-
-def layout_leaves(tree: dict, path: tuple = ()):
-    """(path, leaf) of every leaf of a JAX-layout tree that is not None, in
-    sorted key order (a leaf: a tensor, an array or a list of tensors)."""
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            yield from layout_leaves(v, path + (k,))
-        elif v is not None:
-            yield path + (k,), v
-
-
-def layout_shape(leaf) -> tuple[int, ...]:
-    """A layout leaf's shape in the JAX layout (a list of per-layer tensors
-    stacks on a leading axis)."""
-    if isinstance(leaf, list):
-        return (len(leaf),) + tuple(leaf[0].shape)
-    return tuple(leaf.shape)

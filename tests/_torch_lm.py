@@ -96,3 +96,65 @@ def jit_once(cache: dict, key, fn):
     if key not in cache:
         cache[key] = jax.jit(fn)
     return cache[key]
+
+
+def flat_cache(cache) -> list:
+    """A cache's tensors or arrays in the JAX package's leaf order: a dict's
+    values by sorted key, a list's or tuple's in order."""
+    if isinstance(cache, dict):
+        return [leaf for k in sorted(cache) for leaf in flat_cache(cache[k])]
+    if isinstance(cache, (list, tuple)):
+        return [leaf for c in cache for leaf in flat_cache(c)]
+    return [cache]
+
+
+def model_pair(name: str, dtype: str, *, seed: int = 0, seeded: bool = True,
+               flash_blk: int = 16, **replace):
+    """Both packages' bundles of ``name``'s smoke config (with ``replace``)
+    and one set of weights in both: ``seeded_numpy_params(cfg, seed)``, or
+    with ``seeded=False`` the JAX package's ``init_params(key(seed))``.
+    Returns (jax bundle, jax params, port bundle, port params, numpy tree)."""
+    from repro.models.registry import build_model as jbuild
+    from repro_torch.convert import lm_params_from_numpy, seeded_numpy_params
+    from repro_torch.models.registry import build_model as tbuild
+
+    jcfg, tcfg = smoke_pair(name, dtype=dtype, **replace)
+    jb = jbuild(jcfg, flash_blk=flash_blk)
+    if seeded:
+        tree = seeded_numpy_params(tcfg, seed)
+        jp = jax_params_from_numpy(jb, tree)
+    else:
+        jp = jax.jit(jb.init_params)(jax.random.key(seed))
+        tree = jax_to_numpy(jp)
+    tb = tbuild(tcfg, flash_blk=flash_blk, device="cpu")
+    return jb, jp, tb, lm_params_from_numpy(tcfg, tree, device="cpu"), tree
+
+
+def run_prefill_decode(jb, jp, tb, tp, batch: dict, nxt, grow: int = 4):
+    """Both packages' prefill of ``batch`` (numpy), the caches grown by
+    ``grow`` positions and one decode of ``nxt`` (B,) at the prompt's end.
+    Float inputs take the model's dtype.  Returns ((port, ref) prefill
+    logits, (port, ref) decode logits, [(port, ref) prefill cache leaf])
+    as float32 numpy."""
+    import torch
+
+    from repro.launch import serve as jserve
+    from repro_torch.launch import serve as tserve
+
+    bf16 = tb.cfg.dtype == "bfloat16"
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32, torch.float32)
+    jbatch = {k: jnp.asarray(v, jnp.int32 if v.dtype.kind == "i" else jdt)
+              for k, v in batch.items()}
+    tbatch = {k: torch.from_numpy(v) if v.dtype.kind == "i" else torch.from_numpy(v).to(tdt)
+              for k, v in batch.items()}
+    s = batch["tokens"].shape[1] if "tokens" in batch else batch["embeds"].shape[1]
+    jl, jc = jax.jit(jb.prefill)(jp, jbatch)
+    tl, tc = tb.prefill(tp, tbatch)
+    caches = [(t.float().numpy().copy(), np.asarray(j, np.float32))  # decode writes in place
+              for t, j in zip(flat_cache(tc), jax.tree.leaves(jc))]
+    jc = jserve._pad_cache_seq(jb.cfg, jc, s, s + grow)
+    tc = tserve._pad_cache_seq(tb.cfg, tc, s, s + grow)
+    jd, _ = jax.jit(jb.decode_step)(jp, jc, jnp.asarray(nxt, jnp.int32), jnp.int32(s))
+    td, _ = tb.decode_step(tp, tc, torch.from_numpy(np.asarray(nxt)).long(), s)
+    return ((tl.float().numpy(), np.asarray(jl, np.float32)),
+            (td.float().numpy(), np.asarray(jd, np.float32)), caches)

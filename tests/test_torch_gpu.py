@@ -767,7 +767,8 @@ def _lm_smoke(module: str, **replace):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["llama3.2-3b", "gemma3-1b", "deepseek-v3-671b",
-                                  "llava-next-mistral-7b"])
+                                  "llava-next-mistral-7b", "zamba2-2.7b", "rwkv6-1.6b",
+                                  "whisper-tiny"])
 def test_lm_fixture_replay_on_the_card(card, name):
     """The JAX package's recorded answers (tests/fixtures/torch_lm) on the
     card: the same seeded weights, each teacher-forced step's logits within
@@ -788,12 +789,12 @@ def test_lm_fixture_replay_on_the_card(card, name):
     torch.backends.cuda.matmul.allow_tf32 = False
     bundle = build_model(cfg, device=card)
     params = lm_params_from_numpy(cfg, tree, device=card)
-    batch = {k: fx[k] for k in ("tokens", "embeds") if k in fx}
+    batch = {k: fx[k] for k in ("tokens", "embeds", "frames") if k in fx}
     logits = teacher_forced(bundle, params, batch, fx["greedy"]).cpu().numpy()
     err = np.abs(logits - fx["logits"]).max() / np.abs(fx["logits"]).max()
     assert err < 1e-4, err
     np.testing.assert_array_equal(logits.argmax(-1).T, fx["greedy"])
-    if "tokens" in fx:
+    if set(batch) == {"tokens"}:
         np.testing.assert_array_equal(
             generate(bundle, params, fx["tokens"], max_new=fx["greedy"].shape[1]), fx["greedy"])
 
@@ -821,6 +822,40 @@ def test_lm_card_equals_cpu(card, module):
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
     a = generate(on_card, params, prompt, max_new=6)
     np.testing.assert_array_equal(a, generate(on_card, params, prompt, max_new=6))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("module,prompt_len", [("zamba2_2p7b", 32), ("zamba2_2p7b", 20),
+                                               ("rwkv6_1p6b", 32), ("rwkv6_1p6b", 20),
+                                               ("whisper_tiny", 24)])
+def test_lm_recurrent_and_encdec_card_equals_cpu(card, module, prompt_len):
+    """zamba2, rwkv6 and whisper at the smoke size, one set of seeded
+    weights: prefill and 4 teacher-forced decode steps on the card within
+    1e-4 of the port on the CPU (float32, TF32 off; S = 32 takes RWKV's
+    chunked form and two SSD chunks, S = 20 the scan and chunks of 10;
+    whisper on 40 frames); two greedy runs on the card bit-equal."""
+    from repro_torch.convert import lm_params_from_numpy, seeded_numpy_params
+    from repro_torch.launch.serve import generate, teacher_forced
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_smoke(module, dtype="float32")
+    tree = seeded_numpy_params(cfg, 3)
+    on_card = build_model(cfg, flash_blk=16, device=card)
+    on_cpu = build_model(cfg, flash_blk=16, device="cpu")
+    params = lm_params_from_numpy(cfg, tree, device=card)
+    params_cpu = lm_params_from_numpy(cfg, tree, device="cpu")
+    rng = np.random.default_rng(3)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, prompt_len))}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32)
+    nxt = rng.integers(0, cfg.vocab_size, (2, 5))
+    got = teacher_forced(on_card, params, batch, nxt).cpu().numpy()
+    ref = teacher_forced(on_cpu, params_cpu, batch, nxt).numpy()
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-4
+    if not cfg.is_encoder_decoder:
+        a = generate(on_card, params, batch["tokens"], max_new=6)
+        np.testing.assert_array_equal(a, generate(on_card, params, batch["tokens"], max_new=6))
 
 
 @pytest.mark.gpu

@@ -65,8 +65,10 @@ def test_every_module_is_listed():
                  "repro_torch.models", "repro_torch.models.common", "repro_torch.models.ffn",
                  "repro_torch.models.attention", "repro_torch.models.moe",
                  "repro_torch.models.mla", "repro_torch.models.transformer",
-                 "repro_torch.models.registry", "repro_torch.launch.model_flops",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.models.registry", "repro_torch.models.mamba2",
+                 "repro_torch.models.hybrid", "repro_torch.models.rwkv6",
+                 "repro_torch.models.rwkv_model", "repro_torch.models.encdec",
+                 "repro_torch.launch.model_flops", "repro_torch.launch.serve"):
         assert want in mods
 
 
@@ -149,6 +151,26 @@ def test_default_device_is_the_card(monkeypatch):
     # the CPU is used only when asked for
     np.testing.assert_array_equal(cm.predict(x, device="cpu"), ens.predict(x))
     assert build_model(lm, device="cpu").init_params(0).embed.device.type == "cpu"
+
+
+@pytest.mark.parametrize("module", ["zamba2_2p7b", "rwkv6_1p6b", "whisper_tiny"])
+def test_new_lm_families_default_to_the_card(monkeypatch, module):
+    """zamba2, rwkv6 and whisper build on the card unless asked for the
+    CPU: with no card, ``build_model`` and ``lm_params_from_numpy`` raise."""
+    import importlib
+
+    from repro_torch.convert import lm_params_from_numpy, seeded_numpy_params
+    from repro_torch.models import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    configs = importlib.import_module(f"repro_torch.configs.{module}")
+    cfg = configs.smoke()
+    for call in (lambda: build_model(configs.CONFIG),
+                 lambda: build_model(cfg).init_params(0),
+                 lambda: lm_params_from_numpy(cfg, seeded_numpy_params(cfg, 0))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert build_model(cfg, device="cpu").init_params(0).embed.device.type == "cpu"
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):

@@ -11,8 +11,10 @@ The same numpy-seeded inputs (and weights, carried across with
   * prefill and decode logits of the 7 transformer configs' smoke configs
     within max|Δ| / max|ref| < 1e-4 in float32, < 2e-2 in bfloat16 (llama,
     gemma);
-  * the parameter round trip bit-equal, ``model_flops``/``active_params``
-    equal, and ``build_model`` raising for the families not ported.
+  * the parameter round trip bit-equal, and ``model_flops``/
+    ``active_params`` and the decode cache's shapes equal for all ten LM
+    configs (the hybrid, ssm and audio families' layers and models are in
+    ``test_torch_lm_ssm.py`` and ``test_torch_lm_encdec.py``).
 """
 
 import dataclasses
@@ -26,11 +28,14 @@ from _torch_lm import (
     ALL,
     TRANSFORMER,
     config_modules,
+    flat_cache,
     jax_params_from_numpy,
     jax_to_numpy,
     jit_once,
     leaves_equal,
+    model_pair,
     rel_err,
+    run_prefill_decode,
     smoke_pair,
 )
 
@@ -39,7 +44,6 @@ import repro.configs as jconfigs
 import repro_torch.config as tconfig
 import repro_torch.configs as tconfigs
 from repro.launch import model_flops as jflops
-from repro.launch import serve as jserve
 from repro.models import attention as jattn
 from repro.models import common as jcommon
 from repro.models import ffn as jffn
@@ -49,7 +53,6 @@ from repro.models import transformer as jtransformer
 from repro.models.registry import build_model as jbuild
 from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy, seeded_numpy_params
 from repro_torch.launch import model_flops as tflops
-from repro_torch.launch import serve as tserve
 from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
 from repro_torch.models import ffn as tffn
@@ -434,12 +437,7 @@ B, S = 2, 32
 def _pair(name, dtype, seed=0):
     """Both packages' bundles of ``name``'s smoke config on the JAX
     package's ``init_params(key(seed))`` weights, carried across."""
-    jcfg, tcfg = smoke_pair(name, dtype=dtype)
-    jb = jbuild(jcfg, flash_blk=16)
-    jp = jb.init_params(jax.random.key(seed))
-    tree = jax_to_numpy(jp)
-    tb = tbuild(tcfg, flash_blk=16, device="cpu")
-    return jb, jp, tb, lm_params_from_numpy(tcfg, tree, device="cpu"), tree
+    return model_pair(name, dtype, seed=seed, seeded=False)
 
 
 def _prompt(cfg, rng, s=S):
@@ -453,23 +451,10 @@ def _run_prefill_decode(name, dtype):
     """Prefill of S prompt positions, the caches grown by 4, one decode at
     position S: (port, reference) logits of both, and the prefill caches."""
     jb, jp, tb, tp, _ = _pair(name, dtype)
-    cfg = tb.cfg
-    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else \
-        (jnp.bfloat16, torch.bfloat16)
     rng = np.random.default_rng(10)
-    batch = _prompt(cfg, rng)
-    nxt = rng.integers(0, cfg.vocab_size, (B,)).astype(np.int32)
-    jbatch = {k: jnp.asarray(v, jdt if k == "embeds" else jnp.int32) for k, v in batch.items()}
-    tbatch = {k: _t(v).to(tdt) if k == "embeds" else _t(v) for k, v in batch.items()}
-    jl, jc = jax.jit(jb.prefill)(jp, jbatch)
-    tl, tc = tb.prefill(tp, tbatch)
-    caches = [(t.float().numpy(), np.asarray(j, np.float32))
-              for tseg, jseg in zip(tc, jc) for t, j in zip(tseg, jseg)]
-    jc = jserve._pad_cache_seq(jb.cfg, jc, S, S + 4)
-    tc = tserve._pad_cache_seq(cfg, tc, S, S + 4)
-    jd, _ = jax.jit(jb.decode_step)(jp, jc, jnp.asarray(nxt), jnp.int32(S))
-    td, _ = tb.decode_step(tp, tc, _t(nxt), S)
-    return (_np(tl), np.asarray(jl)), (_np(td), np.asarray(jd)), caches
+    batch = _prompt(tb.cfg, rng)
+    nxt = rng.integers(0, tb.cfg.vocab_size, (B,)).astype(np.int32)
+    return run_prefill_decode(jb, jp, tb, tp, batch, nxt)
 
 
 @pytest.mark.parametrize("name", sorted(TRANSFORMER))
@@ -530,10 +515,15 @@ def test_seeded_params_carry_into_both_packages():
         lm_params_from_numpy(tcfg, bad, device="cpu")
 
 
-@pytest.mark.parametrize("name", sorted(TRANSFORMER))
+LM_CONFIGS = sorted(n for n in ALL if n != "xtime-tabular")
+
+
+@pytest.mark.parametrize("name", LM_CONFIGS)
 def test_model_flops_equal(name):
     """``active_params`` and ``model_flops`` at every applicable cell of the
-    full config equal the JAX package's."""
+    full config equal the JAX package's, and so do the input stand-ins'
+    shapes (a decode cell's cache flattened: segment tuples, the hybrid's
+    and whisper's dicts, rwkv's tuple)."""
     jcfg = jconfig.get_config(name)
     tcfg = tconfig.get_config(name)
     jb, tb = jbuild(jcfg), tbuild(tcfg, device="cpu")
@@ -543,15 +533,9 @@ def test_model_flops_equal(name):
         assert tflops.model_flops(tcfg, tcell, tb) == jflops.model_flops(jcfg, jcell, jb)
         if jcell.kind == "decode":
             tspec, jspec = tb.input_specs(tcell), jb.input_specs(jcell)
-            assert [tuple(c.shape) for seg in tspec["cache"] for c in seg] == \
-                [tuple(c.shape) for seg in jspec["cache"] for c in seg]
+            assert [tuple(c.shape) for c in flat_cache(tspec["cache"])] == \
+                [tuple(c.shape) for c in jax.tree.leaves(jspec["cache"])]
         else:
             assert {k: tuple(v.shape) for k, v in tb.input_specs(tcell).items()} == \
                 {k: tuple(v.shape) for k, v in jb.input_specs(jcell).items()}
 
-
-@pytest.mark.parametrize("name", ["zamba2-2.7b", "rwkv6-1.6b", "whisper-tiny"])
-def test_build_model_raises_for_families_not_ported(name):
-    cfg = tconfig.get_config(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 3"):
-        tbuild(cfg, device="cpu")
