@@ -144,7 +144,27 @@ Phases, one line (or block) each:
      of 2 mamba layers and the shared block — whisper whole); the JAX
      package's recorded answers for the three smoke configs.  Then the
      card's busy share and kernels a decode step (``torch.profiler``) of
-     every phase 10 and 11 model, after all their timed runs.
+     every phase 10 and 11 model, after all their timed runs;
+ 12. the LM half's training path (no kernel of its own), after phases
+     10-11's models are freed: llama3.2-3b at full width and depth
+     (bfloat16, remat, float32 moments) trained 6 steps by
+     ``launch.train.make_train_step`` with the ``AdamWConfig`` ``train()``
+     builds on ``TokenPipeline`` batches of 8 x 1,024 (``_chunked_ce``'s
+     two 512-token chunks): losses and gradient norms finite, parameters
+     changed, the ms a step (CUDA events, median of steps 2-6) beside
+     ``model_flops`` / 989 TFLOP/s, the optimizer's ms alone, the card's
+     busy share and kernels a step (``torch.profiler`` over 2 more steps),
+     tokens/s and peak memory; 3 steps again from the seed with equal
+     losses; llama3.2-3b cut to depth 2 in float32, one loss_fn + backward
+     on the card against the port on the CPU (loss 1e-5, gradients 1e-4,
+     TF32 off); one timed bfloat16 step after a first at full width of
+     zamba2 (one group of 2 mamba layers + the shared block, 8 SSD chunks
+     of 128), rwkv6 (2 layers) and whisper-tiny (whole, 1,500 frames),
+     losses and gradient norms finite; deepseek-v3 left out (its float32
+     moments alone outgrow the card); the JAX package's recorded training
+     answers (tests/fixtures/torch_lm/train.json) replayed on the card;
+     ``train()`` at ``_scaled(llama3.2-3b, 0.05)`` crashed after step 6 and
+     resumed from its step-4 checkpoint, equal to an uninterrupted run.
 
 Every check that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object of the kernels and the contract line
@@ -153,11 +173,14 @@ lines are a JSON object of the kernels and the contract line
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -183,9 +206,15 @@ from repro_torch.core.compile import compile_ensemble  # noqa: E402
 from repro_torch.core.trees import random_deep_ensemble  # noqa: E402
 from repro_torch.kernels import cam_match as K  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.data import tokens as lm_tokens  # noqa: E402
+from repro_torch.ft.runtime import InjectedFailure  # noqa: E402
 from repro_torch.launch import model_flops as lm_flops  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.models import common as lm_common  # noqa: E402
+from repro_torch.models.common import leaf_tensors as lm_leaf_tensors  # noqa: E402
+from repro_torch.models.common import tree_leaves as lm_tree_leaves  # noqa: E402
+from repro_torch.optim import adamw as lm_adamw  # noqa: E402
 from repro_torch.models import mamba2 as lm_mamba2  # noqa: E402
 from repro_torch.models import registry as lm_registry  # noqa: E402
 from repro_torch.models import transformer as lm_transformer  # noqa: E402
@@ -2276,9 +2305,7 @@ def lm_state_bytes(cfg, batch: int, pos: int, enc_len: int = 0) -> int:
 def lm_on_card(bundle, batch: dict) -> dict:
     """A prompt dict (numpy) on the model's device: integers as int64,
     floats (embeddings, frames) in the model's dtype."""
-    dt = lm_common.dtype_of(bundle.cfg.dtype)
-    return {k: torch.as_tensor(v, device=bundle.device).long() if v.dtype.kind == "i"
-            else torch.as_tensor(v, device=bundle.device).to(dt) for k, v in batch.items()}
+    return lm_train.on_device(batch, bundle.device, lm_common.dtype_of(bundle.cfg.dtype))
 
 
 def lm_times(bundle, params, batch, toks) -> tuple[float, list[float]]:
@@ -2619,6 +2646,363 @@ def phase_lm_profiles(name, stats) -> None:
         lm_profile(label, cfg, prompt_len, name, line)
 
 
+# -- phase 12: LM training on the card ---------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 6  # llama3.2-3b's main path: _chunked_ce's 2 chunks
+FAMILY_B, FAMILY_S = 4, 1024  # zamba2 / rwkv6 depth 2: 8 SSD chunks of 128, 64 WKV chunks
+FIXTURE_TRAIN = FIXTURE_LM / "train.json"
+
+
+class TimedAdamW(lm_adamw.AdamW):
+    """``AdamW`` with its update bracketed by CUDA events: the optimizer's
+    ms on its own."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.events = []
+
+    def update(self, grads, state, params):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = super().update(grads, state, params)
+        b.record()
+        self.events.append((a, b))
+        return out
+
+
+def train_opt_cfg(steps: int):
+    """The ``AdamWConfig`` ``train()`` builds for ``steps`` steps."""
+    return lm_adamw.AdamWConfig(warmup_steps=max(5, steps // 20), decay_steps=steps)
+
+
+def train_run(bundle, params, batches, opt) -> tuple[list, list, list]:
+    """``make_train_step`` over ``batches`` (numpy) on the card: (losses,
+    grad norms, (start, end) CUDA events of each step), read after one
+    synchronise."""
+    step_fn = lm_train.make_train_step(bundle, opt)
+    state = opt.init(params)
+    dt = lm_common.dtype_of(bundle.cfg.dtype)
+    out, events = [], []
+    for b in batches:
+        batch = lm_train.on_device(b, bundle.device, dt)
+        a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        params, state, _, m = step_fn(params, state, None, batch)
+        e.record()
+        out.append((m["loss"], m["grad_norm"]))
+        events.append((a, e))
+    torch.cuda.synchronize()
+    return [float(x) for x, _ in out], [float(g) for _, g in out], events
+
+
+KERNEL_KINDS = (("gemm", ("gemm", "xmma", "cutlass", "nvjet")), ("reduce", ("reduce",)),
+                ("elementwise", ("elementwise", "vectorized")),
+                ("index", ("index", "scatter", "gather")), ("copy/cat", ("cat", "copy")))
+
+
+def kernel_kind(kernel_name: str) -> str:
+    low = kernel_name.lower()
+    return next((kind for kind, keys in KERNEL_KINDS if any(k in low for k in keys)), "other")
+
+
+def train_device_ms(bundle, params, batches) -> tuple[float, float, dict]:
+    """Device busy ms and kernels a train step, from ``torch.profiler`` over
+    ``batches`` (NaN where the trace holds no device event), and the busy
+    ms a step of each kind of kernel (GEMMs, reductions, elementwise, ...,
+    by the kernels' names)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    opt = lm_adamw.AdamW(train_opt_cfg(TRAIN_STEPS))
+    step_fn = lm_train.make_train_step(bundle, opt)
+    state = opt.init(params)
+    dt = lm_common.dtype_of(bundle.cfg.dtype)
+    on_card = [lm_train.on_device(b, bundle.device, dt) for b in batches]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for batch in on_card:
+            params, state, _, _ = step_fn(params, state, None, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return float("nan"), float("nan"), {}
+    kinds: dict = {}
+    for e in kernels:
+        kind = kernel_kind(e.name)
+        kinds[kind] = kinds.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3 / len(batches)
+    return (sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / len(batches),
+            len(kernels) / len(batches), kinds)
+
+
+def finite(label: str, losses, norms) -> None:
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)):
+        fail(f"{label}: a loss or gradient norm is not finite: {losses} {norms}")
+
+
+def lm_train_main(name, stats) -> None:
+    """The main path: llama3.2-3b at full width and depth (28 layers),
+    bfloat16, remat on, float32 moments, ``TokenPipeline`` batches of
+    8 x 1,024, ``TRAIN_STEPS`` steps of ``make_train_step`` with the
+    ``AdamWConfig`` ``train()`` builds; then 2 profiled steps, and 3 steps
+    again from the same seed, whose losses must equal the first 3."""
+    cfg = get_config("llama3.2-3b")
+    if not cfg.remat or cfg.dtype != "bfloat16":
+        fail("llama3.2-3b: the full config trains in bfloat16 with remat")
+    pipe = lm_tokens.TokenPipeline(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=SEED)
+    batches = [pipe.batch(i) for i in range(TRAIN_STEPS + 2)]
+    base = torch.cuda.memory_allocated()
+    bundle = lm_build(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init_params(SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    before = [params.final_norm.detach().clone(), params.segs[0][0].attn.wq.detach()[:4].clone()]
+    opt = TimedAdamW(train_opt_cfg(TRAIN_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, events = train_run(bundle, params, batches[:TRAIN_STEPS], opt)
+    peak = torch.cuda.max_memory_allocated() - base
+    finite("llama3.2-3b train", losses, norms)
+    after = [params.final_norm.detach(), params.segs[0][0].attn.wq.detach()[:4]]
+    if any(torch.equal(a, b) for a, b in zip(before, after)):
+        fail("llama3.2-3b train: parameters unchanged after the steps")
+    steps_ms = [a.elapsed_time(b) for a, b in events]
+    opt_ms = [a.elapsed_time(b) for a, b in opt.events]
+    step_ms, upd_ms = float(np.median(steps_ms[1:])), float(np.median(opt_ms[1:]))
+    busy_ms, kernels, kinds = train_device_ms(bundle, params, batches[TRAIN_STEPS:])
+    flops = lm_flops.model_flops(cfg, ShapeCell("train", TRAIN_S, TRAIN_B, "train"), bundle)
+    bound = flops / BF16_FLOPS_PER_S * 1e3
+    n_params = sum(p.numel() for p in params.parameters())
+    del params, opt, bundle
+    lm_free()
+    # run-to-run equality: 3 steps again from the same seed
+    bundle = lm_build(cfg)
+    again, _, _ = train_run(bundle, bundle.init_params(SEED), batches[:3],
+                            lm_adamw.AdamW(train_opt_cfg(TRAIN_STEPS)))
+    del bundle
+    lm_free()
+    if again != losses[:3]:
+        fail(f"llama3.2-3b train: two runs from one seed differ: {again} vs {losses[:3]}")
+    line = {"model": "llama3.2-3b", "layers": cfg.n_layers, "dtype": cfg.dtype, "remat": True,
+            "batch": TRAIN_B, "seq": TRAIN_S, "params": n_params, "init_s": t_init,
+            "losses": losses, "grad_norms": norms, "step_ms": steps_ms, "step_ms_median": step_ms,
+            "optimizer_ms": opt_ms, "optimizer_ms_median": upd_ms, "bound_ms": bound,
+            "bound_by": "operations", "model_flops": flops, "share": bound / step_ms,
+            "optimizer_share": upd_ms / step_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / step_ms, "kernels_per_step": kernels,
+            "busy_ms_by_kind": kinds,
+            "tokens_per_s": TRAIN_B * TRAIN_S / (step_ms / 1e3), "peak_bytes": peak,
+            "card": name}
+    stats["lm_train"] = [line]
+    print(f"lm train [{name}] llama3.2-3b: {cfg.n_layers} layers bfloat16, remat, {n_params:,} "
+          f"params, B={TRAIN_B} x S={TRAIN_S}, {TRAIN_STEPS} steps: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, grad norm {norms[0]:.3f} -> {norms[-1]:.3f}; "
+          f"{step_ms:.3f} ms a step (median of steps 2-{TRAIN_STEPS}; bound {bound:.3f} ms by "
+          f"operations, {100 * bound / step_ms:.1f}%), optimizer {upd_ms:.3f} ms "
+          f"({100 * upd_ms / step_ms:.1f}%), card busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / step_ms:.1f}%), {kernels:.0f} kernels a step, "
+          f"{line['tokens_per_s']:.1f} tokens/s, peak {peak / 2**30:.2f} GiB; 3 steps again "
+          f"from the seed: losses equal; busy ms a step by kernel kind: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])),
+          flush=True)
+
+
+def lm_grads(bundle, params, batch: dict) -> tuple[float, list]:
+    """loss_fn + backward: (loss, each JAX-layout leaf's gradient tensors)."""
+    loss, _, grads = lm_train.loss_and_grads(
+        bundle, params,
+        lm_train.on_device(batch, bundle.device, lm_common.dtype_of(bundle.cfg.dtype)))
+    return float(loss), [lm_leaf_tensors(leaf) for _, leaf in lm_tree_leaves(grads)]
+
+
+def lm_train_card_equals_cpu(name) -> None:
+    """llama3.2-3b at full width cut to depth 2, float32, TF32 off: one
+    loss_fn + backward on the card and on the port's CPU path, one set of
+    weights: loss within 1e-5 relative, each gradient leaf within
+    max|d|/max|ref| < 1e-4."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on for float32 products")
+    cfg = get_config("llama3.2-3b").replace(n_layers=2, dtype="float32")
+    batch = lm_tokens.TokenPipeline(cfg.vocab_size, 2, 256, seed=SEED + 30).batch(0)
+    t0 = time.perf_counter()
+    bundle = lm_build(cfg)
+    params = bundle.init_params(5)
+    loss, grads = lm_grads(bundle, params, batch)
+    on_cpu = lm_build(cfg, "cpu")
+    params_cpu = on_cpu.model.empty_params()
+    params_cpu.load_state_dict(params.state_dict())
+    del params, bundle
+    lm_free()
+    ref_loss, ref_grads = lm_grads(on_cpu, params_cpu, batch)
+    worst = 0.0
+    for got, ref in zip(grads, ref_grads):
+        scale = max(float(r.abs().max()) for r in ref)
+        err = max(float((g.cpu() - r).abs().max()) for g, r in zip(got, ref))
+        worst = max(worst, err / scale if scale > 0 else err)
+    if not abs(loss - ref_loss) <= 1e-5 * abs(ref_loss) or not worst < 1e-4:
+        fail(f"llama3.2-3b depth 2 train card vs CPU: loss {loss} vs {ref_loss}, gradients "
+             f"max|d|/max|ref| {worst:.3g}")
+    print(f"lm train [{name}] llama3.2-3b depth 2 float32 B=2 S=256: loss_fn + backward card "
+          f"vs CPU: loss {loss:.6f} vs {ref_loss:.6f}, gradients max|d|/max|ref| {worst:.3g} "
+          f"(< 1e-4), TF32 off ({time.perf_counter() - t0:.1f} s)", flush=True)
+    del grads, ref_grads, params_cpu
+
+
+def lm_train_family(label, cfg, batches, name, stats) -> None:
+    """Two bfloat16 train steps with remat at full width: losses and
+    gradient norms finite (zamba2's SSD at chunk 128 included), the second
+    step timed."""
+    if not cfg.remat:
+        fail(f"{label}: the full config trains with remat")
+    base = torch.cuda.memory_allocated()
+    bundle = lm_build(cfg)
+    params = bundle.init_params(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, events = train_run(bundle, params, batches,
+                                      lm_adamw.AdamW(train_opt_cfg(TRAIN_STEPS)))
+    peak = torch.cuda.max_memory_allocated() - base
+    finite(label, losses, norms)
+    ms = events[-1][0].elapsed_time(events[-1][1])
+    shape = {k: tuple(v.shape) for k, v in batches[0].items()}
+    stats["lm_train"].append({"model": label, "layers": cfg.n_layers, "batch": shape,
+                              "losses": losses, "grad_norms": norms, "step_ms": ms,
+                              "peak_bytes": peak, "card": name})
+    print(f"lm train [{name}] {label} bfloat16, remat, {shape}: losses {losses}, grad norms "
+          f"{[round(g, 4) for g in norms]} finite; step 2 {ms:.3f} ms; peak "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    del params, bundle
+    lm_free()
+
+
+def fixture_batch(cfg, seed: int, b: int, s: int) -> dict:
+    """The recorded answers' batch, the recipe of tests/_torch_lm_batch.py's
+    ``lm_batch``."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    if cfg.is_encoder_decoder:
+        return {"frames": rng.standard_normal((b, 40, cfg.d_model)).astype(np.float32),
+                "tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+                "labels": labels}
+    if cfg.embeddings_input:
+        embeds = rng.standard_normal((b, s, cfg.d_model)) * cfg.d_model ** -0.5
+        return {"embeds": embeds.astype(np.float32), "labels": labels}
+    return {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+            "labels": labels}
+
+
+def lm_train_fixture(name) -> None:
+    """The JAX package's recorded training answers (tests/fixtures/torch_lm/
+    train.json) on the card, float32, TF32 off: each config's loss, metrics
+    and gradient norm within 1e-5 relative, and the 3 recorded train steps'
+    (microbatch 2, int8 compression) losses within 1e-5."""
+    fx = json.loads(FIXTURE_TRAIN.read_text())
+    files = json.loads((FIXTURE_LM / "manifest.json").read_text())["configs"]
+    def smoke(arch):
+        module = files[arch]["file"].removesuffix(".npz")
+        return importlib.import_module(f"repro_torch.configs.{module}").smoke().replace(
+            dtype="float32")
+
+    fb = fx["batch"]
+    out = []
+    for arch, ans in fx["configs"].items():
+        cfg = smoke(arch)
+        bundle = lm_registry.build_model(cfg, flash_blk=fb["flash_blk"], device=CARD)
+        params = lm_params_from_numpy(cfg, seeded_numpy_params(cfg, fb["seed"]), device=CARD)
+        batch = lm_train.on_device(fixture_batch(cfg, fb["seed"], fb["b"], fb["s"]), CARD,
+                                   torch.float32)
+        loss, metrics, grads = lm_train.loss_and_grads(bundle, params, batch)
+        got = {"loss": float(loss), "grad_norm": float(lm_adamw.global_norm(grads)),
+               **{f"metrics.{k}": float(v) for k, v in metrics.items()}}
+        want = {"loss": ans["loss"], "grad_norm": ans["grad_norm"],
+                **{f"metrics.{k}": v for k, v in ans["metrics"].items()}}
+        if got.keys() != want.keys():
+            fail(f"train fixture {arch}: metrics {sorted(got)} != {sorted(want)}")
+        errs = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-3) for k in want}
+        if max(errs.values()) >= 1e-5:
+            fail(f"train fixture {arch}: {got} vs the reference's {want}")
+        out.append(f"{arch} {max(errs.values()):.2g}")
+    st = fx["train_steps"]
+    cfg = smoke(st["config"])
+    bundle = lm_build(cfg)
+    params = lm_params_from_numpy(cfg, seeded_numpy_params(cfg, st["seed"]), device=CARD)
+    opt = lm_adamw.AdamW(lm_adamw.AdamWConfig(**st["opt"]))
+    step_fn = lm_train.make_train_step(bundle, opt, microbatch=st["microbatch"],
+                                       compress=st["compress"])
+    state, residual = opt.init(params), None
+    pipe = lm_tokens.TokenPipeline(cfg.vocab_size, st["global_batch"], st["seq_len"],
+                                   seed=st["seed"])
+    losses = []
+    for i in range(st["n_steps"]):
+        params, state, residual, m = step_fn(
+            params, state, residual, lm_train.on_device(pipe.batch(i), CARD, torch.float32))
+        losses.append(float(m["loss"]))
+    if not np.allclose(losses, st["losses"], rtol=1e-5, atol=0):
+        fail(f"train fixture steps: {losses} vs the reference's {st['losses']}")
+    print(f"lm train [{name}] the JAX package's training answers (tests/fixtures/torch_lm/"
+          f"train.json) on the card: loss, metrics and gradient norm max rel err "
+          + ", ".join(out) + f"; 3 steps (microbatch 2, int8) losses {losses} (rtol 1e-5)",
+          flush=True)
+
+
+def lm_train_restart(name) -> None:
+    """``train()`` on the card at ``_scaled(llama3.2-3b, 0.05)``: 10 steps,
+    a checkpoint every 4, a crash injected after step 6 and resumed; the
+    resumed losses equal an uninterrupted run's (rtol 1e-6)."""
+    cfg = lm_train._scaled(get_config("llama3.2-3b"), 0.05)
+    kw = dict(global_batch=4, seq_len=128, ckpt_every=4, seed=SEED, log_every=100, device=CARD)
+    run = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):  # train()'s own JSON lines
+            try:
+                lm_train.train(cfg, steps=10, run_dir=f"{run}/a", failure_at=6, **kw)
+                fail("train(failure_at=6) did not crash")
+            except InjectedFailure:
+                pass
+            resumed = lm_train.train(cfg, steps=10, run_dir=f"{run}/a", **kw)
+            whole = lm_train.train(cfg, steps=10, run_dir=f"{run}/b", **kw)
+    finally:
+        shutil.rmtree(run, ignore_errors=True)
+    ref = {h["step"]: h["loss"] for h in whole}
+    if [h["step"] for h in resumed] != list(range(4, 10)) or not all(
+            np.isclose(h["loss"], ref[h["step"]], rtol=1e-6, atol=0) for h in resumed):
+        fail(f"train() resumed on the card: {[(h['step'], h['loss']) for h in resumed]} "
+             f"vs uninterrupted {ref}")
+    print(f"lm train [{name}] train() {cfg.n_layers} layers d={cfg.d_model} bfloat16: crash "
+          f"after step 6, resumed from the step-4 checkpoint: losses of steps 4-9 equal the "
+          f"uninterrupted run's (rtol 1e-6): {[round(h['loss'], 4) for h in resumed]}",
+          flush=True)
+
+
+def phase_lm_train(name, stats) -> None:
+    """Phase 12: the LM half's training path on the card."""
+    lm_free()
+    print(f"LM training: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated "
+          f"after phases 1-11", flush=True)
+    lm_train_main(name, stats)
+    lm_train_card_equals_cpu(name)
+    def token_batches(cfg):
+        pipe = lm_tokens.TokenPipeline(cfg.vocab_size, FAMILY_B, FAMILY_S, seed=SEED)
+        return [pipe.batch(i) for i in range(2)]
+
+    zamba = get_config("zamba2-2.7b").replace(n_layers=2, shared_attn_period=2)
+    rwkv = get_config("rwkv6-1.6b").replace(n_layers=2)
+    whisper = get_config("whisper-tiny")
+    audio = lm_tokens.EmbeddingPipeline(whisper.d_model, FAMILY_B, WHISPER_FRAMES,
+                                        whisper.vocab_size, seed=SEED)
+    for label, cfg, batches in (
+            ("zamba2-2.7b depth 2 (one group of 2 + the shared block)", zamba,
+             token_batches(zamba)),
+            ("rwkv6-1.6b depth 2", rwkv, token_batches(rwkv)),
+            ("whisper-tiny (4 + 4 layers, 1,500 frames)", whisper,
+             [audio.batch(i, kind="audio") for i in range(2)])):
+        lm_train_family(label, cfg, batches, name, stats)
+    print(f"lm train [{name}] deepseek-v3-671b is left out: even at depth 2 its ~14.5 B "
+          f"parameters need ~116 GB of float32 moments (the card has 80 GB)", flush=True)
+    lm_train_fixture(name)
+    lm_train_restart(name)
+    for line in stats["lm_train"]:
+        print("lm train " + json.dumps(line), flush=True)
+
+
 def kernel_entry(name, source, launches, err, ms, plain_ms, bnd, by) -> dict:
     """One object of the kernels line: ``source`` a file of kernels/csrc,
     every time measured in this run, no single PyTorch call to compare."""
@@ -2695,6 +3079,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_lm_profiles(name, stats)
     print(f"LM profiles {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_lm_train(name, stats)
+    print(f"LM training phase {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     lines = [stats["kernel_line"], stats["soft_kernel_line"], *stats["variant_lines"],

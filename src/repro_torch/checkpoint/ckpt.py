@@ -2,7 +2,11 @@
 
 The port of ``repro.checkpoint.ckpt``, on trees of nested dicts, lists,
 tuples and namedtuples whose leaves are tensors, numpy arrays or numbers
-(``None`` is an empty subtree).  The format is the JAX package's: one
+(``None`` is an empty subtree).  The LM half's JAX-layout trees
+(``repro_torch.models.common``) checkpoint as the JAX package's parameter
+pytrees: a ``Record`` as its NamedTuple (``.field``, in field order) and a
+``Stack`` of per-layer tensors as one stacked leaf.  The format is the
+JAX package's: one
 ``.npz`` per step holding every leaf under its key path — exactly
 ``jax.tree_util.keystr`` of the same structure (``['params']['w']``,
 ``[0]``, ``.field``, dict keys in sorted order) — plus a small JSON
@@ -29,6 +33,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.models.common import Record, Stack
+
 _STEP_FILE = re.compile(r"step_(\d+)\.npz")
 
 
@@ -40,8 +46,12 @@ def _leaves(tree: Any, path: str = "") -> list[tuple[str, Any]]:
     """(key path, leaf) pairs in the JAX package's flattening order."""
     if tree is None:
         return []
+    if isinstance(tree, Record):
+        return [kv for f, v in tree.items() for kv in _leaves(v, f"{path}.{f}")]
     if isinstance(tree, dict):
         return [kv for k in sorted(tree) for kv in _leaves(tree[k], f"{path}[{k!r}]")]
+    if isinstance(tree, Stack):
+        return [(path, tree)]
     if _is_namedtuple(tree):
         return [kv for f, v in zip(tree._fields, tree) for kv in _leaves(v, f"{path}.{f}")]
     if isinstance(tree, (list, tuple)):
@@ -53,8 +63,12 @@ def _map_leaves(fn: Callable[[str, Any], Any], tree: Any, path: str = "") -> Any
     """``tree`` with each leaf replaced by ``fn(key path, leaf)``."""
     if tree is None:
         return None
+    if isinstance(tree, Record):
+        return Record((f, _map_leaves(fn, v, f"{path}.{f}")) for f, v in tree.items())
     if isinstance(tree, dict):
         return {k: _map_leaves(fn, tree[k], f"{path}[{k!r}]") for k in sorted(tree)}
+    if isinstance(tree, Stack):
+        return fn(path, tree)
     if _is_namedtuple(tree):
         return type(tree)(*(_map_leaves(fn, v, f"{path}.{f}")
                             for f, v in zip(tree._fields, tree)))
@@ -65,7 +79,10 @@ def _map_leaves(fn: Callable[[str, Any], Any], tree: Any, path: str = "") -> Any
 
 def _host_copy(leaf) -> np.ndarray:
     """A host numpy copy of ``leaf`` that npz can store (float32 for the
-    dtypes it cannot), taken now: later in-place writes do not reach it."""
+    dtypes it cannot), taken now: later in-place writes do not reach it.
+    A ``Stack`` is stacked on a leading axis."""
+    if isinstance(leaf, Stack):
+        return np.stack([_host_copy(x) for x in leaf])
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         try:
@@ -85,7 +102,13 @@ def _flatten(tree: Any) -> dict[str, np.ndarray]:
 def _restored(key: str, arr: np.ndarray, tmpl) -> Any:
     """``arr`` checked against the template leaf's shape and cast to its
     dtype: a tensor on the template tensor's device, else a numpy array
-    (a number's template is its 0-d array)."""
+    (a number's template is its 0-d array; a ``Stack``'s, a ``Stack`` of
+    its rows)."""
+    if isinstance(tmpl, Stack):
+        if arr.shape[:1] != (len(tmpl),):
+            raise ValueError(f"shape mismatch for {key}: ckpt {arr.shape} vs model a stack "
+                             f"of {len(tmpl)}")
+        return Stack(_restored(key, a, t) for a, t in zip(arr, tmpl))
     if not hasattr(tmpl, "shape"):
         tmpl = np.asarray(tmpl)
     if tuple(arr.shape) != tuple(tmpl.shape):

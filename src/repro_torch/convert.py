@@ -23,6 +23,11 @@ leaves on a leading layer axis (the hybrid's mamba leaves two deep, (G, P,
 ...)).  Both directions are exact, bfloat16 included.
 ``seeded_numpy_params`` makes such a tree from a numpy seed, so both
 packages can be given the same weights without either's initialiser.
+The training state crosses the same way: gradients, a compression
+residual and the AdamW moments (``lm_tree_{from,to}_numpy``,
+``lm_opt_state_{from,to}_numpy``) in the layout of the parameters, and
+``lm_decay_mask`` is the decay mask taken on that layout, the JAX
+package's ``_decay_mask`` leaf for leaf.
 """
 
 from __future__ import annotations
@@ -49,8 +54,15 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.core.noc import NoCPlan
 from repro_torch.core.perfmodel import PerfReport
 from repro_torch.core.quantize import FeatureQuantizer
-from repro_torch.models.common import first_leaf, layout_leaves, layout_shape
+from repro_torch.models.common import (
+    Stack,
+    first_leaf,
+    layout_leaves,
+    layout_shape,
+    tree_map,
+)
 from repro_torch.models.registry import lm_model
+from repro_torch.optim.adamw import _decay_mask
 
 
 def from_state(
@@ -229,6 +241,12 @@ def lm_params_from_numpy(cfg, tree: Mapping, *, device=None):
 def lm_params_to_numpy(params) -> dict:
     """The inverse of ``lm_params_from_numpy``: the JAX layout as nested
     dicts of numpy arrays (bfloat16 as ml_dtypes' bfloat16)."""
+    return lm_tree_to_numpy(params.jax_layout())
+
+
+def lm_tree_to_numpy(tree) -> dict:
+    """A tree in the JAX layout (parameters, gradients, moments) as nested
+    dicts of numpy arrays, each ``Stack`` stacked."""
     def conv(node):
         if node is None:
             return None
@@ -236,9 +254,56 @@ def lm_params_to_numpy(params) -> dict:
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, list):
             return np.stack([conv(t) for t in node])
-        return _numpy_of(node)
+        return _numpy_of(node) if isinstance(node, torch.Tensor) else np.asarray(node)
 
-    return conv(params.jax_layout())
+    return conv(tree)
+
+
+def _unstacked(src: torch.Tensor, leaf):
+    """``src`` split along its stacked axes as ``leaf`` is (a ``Stack`` of
+    per-layer tensors)."""
+    if isinstance(leaf, list):
+        return Stack(_unstacked(src[i], x) for i, x in enumerate(leaf))
+    return src
+
+
+def lm_tree_from_numpy(cfg, tree: Mapping, *, device=None):
+    """A tree in the JAX layout of ``cfg``'s parameters (``Stack``s of
+    per-layer tensors) holding ``tree``'s numpy leaves on ``device`` (None:
+    the card), each in its array's dtype: gradients, a compression
+    residual, optimizer moments."""
+    dev = resolve_device(device)
+    layout = lm_model(cfg, device="meta").empty_params().jax_layout()
+    want = {path: layout_shape(leaf) for path, leaf in layout_leaves(layout)}
+    got = {path: np.shape(leaf) for path, leaf in layout_leaves(tree)}
+    if got != want:
+        raise ValueError(f"tree: leaves {got} != the layout's {want}")
+    return tree_map(lambda lay, arr: _unstacked(_tensor_of(np.asarray(arr)).to(dev), lay),
+                    layout, tree)
+
+
+def lm_opt_state_to_numpy(state: Mapping) -> dict:
+    """An ``AdamW`` state of the port as the JAX package's: {'m', 'v'} in the
+    parameters' JAX layout, 'step' an int32 scalar."""
+    return {"m": lm_tree_to_numpy(state["m"]), "v": lm_tree_to_numpy(state["v"]),
+            "step": np.asarray(int(state["step"]), np.int32)}
+
+
+def lm_opt_state_from_numpy(cfg, state: Mapping, *, device=None) -> dict:
+    """The inverse of ``lm_opt_state_to_numpy`` on ``device`` (None: the
+    card); the moments keep their arrays' dtype."""
+    dev = resolve_device(device)
+    return {"m": lm_tree_from_numpy(cfg, state["m"], device=dev),
+            "v": lm_tree_from_numpy(cfg, state["v"], device=dev),
+            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                                 device=dev)}
+
+
+def lm_decay_mask(params) -> dict:
+    """The weight-decay mask of a port model (1.0 on the leaves of ndim >= 2
+    in the JAX layout, where per-layer norm scales are stacked to 2-D)
+    as nested dicts of float32 numpy scalars."""
+    return lm_tree_to_numpy(tree_map(np.float32, _decay_mask(params)))
 
 
 _NORM_KEYS = frozenset({"ln1", "ln2", "post_ln1", "post_ln2", "final_norm", "q_norm",

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import get_config
+from repro_torch.launch.train import _scaled
 from repro_torch.models.registry import LMBundle, build_model
 
 
@@ -114,26 +115,6 @@ def teacher_forced(bundle: LMBundle, params, batch: dict, tokens) -> torch.Tenso
             logits, cache = bundle.decode_step(params, cache, tokens[:, i], s + i)
             out.append(logits)
         return torch.stack(out)
-
-
-def _scaled(cfg, scale: float):
-    """A config cut to ``scale`` of its widths and depth (a copy of
-    ``repro.launch.train._scaled`` until the port's trainer lands)."""
-    if scale >= 1.0:
-        return cfg
-    d = max(64, int(cfg.d_model * scale) // 16 * 16)
-    heads = max(2, int(cfg.n_heads * scale))
-    while d % heads:
-        heads -= 1
-    kv = max(1, min(cfg.n_kv_heads, heads))
-    while heads % kv:
-        kv -= 1
-    return cfg.replace(
-        n_layers=max(2, int(cfg.n_layers * scale)),
-        d_model=d, n_heads=heads, n_kv_heads=kv, head_dim=0,
-        d_ff=max(128, int(cfg.d_ff * scale) // 16 * 16),
-        vocab_size=min(cfg.vocab_size, 8192),
-    )
 
 
 def main(argv: list[str] | None = None) -> None:

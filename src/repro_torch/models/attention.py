@@ -30,6 +30,7 @@ class AttnParams(nn.Module):
     """wq (d, H*D), wk/wv (d, KV*D), wo (H*D, d); q_norm/k_norm (D,) rms
     scales when ``qk_norm``, else None."""
 
+    NAMEDTUPLE = True  # a NamedTuple in the JAX package
     FIELDS = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
 
     def __init__(self, d_model: int, n_heads: int, n_kv: int, head_dim: int, dtype,

@@ -16,6 +16,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -152,6 +153,21 @@ def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``; under ``cfg.remat`` while autograd records, its
+    activations are recomputed in the backward pass instead of kept
+    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of a
+    scan body).  Inference forwards run ``fn`` as it is."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+# ---------------------------------------------------------------------------
 # Losses
 # ---------------------------------------------------------------------------
 
@@ -174,9 +190,22 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+class Record(dict):
+    """A parameter NamedTuple of the JAX package (``AttnParams``,
+    ``FFNParams``, ...) in the JAX layout: its fields in their declared
+    order, in which the JAX package flattens them (dicts flatten in sorted
+    key order)."""
+
+
+class Stack(list):
+    """A stacked leaf of the JAX layout: the per-layer tensors of one
+    field, stacked on a leading axis in the JAX layout (a Stack of Stacks:
+    two axes deep)."""
+
+
 def _nested(fn, x):
     """``fn`` over the modules of ``x``: a module or a (nested) list of them."""
-    return [_nested(fn, v) for v in x] if isinstance(x, list) else fn(x)
+    return Stack(_nested(fn, v) for v in x) if isinstance(x, list) else fn(x)
 
 
 def first_leaf(x):
@@ -187,13 +216,14 @@ def first_leaf(x):
 
 
 def stacked_layout(mods) -> dict:
-    """The JAX layout of one module type: a dict with, for each of its
-    ``FIELDS``, None, a nested dict, or its tensor.  ``mods`` is one module
-    (tensor leaves), a list of modules (the layers of a stack: a list of
-    per-layer tensors, stacked on a leading axis in the JAX layout) or a
-    list of lists (stacked two deep)."""
-    out = {}
+    """The JAX layout of one module type: a dict (a ``Record`` where the
+    JAX package has a NamedTuple: the module class sets ``NAMEDTUPLE``)
+    with, for each of its ``FIELDS``, None, a nested dict, or its tensor.
+    ``mods`` is one module (tensor leaves), a list of modules (the layers
+    of a stack: a ``Stack`` of per-layer tensors, stacked on a leading
+    axis in the JAX layout) or a list of lists (stacked two deep)."""
     first = first_leaf(mods)
+    out = Record() if getattr(first, "NAMEDTUPLE", False) else {}
     for name in first.FIELDS:
         val = getattr(first, name)
         if val is None:
@@ -223,3 +253,73 @@ def layout_shape(leaf) -> tuple[int, ...]:
     if isinstance(leaf, list):
         return (len(leaf),) + layout_shape(leaf[0])
     return tuple(leaf.shape)
+
+
+# ---------------------------------------------------------------------------
+# Trees in the JAX layout (parameters, gradients, optimizer moments)
+# ---------------------------------------------------------------------------
+
+
+def _keys(tree: dict) -> list:
+    """A node's keys in the JAX package's flatten order: a dict's sorted, a
+    ``Record``'s in its field order."""
+    return list(tree) if isinstance(tree, Record) else sorted(tree)
+
+
+def tree_leaves(tree, path: tuple = ()):
+    """(path, leaf) of every leaf of a JAX-layout tree that is not None, in
+    the JAX package's flatten order.  A leaf is a tensor, an array or a
+    ``Stack``."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k in _keys(tree):
+            yield from tree_leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def tree_map(fn, tree, *rest):
+    """``fn(leaf, *matching leaves of rest)`` over the leaves of a
+    JAX-layout tree (a ``Stack`` is one leaf), in flatten order, into its
+    structure (None kept)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return type(tree)((k, tree_map(fn, tree[k], *(r[k] for r in rest)))
+                          for k in _keys(tree))
+    return fn(tree, *rest)
+
+
+def leaf_tensors(leaf) -> list:
+    """The tensors of one leaf: itself, or a ``Stack``'s in stack order."""
+    if isinstance(leaf, list):
+        return [t for x in leaf for t in leaf_tensors(x)]
+    return [leaf]
+
+
+def stack_map(fn, leaf, *rest):
+    """``fn`` over the tensors of one leaf (and the matching tensors of
+    ``rest``), in the leaf's structure."""
+    if isinstance(leaf, list):
+        return Stack(stack_map(fn, *xs) for xs in zip(leaf, *rest))
+    return fn(leaf, *rest)
+
+
+def tree_tensors(tree) -> list:
+    """Every tensor of a JAX-layout tree, leaves in flatten order and each
+    ``Stack``'s tensors in stack order."""
+    return [t for _, leaf in tree_leaves(tree) for t in leaf_tensors(leaf)]
+
+
+def tree_zeros(tree, dtype: torch.dtype) -> dict:
+    """Zeros of ``dtype`` beside every tensor of ``tree``, in its structure."""
+    return tree_map(lambda leaf: stack_map(
+        lambda t: torch.zeros(t.shape, dtype=dtype, device=t.device), leaf), tree)
+
+
+def tree_like(tree, tensors) -> dict:
+    """``tensors`` (in ``tree_tensors(tree)``'s order) in ``tree``'s
+    structure."""
+    it = iter(tensors)
+    return tree_map(lambda leaf: stack_map(lambda _: next(it), leaf), tree)

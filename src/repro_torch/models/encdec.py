@@ -11,7 +11,10 @@ over per-layer modules where the JAX package ``lax.scan``s.
 
 The cache is the reference's dict: ``k``/``v`` (L, B, S, KV, D) of the
 decoder's self-attention, written in place by decode, and ``xk``/``xv``
-(L, B, T, KV, D) of the cross-attention, read whole.
+(L, B, T, KV, D) of the cross-attention, read whole.  Under ``cfg.remat``
+each encoder and decoder layer's activations are recomputed in the
+backward pass while autograd records (``common.remat``, the reference's
+``jax.checkpoint`` of its scan bodies).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from repro_torch.models.attention import (
     decode_attention,
 )
 from repro_torch.models.ffn import MLPParams, mlp_forward
+from repro_torch.models.transformer import _chunked_ce
 
 
 def sinusoid_positions(length: int, dim: int) -> np.ndarray:
@@ -125,10 +129,13 @@ class EncDecLM:
         x = frames + table.to(frames.dtype)[None]
         positions = torch.arange(t, device=frames.device)
         for prm in params.enc:
-            a, _ = attention_forward(prm.attn, common.rms_norm(x, prm.ln1, cfg.norm_eps),
-                                     **self._attn_kw(positions, causal=False))
-            x = x + a
-            x = x + mlp_forward(prm.mlp, common.rms_norm(x, prm.ln2, cfg.norm_eps))
+            def body(h, prm=prm):
+                a, _ = attention_forward(prm.attn, common.rms_norm(h, prm.ln1, cfg.norm_eps),
+                                         **self._attn_kw(positions, causal=False))
+                h = h + a
+                return h + mlp_forward(prm.mlp, common.rms_norm(h, prm.ln2, cfg.norm_eps))
+
+            x = common.remat(cfg, body, x)
         return common.rms_norm(x, params.enc_norm, cfg.norm_eps)
 
     # -- decoder --------------------------------------------------------------
@@ -142,24 +149,38 @@ class EncDecLM:
         positions = torch.arange(s, device=x.device)
         cache = {"k": [], "v": [], "xk": [], "xv": []}
         for prm in params.dec:
-            a, kv = attention_forward(prm.attn, common.rms_norm(x, prm.ln1, cfg.norm_eps),
-                                      **self._attn_kw(positions, causal=True))
-            x = x + a
-            # cross attention over encoder states (kv projected per layer)
-            xk = _split_heads(enc @ prm.xattn.wk, cfg.n_kv_heads)
-            xv = _split_heads(enc @ prm.xattn.wv, cfg.n_kv_heads)
-            c, _ = attention_forward(prm.xattn, common.rms_norm(x, prm.ln_x, cfg.norm_eps),
-                                     **self._attn_kw(positions, causal=False),
-                                     kv_override=(xk, xv))
-            x = x + c
-            x = x + mlp_forward(prm.mlp, common.rms_norm(x, prm.ln2, cfg.norm_eps))
+            def body(h, prm=prm):
+                a, kv = attention_forward(prm.attn, common.rms_norm(h, prm.ln1, cfg.norm_eps),
+                                          **self._attn_kw(positions, causal=True))
+                h = h + a
+                # cross attention over encoder states (kv projected per layer)
+                xk = _split_heads(enc @ prm.xattn.wk, cfg.n_kv_heads)
+                xv = _split_heads(enc @ prm.xattn.wv, cfg.n_kv_heads)
+                c, _ = attention_forward(prm.xattn, common.rms_norm(h, prm.ln_x, cfg.norm_eps),
+                                         **self._attn_kw(positions, causal=False),
+                                         kv_override=(xk, xv))
+                h = h + c
+                h = h + mlp_forward(prm.mlp, common.rms_norm(h, prm.ln2, cfg.norm_eps))
+                return h, kv[0], kv[1], xk, xv
+
+            x, *kvx = common.remat(cfg, body, x)
             if collect_cache:
-                for key, val in zip(("k", "v", "xk", "xv"), (*kv, xk, xv)):
+                for key, val in zip(("k", "v", "xk", "xv"), kvx):
                     cache[key].append(val)
         x = common.rms_norm(x, params.final_norm, cfg.norm_eps)
         if not collect_cache:
             return x, None
         return x, {k: torch.stack(v) for k, v in cache.items()}
+
+    # -- training ---------------------------------------------------------------
+
+    def loss_fn(self, params: EncDecParams, batch: dict) -> tuple[torch.Tensor, dict]:
+        """batch: {'frames' (B,T,d), 'tokens' (B,S), 'labels' (B,S)}.  The
+        head is tied: ``embed.T``.  Returns (loss, {'ce', 'loss'})."""
+        enc = self.encode(params, batch["frames"])
+        hidden, _ = self._decoder_states(params, batch["tokens"], enc)
+        loss = _chunked_ce(hidden, params.embed.T, batch["labels"])
+        return loss, {"ce": loss, "loss": loss}
 
     # -- serving ---------------------------------------------------------------
 

@@ -13,6 +13,7 @@ from repro_torch.models import common
 class FFNParams(nn.Module):
     """w_gate (d, f), w_up (d, f), w_down (f, d)."""
 
+    NAMEDTUPLE = True  # a NamedTuple in the JAX package
     FIELDS = ("w_gate", "w_up", "w_down")
 
     def __init__(self, d_model: int, d_ff: int, dtype, *, device, generator=None):
@@ -32,6 +33,7 @@ class MLPParams(nn.Module):
     """Ungated two-matrix MLP (whisper-style fc1/fc2): w1 (d, f), b1 (f,),
     w2 (f, d), b2 (d,)."""
 
+    NAMEDTUPLE = True  # a NamedTuple in the JAX package
     FIELDS = ("w1", "b1", "w2", "b2")
 
     def __init__(self, d_model: int, d_ff: int, dtype, *, device, generator=None):

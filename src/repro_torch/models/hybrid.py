@@ -11,9 +11,11 @@ Execution: a Python loop over the G = n_layers / period groups, each a
 loop over its P mamba layers and then one application of the shared
 block, where the JAX package nests two ``lax.scan``s over (G, P, ...)
 stacked parameters.  ``mamba[g][i]`` is layer i of group g; the JAX
-layout (``HybridParams.jax_layout``) stacks them two deep.  The reference's
-``jax.checkpoint`` under ``cfg.remat`` is a training device and is left
-out here.
+layout (``HybridParams.jax_layout``) stacks them two deep.  Under
+``cfg.remat`` each mamba layer's activations are recomputed in the
+backward pass while autograd records (``common.remat``), as the reference
+``jax.checkpoint``s its mamba scan body; ``loss_fn`` runs through
+``hidden_states``, never the in-place serving paths.
 
 The cache is the reference's dict: ``ssm`` (G, P, B, H, Pd, N) float32,
 ``conv`` (G, P, B, W-1, C), ``k``/``v`` (G, B, S, KV, D).  Decode writes
@@ -31,6 +33,7 @@ from repro_torch.models.attention import AttnParams, attention_decode, attention
 from repro_torch.models.ffn import FFNParams, ffn_forward
 from repro_torch.models.mamba2 import Mamba2Params, mamba2_decode, mamba2_forward
 from repro_torch.models.mamba2 import dims as mamba_dims
+from repro_torch.models.transformer import _chunked_ce
 
 
 class SharedBlock(nn.Module):
@@ -125,9 +128,12 @@ class HybridLM:
         for g, group in enumerate(params.mamba):
             states, tails = [], []
             for i, prm in enumerate(group):
-                out, state, tail = mamba2_forward(
-                    prm, common.rms_norm(x, params.mamba_ln[g, i], cfg.norm_eps), cfg)
-                x = x + out
+                def body(h, prm=prm, ln=params.mamba_ln[g, i]):
+                    out, state, tail = mamba2_forward(prm, common.rms_norm(h, ln, cfg.norm_eps),
+                                                      cfg)
+                    return h + out, state, tail
+
+                x, state, tail = common.remat(cfg, body, x)
                 states.append(state)
                 tails.append(tail)
             x, kv = self._shared_block(params.shared, x, positions)
@@ -141,6 +147,15 @@ class HybridLM:
             return x, None
         return x, {"ssm": torch.stack(ssm), "conv": torch.stack(conv),
                    "k": torch.stack(ks), "v": torch.stack(vs)}
+
+    def loss_fn(self, params: HybridParams, batch: dict) -> tuple[torch.Tensor, dict]:
+        """batch: {'tokens' (B,S), 'labels' (B,S)}.  Returns (loss, {'ce',
+        'loss'})."""
+        x = params.embed[batch["tokens"]]
+        positions = torch.arange(x.shape[1], device=x.device)
+        hidden, _ = self.hidden_states(params, x, positions)
+        loss = _chunked_ce(hidden, params.lm_head, batch["labels"])
+        return loss, {"ce": loss, "loss": loss}
 
     # -- serving ---------------------------------------------------------------
 

@@ -10,6 +10,9 @@ float32 inter-chunk state where the JAX package ``lax.scan``s, so the
 (n_groups=1): B and C are shared across heads.
 
 ``a_log``, ``d_skip`` and ``dt_bias`` are float32 in every model dtype.
+The intra-chunk decay masks its exponent before the exp (the reference
+masks after it, and at chunk 128 its backward overflows to NaN); the
+forward's bits are the reference formula's.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ class Mamba2Params(nn.Module):
     conv, conv_b (conv_dim,), a_log/d_skip/dt_bias (H,) float32, norm (di,)
     gated RMSNorm scale, out_proj (di, d)."""
 
+    NAMEDTUPLE = True  # a NamedTuple in the JAX package
     FIELDS = ("in_proj", "conv_w", "conv_b", "a_log", "d_skip", "dt_bias", "norm",
               "out_proj")
 
@@ -77,6 +81,16 @@ def ssd_chunk(s: int, chunk: int) -> int:
     return chunk
 
 
+def _intra_decay(cs: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
+    """L[i, j] = exp(cs_i - cs_j) for i >= j, else 0 (per head): cs (B, Q,
+    H) -> (B, Q, Q, H).  The exponent is masked before the exp: above the
+    diagonal it is positive and overflows at chunk 128, where the
+    reference's exp-then-mask backward is 0 * inf = NaN; exp(-inf) = 0
+    keeps the forward's bits."""
+    li = cs[:, :, None, :] - cs[:, None, :, :]
+    return torch.exp(torch.where(tri[None, :, :, None], li, -torch.inf))
+
+
 def _ssd_chunked(
     xh: torch.Tensor,  # (B, S, H, P) inputs
     dt: torch.Tensor,  # (B, S, H) softplus'd step sizes
@@ -107,9 +121,7 @@ def _ssd_chunked(
         cs = torch.cumsum(aq, dim=1)  # (B,Q,H) running log-decay
         total = cs[:, -1]  # (B,H)
 
-        # intra-chunk: L[i,j] = exp(cs_i - cs_j) for i >= j (per head)
-        li = cs[:, :, None, :] - cs[:, None, :, :]  # (B,Q,Q,H)
-        lmat = torch.where(tri[None, :, :, None], torch.exp(li), 0.0)
+        lmat = _intra_decay(cs, tri)  # (B,Q,Q,H)
         cb = torch.einsum("bqn,bjn->bqj", cq, bq)  # (B,Q,Q) shared across heads
         # "bqj,bqjh,bjh,bjhp->bqhp" as explicit products
         m = cb[:, :, :, None] * lmat * dq[:, None, :, :]  # (B,Q,Q,H)

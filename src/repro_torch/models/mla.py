@@ -23,6 +23,7 @@ class MLAParams(nn.Module):
     wdkv (d, kv_lora), kv_ln (kv_lora,), wuk (kv_lora, H*nope),
     wuv (kv_lora, H*v_dim), wkr (d, rope), wo (H*v_dim, d)."""
 
+    NAMEDTUPLE = True  # a NamedTuple in the JAX package
     FIELDS = ("wdq", "q_ln", "wuq", "wdkv", "kv_ln", "wuk", "wuv", "wkr", "wo")
 
     def __init__(self, cfg, dtype, *, device, generator=None):

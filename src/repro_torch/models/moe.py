@@ -34,6 +34,7 @@ class MoEParams(nn.Module):
     """router (d, E) float32, w_gate/w_up (E, d, f), w_down (E, f, d),
     shared: ``FFNParams`` of width f * n_shared or None."""
 
+    NAMEDTUPLE = True  # a NamedTuple in the JAX package
     FIELDS = ("router", "w_gate", "w_up", "w_down", "shared")
 
     def __init__(self, d_model: int, d_ff: int, n_experts: int, n_shared: int, dtype, *,

@@ -1,15 +1,15 @@
-"""Uniform model bundle: config -> (init, prefill, decode, specs).
+"""Uniform model bundle: config -> (init, loss, prefill, decode, specs).
 
 The port of ``repro.models.registry``.  ``build_model(cfg)`` returns an
-``LMBundle`` whose members are what the server consumes, on the card
-unless ``device="cpu"`` is given.  The shape stand-ins of the JAX bundle
+``LMBundle`` whose members are what the trainer and the server consume,
+on the card unless ``device="cpu"`` is given.  The shape stand-ins of the JAX bundle
 (``params_shape``, ``cache_shape``, ``input_specs``) are tensors on the
 ``meta`` device.  Every LM family is served: dense, moe and vlm by
 ``TransformerLM``, hybrid (zamba2) by ``HybridLM``, ssm (rwkv6) by
 ``RWKVLM`` and audio (whisper) by ``EncDecLM``.  A model's cache is the
 reference's: a list of per-segment (k, v) tuples, the hybrid's and
-whisper's dicts, rwkv's 3-tuple.  ``loss_fn`` comes with the training
-slice.
+whisper's dicts, rwkv's 3-tuple.  ``loss_fn(params, batch)`` returns
+(loss, metrics) with the reference's metric keys, for every family.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ class LMBundle:
     cfg: ModelConfig
     model: Any
     init_params: Callable  # (seed) -> params module on the model's device
+    loss_fn: Callable  # (params, batch) -> (loss, metrics)
     prefill: Callable  # (params, batch) -> (logits, cache)
     decode_step: Callable  # (params, cache, token, pos) -> (logits, cache)
     init_cache: Callable  # (batch, seq) -> cache
@@ -99,6 +100,7 @@ def build_model(cfg: ModelConfig, flash_blk: int = 512, *, device=None) -> LMBun
         cfg=cfg,
         model=m,
         init_params=m.init_params,
+        loss_fn=m.loss_fn,
         prefill=m.prefill,
         decode_step=m.decode_step,
         init_cache=m.init_cache,

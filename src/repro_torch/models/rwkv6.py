@@ -32,6 +32,7 @@ class RWKV6Params(nn.Module):
     ln_scale/ln_bias (d,) per-head group norm.  Channel mixing: mu_ck/mu_cr
     (d,), ck (d, d_ff), cv (d_ff, d), cr (d, d)."""
 
+    NAMEDTUPLE = True  # a NamedTuple in the JAX package
     FIELDS = ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "w0", "w_lora_a", "w_lora_b",
               "wr", "wk", "wv", "wg", "wo", "u", "ln_scale", "ln_bias",
               "mu_ck", "mu_cr", "ck", "cv", "cr")

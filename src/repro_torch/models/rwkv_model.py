@@ -5,7 +5,10 @@ recurrent cache for decode.
 
 The cache is the reference's 3-tuple (S (L, B, H, hd, hd) float32,
 x_prev_att (L, B, d), x_prev_ffn (L, B, d)); decode writes it in place.
-The input layer norm uses the float32 ``ln_in``/``ln_in_b``.
+The input layer norm uses the float32 ``ln_in``/``ln_in_b``.  Under
+``cfg.remat`` each layer's activations are recomputed in the backward
+pass while autograd records (``common.remat``, the reference's
+``jax.checkpoint`` of its scan body).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.models import common
 from repro_torch.models.rwkv6 import RWKV6Params, rwkv6_channel_mix, rwkv6_time_mix
+from repro_torch.models.transformer import _chunked_ce
 
 
 class RWKVParams(nn.Module):
@@ -73,11 +77,14 @@ class RWKVLM:
         cfg = self.cfg
         states, xp_atts, xp_ffns = [], [], []
         for prm, ln1, ln2 in zip(params.layers, params.ln1, params.ln2):
-            a, (s_new, xp_att) = rwkv6_time_mix(prm, common.rms_norm(x, ln1, cfg.norm_eps),
-                                                cfg)
-            x = x + a
-            f, xp_ffn = rwkv6_channel_mix(prm, common.rms_norm(x, ln2, cfg.norm_eps))
-            x = x + f
+            def body(h, prm=prm, ln1=ln1, ln2=ln2):
+                a, (s_new, xp_att) = rwkv6_time_mix(prm, common.rms_norm(h, ln1, cfg.norm_eps),
+                                                    cfg)
+                h = h + a
+                f, xp_ffn = rwkv6_channel_mix(prm, common.rms_norm(h, ln2, cfg.norm_eps))
+                return h + f, s_new, xp_att, xp_ffn
+
+            x, s_new, xp_att, xp_ffn = common.remat(cfg, body, x)
             if collect_cache:
                 states.append(s_new)
                 xp_atts.append(xp_att)
@@ -86,6 +93,13 @@ class RWKVLM:
         if not collect_cache:
             return x, None
         return x, (torch.stack(states), torch.stack(xp_atts), torch.stack(xp_ffns))
+
+    def loss_fn(self, params: RWKVParams, batch: dict) -> tuple[torch.Tensor, dict]:
+        """batch: {'tokens' (B,S), 'labels' (B,S)}.  Returns (loss, {'ce',
+        'loss'})."""
+        hidden, _ = self.hidden_states(params, self._embed(params, batch["tokens"]))
+        loss = _chunked_ce(hidden, params.lm_head, batch["labels"])
+        return loss, {"ce": loss, "loss": loss}
 
     # -- serving ---------------------------------------------------------------
 

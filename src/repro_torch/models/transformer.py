@@ -15,8 +15,13 @@ JAX one: one (k, v) pair per segment, each (n_layers, B, S, KV, D); for MLA
 (ckv (n, B, S, kv_lora), k_rope (n, B, S, rope)).  Decode writes the new
 token into it in place.
 
-``loss_fn``, ``_chunked_ce`` and the MTP loss come with the training slice;
-the ``mtp`` parameters are created and carried across already.
+Training: ``loss_fn`` (token-mean cross entropy through ``_chunked_ce``,
+which never holds more than a (B, 512, V) block of logits; the MoE
+router's aux term and deepseek-v3's depth-1 multi-token prediction loss)
+runs through ``hidden_states`` only, never the in-place serving paths.
+Under ``cfg.remat`` each layer's activations are recomputed in the
+backward pass (``common.remat``), where the JAX package ``jax.checkpoint``s
+its scan body.
 """
 
 from __future__ import annotations
@@ -284,8 +289,11 @@ class TransformerLM:
             windows, thetas = layer_meta(cfg, n, off)
             ks, vs = [], []
             for i, prm in enumerate(seg):
-                x, kv, aux = _block_forward(cfg, kind, x, prm, int(windows[i]),
-                                            float(thetas[i]), positions, self.flash_blk)
+                def body(h, prm=prm, window=int(windows[i]), theta=float(thetas[i]), kind=kind):
+                    return _block_forward(cfg, kind, h, prm, window, theta, positions,
+                                          self.flash_blk)
+
+                x, kv, aux = common.remat(cfg, body, x)
                 aux_total = aux_total + aux
                 if collect_cache:
                     ks.append(kv[0])
@@ -294,6 +302,45 @@ class TransformerLM:
                 caches.append((torch.stack(ks), torch.stack(vs)))
         x = common.rms_norm(x, params.final_norm, cfg.norm_eps)
         return x, caches, aux_total
+
+    # -- losses --------------------------------------------------------------
+
+    def loss_fn(self, params: TransformerParams, batch: dict) -> tuple[torch.Tensor, dict]:
+        """batch: {'tokens' (B,S) | 'embeds' (B,S,d), 'labels' (B,S)}.
+        Returns (loss, {'ce', 'aux', ['mtp'], 'loss'})."""
+        cfg = self.cfg
+        if cfg.embeddings_input:
+            x = batch["embeds"]
+        else:
+            x = self.embed_tokens(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        hidden, _, aux = self.hidden_states(params, x, positions)
+        loss = _chunked_ce(hidden, self._head(params), batch["labels"])
+        metrics = {"ce": loss, "aux": aux}
+        if cfg.is_moe:
+            loss = loss + cfg.router_aux_coef * aux
+        if cfg.mtp_depth > 0 and not cfg.embeddings_input:
+            mtp_loss = self._mtp_loss(params, hidden, batch, positions)
+            loss = loss + 0.3 * mtp_loss
+            metrics["mtp"] = mtp_loss
+        metrics["loss"] = loss
+        return loss, metrics
+
+    def _mtp_loss(self, params: TransformerParams, hidden, batch, positions):
+        """DeepSeek-V3 multi-token prediction (depth 1): one extra block over
+        [h_t ; emb(t+1)] predicting token t+2."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        emb_next = self.embed_tokens(params, torch.roll(tokens, -1, dims=1))
+        h = torch.cat([hidden, emb_next], dim=-1) @ params.mtp.proj
+        windows, thetas = layer_meta(cfg, 1)
+        h, _, _ = _block_forward(cfg, "dense", h, params.mtp.block[0], int(windows[0]),
+                                 float(thetas[0]), positions, self.flash_blk)
+        h = common.rms_norm(h, params.mtp.ln, cfg.norm_eps)
+        labels2 = torch.roll(labels, -1, dims=1)
+        mask = torch.ones(labels2.shape, dtype=torch.float32, device=labels2.device)
+        mask[:, -2:] = 0.0
+        return _chunked_ce(h, self._head(params), labels2, mask=mask)
 
     # -- serving --------------------------------------------------------------
 
@@ -348,6 +395,28 @@ class TransformerLM:
         x = common.rms_norm(x, params.final_norm, cfg.norm_eps)
         logits = x[:, 0, :] @ self._head(params)
         return logits.float(), cache
+
+
+def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                mask: torch.Tensor | None = None, chunk: int = 512) -> torch.Tensor:
+    """Cross entropy with the (B, chunk, V) logits block looped over the
+    sequence so the full (B, S, V) logits tensor never materializes (vocab
+    up to 262 K); S <= chunk or not a multiple of it takes one block."""
+    b, s, _ = hidden.shape
+    if s <= chunk or s % chunk:
+        return common.cross_entropy(hidden @ head, labels, mask)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(s // chunk):
+        cols = slice(c * chunk, (c + 1) * chunk)
+        logits = (hidden[:, cols] @ head).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, cols, None].long())[..., 0]
+        mc = (mask[:, cols].float() if mask is not None
+              else torch.ones((b, chunk), dtype=torch.float32, device=hidden.device))
+        tot = tot + torch.sum((logz - gold) * mc)
+        cnt = cnt + torch.sum(mc)
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -873,3 +873,159 @@ def test_lm_serve_command_on_the_card():
         env={**os.environ, "PYTHONPATH": str(root / "src")})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1].startswith("generated (4, 8) tokens in ")
+
+
+# -- the LM half's training path (eager torch ops on the card) ------------------
+
+LM_TRAIN = {"llama3.2-3b": "llama32_3b", "deepseek-v3-671b": "deepseek_v3",
+            "zamba2-2.7b": "zamba2_2p7b", "rwkv6-1.6b": "rwkv6_1p6b",
+            "whisper-tiny": "whisper_tiny"}
+
+
+def _loss_grads(bundle, params, batch):
+    """(loss, metrics, per-leaf gradient tensors, global norm) of one
+    loss_fn + backward."""
+    from repro_torch.launch.train import loss_and_grads, on_device
+    from repro_torch.models.common import leaf_tensors, tree_leaves
+    from repro_torch.optim.adamw import global_norm
+
+    loss, metrics, grads = loss_and_grads(bundle, params,
+                                          on_device(batch, bundle.device, torch.float32))
+    return (float(loss), {k: float(v) for k, v in metrics.items()},
+            [leaf_tensors(leaf) for _, leaf in tree_leaves(grads)], float(global_norm(grads)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(LM_TRAIN))
+def test_lm_train_fixture_replay_on_the_card(card, name):
+    """The JAX package's recorded training answers (tests/fixtures/torch_lm/
+    train.json) on the card in float32, TF32 off: loss, metrics and the
+    gradient norm within 1e-5 relative."""
+    import json
+
+    from _torch_lm_batch import lm_batch
+    from repro_torch.convert import lm_params_from_numpy, seeded_numpy_params
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fx = json.loads((LM_FIXTURE / "train.json").read_text())
+    fb, ans = fx["batch"], fx["configs"][name]
+    cfg = _lm_smoke(LM_TRAIN[name], dtype="float32")
+    bundle = build_model(cfg, flash_blk=fb["flash_blk"], device=card)
+    params = lm_params_from_numpy(cfg, seeded_numpy_params(cfg, fb["seed"]), device=card)
+    loss, metrics, _, gnorm = _loss_grads(bundle, params, lm_batch(cfg, fb["seed"], fb["b"],
+                                                                    fb["s"]))
+    assert abs(loss / ans["loss"] - 1) < 1e-5 and abs(gnorm / ans["grad_norm"] - 1) < 1e-5
+    assert metrics.keys() == ans["metrics"].keys()
+    for k, v in metrics.items():
+        assert abs(v - ans["metrics"][k]) <= 1e-5 * max(abs(ans["metrics"][k]), 1e-3), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(LM_TRAIN))
+def test_lm_train_card_equals_cpu(card, name):
+    """One set of seeded weights, float32, TF32 off: loss_fn + backward on the
+    card within 1e-5 (loss) and 1e-4 (each gradient leaf, max|d|/max|ref|)
+    of the port on the CPU; remat on the card gives the same gradients."""
+    from _torch_lm_batch import lm_batch
+    from repro_torch.convert import lm_params_from_numpy, seeded_numpy_params
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_smoke(LM_TRAIN[name], dtype="float32")
+    tree = seeded_numpy_params(cfg, 7)
+    batch = lm_batch(cfg, 7)
+    got = _loss_grads(build_model(cfg, flash_blk=16, device=card),
+                      lm_params_from_numpy(cfg, tree, device=card), batch)
+    ref = _loss_grads(build_model(cfg, flash_blk=16, device="cpu"),
+                      lm_params_from_numpy(cfg, tree, device="cpu"), batch)
+    assert abs(got[0] / ref[0] - 1) < 1e-5
+    for g, r in zip(got[2], ref[2]):
+        scale = max(float(t.abs().max()) for t in r)
+        err = max(float((a.cpu() - b).abs().max()) for a, b in zip(g, r))
+        assert err <= 1e-4 * scale
+    cfg_r = cfg.replace(remat=True)
+    again = _loss_grads(build_model(cfg_r, flash_blk=16, device=card),
+                        lm_params_from_numpy(cfg_r, tree, device=card), batch)
+    assert again[0] == got[0]
+    assert all(torch.equal(a, b) for g, h in zip(got[2], again[2]) for a, b in zip(g, h))
+
+
+@pytest.mark.gpu
+def test_lm_train_steps_on_the_card(card, tmp_path):
+    """bfloat16 llama smoke with remat: 3 train steps twice from one seed give
+    equal losses and bit-equal parameters; the recorded 3 steps (microbatch
+    2, int8 compression) within 1e-5 in float32; ``train()`` crashed after
+    step 6 resumes to an uninterrupted run's losses (rtol 1e-6)."""
+    import json
+
+    from repro_torch.convert import lm_params_from_numpy, seeded_numpy_params
+    from repro_torch.data import TokenPipeline
+    from repro_torch.ft.runtime import InjectedFailure
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_tensors
+    from repro_torch.optim.adamw import AdamW, AdamWConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_smoke("llama32_3b", remat=True)
+    pipe = TokenPipeline(cfg.vocab_size, 4, 64, seed=1)
+    runs = []
+    for _ in range(2):
+        bundle = build_model(cfg, device=card)
+        params = bundle.init_params(1)
+        opt = AdamW(AdamWConfig(warmup_steps=2, decay_steps=10))
+        step = ttrain.make_train_step(bundle, opt)
+        state = opt.init(params)
+        losses = []
+        for i in range(3):
+            params, state, _, m = step(params, state, None,
+                                       ttrain.on_device(pipe.batch(i), card, torch.bfloat16))
+            losses.append(float(m["loss"]))
+        runs.append((losses, [t.detach().clone() for t in tree_tensors(params.jax_layout())]))
+    assert runs[0][0] == runs[1][0] and all(np.isfinite(runs[0][0]))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+    st = json.loads((LM_FIXTURE / "train.json").read_text())["train_steps"]
+    cfg32 = _lm_smoke("llama32_3b", dtype="float32")
+    bundle = build_model(cfg32, device=card)
+    params = lm_params_from_numpy(cfg32, seeded_numpy_params(cfg32, st["seed"]), device=card)
+    opt = AdamW(AdamWConfig(**st["opt"]))
+    step = ttrain.make_train_step(bundle, opt, microbatch=st["microbatch"],
+                                  compress=st["compress"])
+    state, residual = opt.init(params), None
+    pipe = TokenPipeline(cfg32.vocab_size, st["global_batch"], st["seq_len"], seed=st["seed"])
+    losses = []
+    for i in range(st["n_steps"]):
+        params, state, residual, m = step(params, state, residual,
+                                          ttrain.on_device(pipe.batch(i), card, torch.float32))
+        losses.append(float(m["loss"]))
+    np.testing.assert_allclose(losses, st["losses"], rtol=1e-5)
+
+    kw = dict(global_batch=2, seq_len=32, ckpt_every=4, seed=3, log_every=100, device=card)
+    with pytest.raises(InjectedFailure):
+        ttrain.train(cfg, steps=10, run_dir=str(tmp_path / "a"), failure_at=6, **kw)
+    resumed = ttrain.train(cfg, steps=10, run_dir=str(tmp_path / "a"), **kw)
+    whole = {h["step"]: h["loss"] for h in ttrain.train(cfg, steps=10,
+                                                         run_dir=str(tmp_path / "b"), **kw)}
+    assert [h["step"] for h in resumed] == list(range(4, 10))
+    for h in resumed:
+        np.testing.assert_allclose(h["loss"], whole[h["step"]], rtol=1e-6)
+
+
+@pytest.mark.gpu
+def test_lm_train_command_on_the_card(tmp_path):
+    import os
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the H100)")
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-3b",
+         "--scale", "0.05", "--steps", "3", "--run-dir", str(tmp_path)],
+        capture_output=True, text=True, cwd=str(root), timeout=600,
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1].startswith("done: 3 steps in ")

@@ -68,12 +68,16 @@ def test_every_module_is_listed():
                  "repro_torch.models.registry", "repro_torch.models.mamba2",
                  "repro_torch.models.hybrid", "repro_torch.models.rwkv6",
                  "repro_torch.models.rwkv_model", "repro_torch.models.encdec",
-                 "repro_torch.launch.model_flops", "repro_torch.launch.serve"):
+                 "repro_torch.launch.model_flops", "repro_torch.launch.serve",
+                 "repro_torch.launch.train", "repro_torch.data.tokens",
+                 "repro_torch.optim", "repro_torch.optim.adamw",
+                 "repro_torch.optim.compress"):
         assert want in mods
 
 
 EXAMPLES = ("torch_quickstart", "torch_ingest_quickstart", "torch_xtime_serving",
-            "torch_xtime_cluster", "torch_xtime_multichip")
+            "torch_xtime_cluster", "torch_xtime_multichip", "torch_train_lm",
+            "torch_elastic_restart")
 
 
 def _exec_file(path: Path) -> str:
@@ -90,7 +94,7 @@ def _exec_file(path: Path) -> str:
 @pytest.mark.parametrize("entry", ["package", "chip_smoke", "examples"])
 def test_no_jax_and_no_repro_loaded(entry):
     """A fresh interpreter imports every port module (or chip_smoke.py, or
-    the port's five examples) and then holds no ``jax*`` and no
+    the port's examples) and then holds no ``jax*`` and no
     ``repro``/``repro.*`` module — the ``repro_torch`` prefix is not
     ``repro``."""
     if entry == "package":
@@ -171,6 +175,34 @@ def test_new_lm_families_default_to_the_card(monkeypatch, module):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert build_model(cfg, device="cpu").init_params(0).embed.device.type == "cpu"
+
+
+def test_lm_training_defaults_to_the_card(monkeypatch, tmp_path):
+    """``train``, its command line and the two training examples bind the
+    card without ``device``; with no card they raise before any step and
+    write nothing."""
+    import importlib.util
+
+    from repro_torch.configs import llama32_3b
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llama32_3b.smoke().replace(dtype="float32")
+    examples = []
+    for name in ("torch_train_lm", "torch_elastic_restart"):
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        examples.append(mod)
+    for call in (lambda: train.train(cfg, steps=2, global_batch=2, seq_len=16,
+                                     run_dir=str(tmp_path / "a")),
+                 lambda: train.main(["--arch", "llama3.2-3b", "--scale", "0.05", "--steps",
+                                     "1", "--run-dir", str(tmp_path / "b")]),
+                 lambda: examples[0].main(["--steps", "1", "--run-dir", str(tmp_path / "c")]),
+                 lambda: examples[1].main([])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not list(tmp_path.iterdir())
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
