@@ -164,7 +164,22 @@ Phases, one line (or block) each:
      moments alone outgrow the card); the JAX package's recorded training
      answers (tests/fixtures/torch_lm/train.json) replayed on the card;
      ``train()`` at ``_scaled(llama3.2-3b, 0.05)`` crashed after step 6 and
-     resumed from its step-4 checkpoint, equal to an uninterrupted run.
+     resumed from its step-4 checkpoint, equal to an uninterrupted run;
+ 13. the LM mesh (no kernel of its own: the same torch ops plus device
+     copies), on logical shards of the card: llama3.2-3b at full width and
+     depth as phase 12 trains it, ``place_params`` onto a (4, 2) mesh
+     (the bytes each shard holds == the specs' reckoning) and 4 steps of
+     ``make_train_step(mesh=)`` (ms a step beside phase 12's, the
+     optimizer's 8 shard updates, the card's busy share and kernels a
+     step over 1 more profiled step, tokens/s, peak), 2 steps again from
+     the seed with equal losses; llama3.2-3b cut to depth 2 in float32,
+     the mesh's first step within rtol 2e-4 of one device's; the
+     flash-decode merge at gemma3-1b's decode widths over a 32,768-position
+     cache on a (2, 4) mesh against ``decode_attention`` (1e-5 x scale,
+     ms of both); the all-to-all MoE at deepseek-v3's widths (E 256, top-8,
+     512 tokens, float32) on a (2, 4) mesh against ``moe_forward`` at cf
+     16 (output, aux, the gradients of x, the router and the shared
+     expert) and at cf 1.25 the dropped count, two runs equal, ms of both.
 
 Every check that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object of the kernels and the contract line
@@ -214,10 +229,18 @@ from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.models import common as lm_common  # noqa: E402
 from repro_torch.models.common import leaf_tensors as lm_leaf_tensors  # noqa: E402
 from repro_torch.models.common import tree_leaves as lm_tree_leaves  # noqa: E402
+from repro_torch.models.common import tree_tensors as lm_tree_tensors  # noqa: E402
 from repro_torch.optim import adamw as lm_adamw  # noqa: E402
 from repro_torch.models import mamba2 as lm_mamba2  # noqa: E402
 from repro_torch.models import registry as lm_registry  # noqa: E402
 from repro_torch.models import transformer as lm_transformer  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.models.attention import decode_attention as lm_decode_attention  # noqa: E402
+from repro_torch.models.decode_opt import flash_decode_shardmap  # noqa: E402
+from repro_torch.models.moe import MoEParams as LMMoEParams  # noqa: E402
+from repro_torch.models.moe import moe_forward as lm_moe_forward  # noqa: E402
+from repro_torch.models.moe_shardmap import make_shardmap_moe  # noqa: E402
+from repro_torch.sharding import partition as lm_partition  # noqa: E402
 
 SEED = 0
 SOFT_TAU = 0.1  # the soft main path's temperature, in bin units
@@ -2661,10 +2684,10 @@ class TimedAdamW(lm_adamw.AdamW):
         super().__init__(cfg)
         self.events = []
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, **kw):
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
-        out = super().update(grads, state, params)
+        out = super().update(grads, state, params, **kw)
         b.record()
         self.events.append((a, b))
         return out
@@ -2705,23 +2728,19 @@ def kernel_kind(kernel_name: str) -> str:
     return next((kind for kind, keys in KERNEL_KINDS if any(k in low for k in keys)), "other")
 
 
-def train_device_ms(bundle, params, batches) -> tuple[float, float, dict]:
-    """Device busy ms and kernels a train step, from ``torch.profiler`` over
-    ``batches`` (NaN where the trace holds no device event), and the busy
-    ms a step of each kind of kernel (GEMMs, reductions, elementwise, ...,
-    by the kernels' names)."""
+def profiled_steps(run, n_steps: int) -> tuple[float, float, dict]:
+    """Device busy ms and kernels a step, from ``torch.profiler`` over
+    ``run()`` (``n_steps`` steps; NaN where the trace holds no device
+    event), and the busy ms a step of each kind of kernel (GEMMs,
+    reductions, elementwise, ..., by the kernels' names).  Only the card's
+    activity is traced: the host's op events cost seconds a step to
+    collect at the mesh step's ~130,000 launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    opt = lm_adamw.AdamW(train_opt_cfg(TRAIN_STEPS))
-    step_fn = lm_train.make_train_step(bundle, opt)
-    state = opt.init(params)
-    dt = lm_common.dtype_of(bundle.cfg.dtype)
-    on_card = [lm_train.on_device(b, bundle.device, dt) for b in batches]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for batch in on_card:
-            params, state, _, _ = step_fn(params, state, None, batch)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
@@ -2729,9 +2748,25 @@ def train_device_ms(bundle, params, batches) -> tuple[float, float, dict]:
     kinds: dict = {}
     for e in kernels:
         kind = kernel_kind(e.name)
-        kinds[kind] = kinds.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3 / len(batches)
-    return (sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / len(batches),
-            len(kernels) / len(batches), kinds)
+        kinds[kind] = kinds.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3 / n_steps
+    return (sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n_steps,
+            len(kernels) / n_steps, kinds)
+
+
+def train_device_ms(bundle, params, batches) -> tuple[float, float, dict]:
+    """``profiled_steps`` of one-device train steps over ``batches``."""
+    opt = lm_adamw.AdamW(train_opt_cfg(TRAIN_STEPS))
+    step_fn = lm_train.make_train_step(bundle, opt)
+    state = opt.init(params)
+    dt = lm_common.dtype_of(bundle.cfg.dtype)
+    on_card = [lm_train.on_device(b, bundle.device, dt) for b in batches]
+
+    def run():
+        nonlocal params, state
+        for batch in on_card:
+            params, state, _, _ = step_fn(params, state, None, batch)
+
+    return profiled_steps(run, len(batches))
 
 
 def finite(label: str, losses, norms) -> None:
@@ -3003,6 +3038,269 @@ def phase_lm_train(name, stats) -> None:
         print("lm train " + json.dumps(line), flush=True)
 
 
+MESH_SHAPE = (4, 2)  # phase 13's training mesh: 4 data groups x 2 model shards
+MESH_STEPS = 4  # ms a step: the median of steps 2-4
+MESH_AGAIN = 2  # steps run again from the seed, bit-equal
+MESH_CHECK_S = 256  # the float32 depth-2 check's sequence (B = TRAIN_B)
+DECODE_B, DECODE_S, DECODE_POS = 4, 32768, 16000  # gemma3-1b decode: H 4, KV 1, D 256
+MOE_B, MOE_S = 4, 128  # deepseek-v3's MoE widths: d 7,168, E 256, f 2,048, top-8, 1 shared
+
+
+def mesh_bytes(params) -> list[int]:
+    """The bytes each mesh device's shards of a placed tree hold."""
+    shards = lm_tree_tensors(params)
+    n = shards[0].shards.size
+    return [sum(sh.local(k).numel() * sh.local(k).element_size() for sh in shards)
+            for k in range(n)]
+
+
+def mesh_run(cfg, mesh, batches, opt, seed=SEED, profiled=()):
+    """``place_params`` of the seeded model and ``make_train_step(mesh=)``
+    over ``batches`` on the card, then ``profiled_steps`` over the steps
+    of ``profiled``: (losses, grad norms, per-step CUDA events, bytes each
+    device holds, the profile)."""
+    bundle = lm_build(cfg)
+    bundle.model.shard_x = lm_partition.activation_sharder(mesh)
+    params = lm_train.place_params(mesh, cfg, bundle.init_params(seed))
+    lm_free()  # the whole initial copy
+    held = mesh_bytes(params)
+    step_fn = lm_train.make_train_step(bundle, opt, mesh)
+    state = opt.init(params)
+    dt = lm_common.dtype_of(cfg.dtype)
+    out, events = [], []
+    for b in batches:
+        batch = lm_train.place_batch(mesh, lm_train.on_device(b, CARD, dt))
+        a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        params, state, _, m = step_fn(params, state, None, batch)
+        e.record()
+        out.append((m["loss"], m["grad_norm"]))
+        events.append((a, e))
+    torch.cuda.synchronize()
+    busy = (float("nan"), float("nan"), {})
+    if profiled:
+        placed = [lm_train.place_batch(mesh, lm_train.on_device(b, CARD, dt)) for b in profiled]
+
+        def run():
+            nonlocal params, state
+            for batch in placed:
+                params, state, _, _ = step_fn(params, state, None, batch)
+
+        busy = profiled_steps(run, len(placed))
+    del params, state, step_fn, bundle
+    lm_free()
+    return [float(x) for x, _ in out], [float(g) for _, g in out], events, held, busy
+
+
+def lm_mesh_train(name, stats) -> None:
+    """(a) llama3.2-3b at full width and depth, as phase 12 trains it
+    (bfloat16, remat, float32 moments, ``TokenPipeline`` 8 x 1,024, the
+    same ``AdamWConfig``), on a (4, 2) mesh of logical shards of the card:
+    ``place_params`` -> ``make_train_step(mesh=)``; the bytes each shard
+    holds against the specs' reckoning (``attach``), ms a step beside
+    phase 12's, the optimizer's ms (its 8 shard updates), tokens/s, peak;
+    ``MESH_AGAIN`` steps again from the seed, bit-equal."""
+    cfg = get_config("llama3.2-3b")
+    mesh = make_host_mesh(*MESH_SHAPE, devices=[CARD] * 8)
+    pipe = lm_tokens.TokenPipeline(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=SEED)
+    batches = [pipe.batch(i) for i in range(MESH_STEPS + 1)]
+    meta = lm_build(cfg, "meta")
+    shapes = meta.params_shape()
+    specs = lm_partition.param_pspecs(shapes, cfg, lm_partition.MeshAxes(mesh))
+    reckoned = sum(s.local_bytes() for _, s in lm_partition.leaves_with_path(
+        lm_partition.attach(mesh, shapes, specs)))
+    lm_free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt = TimedAdamW(train_opt_cfg(TRAIN_STEPS))
+    losses, norms, events, held, (busy_ms, kernels, kinds) = mesh_run(
+        cfg, mesh, batches[:MESH_STEPS], opt, profiled=batches[MESH_STEPS:])
+    peak = torch.cuda.max_memory_allocated() - base
+    finite("llama3.2-3b mesh train", losses, norms)
+    if held != [reckoned] * 8:
+        fail(f"mesh shards hold {held} bytes, the specs give {reckoned} each")
+    steps_ms = [a.elapsed_time(b) for a, b in events]
+    upd = [a.elapsed_time(b) for a, b in opt.events[:8 * MESH_STEPS]]  # 8 updates a step
+    opt_ms = [sum(upd[i:i + 8]) for i in range(0, len(upd), 8)]
+    step_ms, upd_ms = float(np.median(steps_ms[1:])), float(np.median(opt_ms[1:]))
+    again, _, _, _, _ = mesh_run(cfg, mesh, batches[:MESH_AGAIN],
+                              lm_adamw.AdamW(train_opt_cfg(TRAIN_STEPS)))
+    if again != losses[:MESH_AGAIN]:
+        fail(f"llama3.2-3b mesh train: two runs from one seed differ: {again} vs "
+             f"{losses[:MESH_AGAIN]}")
+    one = stats["lm_train"][0]
+    flops = lm_flops.model_flops(cfg, ShapeCell("train", TRAIN_S, TRAIN_B, "train"), meta)
+    bound = flops / BF16_FLOPS_PER_S * 1e3
+    line = {"model": "llama3.2-3b", "mesh": list(MESH_SHAPE), "logical_shards_of": name,
+            "layers": cfg.n_layers, "dtype": cfg.dtype, "remat": True, "batch": TRAIN_B,
+            "seq": TRAIN_S, "losses": losses, "grad_norms": norms, "step_ms": steps_ms,
+            "step_ms_median": step_ms, "one_device_step_ms": one["step_ms_median"],
+            "one_device_losses": one["losses"][:MESH_STEPS], "optimizer_ms": opt_ms,
+            "optimizer_ms_median": upd_ms, "bound_ms": bound, "bound_by": "operations",
+            "share": bound / step_ms, "busy_ms": busy_ms, "busy_share": busy_ms / step_ms,
+            "kernels_per_step": kernels, "busy_ms_by_kind": kinds,
+            "one_device_busy_ms": one["busy_ms"], "one_device_kernels_per_step":
+            one["kernels_per_step"], "tokens_per_s": TRAIN_B * TRAIN_S / (step_ms / 1e3),
+            "peak_bytes": peak, "bytes_per_shard": held, "spec_bytes_per_shard": reckoned,
+            "card": name}
+    stats["lm_mesh"] = [line]
+    print(f"lm mesh [{name}] llama3.2-3b on a {MESH_SHAPE[0]} x {MESH_SHAPE[1]} mesh of logical "
+          f"shards of the card: {held[0]:,} bytes a shard (the specs' {reckoned:,}); B="
+          f"{TRAIN_B} x S={TRAIN_S}, {MESH_STEPS} steps: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (one device: {one['losses'][0]:.4f} -> "
+          f"{one['losses'][MESH_STEPS - 1]:.4f}); {step_ms:.3f} ms a step (median of steps "
+          f"2-{MESH_STEPS}; one device {one['step_ms_median']:.3f}; bound {bound:.3f} ms, "
+          f"{100 * bound / step_ms:.1f}%), optimizer {upd_ms:.3f} ms "
+          f"({100 * upd_ms / step_ms:.1f}%), card busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / step_ms:.1f}%), {kernels:.0f} kernels a step (one device "
+          f"{one['kernels_per_step']:.0f}), {line['tokens_per_s']:.1f} tokens/s, peak "
+          f"{peak / 2**30:.2f} GiB; {MESH_AGAIN} steps again from the seed: losses equal; "
+          f"busy ms a step by kernel kind: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])),
+          flush=True)
+
+
+def lm_mesh_equals_one_device(name) -> None:
+    """(a) llama3.2-3b cut to depth 2 in float32, TF32 off: the first step's
+    loss on the (4, 2) mesh within rtol 2e-4 of one device's on the same
+    batch and weights (the bound the JAX package's mesh test holds)."""
+    cfg = get_config("llama3.2-3b").replace(n_layers=2, dtype="float32")
+    batch = lm_tokens.TokenPipeline(cfg.vocab_size, TRAIN_B, MESH_CHECK_S, seed=SEED + 40).batch(0)
+    mesh = make_host_mesh(*MESH_SHAPE, devices=[CARD] * 8)
+    opt = lm_adamw.AdamW(train_opt_cfg(TRAIN_STEPS))
+    bundle = lm_build(cfg)
+    params = bundle.init_params(6)
+    placed = lm_train.place_params(mesh, cfg, params)
+    one = lm_train.make_train_step(bundle, opt)(
+        params, opt.init(params), None, lm_train.on_device(batch, CARD, torch.float32))[3]
+    del params
+    lm_free()
+    bundle.model.shard_x = lm_partition.activation_sharder(mesh)
+    on_mesh = lm_train.make_train_step(bundle, opt, mesh)(
+        placed, opt.init(placed), None,
+        lm_train.place_batch(mesh, lm_train.on_device(batch, CARD, torch.float32)))[3]
+    del placed, bundle
+    lm_free()
+    a, b = float(one["loss"]), float(on_mesh["loss"])
+    ga, gb = float(one["grad_norm"]), float(on_mesh["grad_norm"])
+    if abs(b - a) > 2e-4 * abs(a) or abs(gb - ga) > 2e-4 * abs(ga):
+        fail(f"mesh step vs one device, float32 depth 2: loss {b} vs {a}, grad norm {gb} vs {ga}")
+    print(f"lm mesh [{name}] llama3.2-3b depth 2 float32, B={TRAIN_B} x S={MESH_CHECK_S}: first "
+          f"step on the mesh loss {b:.7f} grad norm {gb:.6f}, one device {a:.7f} / {ga:.6f} "
+          f"(rel {abs(b - a) / abs(a):.2e} / {abs(gb - ga) / abs(ga):.2e}; rtol 2e-4)",
+          flush=True)
+
+
+def lm_flash_decode(name, stats) -> None:
+    """(b) the flash-decode merge at gemma3-1b's decode widths (H 4, KV 1,
+    D 256), B 4, a 32,768-position cache split over `model` of a (2, 4)
+    mesh, ``pos`` mid-cache, float32: within 1e-5 x scale of
+    ``decode_attention``; the ms of both (CUDA events)."""
+    cfg = get_config("gemma3-1b")
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    mesh = make_host_mesh(2, 4, devices=[CARD] * 8)
+    g = torch.Generator(device=CARD).manual_seed(SEED + 41)
+    q = torch.randn((DECODE_B, 1, h, d), generator=g, device=CARD)
+    k, v = (torch.randn((DECODE_B, DECODE_S, kv, d), generator=g, device=CARD)
+            for _ in range(2))
+    got = flash_decode_shardmap(mesh, q, k, v, DECODE_POS)
+    ref = lm_decode_attention(q, k, v, DECODE_POS)
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((got - ref).abs().max())
+    if not err < 1e-5 * scale:
+        fail(f"flash decode merge vs decode_attention: {err} (scale {scale})")
+    ms = sync_time(lambda: flash_decode_shardmap(mesh, q, k, v, DECODE_POS), 20)
+    plain = sync_time(lambda: lm_decode_attention(q, k, v, DECODE_POS), 20)
+    line = {"config": "gemma3-1b decode", "heads": h, "kv_heads": kv, "head_dim": d,
+            "batch": DECODE_B, "cache": DECODE_S, "pos": DECODE_POS, "mesh": [2, 4],
+            "max_abs_err": err, "scale": scale, "ms": ms, "decode_attention_ms": plain,
+            "card": name}
+    stats["lm_mesh"].append(line)
+    del q, k, v, got, ref
+    lm_free()
+    print(f"lm mesh [{name}] flash-decode merge, gemma3-1b widths (H {h}, KV {kv}, D {d}), "
+          f"B {DECODE_B}, cache {DECODE_S:,} split over 4 shards, pos {DECODE_POS}: max |d| "
+          f"{err:.3e} (scale {scale:.3f}; 1e-5 x scale), {ms:.4f} ms a call vs "
+          f"decode_attention {plain:.4f} ms", flush=True)
+
+
+def lm_shardmap_moe(name, stats) -> None:
+    """(c) the all-to-all MoE at deepseek-v3's widths (d 7,168, E 256, f
+    2,048, top-8, 1 shared expert), B x S = 4 x 128 on a (2, 4) mesh,
+    float32, TF32 off: at cf 16 (no drops) the output within 1e-4 x scale,
+    aux within 1e-5 and the gradients of x, the router and the shared
+    expert within 1e-4 x scale of ``moe_forward`` (the experts' own
+    gradients would need another 45 GB); at cf 1.25 the dropped count, two
+    runs bit-equal; the ms of both forwards at cf 1.25."""
+    cfg = get_config("deepseek-v3-671b")
+    d, e, f, k = cfg.d_model, cfg.n_experts, cfg.moe_d_ff, cfg.moe_top_k
+    mesh = make_host_mesh(2, 4, devices=[CARD] * 8)
+    gen = torch.Generator(device=CARD).manual_seed(SEED + 42)
+    t0 = time.perf_counter()
+    p = LMMoEParams(d, f, e, cfg.n_shared_experts, torch.float32, device=CARD, generator=gen)
+    for w in (p.w_gate, p.w_up, p.w_down):
+        w.requires_grad_(False)
+    x = torch.randn((MOE_B, MOE_S, d), generator=gen, device=CARD).requires_grad_(True)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    sm = make_shardmap_moe(mesh)
+    wrt = [x, p.router, *p.shared.parameters()]
+
+    def run(fn):
+        y, aux = fn(p, x, top_k=k, capacity_factor=16.0)
+        grads = torch.autograd.grad((y.float() ** 2).mean() + 0.01 * aux, wrt)
+        return y.detach(), aux.detach(), grads
+
+    y, aux, grads = run(sm)
+    if int(sm.dropped):
+        fail(f"shard-map MoE dropped {int(sm.dropped)} assignments at cf 16")
+    ry, raux, rgrads = run(lm_moe_forward)
+    scale = max(1.0, float(ry.abs().max()))
+    out_err, aux_err = float((y - ry).abs().max()), abs(float(aux - raux))
+    grad_err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                   for a, b in zip(grads, rgrads))
+    if not (out_err < 1e-4 * scale and aux_err < 1e-5 and grad_err < 1e-4):
+        fail(f"shard-map MoE vs moe_forward at cf 16: out {out_err} (scale {scale}), aux "
+             f"{aux_err}, grads {grad_err}")
+    del y, ry, grads, rgrads
+    with torch.no_grad():
+        first, _ = sm(p, x, top_k=k, capacity_factor=cfg.capacity_factor)
+        dropped = int(sm.dropped)
+        again, _ = sm(p, x, top_k=k, capacity_factor=cfg.capacity_factor)
+        if not torch.equal(first, again):
+            fail("shard-map MoE at cf 1.25: two runs differ")
+        ms = sync_time(lambda: sm(p, x, top_k=k, capacity_factor=cfg.capacity_factor), 5)
+        plain = sync_time(lambda: lm_moe_forward(p, x, top_k=k,
+                                                 capacity_factor=cfg.capacity_factor), 5)
+    line = {"config": "deepseek-v3 MoE", "d": d, "experts": e, "d_ff": f, "top_k": k,
+            "tokens": MOE_B * MOE_S, "mesh": [2, 4], "init_s": t_init, "out_err": out_err,
+            "scale": scale, "aux_err": aux_err, "grad_rel_err": grad_err,
+            "dropped_cf_1.25": dropped, "assignments": MOE_B * MOE_S * k, "ms_cf_1.25": ms,
+            "moe_forward_ms_cf_1.25": plain, "card": name}
+    stats["lm_mesh"].append(line)
+    del p, x, first, again, sm
+    lm_free()
+    print(f"lm mesh [{name}] shard-map MoE, deepseek-v3 widths (d {d}, E {e}, f {f}, top-{k}, "
+          f"1 shared), {MOE_B} x {MOE_S} tokens on a 2 x 4 mesh, float32: cf 16 vs moe_forward "
+          f"out {out_err:.3e} (scale {scale:.3f}), aux {aux_err:.3e}, grads of x / router / "
+          f"shared {grad_err:.3e}; cf {cfg.capacity_factor}: {dropped} of "
+          f"{MOE_B * MOE_S * k} assignments dropped, two runs equal; {ms:.3f} ms a forward "
+          f"vs moe_forward {plain:.3f} ms", flush=True)
+
+
+def phase_lm_mesh(name, stats) -> None:
+    """Phase 13: the LM mesh on logical shards of the card."""
+    lm_free()
+    t0 = time.perf_counter()
+    lm_mesh_train(name, stats)
+    print(f"lm mesh training {time.perf_counter() - t0:.1f} s", flush=True)
+    lm_mesh_equals_one_device(name)
+    lm_flash_decode(name, stats)
+    lm_shardmap_moe(name, stats)
+    for line in stats["lm_mesh"]:
+        print("lm mesh " + json.dumps(line), flush=True)
+
+
 def kernel_entry(name, source, launches, err, ms, plain_ms, bnd, by) -> dict:
     """One object of the kernels line: ``source`` a file of kernels/csrc,
     every time measured in this run, no single PyTorch call to compare."""
@@ -3082,6 +3380,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_lm_train(name, stats)
     print(f"LM training phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_lm_mesh(name, stats)
+    print(f"LM mesh phase {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     lines = [stats["kernel_line"], stats["soft_kernel_line"], *stats["variant_lines"],

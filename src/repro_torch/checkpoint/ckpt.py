@@ -14,7 +14,10 @@ manifest, so a checkpoint written by either package restores in the
 other, bit for bit.  Leaves are gathered to the host, so a checkpoint
 written on one device (or mesh) restores onto any other; dtypes that npz
 cannot hold (bfloat16, the float8s) are stored as float32, which holds
-them exactly, and cast back to the template's dtype.
+them exactly, and cast back to the template's dtype.  A leaf placed on
+a mesh (``repro_torch.sharding.placement.Sharded``) is saved whole and
+restored whole on the host, for the caller's placer to split onto its
+mesh.
 
 Atomicity: write to ``<dir>/tmp.<step>.npz`` then ``os.replace`` into
 place — a crash mid-write never corrupts the latest checkpoint.
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import Record, Stack
+from repro_torch.sharding.placement import Sharded
 
 _STEP_FILE = re.compile(r"step_(\d+)\.npz")
 
@@ -80,9 +84,12 @@ def _map_leaves(fn: Callable[[str, Any], Any], tree: Any, path: str = "") -> Any
 def _host_copy(leaf) -> np.ndarray:
     """A host numpy copy of ``leaf`` that npz can store (float32 for the
     dtypes it cannot), taken now: later in-place writes do not reach it.
-    A ``Stack`` is stacked on a leading axis."""
+    A ``Stack`` is stacked on a leading axis; a ``Sharded`` tensor is
+    gathered whole."""
     if isinstance(leaf, Stack):
         return np.stack([_host_copy(x) for x in leaf])
+    if isinstance(leaf, Sharded):
+        leaf = leaf.gather("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         try:

@@ -6,14 +6,32 @@ Eager PyTorch (no ``torch.compile``), on the card unless ``device="cpu"``
 model's ``loss_fn`` in the parameters' JAX layout; ``AdamW`` writes the new
 parameters and moments in place.  The state the runner checkpoints is
 that layout ({'params', 'opt': {'m', 'v', 'step'}, 'residual'}), so a
-checkpoint written by either package resumes in the other.  The LM mesh
-is not ported yet: ``mesh=`` and ``--use-mesh`` raise.
+checkpoint written by either package resumes in the other.
+
+On a mesh (``mesh=``, ``--use-mesh``) the parameters, moments, gradient
+sums and residuals are ``Sharded`` by ``param_pspecs``
+(``place_params``), and a step is one explicit shard program driven
+from this process, as the tabular mesh engine's (no
+``torch.distributed``): the parameters all-gathered once per compute
+device (mesh order); each data group (the batch axes' blocks, computed on
+its device at model index 0) takes the loss and gradients of its rows;
+the gradients summed into each device's shards group by group in
+ascending mesh order (the reduce-scatter, no float atomics); then
+``AdamW.update`` on each device's shards with the clip norm summed over
+every leaf's blocks in flatten order.  The program gives the one-device
+step: the loss is the groups' mean (equal rows and whole-column masks
+give equal token counts), and an MoE layer routes each group's tokens
+with the whole batch's ranks and capacity (``GroupRouting``).  The
+``model`` axis shards state only: a group computes on whole parameters.
 
 CLI:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
-      --steps 50 --global-batch 8 --seq 256 --scale 0.05 [--device cpu]
+      --steps 50 --global-batch 8 --seq 256 --scale 0.05 [--device cpu] \
+      [--use-mesh]
 ``--scale`` shrinks width/depth for small runs (examples use it); the
-config dims stay exact when --scale 1.
+config dims stay exact when --scale 1.  ``--use-mesh`` trains on a mesh
+over the visible cards, or with ``--device`` on 8 logical shards of that
+device (``make_host_mesh(devices=[device] * 8)``: 2 x 4).
 """
 
 from __future__ import annotations
@@ -31,14 +49,32 @@ import torch
 from repro_torch.config import get_config
 from repro_torch.data.tokens import EmbeddingPipeline, TokenPipeline
 from repro_torch.ft.runtime import FaultTolerantRunner
-from repro_torch.models import common
-from repro_torch.models.common import stack_map, tree_like, tree_map, tree_tensors, tree_zeros
+from repro_torch.launch.mesh import check_mesh, make_host_mesh
+from repro_torch.models import common, moe
+from repro_torch.models.common import (
+    leaf_tensors,
+    stack_map,
+    tree_leaves,
+    tree_like,
+    tree_map,
+    tree_tensors,
+    tree_zeros,
+)
 from repro_torch.models.registry import LMBundle, build_model
 from repro_torch.optim.adamw import AdamW, AdamWConfig
-from repro_torch.optim.compress import compress_tree, decompress_tree
-
-NO_MESH = ("the LM mesh (sharding/partition.py, models/decode_opt.py, "
-           "models/moe_shardmap.py) is not ported yet: ROADMAP.md queue 1 item 3.4")
+from repro_torch.optim.compress import (
+    compress_tree,
+    decompress_tree,
+    dequantize_int8,
+    int8_codes,
+)
+from repro_torch.sharding.partition import (
+    MeshAxes,
+    activation_sharder,
+    batch_pspec,
+    param_pspecs,
+)
+from repro_torch.sharding.placement import Sharded, local_tree, place_tree
 
 
 def loss_and_grads(bundle: LMBundle, params, batch: dict) -> tuple:
@@ -54,23 +90,39 @@ def loss_and_grads(bundle: LMBundle, params, batch: dict) -> tuple:
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, tree_like(tree, grads)
 
 
+def _rows(batch: dict) -> int:
+    return next(iter(batch.values())).shape[0]
+
+
+def _check_microbatch(batch: dict, microbatch: int) -> None:
+    """The reference reshapes the batch to (microbatch, B // microbatch,
+    ...), which refuses a batch the count does not divide."""
+    b = _rows(batch)
+    if microbatch > 1 and b % microbatch:
+        raise ValueError(f"a batch of {b} rows does not split into {microbatch} microbatches")
+
+
 def make_train_step(bundle: LMBundle, opt: AdamW, mesh=None, *,
                     microbatch: int = 0, compress: bool = False):
     """Returns (params, opt_state, residual, batch) -> (params, opt_state,
     residual, metrics); ``params`` is the model's params module, updated
-    in place.
+    in place (on a mesh: the tree ``place_params`` returns, its shards
+    updated in place; the batch whole tensors or ``place_batch``'s).
 
     ``microbatch`` > 1 splits the batch into that many accumulation steps,
-    their gradients summed in float32 and divided by ``microbatch``.
+    their gradients summed in float32 and divided by ``microbatch``; a
+    batch it does not divide raises ``ValueError``.
     ``compress`` int8-quantizes gradients with error feedback before the
     optimizer (the compressed cross-pod reduction's wire format).
     """
     if mesh is not None:
-        raise NotImplementedError(f"make_train_step(mesh=...): {NO_MESH}")
+        return MeshStep(bundle, opt, check_mesh(mesh), microbatch=microbatch,
+                        compress=compress)
 
     def step(params, opt_state, residual, batch):
+        _check_microbatch(batch, microbatch)
         if microbatch and microbatch > 1:
-            n = next(iter(batch.values())).shape[0] // microbatch
+            n = _rows(batch) // microbatch
             acc = tree_zeros(params.jax_layout(), torch.float32)
             loss_sum = torch.zeros((), dtype=torch.float32, device=bundle.device)
             for i in range(microbatch):
@@ -92,6 +144,219 @@ def make_train_step(bundle: LMBundle, opt: AdamW, mesh=None, *,
         return params, opt_state, residual, {"loss": loss, **om}
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# The mesh: placement and the shard program
+# ---------------------------------------------------------------------------
+
+
+def place_params(mesh, cfg, params):
+    """``params`` (a params module, or a JAX-layout tree of whole tensors)
+    split onto ``mesh`` by ``param_pspecs``: a tree of ``Sharded`` leaves
+    (a ``Stack`` of per-layer ``Sharded``)."""
+    tree = params.jax_layout() if hasattr(params, "jax_layout") else params
+    return place_tree(mesh, tree, param_pspecs(tree, cfg, MeshAxes(mesh)))
+
+
+def place_batch(mesh, batch: dict) -> dict:
+    """Each tensor of ``batch`` split onto ``mesh`` by ``batch_pspec``
+    (rows over the batch axes; a 0-d tensor replicated)."""
+    bp = batch_pspec(MeshAxes(mesh))
+    return {k: Sharded.place(mesh, bp if torch.as_tensor(v).ndim >= 1 else (),
+                             torch.as_tensor(v)) for k, v in batch.items()}
+
+
+class GroupRouting:
+    """``moe_forward`` over one data group's rows with the whole batch's
+    routing (the ``moe.set_impl`` override of the mesh step).
+
+    One device routes all T tokens at once: capacity from T, each token's
+    rank within its expert counted over every token before it, and the aux
+    term a product of whole-batch means.  Groups hold consecutive row
+    blocks, so a group's ranks are its own plus the assignments of the
+    groups before it.  A first pass without gradients (``counting``)
+    records, per layer (keyed by its ``MoEParams``), those offsets and the
+    whole batch's counts; the gradient pass replays them, and its aux is
+    E * sum(whole-batch dispatch fraction * the group's mean probability),
+    whose mean over the equal groups is the one-device aux.  ``layers``
+    maps ``id`` of each compute device's ``MoEParams`` to its name in the
+    params module, so groups on different devices share a layer's counts."""
+
+    def __init__(self, n_groups: int, layers: dict):
+        self.n_groups = n_groups
+        self.layers = layers
+        self.group = 0
+        self.counting = True
+        self.counts: dict = {}  # layer -> (E,) assignments of the groups so far
+        self.offsets: list[dict] = [{} for _ in range(n_groups)]
+
+    def __call__(self, p, x, *, top_k: int, capacity_factor: float, act: str):
+        b, s, d = x.shape
+        e = p.router.shape[1]
+        t_all = b * s * self.n_groups
+        capacity = int(max(1, round(t_all * top_k / e * capacity_factor)))
+        key = self.layers[id(p)]
+        if self.counting:
+            off = self.counts.get(key)
+            if off is None:
+                off = torch.zeros((e,), dtype=torch.int64, device=x.device)
+            self.offsets[self.group][key] = off
+        else:
+            off = self.offsets[self.group][key]
+        xt = x.reshape(b * s, d)
+        r = moe.route(p.router, xt, k=top_k, capacity=capacity, offset=off)
+        if self.counting:
+            self.counts[key] = off + torch.bincount(r.gate_idx.reshape(-1), minlength=e)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        else:
+            aux = moe.aux_loss(r, self.counts[key].float() / (t_all * top_k))
+        return moe.experts(p, xt, r, act).reshape(b, s, d), aux
+
+
+class MeshStep:
+    """The mesh train step (``make_train_step(bundle, opt, mesh)``): see the
+    module docstring.  Each compute device keeps one whole copy of the
+    parameters (the all-gather's destination), reused every step."""
+
+    def __init__(self, bundle: LMBundle, opt: AdamW, mesh, *, microbatch: int = 0,
+                 compress: bool = False):
+        self.bundle, self.opt, self.mesh = bundle, opt, mesh
+        self.microbatch, self.compress = microbatch, compress
+        axes = MeshAxes(mesh)
+        sizes = mesh.shape
+        batch_axes = axes.batch_axes()
+        self.n_groups = int(np.prod([sizes[a] for a in batch_axes], dtype=np.int64))
+        self.group_devices = []
+        for g in range(self.n_groups):
+            coords = dict(zip(batch_axes, np.unravel_index(g, [sizes[a] for a in batch_axes])))
+            self.group_devices.append(mesh.device_at({a: int(i) for a, i in coords.items()}))
+        self._workers: dict = {}  # device -> (bundle, whole params module)
+
+    def _worker(self, device: torch.device):
+        if device not in self._workers:
+            b = self.bundle
+            if device != b.device:
+                b = build_model(b.cfg, getattr(b.model, "flash_blk", 512), device=device)
+                b.model.shard_x = self.bundle.model.shard_x
+            self._workers[device] = (b, b.model.empty_params())
+        return self._workers[device]
+
+    def _gather(self, params) -> None:
+        """All-gather the shards into each compute device's whole copy."""
+        shards = tree_tensors(params)
+        for device in dict.fromkeys(self.group_devices):
+            _, module = self._worker(device)
+            for dst, src in zip(tree_tensors(module.jax_layout()), shards, strict=True):
+                src.gather_into(dst)
+
+    def _group_grads(self, rows: dict, acc) -> torch.Tensor:
+        """Loss and gradients of each group's block of ``rows``, the
+        gradients summed into ``acc``'s shards group by group; returns
+        the sum of the groups' losses."""
+        n = _rows(rows) // self.n_groups
+        parts = []
+        for g, device in enumerate(self.group_devices):
+            b, module = self._worker(device)
+            parts.append((b, module, {k: v[g * n:(g + 1) * n].to(device)
+                                      for k, v in rows.items()}))
+        routing = None
+        if self.bundle.cfg.is_moe and self.n_groups > 1:
+            layers = {id(m): name for _, module in self._workers.values()
+                      for name, m in module.named_modules() if isinstance(m, moe.MoEParams)}
+            routing = GroupRouting(self.n_groups, layers)
+        acc_shards = tree_tensors(acc)
+        loss_sum = None
+        prev = moe._HOOKS["impl"]
+        try:
+            if routing is not None:
+                moe.set_impl(routing)
+                with torch.no_grad():
+                    for g, (b, module, part) in enumerate(parts):
+                        routing.group = g
+                        b.loss_fn(module, part)
+                routing.counting = False
+            for g, (b, module, part) in enumerate(parts):
+                if routing is not None:
+                    routing.group = g
+                loss, _, grads = loss_and_grads(b, module, part)
+                for sh, gt in zip(acc_shards, tree_tensors(grads), strict=True):
+                    for idx, t in sh.items():
+                        t.add_(gt[sh.slices(idx)].to(t.device))
+                del grads
+                loss = loss.to(self.group_devices[0])
+                loss_sum = loss if loss_sum is None else loss_sum + loss
+        finally:
+            moe.set_impl(prev)
+        return loss_sum
+
+    def _global_norm(self, grads) -> torch.Tensor:
+        dev = self.group_devices[0]
+        total = 0
+        for _, leaf in tree_leaves(grads):
+            for sh in leaf_tensors(leaf):
+                for _, t in sh.unique():
+                    total = total + torch.sum(torch.square(t.float())).to(dev)
+        return torch.sqrt(total)
+
+    def _compress(self, grads, residual):
+        """``compress_tree`` + ``decompress_tree`` on shards: one int8
+        scale a leaf (a ``Stack``'s over all its layers) from the max over
+        every block; the residual kept per shard."""
+        dev = self.group_devices[0]
+        for (_, g), (_, r) in zip(tree_leaves(grads), tree_leaves(residual), strict=True):
+            pairs = list(zip(leaf_tensors(g), leaf_tensors(r), strict=True))
+            for gs, rs in pairs:
+                for (_, gt), (_, rt) in zip(gs.items(), rs.items()):
+                    gt.add_(rt)  # corrected = g + residual, in place
+            amax = torch.stack([torch.max(torch.abs(t)).to(dev)
+                                for gs, _ in pairs for _, t in gs.unique()]).max()
+            scale = torch.clamp(amax, min=1e-12) / 127.0
+            for gs, rs in pairs:
+                for (_, gt), (_, rt) in zip(gs.items(), rs.items()):
+                    deq = dequantize_int8(int8_codes(gt, scale.to(gt.device)),
+                                          scale.to(gt.device))
+                    rt.copy_(gt - deq)
+                    gt.copy_(deq)
+        return grads, residual
+
+    def __call__(self, params, opt_state, residual, batch):
+        first = self.group_devices[0]
+        rows = {k: (v.gather(first) if isinstance(v, Sharded) else v) for k, v in batch.items()}
+        _check_microbatch(rows, self.microbatch)
+        n_mb = self.microbatch if self.microbatch > 1 else 1
+        per_mb = _rows(rows) // n_mb
+        if per_mb % self.n_groups:
+            raise ValueError(f"{per_mb} rows a microbatch do not split over "
+                             f"{self.n_groups} data groups")
+        self._gather(params)
+        acc = tree_zeros(params, torch.float32)
+        loss_sum = None
+        for i in range(n_mb):
+            part = {k: v[i * per_mb:(i + 1) * per_mb] for k, v in rows.items()}
+            loss = self._group_grads(part, acc) / self.n_groups
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+        loss = loss_sum / n_mb
+        if n_mb * self.n_groups > 1:
+            scale = 1.0 / (n_mb * self.n_groups)
+            for sh in tree_tensors(acc):
+                for _, t in sh.items():
+                    t.mul_(scale)
+        if self.compress:
+            if residual is None:  # as compress_tree: a zero residual to start
+                residual = tree_zeros(params, torch.float32)
+            acc, residual = self._compress(acc, residual)
+        gnorm = self._global_norm(acc)
+        om = None
+        for k, device in enumerate(self.mesh.devices.flat):
+            state_k = {"m": local_tree(opt_state["m"], k), "v": local_tree(opt_state["v"], k),
+                       "step": opt_state["step"].to(device)}
+            _, new_k, om_k = self.opt.update(local_tree(acc, k), state_k,
+                                             local_tree(params, k), gnorm=gnorm.to(device))
+            if om is None:
+                om, step = om_k, new_k["step"].to(opt_state["step"].device)
+        opt_state = {"m": opt_state["m"], "v": opt_state["v"], "step": step}
+        return params, opt_state, residual, {"loss": loss, **om}
 
 
 def on_device(batch: dict, device, dtype: torch.dtype) -> dict:
@@ -137,33 +402,57 @@ def train(
     device=None,
 ) -> list[dict]:
     """Fault-tolerant training loop on ``device`` (None: the card, which
-    raises where torch sees none).  Returns per-step metric history."""
+    raises where torch sees none), or on ``mesh`` (its first data group's
+    device computes the initial parameters).  Returns per-step metric
+    history."""
     if mesh is not None:
-        raise NotImplementedError(f"train(mesh=...): {NO_MESH}")
+        device = check_mesh(mesh).devices.flat[0]
     bundle = build_model(cfg, device=device)
+    if mesh is not None:
+        bundle.model.shard_x = activation_sharder(mesh)
     dtype = common.dtype_of(cfg.dtype)
     opt = AdamW(opt_cfg or AdamWConfig(warmup_steps=max(5, steps // 20),
                                        decay_steps=steps))
     get_batch = batch_source(cfg, global_batch, seq_len, seed)
-    step_fn = make_train_step(bundle, opt, microbatch=microbatch, compress=compress)
-    live: dict = {}  # the params module of the state the runner holds
+    step_fn = make_train_step(bundle, opt, mesh, microbatch=microbatch, compress=compress)
+    live: dict = {}  # the params module of the state the runner holds (one device)
 
     def init_state():
         params = bundle.init_params(seed)
-        live["params"] = params
-        tree = params.jax_layout()
+        if mesh is not None:
+            tree = place_params(mesh, cfg, params)
+            del params
+        else:
+            live["params"] = params
+            tree = params.jax_layout()
         residual = (tree_zeros(tree, torch.float32) if compress
                     else {"none": torch.zeros((), device=bundle.device)})
         return {"params": tree, "opt": opt.init(tree), "residual": residual}
 
     def one_step(state, step):
         batch = on_device(get_batch(step), bundle.device, dtype)
+        if mesh is not None:
+            params = state["params"]
+            batch = place_batch(mesh, batch)
+        else:
+            params = live["params"]
         _, opt_state, residual, metrics = step_fn(
-            live["params"], state["opt"], state["residual"], batch)
+            params, state["opt"], state["residual"], batch)
         metrics = {k: float(v) for k, v in metrics.items()}
         return {"params": state["params"], "opt": opt_state, "residual": residual}, metrics
 
     def placer(state):
+        if mesh is not None:
+            # elastic re-placement: the whole tensors split for this mesh
+            specs = param_pspecs(state["params"], cfg, MeshAxes(mesh))
+            residual = state["residual"]
+            residual = (place_tree(mesh, residual, specs) if compress
+                        else tree_map(lambda t: t.to(bundle.device), residual))
+            return {"params": place_tree(mesh, state["params"], specs),
+                    "opt": {"m": place_tree(mesh, state["opt"]["m"], specs),
+                            "v": place_tree(mesh, state["opt"]["v"], specs),
+                            "step": state["opt"]["step"].to(bundle.device)},
+                    "residual": residual}
         # a restored checkpoint's parameters into the module's tensors
         tree = live["params"].jax_layout()
         with torch.no_grad():
@@ -220,14 +509,17 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' to run there)")
     args = ap.parse_args(argv)
-    if args.use_mesh:
-        raise SystemExit(f"--use-mesh: {NO_MESH}")
 
     cfg = _scaled(get_config(args.arch), args.scale)
+    mesh = None
+    if args.use_mesh:
+        # the visible cards, or 8 logical shards of the named device
+        mesh = (make_host_mesh() if args.device is None
+                else make_host_mesh(devices=[args.device] * 8))
     t0 = time.time()
     hist = train(
         cfg, steps=args.steps, global_batch=args.global_batch,
-        seq_len=args.seq, run_dir=args.run_dir,
+        seq_len=args.seq, run_dir=args.run_dir, mesh=mesh,
         ckpt_every=args.ckpt_every, microbatch=args.microbatch,
         compress=args.compress, device=args.device,
     )

@@ -313,9 +313,10 @@ def tree_tensors(tree) -> list:
 
 
 def tree_zeros(tree, dtype: torch.dtype) -> dict:
-    """Zeros of ``dtype`` beside every tensor of ``tree``, in its structure."""
+    """Zeros of ``dtype`` beside every tensor of ``tree``, in its structure
+    (``new_zeros``: on each tensor's device, or each shard's)."""
     return tree_map(lambda leaf: stack_map(
-        lambda t: torch.zeros(t.shape, dtype=dtype, device=t.device), leaf), tree)
+        lambda t: t.new_zeros(t.shape, dtype=dtype), leaf), tree)
 
 
 def tree_like(tree, tensors) -> dict:

@@ -100,6 +100,7 @@ class EncDecLM:
         self.cfg = cfg
         self.flash_blk = flash_blk
         self.device = torch.device(device)
+        self.shard_x = lambda t: t  # activation sharding hook (launcher-set)
 
     # -- params ------------------------------------------------------------
 
@@ -128,6 +129,7 @@ class EncDecLM:
         table = torch.from_numpy(sinusoid_positions(t, cfg.d_model)).to(frames.device)
         x = frames + table.to(frames.dtype)[None]
         positions = torch.arange(t, device=frames.device)
+        x = self.shard_x(x)
         for prm in params.enc:
             def body(h, prm=prm):
                 a, _ = attention_forward(prm.attn, common.rms_norm(h, prm.ln1, cfg.norm_eps),
@@ -135,7 +137,7 @@ class EncDecLM:
                 h = h + a
                 return h + mlp_forward(prm.mlp, common.rms_norm(h, prm.ln2, cfg.norm_eps))
 
-            x = common.remat(cfg, body, x)
+            x = self.shard_x(common.remat(cfg, body, x))
         return common.rms_norm(x, params.enc_norm, cfg.norm_eps)
 
     # -- decoder --------------------------------------------------------------
@@ -148,6 +150,7 @@ class EncDecLM:
         x = x + table.to(x.dtype)[None]
         positions = torch.arange(s, device=x.device)
         cache = {"k": [], "v": [], "xk": [], "xv": []}
+        x = self.shard_x(x)
         for prm in params.dec:
             def body(h, prm=prm):
                 a, kv = attention_forward(prm.attn, common.rms_norm(h, prm.ln1, cfg.norm_eps),
@@ -164,6 +167,7 @@ class EncDecLM:
                 return h, kv[0], kv[1], xk, xv
 
             x, *kvx = common.remat(cfg, body, x)
+            x = self.shard_x(x)
             if collect_cache:
                 for key, val in zip(("k", "v", "xk", "xv"), kvx):
                     cache[key].append(val)

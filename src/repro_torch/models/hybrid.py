@@ -92,6 +92,7 @@ class HybridLM:
         self.device = torch.device(device)
         self.n_groups = cfg.n_layers // cfg.shared_attn_period
         self.period = cfg.shared_attn_period
+        self.shard_x = lambda t: t  # activation sharding hook (launcher-set)
 
     # -- params ------------------------------------------------------------
 
@@ -125,6 +126,7 @@ class HybridLM:
         """x: (B, S, d) embeddings.  Returns (hidden, cache dict or None)."""
         cfg = self.cfg
         ssm, conv, ks, vs = [], [], [], []
+        x = self.shard_x(x)
         for g, group in enumerate(params.mamba):
             states, tails = [], []
             for i, prm in enumerate(group):
@@ -137,6 +139,7 @@ class HybridLM:
                 states.append(state)
                 tails.append(tail)
             x, kv = self._shared_block(params.shared, x, positions)
+            x = self.shard_x(x)
             if collect_cache:
                 ssm.append(torch.stack(states))
                 conv.append(torch.stack(tails))

@@ -14,13 +14,19 @@ experts and drops the same tokens:
   * grouped expert SwiGLU/GeGLU as batched matmuls, a token-major combine,
     plus the always-on shared expert.
 
-The launcher's sharding hooks (``set_shard_hooks``/``set_impl``) belong to
-the LM mesh and are not ported yet.
+``set_shard_hooks`` installs the launcher's layout hooks (token-dim,
+expert-dim and expert-weight), applied where the JAX package applies its
+``with_sharding_constraint``s; identity when unset.  ``set_impl`` installs
+a whole-layer override: the all-to-all program of
+``repro_torch.models.moe_shardmap``, or the data-group routing of the
+mesh train step (``repro_torch.launch.train``).  ``route`` takes a
+capacity and per-expert rank offsets for a caller that routes one block
+of a larger token set.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +34,31 @@ from torch import nn
 
 from repro_torch.models import common
 from repro_torch.models.ffn import FFNParams, ffn_forward
+
+
+def _identity(x):
+    return x
+
+
+# launcher-installed sharding hooks (identity by default)
+_HOOKS: dict[str, Callable | None] = {
+    "tokens": _identity,
+    "experts": _identity,
+    "weights": _identity,
+    "impl": None,  # optional whole-layer override (moe_shardmap, the mesh step)
+}
+
+
+def set_shard_hooks(tokens: Callable | None, experts: Callable | None,
+                    weights: Callable | None = None) -> None:
+    _HOOKS["tokens"] = tokens or _identity
+    _HOOKS["experts"] = experts or _identity
+    _HOOKS["weights"] = weights or _identity
+
+
+def set_impl(fn: Callable | None) -> None:
+    """Install a drop-in ``moe_forward`` override (None removes it)."""
+    _HOOKS["impl"] = fn
 
 
 class MoEParams(nn.Module):
@@ -72,23 +103,79 @@ def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def route(router: torch.Tensor, xt: torch.Tensor, *, k: int,
-          capacity_factor: float) -> Routing:
-    """Top-k routing and the capacity ranks of ``xt`` (T, d)."""
+          capacity_factor: float = 1.25, capacity: int | None = None,
+          offset: torch.Tensor | None = None, hook: Callable = _identity) -> Routing:
+    """Top-k routing and the capacity ranks of ``xt`` (T, d).
+
+    ``capacity`` (default ``max(1, round(T*k/E * capacity_factor))``) and
+    ``offset`` (E,), the assignments each expert already holds from tokens
+    before these, let a caller route one block of a larger token set with
+    that set's ranks; ``hook`` is applied to the logits."""
     t = xt.shape[0]
     e = router.shape[1]
-    logits = xt.float() @ router  # (T, E)
+    logits = hook(xt.float() @ router)  # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k(probs, k)  # (T, k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
 
-    capacity = int(max(1, round(t * k / e * capacity_factor)))
+    if capacity is None:
+        capacity = int(max(1, round(t * k / e * capacity_factor)))
     flat_expert = gate_idx.reshape(t * k)
-    onehot = F.one_hot(flat_expert, e)  # (T*k, E) int64
+    onehot = hook(F.one_hot(flat_expert, e))  # (T*k, E) int64
     rank = torch.cumsum(onehot, dim=0).gather(1, flat_expert[:, None])[:, 0] - 1
+    if offset is not None:
+        rank = rank + offset[flat_expert]
     keep = rank < capacity
     dest = torch.where(keep, flat_expert * capacity + rank,
                        torch.full_like(rank, e * capacity))
     return Routing(probs, gate_vals, gate_idx, keep, dest, capacity)
+
+
+def aux_loss(r: Routing, dispatch_frac: torch.Tensor | None = None) -> torch.Tensor:
+    """Switch-style load-balance loss: E * sum(dispatch fraction * mean
+    router probability).  ``dispatch_frac`` (E,): the fractions of a
+    larger token set whose block ``r`` routes (default: ``r``'s own)."""
+    e = r.probs.shape[1]
+    if dispatch_frac is None:
+        tk = r.gate_idx.numel()
+        dispatch_frac = torch.bincount(r.gate_idx.reshape(-1), minlength=e).float() / tk
+    return e * torch.sum(dispatch_frac * r.probs.mean(dim=0))
+
+
+def experts(p: MoEParams, xt: torch.Tensor, r: Routing, act: str) -> torch.Tensor:
+    """Dispatch ``xt`` (T, d) by ``r`` into the (E, C, d) buffer, the grouped
+    expert FFN, the token-major combine and the shared expert: (T, d)."""
+    t, d = xt.shape
+    e = p.router.shape[1]
+    cap = r.capacity
+    tk = r.dest.shape[0]
+    top = tk // t
+    st, se, sw = _HOOKS["tokens"], _HOOKS["experts"], _HOOKS["weights"]
+
+    # -- dispatch: scatter the token ids (one spare row takes the drops) --
+    flat_token = torch.arange(tk, device=xt.device) // top
+    buf_tok = torch.full((e * cap + 1,), tk, dtype=torch.int64, device=xt.device)
+    buf_tok[r.dest] = flat_token
+    buf_tok = buf_tok[: e * cap]
+    valid = (buf_tok < tk)[:, None]
+    rows = xt[torch.clamp(buf_tok, max=t - 1)]
+    buf = torch.where(valid, rows, torch.zeros((), dtype=xt.dtype, device=xt.device))
+    buf = se(buf.reshape(e, cap, d))
+
+    # -- grouped expert FFN --
+    a = common.act_fn(act)
+    w_gate, w_up, w_down = sw(p.w_gate), sw(p.w_up), sw(p.w_down)
+    h = a(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
+    out_buf = se(torch.bmm(h, w_down)).reshape(e * cap, d)
+
+    # -- combine (token-major) --
+    gathered = out_buf[torch.clamp(r.dest, max=e * cap - 1)]
+    gathered = st(gathered * (r.gate_vals.reshape(-1) * r.keep)[:, None].to(xt.dtype))
+    out = gathered.reshape(t, top, d).sum(dim=1)
+
+    if p.shared is not None:
+        out = out + ffn_forward(p.shared, xt, act)
+    return out
 
 
 def moe_forward(
@@ -100,38 +187,10 @@ def moe_forward(
     act: str = "silu",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B,S,d), aux load-balance loss scalar)."""
+    if _HOOKS["impl"] is not None:
+        return _HOOKS["impl"](p, x, top_k=top_k, capacity_factor=capacity_factor, act=act)
     b, s, d = x.shape
-    e = p.router.shape[1]
-    t = b * s
-    tk = t * top_k
-    xt = x.reshape(t, d)
-    r = route(p.router, xt, k=top_k, capacity_factor=capacity_factor)
-    cap = r.capacity
-
-    # -- aux loss (Switch-style) --
-    dispatch_frac = torch.bincount(r.gate_idx.reshape(-1), minlength=e).float() / tk
-    aux = e * torch.sum(dispatch_frac * r.probs.mean(dim=0))
-
-    # -- dispatch: scatter the token ids (one spare row takes the drops) --
-    flat_token = torch.arange(tk, device=x.device) // top_k
-    buf_tok = torch.full((e * cap + 1,), tk, dtype=torch.int64, device=x.device)
-    buf_tok[r.dest] = flat_token
-    buf_tok = buf_tok[: e * cap]
-    valid = (buf_tok < tk)[:, None]
-    rows = xt[torch.clamp(buf_tok, max=t - 1)]
-    buf = torch.where(valid, rows, torch.zeros((), dtype=x.dtype, device=x.device))
-    buf = buf.reshape(e, cap, d)
-
-    # -- grouped expert FFN --
-    a = common.act_fn(act)
-    h = a(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
-    out_buf = torch.bmm(h, p.w_down).reshape(e * cap, d)
-
-    # -- combine (token-major) --
-    gathered = out_buf[torch.clamp(r.dest, max=e * cap - 1)]
-    gathered = gathered * (r.gate_vals.reshape(-1) * r.keep)[:, None].to(x.dtype)
-    out = gathered.reshape(t, top_k, d).sum(dim=1)
-
-    if p.shared is not None:
-        out = out + ffn_forward(p.shared, xt, act)
-    return out.reshape(b, s, d), aux
+    st = _HOOKS["tokens"]
+    xt = st(x.reshape(b * s, d))
+    r = route(p.router, xt, k=top_k, capacity_factor=capacity_factor, hook=st)
+    return experts(p, xt, r, act).reshape(b, s, d), aux_loss(r)

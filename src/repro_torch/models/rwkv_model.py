@@ -53,6 +53,7 @@ class RWKVLM:
     def __init__(self, cfg: ModelConfig, *, device: torch.device):
         self.cfg = cfg
         self.device = torch.device(device)
+        self.shard_x = lambda t: t  # activation sharding hook (launcher-set)
 
     # -- params ------------------------------------------------------------
 
@@ -76,6 +77,7 @@ class RWKVLM:
         """x: (B, S, d) embeddings.  Returns (hidden, cache tuple or None)."""
         cfg = self.cfg
         states, xp_atts, xp_ffns = [], [], []
+        x = self.shard_x(x)
         for prm, ln1, ln2 in zip(params.layers, params.ln1, params.ln2):
             def body(h, prm=prm, ln1=ln1, ln2=ln2):
                 a, (s_new, xp_att) = rwkv6_time_mix(prm, common.rms_norm(h, ln1, cfg.norm_eps),
@@ -85,6 +87,7 @@ class RWKVLM:
                 return h + f, s_new, xp_att, xp_ffn
 
             x, s_new, xp_att, xp_ffn = common.remat(cfg, body, x)
+            x = self.shard_x(x)
             if collect_cache:
                 states.append(s_new)
                 xp_atts.append(xp_att)

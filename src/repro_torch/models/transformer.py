@@ -250,6 +250,7 @@ class TransformerLM:
         self.cfg = cfg
         self.flash_blk = flash_blk
         self.device = torch.device(device)
+        self.shard_x = lambda t: t  # activation sharding hook (launcher-set)
         # segments: list of (kind, n_layers, global_layer_offset)
         self.segments = segments_of(cfg)
 
@@ -285,6 +286,7 @@ class TransformerLM:
         cfg = self.cfg
         caches = []
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        x = self.shard_x(x)
         for (kind, n, off), seg in zip(self.segments, params.segs):
             windows, thetas = layer_meta(cfg, n, off)
             ks, vs = [], []
@@ -294,6 +296,7 @@ class TransformerLM:
                                           self.flash_blk)
 
                 x, kv, aux = common.remat(cfg, body, x)
+                x = self.shard_x(x)
                 aux_total = aux_total + aux
                 if collect_cache:
                     ks.append(kv[0])
@@ -387,11 +390,13 @@ class TransformerLM:
         else:
             x = self.embed_tokens(params, token[:, None])
         pos = int(pos)
+        x = self.shard_x(x)
         for (kind, n, off), seg, c in zip(self.segments, params.segs, cache):
             windows, thetas = layer_meta(cfg, n, off)
             for i, prm in enumerate(seg):
                 x, _ = _block_decode(cfg, kind, x, prm, (c[0][i], c[1][i]),
                                      int(windows[i]), float(thetas[i]), pos)
+                x = self.shard_x(x)
         x = common.rms_norm(x, params.final_norm, cfg.norm_eps)
         logits = x[:, 0, :] @ self._head(params)
         return logits.float(), cache

@@ -99,15 +99,19 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def update(self, grads: Any, state: dict, params: Any) -> tuple[Any, dict, dict]:
+    def update(self, grads: Any, state: dict, params: Any, *,
+               gnorm: torch.Tensor | None = None) -> tuple[Any, dict, dict]:
         """One step: the new parameters and moments written in place.
-        Returns (params, state with step + 1, {"lr", "grad_norm"})."""
+        ``gnorm``: the global gradient norm where ``grads`` are one device's
+        shards of it (the mesh step sums it over every shard).  Returns
+        (params, state with step + 1, {"lr", "grad_norm"})."""
         cfg = self.cfg
         step = state["step"] + 1
         lr = lr_schedule(cfg, step)
 
         # global-norm clip in fp32
-        gnorm = global_norm(grads)
+        if gnorm is None:
+            gnorm = global_norm(grads)
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
 
         bc1 = 1 - cfg.b1 ** step.to(torch.float32)

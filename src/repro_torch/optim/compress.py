@@ -23,13 +23,13 @@ def _scale_of(leaf) -> torch.Tensor:
     return torch.clamp(amax, min=1e-12) / 127.0
 
 
-def _codes(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def int8_codes(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x.float() / scale), -127, 127).to(torch.int8)
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     scale = _scale_of(x)
-    return _codes(x, scale), scale
+    return int8_codes(x, scale), scale
 
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -44,7 +44,7 @@ def compress_tree(grads: Any, residual: Any | None = None):
     corrected = tree_map(lambda g, r: stack_map(lambda gg, rr: gg.float() + rr, g, r),
                          grads, residual)
     s = tree_map(_scale_of, corrected)
-    q = tree_map(lambda c, ss: stack_map(lambda t: _codes(t, ss), c), corrected, s)
+    q = tree_map(lambda c, ss: stack_map(lambda t: int8_codes(t, ss), c), corrected, s)
     new_residual = tree_map(
         lambda c, qq, ss: stack_map(lambda ct, qt: ct - dequantize_int8(qt, ss), c, qq),
         corrected, q, s)

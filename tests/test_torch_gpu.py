@@ -1029,3 +1029,135 @@ def test_lm_train_command_on_the_card(tmp_path):
         env={**os.environ, "PYTHONPATH": str(root / "src")})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1].startswith("done: 3 steps in ")
+
+
+# -- the LM mesh: logical shards of the card --------------------------------------------------
+
+
+def _mesh_losses(cfg, tree, batches, devices, shape):
+    """Two train steps on a ``shape`` mesh over ``devices`` (None: one
+    device, the CPU) from the numpy weights ``tree``: (losses, the whole
+    parameters on the CPU)."""
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_tensors
+    from repro_torch.optim.adamw import AdamW, AdamWConfig
+    from repro_torch.sharding.placement import gather_tree
+
+    dev = torch.device(devices[0])
+    mesh = make_host_mesh(*shape, devices=devices)
+    bundle = build_model(cfg, flash_blk=16, device=dev)
+    opt = AdamW(AdamWConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=10))
+    params = ttrain.place_params(mesh, cfg, lm_params_from_numpy(cfg, tree, device=dev))
+    step = ttrain.make_train_step(bundle, opt, mesh)
+    state, losses = opt.init(params), []
+    for b in batches:
+        batch = ttrain.place_batch(mesh, ttrain.on_device(b, dev, torch.float32))
+        params, state, _, m = step(params, state, None, batch)
+        losses.append(float(m["loss"]))
+    return losses, [t.cpu() for t in tree_tensors(gather_tree(params, "cpu"))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("module,replace", [("llama32_3b", {}),
+                                            ("deepseek_v3", {"capacity_factor": 0.5})])
+def test_lm_mesh_step_card_equals_cpu(card, module, replace):
+    """Two mesh steps on 8 logical shards of the card ((4, 2)) against the
+    same program on 8 CPU shards, float32, TF32 off: losses within 1e-5,
+    every parameter within 1e-4 of its scale; two card runs bit-equal."""
+    from repro_torch.convert import seeded_numpy_params
+    from repro_torch.launch.train import batch_source
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_smoke(module, dtype="float32", **replace)
+    tree = seeded_numpy_params(cfg, 9)
+    get = batch_source(cfg, 8, 32, seed=9)
+    batches = [get(i) for i in range(2)]
+    got = _mesh_losses(cfg, tree, batches, [card] * 8, (4, 2))
+    again = _mesh_losses(cfg, tree, batches, [card] * 8, (4, 2))
+    ref = _mesh_losses(cfg, tree, batches, ["cpu"] * 8, (4, 2))
+    np.testing.assert_allclose(got[0], ref[0], rtol=1e-5)
+    for a, b in zip(got[1], ref[1]):
+        assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))
+    assert got[0] == again[0] and all(torch.equal(a, b) for a, b in zip(got[1], again[1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", [1, 2])
+def test_flash_decode_on_the_card(card, kv):
+    """The flash-decode merge on a (2, 4) mesh of card shards within 1e-5 x
+    scale of ``decode_attention`` on the card and of the same merge on CPU
+    shards (float32)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.attention import decode_attention
+    from repro_torch.models.decode_opt import flash_decode_shardmap
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(kv)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               for s in ((2, 1, 8, 64), (2, 512, kv, 64), (2, 512, kv, 64)))
+    got = flash_decode_shardmap(make_host_mesh(2, 4, devices=[card] * 8),
+                                q.to(card), k.to(card), v.to(card), 300).cpu()
+    ref = decode_attention(q.to(card), k.to(card), v.to(card), 300).cpu()
+    cpu = flash_decode_shardmap(make_host_mesh(2, 4, devices=["cpu"] * 8), q, k, v, 300)
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((got - ref).abs().max()) < 1e-5 * scale
+    assert float((got - cpu).abs().max()) < 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_shardmap_moe_on_the_card(card):
+    """The all-to-all MoE on a (2, 4) mesh of card shards: without drops
+    within 1e-4 x scale of ``moe_forward`` (output and gradients); with
+    drops the same keep masks as on CPU shards and the output within 1e-5
+    x scale; two runs bit-equal."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.moe import MoEParams, moe_forward
+    from repro_torch.models.moe_shardmap import make_shardmap_moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+    p_cpu = MoEParams(64, 128, 16, 1, torch.float32, device="cpu", generator=g)
+    p = copy.deepcopy(p_cpu).to(card)
+    x_cpu = torch.randn(4, 32, 64, generator=g)
+    x = x_cpu.to(card).requires_grad_(True)
+    sm = make_shardmap_moe(make_host_mesh(2, 4, devices=[card] * 8))
+    out, aux = sm(p, x, top_k=2, capacity_factor=16.0)
+    ref, raux = moe_forward(p, x, top_k=2, capacity_factor=16.0)
+    scale = max(1.0, float(ref.detach().abs().max()))
+    assert float((out - ref).abs().max()) < 1e-4 * scale and abs(float(aux - raux)) < 1e-5
+    gs = torch.autograd.grad((out * out).sum() + 0.01 * aux, [x, *p.parameters()])
+    gr = torch.autograd.grad((ref * ref).sum() + 0.01 * raux, [x, *p.parameters()])
+    for a, b in zip(gs, gr):
+        assert float((a - b).abs().max()) < 1e-4 * max(1.0, float(b.abs().max()))
+    on_cpu = make_shardmap_moe(make_host_mesh(2, 4, devices=["cpu"] * 8))
+    with torch.no_grad():
+        dropped, _ = sm(p, x, top_k=2, capacity_factor=1.0)
+        again, _ = sm(p, x, top_k=2, capacity_factor=1.0)
+        keep = [k.cpu() for k in sm.keep]
+        cpu_out, _ = on_cpu(p_cpu, x_cpu, top_k=2, capacity_factor=1.0)
+    assert int(sm.dropped) > 0 and torch.equal(dropped, again)
+    assert all(torch.equal(a, b) for a, b in zip(keep, on_cpu.keep))
+    assert float((dropped.cpu() - cpu_out).abs().max()) < 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_lm_train_use_mesh_command_on_the_card(tmp_path):
+    """``--use-mesh --device cuda``: 8 logical shards of the card."""
+    import os
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the H100)")
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-3b",
+         "--scale", "0.05", "--steps", "3", "--use-mesh", "--device", "cuda",
+         "--run-dir", str(tmp_path)],
+        capture_output=True, text=True, cwd=str(root), timeout=600,
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1].startswith("done: 3 steps in ")

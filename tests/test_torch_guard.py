@@ -4,8 +4,9 @@
 ``examples/torch_*.py`` loads no ``jax`` and nothing of ``repro``; (h)
 entry points called without ``device`` — the command lines,
 ``autotune_kernel`` and the LM half's ``build_model``/``init_params``,
-``lm_params_from_numpy`` and ``launch.serve`` too — run on the card, so
-with no card they raise instead of falling back to the CPU.
+``lm_params_from_numpy``, ``launch.serve``, the training mesh and the
+serving example too — run on the card, so with no card they raise
+instead of falling back to the CPU.
 """
 
 import json
@@ -71,13 +72,15 @@ def test_every_module_is_listed():
                  "repro_torch.launch.model_flops", "repro_torch.launch.serve",
                  "repro_torch.launch.train", "repro_torch.data.tokens",
                  "repro_torch.optim", "repro_torch.optim.adamw",
-                 "repro_torch.optim.compress"):
+                 "repro_torch.optim.compress", "repro_torch.sharding",
+                 "repro_torch.sharding.partition", "repro_torch.sharding.placement",
+                 "repro_torch.models.decode_opt", "repro_torch.models.moe_shardmap"):
         assert want in mods
 
 
 EXAMPLES = ("torch_quickstart", "torch_ingest_quickstart", "torch_xtime_serving",
             "torch_xtime_cluster", "torch_xtime_multichip", "torch_train_lm",
-            "torch_elastic_restart")
+            "torch_elastic_restart", "torch_serve_lm")
 
 
 def _exec_file(path: Path) -> str:
@@ -200,6 +203,28 @@ def test_lm_training_defaults_to_the_card(monkeypatch, tmp_path):
                                      "1", "--run-dir", str(tmp_path / "b")]),
                  lambda: examples[0].main(["--steps", "1", "--run-dir", str(tmp_path / "c")]),
                  lambda: examples[1].main([])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not list(tmp_path.iterdir())
+
+
+def test_serve_example_and_the_mesh_command_line_default_to_the_card(monkeypatch, tmp_path):
+    """``examples/torch_serve_lm.py`` serves and passes its greedy check on
+    the CPU when asked; without ``--device`` it, and ``--use-mesh``
+    without ``--device``, raise with no card, writing nothing."""
+    import importlib.util
+
+    from repro_torch.launch import train
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_lm", ROOT / "examples" / "torch_serve_lm.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.main(["--device", "cpu"]) == 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: mod.main([]),
+                 lambda: train.main(["--arch", "llama3.2-3b", "--scale", "0.05", "--steps",
+                                     "1", "--use-mesh", "--run-dir", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not list(tmp_path.iterdir())

@@ -2,8 +2,8 @@
 on the CPU (see test_torch_lm_train.py): ``make_train_step`` (plain,
 microbatched, int8-compressed) from carried-across weights, the recorded
 train steps of tests/fixtures/torch_lm/train.json, ``train()`` crashed and
-resumed, checkpoints crossing between the packages both ways, the mesh
-refused, and the command line."""
+resumed, checkpoints crossing between the packages both ways, a mesh
+that is not the port's refused, and the command line (also on a mesh)."""
 
 import os
 import subprocess
@@ -99,12 +99,15 @@ def test_checkpoints_cross_between_packages(tmp_path, writer):
 
 
 def test_train_mesh_raises_naming_the_roadmap_item(tmp_path):
+    """The mesh is ported (tests/test_torch_mesh_train.py): what is refused
+    now is a mesh that is not the port's ``Mesh``, before anything is
+    written."""
     _, cfg = smoke_pair("llama3.2-3b", dtype="float32")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3.4"):
+    with pytest.raises(TypeError, match="repro_torch.launch.mesh.Mesh"):
         ttrain.train(cfg, steps=2, global_batch=2, seq_len=16, run_dir=str(tmp_path),
                      mesh=object(), device="cpu")
     bundle = tbuild(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3.4"):
+    with pytest.raises(TypeError, match="repro_torch.launch.mesh.Mesh"):
         ttrain.make_train_step(bundle, tadamw.AdamW(tadamw.AdamWConfig()), mesh=object())
     assert not list(tmp_path.iterdir())
 
@@ -123,9 +126,12 @@ def test_train_command_line(tmp_path):
     assert last.startswith("done: 3 steps in "), out.stdout
     assert np.isfinite(float(last.rsplit("-> ", 1)[1]))
     assert (tmp_path / "ckpt" / "step_00000003.npz").exists()
-    bad = subprocess.run(cmd + ["--use-mesh"], capture_output=True, text=True, cwd=str(ROOT),
-                         env=env, timeout=300)
-    assert bad.returncode != 0 and "queue 1 item 3.4" in bad.stderr
+    meshed = subprocess.run(cmd + ["--use-mesh", "--run-dir", str(tmp_path / "mesh")],
+                            capture_output=True, text=True, cwd=str(ROOT), env=env, timeout=300)
+    assert meshed.returncode == 0, meshed.stderr
+    last = meshed.stdout.strip().splitlines()[-1]
+    assert last.startswith("done: 3 steps in "), meshed.stdout
+    assert (tmp_path / "mesh" / "ckpt" / "step_00000003.npz").exists()
 
 
 def test_train_steps_fixture_equals_the_reference_and_the_port_replays_it():
