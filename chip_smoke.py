@@ -106,7 +106,9 @@ Phases, one line (or block) each:
      of CUDA tensors (float32, bfloat16, int64) restored onto the card and
      through a placer onto the mesh's devices, and a
      ``FaultTolerantRunner`` crashed and resumed on the card (== an
-     uninterrupted run);
+     uninterrupted run); and each program's dry-run hook: the ``fn`` of
+     ``serve_step_for_dryrun()`` on ``input_specs(256)``-shaped queries ==
+     ``engine.raw_margin`` bit for bit, 8 kernel launches a call;
  10. the LM half's serving path (no kernel of its own: the same torch ops
      as on the CPU), each model built from the port's seeded initialiser on
      the card and freed before the next: ``generate`` on llama3.2-3b at full
@@ -179,7 +181,17 @@ Phases, one line (or block) each:
      ms of both); the all-to-all MoE at deepseek-v3's widths (E 256, top-8,
      512 tokens, float32) on a (2, 4) mesh against ``moe_forward`` at cf
      16 (output, aux, the gradients of x, the router and the shared
-     expert) and at cf 1.25 the dropped count, two runs equal, ms of both.
+     expert) and at cf 1.25 the dropped count, two runs equal, ms of both;
+ 14. the dry run (``repro_torch.launch.dryrun``; no kernel of its own):
+     llama3.2-3b as phase 12 trains it on a (1, 1) mesh of the card — the
+     argument bytes the dry run reckons == the bytes of the parameters,
+     moments, step and batch the card holds, its meta trace's dot FLOPs ==
+     ``FlopCounterMode`` over one real ``make_train_step(mesh=)`` step, its
+     bytes a device beside the next step's peak and its roofline bound
+     beside that step's ms; then three production cells on a 16 x 16 mesh
+     of meta devices, each timed, each printing the reference's three
+     lines: llama3.2-3b train_4k, deepseek-v3-671b decode_32k (through the
+     repaired MoE counts) and xtime-tabular serve_1m.
 
 Every check that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object of the kernels and the contract line
@@ -241,6 +253,9 @@ from repro_torch.models.moe import MoEParams as LMMoEParams  # noqa: E402
 from repro_torch.models.moe import moe_forward as lm_moe_forward  # noqa: E402
 from repro_torch.models.moe_shardmap import make_shardmap_moe  # noqa: E402
 from repro_torch.sharding import partition as lm_partition  # noqa: E402
+from repro_torch.launch import dryrun as lm_dryrun  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
 SEED = 0
 SOFT_TAU = 0.1  # the soft main path's temperature, in bin units
@@ -2033,6 +2048,24 @@ def phase_mesh(ens, cm, batches, name) -> None:
           f"groups over 'data' x 4 row shards over 'model'; B=256 == the single-device "
           f"engine, 8 launches", flush=True)
 
+    # the dry-run hook: its fn runs the placed table through the kernels
+    specs = {}
+    for (noc, spmd), eng in engines.items():
+        fn, ins, out_spec = eng.serve_step_for_dryrun()
+        spec, q = eng.input_specs(256), eng._prep_queries(x)
+        if (q.shape, q.dtype, spec.device.type) != (spec.shape, spec.dtype, "meta"):
+            fail(f"dry-run hook {noc}/{spmd}: input_specs(256) {spec} is not the padded "
+                 f"queries' {tuple(q.shape)} {q.dtype}")
+        a = eng.arrays
+        got = counted_call(lambda: fn(q, a.low, a.high, a.leaf, a.cells), mesh.size,
+                           f"dry-run hook {noc}/{spmd}")
+        if not torch.equal(got[:256], eng.raw_margin(x)):
+            fail(f"dry-run hook {noc}/{spmd}: fn differs from engine.raw_margin")
+        specs[noc] = (tuple(ins[0]), tuple(ins[1]))
+    print(f"mesh [{name}] dry-run hook: serve_step_for_dryrun()'s fn on input_specs(256) "
+          f"queries == engine.raw_margin bit for bit under every program, {mesh.size} kernel "
+          f"launches a call; (batch, row) specs {specs}", flush=True)
+
 
 def uncertainty_bound(mom: np.ndarray, dmom: np.ndarray, C: int) -> np.ndarray:
     """(B, C) limit on |uncertainty - uncertainty'| when the float32 moments
@@ -3301,6 +3334,131 @@ def phase_lm_mesh(name, stats) -> None:
         print("lm mesh " + json.dumps(line), flush=True)
 
 
+DRY_CELLS = [("llama3.2-3b", "train_4k"), ("deepseek-v3-671b", "decode_32k"),
+             ("xtime-tabular", "serve_1m")]  # phase 14's production cells, 16 x 16
+
+
+def held_bytes(*trees) -> int:
+    """Bytes of the distinct storages of the tensors (or a placed tree's
+    shards) in ``trees``."""
+    seen, total = set(), 0
+    for tree in trees:
+        for t in lm_tree_tensors(tree):
+            for shard in (t.shards.flat if hasattr(t, "shards") else [t]):
+                st = shard.untyped_storage()
+                if st.data_ptr() not in seen:
+                    seen.add(st.data_ptr())
+                    total += st.nbytes()
+    return total
+
+
+def dry_one_device(name, stats) -> None:
+    """(a) llama3.2-3b as phase 12 trains it (28 layers, bfloat16, remat,
+    float32 moments, B = 8 x 1,024) on a (1, 1) mesh of the card: the dry
+    run's reckoning (a meta trace of the program ``MeshStep`` runs) against
+    the card.  The argument bytes must equal the bytes of the parameters,
+    moments, step and batch the card holds; the trace's dot FLOPs must
+    equal ``FlopCounterMode`` over one real ``make_train_step(mesh=)``
+    step; its bytes a device beside the next step's peak, its roofline
+    bound beside that step's ms."""
+    cfg = get_config("llama3.2-3b")
+    cell = ShapeCell("train", TRAIN_S, TRAIN_B, "train")
+    mesh = Mesh(np.array([[CARD]], dtype=object), ("data", "model"))
+    base = torch.cuda.memory_allocated()
+    bundle = lm_build(cfg)
+    t0 = time.perf_counter()
+    cost, r = lm_dryrun.reckon_lm(cfg, cell, mesh, flash_blk=bundle.model.flash_blk)
+    trace_s = time.perf_counter() - t0
+    res = lm_dryrun.result_of(cost, {"n_compute_devices": 1, "memory": r["memory"],
+                                     "transfer": r["transfer"], "model_flops_total": 0.0})
+    want_args = lm_dryrun.argument_bytes(cfg, cell, mesh)
+
+    opt = lm_adamw.AdamW(train_opt_cfg(TRAIN_STEPS))
+    if opt.cfg.moment_dtype != lm_dryrun._moe_moment_dtype(cfg):
+        fail("dry run llama3.2-3b: the step's moments are not the dry run's dtype")
+    params = lm_train.place_params(mesh, cfg, bundle.init_params(SEED))
+    lm_free()  # the whole initial copy
+    state = opt.init(params)
+    pipe = lm_tokens.TokenPipeline(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=SEED)
+    batches = [lm_train.place_batch(mesh, {k: torch.as_tensor(v).to(CARD)  # int32, as the specs
+                                           for k, v in pipe.batch(i).items()}) for i in range(2)]
+    held = held_bytes(params, state["m"], state["v"], state["step"], batches[0])
+    if held != want_args:
+        fail(f"dry run llama3.2-3b (1, 1): argument bytes {want_args} reckoned, the card "
+             f"holds {held}")
+    step_fn = lm_train.make_train_step(bundle, opt, mesh)
+    with FlopCounterMode(display=False) as fcm:
+        params, state, _, m = step_fn(params, state, None, batches[0])
+        torch.cuda.synchronize()
+    card_flops = fcm.get_total_flops()
+    if card_flops != cost.dot_flops:
+        fail(f"dry run llama3.2-3b (1, 1): {cost.dot_flops:.6e} dot FLOPs on meta, "
+             f"FlopCounterMode {card_flops:.6e} on the card")
+    torch.cuda.reset_peak_memory_stats()
+    a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    params, state, _, m2 = step_fn(params, state, None, batches[1])
+    e.record()
+    torch.cuda.synchronize()
+    step_ms, peak = a.elapsed_time(e), torch.cuda.max_memory_allocated() - base
+    finite("dry run llama3.2-3b (1, 1)", [float(m["loss"]), float(m2["loss"])],
+           [float(m["grad_norm"]), float(m2["grad_norm"])])
+    del params, state, step_fn, bundle, batches, m, m2
+    lm_free()
+    mem, roof = res["memory"], res["roofline"]
+    arg_temp = mem["argument_bytes"] + mem["temp_bytes"]
+    total = arg_temp + mem["gathered_bytes"] + mem["sum_bytes"]
+    line = {"model": "llama3.2-3b", "mesh": "(1, 1) of the card", "batch": TRAIN_B,
+            "seq": TRAIN_S, "trace_s": trace_s, "argument_bytes": want_args,
+            "held_bytes": held, "dot_flops": cost.dot_flops, "flop_counter_flops": card_flops,
+            "n_ops": cost.n_ops, "temp_bytes": mem["temp_bytes"],
+            "gathered_bytes": mem["gathered_bytes"], "sum_bytes": mem["sum_bytes"],
+            "argument_plus_temp_bytes": arg_temp, "reckoned_bytes": total, "peak_bytes": peak,
+            "reckoned_share_of_peak": total / peak, "bound_s": roof["bound_s"],
+            "dominant": roof["dominant"], "compute_s": roof["compute_s"],
+            "memory_s": roof["memory_s"], "step_ms": step_ms,
+            "bound_share": roof["bound_s"] * 1e3 / step_ms, "card": name}
+    stats["dryrun"] = [line]
+    print(f"dry run [{name}] llama3.2-3b on a (1, 1) mesh of the card, B = {TRAIN_B} x "
+          f"{TRAIN_S}: meta trace {trace_s:.1f} s ({cost.n_ops} ops); argument bytes "
+          f"{want_args} reckoned == {held} held on the card; dot FLOPs {cost.dot_flops:.6e} "
+          f"on meta == FlopCounterMode {card_flops:.6e} over a real step; argument + temp "
+          f"{arg_temp / 2**30:.3f} GiB, with the gathered copy and the float32 sums "
+          f"{total / 2**30:.3f} GiB, beside the step's peak {peak / 2**30:.3f} GiB "
+          f"({100 * total / peak:.1f}%); roofline bound {1e3 * roof['bound_s']:.3f} ms "
+          f"({roof['dominant']}) beside the step's {step_ms:.3f} ms "
+          f"({100 * line['bound_share']:.1f}%)", flush=True)
+
+
+def dry_production_cells(name, stats) -> None:
+    """(b) three production cells on a 16 x 16 mesh of meta devices, each
+    timed, each printing the reference's three lines."""
+    out_dir = ROOT / "results" / "dryrun_torch"
+    for arch, shape in DRY_CELLS:
+        t0 = time.perf_counter()
+        res = lm_dryrun.run_cell(arch, shape, False, str(out_dir))
+        wall = time.perf_counter() - t0
+        if res["status"] != "ok":
+            fail(f"dry run {arch} {shape}: {res['status']} {res.get('error')}\n"
+                 f"{res.get('traceback', '')}")
+        brief = {k: v for k, v in res.items()
+                 if k in ("arch", "shape", "mesh", "status", "trace_s", "wall_s")}
+        print(f"dry run [{name}] {arch} {shape} on 16 x 16 meta devices ({wall:.1f} s):", flush=True)
+        print(json.dumps(brief), flush=True)
+        print("memory_analysis:", json.dumps(res["memory"]), flush=True)
+        print("roofline:", json.dumps(res["roofline"]), flush=True)
+        stats["dryrun"].append({"cell": f"{arch} {shape}", "seconds": wall,
+                                "memory": res["memory"], "counted": res["counted"],
+                                "roofline": res["roofline"]})
+
+
+def phase_dryrun(name, stats) -> None:
+    """Phase 14: the dry run, held against the card."""
+    lm_free()
+    dry_one_device(name, stats)
+    dry_production_cells(name, stats)
+
+
 def kernel_entry(name, source, launches, err, ms, plain_ms, bnd, by) -> dict:
     """One object of the kernels line: ``source`` a file of kernels/csrc,
     every time measured in this run, no single PyTorch call to compare."""
@@ -3383,6 +3541,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_lm_mesh(name, stats)
     print(f"LM mesh phase {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_dryrun(name, stats)
+    print(f"dry run phase {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     lines = [stats["kernel_line"], stats["soft_kernel_line"], *stats["variant_lines"],

@@ -323,11 +323,15 @@ class XTimeEngine:
             return 1
         return self.mesh.shape[self.row_axis]
 
+    def _group_axes(self) -> list[str]:
+        """The axes the batch groups split over: ``pod``, then ``batch_axis``."""
+        return (["pod"] if "pod" in self.mesh.axis_names else []) + [self.batch_axis]
+
     def _group_coords(self) -> list[dict[str, int]]:
-        """The batch groups in the batch spec's order (``pod``, then
-        ``batch_axis``, row-major), each as mesh coordinates."""
+        """The batch groups in the batch spec's order (``_group_axes``,
+        row-major), each as mesh coordinates."""
         shape = self.mesh.shape
-        axes = (["pod"] if "pod" in self.mesh.axis_names else []) + [self.batch_axis]
+        axes = self._group_axes()
         return [dict(zip(axes, idx))
                 for idx in itertools.product(*(range(shape[ax]) for ax in axes))]
 
@@ -560,3 +564,51 @@ class XTimeEngine:
     def raw_margin_padded(self, q_padded) -> torch.Tensor:
         """``raw_margin`` on a pre-padded bucket; returns padded outputs."""
         return self.padded_fn("margin")(q_padded)
+
+    # -- dry-run hooks -------------------------------------------------------
+
+    def _batch_spec(self):
+        """The queries' spec on the mesh, as ``_reduced`` splits them: over
+        the batch groups (``_group_axes``), and over ``row_axis`` too where
+        each device takes a piece of its group's queries (batch, hybrid)."""
+        from repro_torch.sharding.partition import P  # its package imports the models
+
+        axes = self._group_axes()
+        if self.noc_config in ("batch", "hybrid"):
+            axes.append(self.row_axis)
+        return P(axes[0] if len(axes) == 1 else tuple(axes))  # as jax normalises ("data",)
+
+    def _row_spec(self):
+        """A table array's spec, as ``_place_on_mesh`` places it: rows over
+        ``row_axis``, or whole on every device for the batch program."""
+        from repro_torch.sharding.partition import P
+
+        return P() if self.noc_config == "batch" else P(self.row_axis)
+
+    def serve_step_for_dryrun(self):
+        """(fn, in_specs, out_spec) for the dry run.  ``fn(q, low, high,
+        leaf, cells)`` is the margin program on a padded query block ``q``
+        (``input_specs``) over the table as ``_place_on_mesh`` placed it:
+        the table arrays must be this engine's (``engine.arrays``' low,
+        high, leaf and cells, the cell list in place of the reference's
+        tile mask).  ``in_specs``: the batch spec, then the row spec of each
+        table array; ``out_spec``: the batch spec."""
+        if self.mesh is None:
+            raise ValueError("the dry-run hooks need an engine bound to a mesh")
+        a = self.arrays
+
+        def fn(q, low, high, leaf, cells):
+            if any(x is not y for x, y in zip((low, high, leaf, cells),
+                                              (a.low, a.high, a.leaf, a.cells))):
+                raise ValueError("fn runs the table this engine placed: pass "
+                                 "engine.arrays' low, high, leaf and cells")
+            return self._margin_padded(q)
+
+        bs, rs = self._batch_spec(), self._row_spec()
+        return fn, (bs, rs, rs, rs, rs), bs
+
+    def input_specs(self, batch: int) -> torch.Tensor:
+        """A meta stand-in of a padded query block: (batch, f_pad) in the
+        table dtype."""
+        return torch.empty((batch, self.arrays.f_pad), dtype=kops.TORCH_DTYPES[self.table_dtype],
+                           device="meta")

@@ -207,7 +207,7 @@ class GroupRouting:
         xt = x.reshape(b * s, d)
         r = moe.route(p.router, xt, k=top_k, capacity=capacity, offset=off)
         if self.counting:
-            self.counts[key] = off + torch.bincount(r.gate_idx.reshape(-1), minlength=e)
+            self.counts[key] = off + moe.expert_counts(r.gate_idx, e)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         else:
             aux = moe.aux_loss(r, self.counts[key].float() / (t_all * top_k))

@@ -131,6 +131,15 @@ def route(router: torch.Tensor, xt: torch.Tensor, *, k: int,
     return Routing(probs, gate_vals, gate_idx, keep, dest, capacity)
 
 
+def expert_counts(gate_idx: torch.Tensor, e: int) -> torch.Tensor:
+    """(E,) int64: how many of ``gate_idx``'s assignments each expert takes
+    (``bincount(minlength=e)``, as an integer ``scatter_add_``, which also
+    has a meta kernel: the dry run traces it)."""
+    idx = gate_idx.reshape(-1)
+    return torch.zeros(e, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
+
+
 def aux_loss(r: Routing, dispatch_frac: torch.Tensor | None = None) -> torch.Tensor:
     """Switch-style load-balance loss: E * sum(dispatch fraction * mean
     router probability).  ``dispatch_frac`` (E,): the fractions of a
@@ -138,7 +147,7 @@ def aux_loss(r: Routing, dispatch_frac: torch.Tensor | None = None) -> torch.Ten
     e = r.probs.shape[1]
     if dispatch_frac is None:
         tk = r.gate_idx.numel()
-        dispatch_frac = torch.bincount(r.gate_idx.reshape(-1), minlength=e).float() / tk
+        dispatch_frac = expert_counts(r.gate_idx, e).float() / tk
     return e * torch.sum(dispatch_frac * r.probs.mean(dim=0))
 
 
