@@ -13,7 +13,9 @@ Phases, one line (or block) each:
      list as built and widened past the staged slots, bias fused and
      unfused, at b256/r16384/f130/c8, a ragged small shape and tables
      2,048 and 8,192 features wide (past the staged query window), with
-     each instance's launches;
+     each instance's launches; the soft kernel's per-term error: one-cell
+     tables (F = 1) swept over x, computed and through the lattice table,
+     each score within s(8u|ls| + 4u) + 2^-126 of float64;
   4. the main paths at the full width of xtime-tabular (4096 trees of
      depth 8, 130 features, 256 bins, 8 classes), each with the launch
      counts set to 0 just before it and read just after:
@@ -23,9 +25,10 @@ Phases, one line (or block) each:
      soft: ``build(deploy=DeployConfig(mode="soft", tau=0.1))`` ->
      ``raw_margin``/``raw_moments`` at tau = 0 (held to the host
      traversal, the m1 moments to the unfused margins),
-     ``predict_proba`` and ``predict(return_uncertainty=True)`` at batch
-     1, 37 and 256 and ``raw_moments`` at batch 37 (held to the plain
-     version), then save -> load -> ``predict_proba``;
+     ``predict_proba`` and ``predict(return_uncertainty=True)`` — one
+     launch, equal to ``predict`` and ``uncertainty`` apart bit for bit —
+     at batch 1, 37 and 256 and ``raw_moments`` at batch 37 (held to the
+     plain version), then save -> load -> ``predict_proba``;
   5. times with CUDA events at full width, each launch alone with the L2
      cache flushed before it (and back to back, warm, beside it), beside
      the least time the card could take: the main path's uint8/inclusive
@@ -34,10 +37,15 @@ Phases, one line (or block) each:
      ``cm.raw_margin(x, table_dtype="int32", mode="inclusive")``), the two
      instances no engine binds — uint8 and uint16 'direct' — on the full
      table (uint8 on it clipped to a 255-bin grid), the soft kernel at batch 1 and
-     256 for tau 0 and 0.1 and its moments pass at batch 256, each beside
-     its plain version and beside what the cell-list design evaluates
-     (listed cells x queries); the cell lists' K, cells per row, bytes and
-     host build time; soft bind time; peak device memory;
+     256 for tau 0 and 0.1 and its moments pass (C = 24) at batch 1 and
+     256, tau = 0.1 at batch 256 once more with the lattice table off, and
+     ``predict(return_uncertainty=True)``'s one launch at batch 256, each
+     beside its plain version, beside what the design evaluates and beside
+     the former design's recorded time (the uint8 and soft tau > 0 bounds
+     are the redesigned kernels' counts, the former counts printed beside
+     them);
+     the cell lists' K, cells per row, bytes and host build time; soft
+     bind time; peak device memory;
   6. the tiers on top of the engine, on the phase 4 artifacts (each with
      the launch counts set to 0 just before it and read just after):
      serving: ``TableRegistry`` -> ``ServeLoop(flush_rows=256)`` replaying
@@ -229,6 +237,7 @@ from repro_torch.convert import (  # noqa: E402
     seeded_numpy_params,
 )
 from repro_torch.core.engine import XTimeEngine  # noqa: E402
+from repro_torch.core.precision import soft_inv  # noqa: E402
 from repro_torch.core.compile import compile_ensemble  # noqa: E402
 from repro_torch.core.trees import random_deep_ensemble  # noqa: E402
 from repro_torch.kernels import cam_match as K  # noqa: E402
@@ -270,7 +279,22 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 F32_FLOPS_PER_S = 67e12
 SFU_PER_CLOCK_PER_SM = 16
+# shared memory serves 32 banks of 4 bytes a clock per SM (the same guide,
+# shared memory), at the same SM count and clock
+SMEM_WORDS_PER_CLOCK_PER_SM = 32
 F32_EPS = ref.F32_EPS
+# the former designs' recorded times (ms, L2 flushed, NVIDIA H100 80GB
+# HBM3, 700.00 W) of the kernels this script times beside the redesigned
+# ones: the lane-per-query uint8 kernel and the library log-sigmoid
+FORMER_MS = {("uint8", 1): 0.0819, ("uint8", 256): 1.3146, ("uint8", 1024): 5.0377,
+           (0.1, 1, "margin"): 0.1809, (0.1, 256, "margin"): 5.2585,
+           (0.1, 256, "moments"): 6.3947, (0.0, 1, "margin"): 0.1363,
+           (0.0, 256, "margin"): 2.0846}
+
+
+def recorded(key) -> str:
+    ms = FORMER_MS.get(key)
+    return "former design not recorded" if ms is None else f"former design {ms:.4f} ms"
 
 
 def fail(msg: str) -> None:
@@ -297,6 +321,13 @@ def sfu_per_s() -> tuple[float, str]:
     return rate, f"{SFU_PER_CLOCK_PER_SM}/clk/SM x {sms} SMs x {mhz:.0f} MHz"
 
 
+def smem_words_per_s() -> float:
+    """4-byte shared-memory reads per second on this card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(smi("clocks.max.sm").split()[0])
+    return SMEM_WORDS_PER_CLOCK_PER_SM * sms * mhz * 1e6
+
+
 _TYPES = {"h": "uint8", "t": "uint16", "i": "int32"}
 
 
@@ -308,8 +339,12 @@ def ptxas_report(log: str) -> list[str]:
         if not m:
             continue
         k = re.search(r"cam_match_kernelI([hti])NS_\d+(\w+?)ELb([01])EEEv", m.group(1))
+        uk = re.search(r"cam_match_u8_kernelILb([01])ELb([01])E", m.group(1))
         sk = re.search(r"cam_match_soft_kernelILb([01])ELb([01])E", m.group(1))
-        if k:
+        if uk:
+            wide = ", wide" if uk.group(2) == "1" else ""
+            name = f"cam_match_u8<{'Inclusive' if uk.group(1) == '1' else 'Direct'}{wide}>"
+        elif k:
             wide = ", wide" if k.group(3) == "1" else ""
             name = f"cam_match<{_TYPES[k.group(1)]}, {k.group(2)}{wide}>"
         elif sk:
@@ -598,6 +633,62 @@ def phase_soft_kernel(dev, stats) -> None:
                      f"and moments within that through |leaf| + 2(n+splits+2)u·Σ|s·leaf| "
                      f"(max |err| normal margins so far {stats['soft_max_abs_err']:.3g}, "
                      f"worst err/bound {worst:.3g})"), flush=True)
+    one_cell_sweep(dev)
+
+
+def one_cell_table(bounds: np.ndarray, side: str, dev) -> ops.CellList:
+    """A table one feature wide (the smallest width the kernel takes), one
+    listed cell a row: lower bound ``bounds[r]`` (upper +inf), or upper
+    bound ``bounds[r]`` (lower -inf)."""
+    r = bounds.shape[0]
+    b = bounds.astype(np.float32)[:, None]
+    inf = np.full_like(b, np.inf)
+    lo, hi = (b, inf) if side == "lo" else (-inf, b)
+    return ops.CellList(np.ones(r, np.int32), np.zeros((r, 1), np.uint16), lo, hi, 1).to(dev)
+
+
+def log_sigmoid64(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.float64)
+    return np.minimum(x, 0.0) - np.log1p(np.exp(-np.abs(x)))
+
+
+def one_cell_sweep(dev) -> float:
+    """The soft kernel's per-term error on the card: one-cell tables swept
+    over x, query 0, each side, through the computed log-sigmoid (tau = 1,
+    x dense in [-104, 104] with +-0 and subnormals) and the lattice table
+    (half-integer bounds, tau = 1, 0.1, 0.37).  Each score expf(ls) is
+    held to the budget against float64: |s - s64| <= s64 (8u |ls| + 4u) +
+    2^-126 (8u a log-score, expf's 2 ulp).  Returns the worst err/budget."""
+    rng = np.random.default_rng(SEED + 30)
+    grid = np.concatenate([np.linspace(-104, 104, 1 << 20), rng.uniform(-104, 104, 1 << 18),
+                           [0.0, -0.0, 1e-40, -1e-40, 1e-45, -1e-45, 2.0 ** -126]])
+    half = np.arange(-255.5, 256.0, 1.0)
+    worst = 0.0
+    q = torch.zeros((1, 1), dtype=torch.float32, device=dev)
+    for path, tau, xs in (("computed", 1.0, grid), ("lattice", 1.0, half),
+                          ("lattice", 0.1, half), ("lattice", 0.37, half)):
+        inv = soft_inv(tau)
+        for side in ("lo", "hi"):
+            bounds = -xs if side == "lo" else xs  # q - lo = x, hi - q = x
+            cells = one_cell_table(bounds, side, dev)
+            if cells.lattice != (path == "lattice"):
+                fail(f"one-cell {path} table: lattice flag {cells.lattice}")
+            s = K.soft_scores_cuda(q, cells, tau=tau)[0].double().cpu().numpy()
+            x = xs.astype(np.float32) * np.float32(inv)  # the kernel's argument, exactly
+            ls = log_sigmoid64(x)
+            s64 = np.exp(ls)
+            lim = s64 * (8 * F32_EPS * np.abs(ls) + 4 * F32_EPS) + ref.F32_TINY
+            err = np.abs(s - s64)
+            if np.isnan(s).any() or bool((err > lim).any()):
+                i = int(np.argmax(err / lim))
+                fail(f"one-cell {path} tau={tau} {side}: x={x[i]!r} score {s[i]!r} vs "
+                     f"{s64[i]!r} over the per-term budget")
+            worst = max(worst, float((err / lim).max()))
+    print(f"kernel soft one-cell sweep (F = 1): computed log-sigmoid over {grid.size} x in "
+          f"[-104, 104] and the lattice table at tau 1, 0.1, 0.37, both sides: scores "
+          f"within s(8u|ls| + 4u) + 2^-126 of float64, worst err/budget {worst:.3g}",
+          flush=True)
+    return worst
 
 
 # -- phase 4: the main path at full width -------------------------------------
@@ -706,19 +797,19 @@ def phase_soft_main_path(ens, cm, batches, stats):
     if not (mom0[:, 16:24].sum(dim=1) == cm.table.n_trees).all():
         fail("soft tau=0: the mass channels do not sum to the tree count")
     # tau > 0: probabilities and uncertainty at every batch
-    proba, unc = {}, {}
+    proba, pred, unc = {}, {}, {}
     for b in (1, 37, 256):
         x = batches[b]
         proba[b] = soft.predict_proba(x)
-        pred, unc[b] = soft.predict(x, return_uncertainty=True)
-        expected += 3
+        pred[b], unc[b] = soft.predict(x, return_uncertainty=True)  # one launch
+        expected += 2
         if proba[b].shape != (b, 8) or not np.isfinite(proba[b]).all():
             fail(f"soft batch {b}: predict_proba not finite of shape ({b}, 8)")
         if not np.allclose(proba[b].sum(axis=1), 1.0, rtol=0, atol=1e-5):
             fail(f"soft batch {b}: predict_proba rows do not sum to 1 within 1e-5")
         if not (np.isfinite(unc[b]).all() and (unc[b] >= 0).all() and unc[b].shape == (b,)):
             fail(f"soft batch {b}: uncertainties not finite and >= 0")
-        if not np.array_equal(pred, proba[b].argmax(axis=1)):
+        if not np.array_equal(pred[b], proba[b].argmax(axis=1)):
             fail(f"soft batch {b}: predict != argmax of predict_proba")
     mom37 = eng.raw_moments(batches[37])
     expected += 1
@@ -729,12 +820,25 @@ def phase_soft_main_path(ens, cm, batches, stats):
         fail(f"soft path: {stats['soft_launches']} soft launches (expected {expected}), "
              f"{K.cam_match_cuda.launches} hard ones")
     print(f"soft path: {expected} soft kernel launches (tau=0: 2 raw_margin + 1 "
-          f"raw_moments; tau={SOFT_TAU}: predict_proba + predict + moments at B = 1, 37, "
-          f"256, and raw_moments at B = 37); tau=0 margins == Ensemble.raw_margin "
+          f"raw_moments; tau={SOFT_TAU}: predict_proba + predict(return_uncertainty=True), "
+          f"one launch, at B = 1, 37, 256, and raw_moments at B = 37); tau=0 margins == "
+          f"Ensemble.raw_margin "
           f"(64 rows) == hard path (all rows), "
           f"mass channels sum to {cm.table.n_trees}; proba rows sum to 1, "
           f"uncertainties finite >= 0; bind {stats['soft_bind_s']:.1f} s host "
           f"(tau=0 engine {stats['soft_bind0_s']:.1f} s)", flush=True)
+
+    # the one-launch uncertainty path == predict and uncertainty apart, bit
+    # for bit (comparison launches, after the count)
+    for b in (1, 37, 256):
+        apart = eng.uncertainty(batches[b]).numpy()
+        apart = apart[np.arange(b), pred[b].astype(np.int64)]
+        if not (np.array_equal(pred[b], soft.predict(batches[b]))
+                and np.array_equal(unc[b], apart)):
+            fail(f"soft batch {b}: predict(return_uncertainty=True) differs from predict "
+                 f"and uncertainty apart")
+    print("soft path: predict(return_uncertainty=True) (one launch) == predict and "
+          "uncertainty apart (two launches), bit for bit, at B = 1, 37, 256", flush=True)
 
     # tau = 0: the m1 channels are the unfused margins, bit for bit (the
     # same float adds per channel); a comparison launch, not counted
@@ -858,22 +962,35 @@ def match_stats(eng: XTimeEngine, qp: torch.Tensor) -> tuple[int, int]:
 
 
 def bound_ms(eng: XTimeEngine, batch: int, n_matched: int,
-             distinct: int) -> tuple[float, str, float]:
+             distinct: int) -> tuple[float, str, float, float]:
     """Least time for one cam_match call on this data: the bytes the
     cell-list kernel must read and write, each once — the listed cells and
     counts, the distinct matched leaf rows, the queries and the outputs —
-    at HBM rate, against a compare and an AND per binding bound and query
-    plus one add per matched row and query at the 32-bit lane rate.
-    Third: the time of what the design evaluates at that rate, two
-    compares per listed cell and query plus the adds."""
+    at HBM rate, against the fewest operations a design shown so far needs,
+    at the 32-bit lane rate.  For uint8 that is the bit-parallel design's
+    (cam_match.cu): two bitmap lookups and an AND per listed cell and
+    32-query tile, the bitmaps (257 words a listed feature and tile) and
+    one add per matched row and query; for the wider dtypes the compare
+    and AND per binding bound and query of the lane-per-query design.
+    Third: the time of what the design evaluates at that rate (two
+    compares per listed cell and query plus the adds, or the uint8 count);
+    fourth: the former count (a compare and an AND per binding bound and
+    query plus the adds), which the uint8 design beats."""
     a = eng.arrays
     item = np.dtype(eng.table_dtype).itemsize
     nbytes = (list_bytes(a.cells)[0] + distinct * a.c_pad * 4 + batch * a.f_pad * item
               + batch * a.c_pad * 4)
-    n_ops = 2 * batch * binding_bounds(eng) + n_matched
+    former = (2 * batch * binding_bounds(eng) + n_matched) / INT32_OPS_PER_S * 1e3
+    if eng.table_dtype == "uint8":
+        tiles = -(-batch // K.QUERIES_PER_TILE)
+        n_ops = tiles * (3 * listed_cells(a.cells) + 257 * a.cells.span) + n_matched
+        design = n_ops / INT32_OPS_PER_S * 1e3
+    else:
+        n_ops = 2 * batch * binding_bounds(eng) + n_matched
+        design = (2 * batch * listed_cells(a.cells) + n_matched) / INT32_OPS_PER_S * 1e3
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, n_ops / INT32_OPS_PER_S * 1e3
-    design = (2 * batch * listed_cells(a.cells) + n_matched) / INT32_OPS_PER_S * 1e3
-    return (*((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), design)
+    return (*((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), design,
+            former)
 
 
 # (label, engine overrides) timed at full width; the first is the main path
@@ -913,14 +1030,19 @@ def phase_times(cm, batches, name, stats) -> None:
             ms = cold_time(fn, 20 if b == 1 else 10)
             warm = sync_time(fn, 50 if b == 1 else 10)
             plain_ms = plain(eng, qp)
-            bnd, by, design = bound_ms(eng, b, *match_stats(eng, qp))
+            bnd, by, design, former = bound_ms(eng, b, *match_stats(eng, qp))
             rows[label, b] = (ms, plain_ms, bnd, by)
+            if label == "uint8/inclusive":
+                how = (f"the bit-parallel design's {design:.4f} ms of lookups (former "
+                       f"count, a compare and an AND per binding bound and query: "
+                       f"{former:.4f} ms); {recorded(('uint8', b))}")
+            else:
+                how = (f"the cell-list design evaluates {listed_cells(eng.arrays.cells) * b} "
+                       f"cells x queries: {design:.4f} ms of compares")
             print(f"times [{name}] cam_match {label} B={b} (R={eng.arrays.r_pad}, "
                   f"F_pad={eng.arrays.f_pad}, K={eng.arrays.cells.k}): kernel {ms:.4f} ms "
                   f"L2 flushed (warm {warm:.4f} ms), plain {plain_ms:.3f} ms, bound "
-                  f"{bnd:.4f} ms by {by} ({bnd / ms:.1%} of bound); the cell-list design "
-                  f"evaluates {listed_cells(eng.arrays.cells) * b} cells x queries: "
-                  f"{design:.4f} ms of compares", flush=True)
+                  f"{bnd:.4f} ms by {by} ({bnd / ms:.1%} of bound); {how}", flush=True)
         if not overrides:
             cell_list_line(name, label, eng)
     eng = cm.engine()
@@ -971,14 +1093,13 @@ def phase_direct_packed_times(cm, batches, name) -> None:
                                    r_pad=lo.shape[0]),
             table_dtype=dtype, kernel_mode="direct",
             table=SimpleNamespace(low=low, high=high, n_bins=n_bins))
-        bnd, by, design = bound_ms(shim, 256, *match_stats(shim, qp))
+        bnd, by, design, _ = bound_ms(shim, 256, *match_stats(shim, qp))
         print(f"times [{name}] cam_match {dtype}/direct B=256 (R={lo.shape[0]}, "
               f"F_pad={lo.shape[1]}, K={cells.k}, {n_bins} bins"
               f"{', clipped' if n_bins < t.n_bins else ''}): == plain version; kernel "
               f"{ms:.4f} ms L2 flushed (warm {warm:.4f} ms), plain {plain_ms:.3f} ms, bound "
-              f"{bnd:.4f} ms by {by} ({bnd / ms:.1%} of bound); the cell-list design "
-              f"evaluates {listed_cells(cells) * 256} cells x queries: {design:.4f} ms of "
-              f"compares; launched by phase 3 only", flush=True)
+              f"{bnd:.4f} ms by {by} ({bnd / ms:.1%} of bound); the design's count "
+              f"{design:.4f} ms; launched by phase 3 only", flush=True)
         del cells, lo_d, hi_d, lm_d
 
 
@@ -997,18 +1118,23 @@ def evaluated_sides(cells: ops.CellList) -> int:
 
 
 def soft_bound_ms(eng: XTimeEngine, batch: int, tau: float, leaf: torch.Tensor,
-                  sfu: float, distinct: int) -> tuple[float, str, float]:
+                  sfu: float, distinct: int) -> tuple[float, str, float, float]:
     """Least time for one soft kernel call on this data.  Bytes: the listed
     cells and counts, the leaf rows the call needs (the ``distinct``
     matched rows at tau = 0; every table row at tau > 0), the queries and
     the outputs, each once.  Operations at tau = 0: a compare and an AND
     per finite bound and query plus one add per matched row and query (one
-    per tree), at the 32-bit lane rate; at tau > 0: two special-function
-    results (ex2 + lg2) per finite bound and query and one ex2 per table
-    row and query, at the SFU rate ``sfu``, against an FMA per score and
-    nonzero leaf entry at the float32 rate.  Third: the time of what the
-    design evaluates at the same rates (two compares per listed cell, or
-    two SFU results per evaluated side, and query)."""
+    per tree), at the 32-bit lane rate.  At tau > 0 the fewest a design
+    shown so far needs, the lattice design's (cam_match_soft.cu): per
+    finite bound and query an add forming the table index and an add into
+    the row sum at the lane rate and one table read at the shared-memory
+    rate, one ex2 per table row and query at the SFU rate ``sfu``, an FMA
+    per score and nonzero leaf entry at the float32 rate; each pipe timed
+    alone, the longest taken.  Third: the time of what the design evaluates
+    at the same rates (two compares per listed cell and query; at tau > 0
+    two table reads per listed cell and query); fourth: the former count at
+    tau > 0, an ex2 and an lg2 per finite bound and query and an ex2 per
+    row and query on the SFU (the library log-sigmoid's)."""
     a, t = eng.arrays, eng.table
     c = leaf.shape[1]
     rows = distinct if tau == 0.0 else t.n_rows
@@ -1019,11 +1145,18 @@ def soft_bound_ms(eng: XTimeEngine, batch: int, tau: float, leaf: torch.Tensor,
     if tau == 0.0:
         t_ops = (2 * batch * n_fin + adds) / INT32_OPS_PER_S * 1e3
         design = (2 * batch * listed_cells(a.cells) + adds) / INT32_OPS_PER_S * 1e3
+        former = t_ops
     else:
+        smem = smem_words_per_s()
         fma = 2 * batch * int((leaf != 0).sum()) / F32_FLOPS_PER_S * 1e3
-        t_ops = max(batch * (2 * n_fin + t.n_rows) / sfu * 1e3, fma)
-        design = batch * (2 * evaluated_sides(a.cells) + a.r_pad) / sfu * 1e3
-    return (*((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), design)
+        lane = 2 * batch * n_fin / INT32_OPS_PER_S * 1e3
+        reads = batch * n_fin / smem * 1e3
+        exps = batch * t.n_rows / sfu * 1e3
+        t_ops = max(lane, reads, exps, fma)
+        design = max(2 * batch * listed_cells(a.cells) / smem * 1e3, exps)
+        former = max(batch * (2 * n_fin + t.n_rows) / sfu * 1e3, fma)
+    return (*((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), design,
+            former)
 
 
 def phase_soft_times(soft, batches, name, stats) -> None:
@@ -1033,7 +1166,7 @@ def phase_soft_times(soft, batches, name, stats) -> None:
     for tau in (0.0, SOFT_TAU):
         e = soft.engine(tau=tau)
         a = e.arrays
-        for b, what in ((1, "margin"), (256, "margin"), (256, "moments")):
+        for b, what in ((1, "margin"), (256, "margin"), (1, "moments"), (256, "moments")):
             if what == "moments" and tau == 0.0:
                 continue
             leaf, bias = (a.leaf, e._bias) if what == "margin" else (e._moments, None)
@@ -1046,17 +1179,50 @@ def phase_soft_times(soft, batches, name, stats) -> None:
                                  1 if b == 256 else 2, warmup=1)
             distinct = 0 if tau else int((K.soft_scores_cuda(qp, a.cells, tau=0.0) > 0)
                                          .any(dim=0).sum())
-            bnd, by, design = soft_bound_ms(e, b, tau, leaf, sfu, distinct)
+            bnd, by, design, former = soft_bound_ms(e, b, tau, leaf, sfu, distinct)
             rows[tau, b, what] = (ms, plain_ms, bnd, by)
             print(f"times [{name}] cam_match_soft tau={tau} {what} B={b} "
-                  f"(R={a.r_pad}, F_pad={a.f_pad}, C={leaf.shape[1]}, K={a.cells.k}): kernel "
+                  f"(R={a.r_pad}, F_pad={a.f_pad}, C={leaf.shape[1]}, K={a.cells.k}, "
+                  f"lattice {a.cells.lattice}): kernel "
                   f"{ms:.4f} ms L2 flushed (warm {warm:.4f} ms), plain {plain_ms:.3f} ms, "
                   f"bound {bnd:.4f} ms by {by} ({bnd / ms:.1%} of bound); the cell-list "
                   f"design evaluates {listed_cells(a.cells) * b} cells x queries: "
-                  f"{design:.4f} ms of " + ("compares" if tau == 0.0 else "SFU time"),
-                  flush=True)
+                  f"{design:.4f} ms of " + ("compares" if tau == 0.0 else
+                                            f"table reads (former count, ex2 + lg2 a finite "
+                                            f"bound: {former:.4f} ms)")
+                  + f"; {recorded((tau, b, what))}", flush=True)
+    # the short log-sigmoid alone: the same call with the lattice table off
+    e = soft.engine()
+    a = e.arrays
+    qp = e._prep_queries(batches[256])
+    computed = ops.CellList(a.cells.count, a.cells.feat, a.cells.lo, a.cells.hi, a.cells.width)
+    object.__setattr__(computed, "lattice", False)
+    fn = lambda: K.cam_match_soft_cuda(qp, computed, a.leaf, e._bias, tau=SOFT_TAU)  # noqa: E731
+    if not torch.equal(fn(), K.cam_match_soft_cuda(qp, a.cells, a.leaf, e._bias, tau=SOFT_TAU)):
+        fail("soft tau > 0: the lattice table and the computed log-sigmoids differ")
+    print(f"times [{name}] cam_match_soft tau={SOFT_TAU} margin B=256, lattice table off (the "
+          f"log-sigmoids computed): kernel {cold_time(fn, 10):.4f} ms L2 flushed, == the "
+          f"lattice table's margins bit for bit", flush=True)
+    # predict(return_uncertainty=True): one launch, over the moments matrix
+    x = batches[256]
+    soft.predict(x, return_uncertainty=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    soft.predict(x, return_uncertainty=True)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    n = K.cam_match_soft_cuda.launches
+    if n != 1:
+        fail(f"predict(return_uncertainty=True) launched the soft kernel {n} times")
+    before = FORMER_MS[SOFT_TAU, 256, "margin"] + FORMER_MS[SOFT_TAU, 256, "moments"]
+    print(f"times [{name}] predict(return_uncertainty=True) B=256: {n} soft kernel launch, "
+          f"its kernel {rows[SOFT_TAU, 256, 'moments'][0]:.4f} ms L2 flushed (former: 2 "
+          f"launches, {before:.4f} ms); the call {call_ms:.3f} ms on the host clock",
+          flush=True)
     cell_list_line(name, "soft float32", eng)
-    print(f"times [{name}] soft bound: SFU rate {sfu / 1e12:.3f} T/s ({how}); finite "
+    print(f"times [{name}] soft bound: SFU rate {sfu / 1e12:.3f} T/s ({how}); shared "
+          f"memory {smem_words_per_s() / 1e12:.3f} T words/s; finite "
           f"bounds {finite_bounds(eng)} of {2 * eng.arrays.r_pad * eng.arrays.f_pad}, "
           f"sides the kernel evaluates {evaluated_sides(eng.arrays.cells)}; soft bind "
           f"{stats['soft_bind_s']:.1f} s host; peak device memory over the soft path, "
@@ -1405,7 +1571,7 @@ def phase_ingested(ens, name, stats) -> None:
                 fn = lambda: K.cam_match_cuda(qp, a.cells, a.leaf, eng._bias,  # noqa: E731
                                               mode=eng.kernel_mode)
                 ms = cold_time(fn, 10)
-                bnd, by, design = bound_ms(eng, b, *match_stats(eng, qp))
+                bnd, by, design, _ = bound_ms(eng, b, *match_stats(eng, qp))
                 res[level, b] = ms
                 print(f"times [{name}] ingested {level!r} cam_match {eng.table_dtype}/"
                       f"{eng.kernel_mode} B={b} (R={a.r_pad}, K={a.cells.k}): kernel {ms:.4f} ms "
@@ -1616,7 +1782,7 @@ def phase_wide_model(name, stats) -> None:
         ms = cold_time(fn, 10)
         plain_ms = sync_time(lambda: ref.cam_match_ref(qp, a.low, a.high, a.leaf,
                                                        mode=eng.kernel_mode), 1, warmup=1)
-        bnd, by, _ = bound_ms(eng, WIDE_BATCH, *match_stats(eng, qp))
+        bnd, by, _, _ = bound_ms(eng, WIDE_BATCH, *match_stats(eng, qp))
         print(f"times [{name}] wide cam_match {label} B={WIDE_BATCH} (R={a.r_pad}, F_pad={a.f_pad}, "
               f"K={a.cells.k}): margins == Ensemble.raw_margin, {launches} launches; kernel "
               f"{ms:.4f} ms L2 flushed, plain {plain_ms:.3f} ms, bound {bnd:.4f} ms by {by}",
@@ -1670,7 +1836,7 @@ def phase_wide_model(name, stats) -> None:
                                                        tau=tau), 1, warmup=1)
         distinct = 0 if tau else int((K.soft_scores_cuda(qp, a.cells, tau=0.0) > 0)
                                      .any(dim=0).sum())
-        bnd, by, _ = soft_bound_ms(eng, WIDE_BATCH, tau, leaf, sfu, distinct)
+        bnd, by, _, _ = soft_bound_ms(eng, WIDE_BATCH, tau, leaf, sfu, distinct)
         label = f"tau={tau}" + (" moments" if what == "moments" else "")
         print(f"times [{name}] wide cam_match_soft {label} B={WIDE_BATCH} (R={a.r_pad}, F_pad={a.f_pad}, "
               f"C={leaf.shape[1]}): " + ("== Ensemble.raw_margin" if tau == 0.0 else
@@ -1952,10 +2118,12 @@ def card_mesh(shape=(2, 4), axes=("data", "model")):
 
 
 def table_bytes(a) -> int:
-    """Bytes of one copy of what the kernels read: the tables and the cell list."""
+    """Bytes of one copy of what the kernels read: the tables and the cell
+    list (with its packed words, for uint8)."""
     c = a.cells
     return sum(t.numel() * t.element_size()
-               for t in (a.low, a.high, a.leaf, c.count, c.feat, c.lo, c.hi))
+               for t in (a.low, a.high, a.leaf, c.count, c.feat, c.lo, c.hi, c.words)
+               if t is not None)
 
 
 def counted_call(fn, per_call: int, label: str):

@@ -309,8 +309,10 @@ class CompiledModel:
 
         With ``return_uncertainty=True`` (soft cell mode only — DESIGN.md
         §15) returns ``(pred, unc)``, ``unc`` the ``(B,)`` leaf-spread
-        uncertainty at each row's predicted channel (one more kernel
-        launch, over the moments matrix)."""
+        uncertainty at each row's predicted channel: on one card both come
+        from one kernel launch over the moments matrix
+        (``XTimeEngine.margin_and_moments``), bit-equal to ``predict`` and
+        ``uncertainty`` called apart."""
         q = self._binned(x, "predict")
         eng = self.engine(device, mesh=mesh, batch_hint=q.shape[0], **overrides)
         if return_uncertainty and eng.kernel_mode != "soft":
@@ -319,10 +321,11 @@ class CompiledModel:
                 f"'soft' (this binding runs mode={eng.mode!r}); build or "
                 "bind with DeployConfig(mode='soft')"
             )
-        pred = eng.predict(q).cpu().numpy()
         if not return_uncertainty:
-            return pred
-        u = eng.uncertainty(q).cpu().numpy()
+            return eng.predict(q).cpu().numpy()
+        margin, moments = eng.margin_and_moments(q)
+        pred = eng._predict_from_margin(margin).cpu().numpy()
+        u = eng.uncertainty_from_moments(moments).numpy()
         if self.table.task == "regression" or self.table.n_outputs == 1:
             unc = u[:, 0]
         else:  # the spread behind the channel that won the argmax

@@ -476,6 +476,14 @@ class XTimeEngine:
 
     # -- soft-mode uncertainty channel (DESIGN.md §15) -----------------------
 
+    def _need_moments(self) -> None:
+        if self._moments is None:
+            raise ValueError(
+                "raw_moments/uncertainty require the soft cell mode "
+                f"(this engine runs mode={self.mode!r}); rebind with "
+                "DeployConfig(mode='soft')"
+            )
+
     def raw_moments(self, q_bins) -> torch.Tensor:
         """(B, 3*n_outputs) raw soft moments ``[m1 | m2 | mass]``.
 
@@ -484,14 +492,31 @@ class XTimeEngine:
         the rows routed to c, with s_r the row's soft match score — one
         more kernel launch, over the moments matrix, with no bias.  Soft
         engines only."""
-        if self._moments is None:
-            raise ValueError(
-                "raw_moments/uncertainty require the soft cell mode "
-                f"(this engine runs mode={self.mode!r}); rebind with "
-                "DeployConfig(mode='soft')"
-            )
+        self._need_moments()
         q = self._prep_queries(q_bins)
         return self._reduced(q, moments=True)[: q_bins.shape[0], : 3 * self.table.n_outputs]
+
+    def margin_and_moments(self, q_bins) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(raw_margin(q_bins), raw_moments(q_bins))``, bit for bit, from
+        one soft kernel launch on the card: the kernel's m1 columns are the
+        margin's leaf sums (each output's float sequence does not depend on
+        the matrix width), and the bias goes on as the reduce kernel adds
+        it, one float32 add after the split sum.  The plain version's CPU
+        product sums in an order that depends on the width, and a mesh
+        reduces its shards in its own program: those run both passes."""
+        self._need_moments()
+        if not self._one_launch_moments:
+            return self.raw_margin(q_bins), self.raw_moments(q_bins)
+        B, C = q_bins.shape[0], self.table.n_outputs
+        m = self._reduced(self._prep_queries(q_bins), moments=True)[:B]
+        m1 = m[:, :C] if self._bias is None else m[:, :C] + self._bias[:, :C]
+        return self._epilogue(m1), m[:, : 3 * C]
+
+    @property
+    def _one_launch_moments(self) -> bool:
+        """Whether ``margin_and_moments`` takes the margins from the moments
+        launch: on one card."""
+        return self.mesh is None and self.device.type == "cuda"
 
     def uncertainty(self, q_bins) -> torch.Tensor:
         """(B, n_outputs) calibrated uncertainty: the score-weighted
@@ -499,7 +524,11 @@ class XTimeEngine:
         channel, derived on the host in float64 from ``raw_moments``.  At
         tau=0 exactly one row per tree matches and the spread is the
         across-tree disagreement; finite tau adds boundary ambiguity."""
-        m = self.raw_moments(q_bins).cpu().numpy().astype(np.float64)
+        return self.uncertainty_from_moments(self.raw_moments(q_bins))
+
+    def uncertainty_from_moments(self, moments: torch.Tensor) -> torch.Tensor:
+        """``uncertainty`` from ``raw_moments``' output."""
+        m = moments.cpu().numpy().astype(np.float64)
         C = self.table.n_outputs
         m1, m2, mass = m[:, :C], m[:, C : 2 * C], m[:, 2 * C : 3 * C]
         mass = np.maximum(mass, 1e-12)  # empty channels -> 0 spread, not NaN

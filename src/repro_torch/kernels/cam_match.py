@@ -14,7 +14,9 @@ module on machines with no ``nvcc`` and no card.
 
 Both kernels read the table as its per-row cell list (``ops.CellList``,
 built by ``ops.binding_cells`` at bind time): each row's non-wildcard
-cells, in ascending feature order, and nothing of the dense tables.  The
+cells, in ascending feature order, and nothing of the dense tables (the
+uint8 tables' kernel reads each cell as one packed word,
+``CellList.words``).  The
 wrappers take CUDA tensors only; they check device, dtype, shape and
 contiguity (the list checked its own counts when it was made), allocate
 the outputs and the split workspace with ``torch.empty``, launch on the
@@ -150,9 +152,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i, i, i, i, i,  # B, R, F, C, rows_per_split
         p, p, p, p,  # ws, out, bits or scores, stream
     ]
-    lib.xtime_cam_match.argtypes = [i, i, p, *cells, *rest]  # dtype, mode, q
+    # dtype, mode, q, count, feat, lo, hi, words, span, K
+    lib.xtime_cam_match.argtypes = [i, i, p, *cells[:4], p, i, i, *rest]
     lib.xtime_cam_match.restype = i
-    lib.xtime_cam_match_soft.argtypes = [i, ctypes.c_float, p, *cells, *rest]  # tau_zero, inv, q
+    # tau_zero, inv, lattice, span, q
+    lib.xtime_cam_match_soft.argtypes = [i, ctypes.c_float, i, i, p, *cells, *rest]
     lib.xtime_cam_match_soft.restype = i
     lib.xtime_error_string.argtypes = [i]
     lib.xtime_error_string.restype = ctypes.c_char_p
@@ -191,6 +195,11 @@ def _check_hard(q, cells, mode) -> None:
         raise ValueError(f"mode {mode!r} has no kernel; kernel modes: {list(_MODE_CODE)}")
     if mode in _INT32_ONLY and q.dtype != torch.int32:
         raise ValueError(f"mode {mode!r} runs on int32 tables only, got {q.dtype}")
+    if q.dtype == torch.uint8 and (cells.words is None or not cells.words.is_cuda
+                                   or cells.words.device != q.device
+                                   or not cells.words.is_contiguous()):
+        raise ValueError("a uint8 cell list needs its packed words (CellList.words) "
+                         f"contiguous on {q.device}")
 
 
 def _check_soft(q, cells, tau) -> None:
@@ -222,12 +231,14 @@ def _launch(entry: str, head: tuple, q, cells: CellList, leaf, bias, *, ws, out,
     B, F = q.shape
     R, K = cells.feat.shape
     C = 0 if leaf is None else leaf.shape[1]
+    listed = [_ptr(cells.count), _ptr(cells.feat), _ptr(cells.lo), _ptr(cells.hi)]
+    if entry == "xtime_cam_match":
+        listed += [_ptr(cells.words), cells.span]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, entry)(
-            *head, _ptr(q), _ptr(cells.count), _ptr(cells.feat), _ptr(cells.lo),
-            _ptr(cells.hi), K, _ptr(leaf), _ptr(bias), B, R, F, C, ROWS_PER_SPLIT,
-            _ptr(ws), _ptr(out), _ptr(extra), stream,
+            *head, _ptr(q), *listed, K, _ptr(leaf), _ptr(bias), B, R, F, C,
+            ROWS_PER_SPLIT, _ptr(ws), _ptr(out), _ptr(extra), stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -245,9 +256,12 @@ def _hard(q, mode) -> tuple:
     return _DTYPE_CODE[q.dtype], _MODE_CODE[mode]
 
 
-def _soft(tau) -> tuple:
-    """tau_zero and inv = float32(1 / tau), as the plain version computes it."""
-    return (1, 0.0) if tau == 0.0 else (0, soft_inv(tau))
+def _soft(tau, cells: CellList) -> tuple:
+    """tau_zero, inv = float32(1 / tau) as the plain version computes it,
+    whether the list's bounds lie on the kernel's lattice, and its span."""
+    if tau == 0.0:
+        return 1, 0.0, 0, cells.width
+    return 0, soft_inv(tau), int(cells.lattice), cells.span
 
 
 def n_splits(n_rows: int) -> int:
@@ -317,7 +331,7 @@ def cam_match_soft_cuda(
     if B == 0:
         return out
     ws = torch.empty((n_splits(R), B, C), dtype=torch.float32, device=q.device)
-    _launch("xtime_cam_match_soft", _soft(tau), q, cells, leaf, bias, ws=ws, out=out,
+    _launch("xtime_cam_match_soft", _soft(tau, cells), q, cells, leaf, bias, ws=ws, out=out,
             extra=None)
     _counted(cam_match_soft_cuda)
     return out
@@ -333,7 +347,7 @@ def soft_scores_cuda(q: torch.Tensor, cells: CellList, *, tau: float) -> torch.T
     scores = torch.empty((B, R), dtype=torch.float32, device=q.device)
     if B == 0:
         return scores
-    _launch("xtime_cam_match_soft", _soft(tau), q, cells, None, None, ws=None, out=None,
+    _launch("xtime_cam_match_soft", _soft(tau, cells), q, cells, None, None, ws=None, out=None,
             extra=scores)
     _counted(soft_scores_cuda)
     return scores

@@ -2,8 +2,13 @@
 // block shape, the launch checks, the shared-memory layout, the staging of
 // the block's queries, of a chunk's cell lists and of its leaf rows, the
 // walk over one row's listed cells and the fixed-order reduction of the
-// per-split partials.  The two kernels differ only in what a lane does per
-// listed cell and in how a chunk's leaf product is taken.
+// per-split partials.  The uint16/int32 hard kernel and the soft kernel
+// differ only in what a lane does per listed cell and in how a chunk's
+// leaf product is taken; the uint8 kernel (bit-parallel match words) keeps
+// the constants, the launch checks and the reduction, and walks its own
+// way (cam_match.cu).  Every kernel adds a chunk's matched rows in
+// ascending order from +0 and each chunk once into its split's partial,
+// so the reduction below gives the same bits whichever kernel ran.
 //
 // Tables of any width: a block stages its queries [feature][query] for the
 // first `window` features, as many as fit beside the chunk area and the

@@ -22,7 +22,7 @@ the only cells the Hopper kernels read.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -241,7 +241,14 @@ class CellList:
     Slots past a row's count are zero and never read.  ``width`` is the
     padded feature count F_pad of the table (and of the queries).  Holds
     numpy arrays or tensors; the construction checks the shapes, dtypes
-    and ``count <= K``, ``feat < width`` once, so a kernel launch need not.
+    and ``count <= K``, ``feat < width`` once, so a kernel launch need not,
+    and records ``span``, the largest feature index it holds + 1.
+    A uint8 list also carries ``words`` (``cell_words``, made here unless
+    given): each cell packed into the one 32-bit word the uint8 kernel
+    reads; None otherwise.  A
+    float32 (soft) list carries ``lattice``: whether every finite bound it
+    lists is a half-integer of magnitude at most ``LATTICE_MAX``, so the
+    soft kernel may read its log-sigmoids from a table (``on_lattice``).
     """
 
     count: np.ndarray | torch.Tensor
@@ -249,6 +256,9 @@ class CellList:
     lo: np.ndarray | torch.Tensor
     hi: np.ndarray | torch.Tensor
     width: int
+    words: np.ndarray | torch.Tensor | None = field(default=None, repr=False, compare=False)
+    lattice: bool = field(default=False, init=False, repr=False, compare=False)
+    span: int = field(default=0, init=False, repr=False, compare=False)
 
     def __post_init__(self) -> None:
         R, K = tuple(self.feat.shape)
@@ -272,16 +282,27 @@ class CellList:
                     f"cell list counts in [{cmin}, {cmax}] (K = {K}) or features up to "
                     f"{fmax} (width {self.width}) out of range"
                 )
+            object.__setattr__(self, "span", fmax + 1)
+        if _np_dtype(self.lo) == np.uint8 and self.words is None:
+            object.__setattr__(self, "words", cell_words(self.feat, self.lo, self.hi))
+        elif self.words is not None and (
+                _np_dtype(self.lo) != np.uint8 or _np_dtype(self.words) != np.int32
+                or tuple(self.words.shape) != (R, K)):
+            raise ValueError(f"words must be the ({R}, K = {K}) int32 packing of a uint8 list")
+        if _np_dtype(self.lo) == np.float32:
+            object.__setattr__(self, "lattice", on_lattice(self))
 
     @property
     def k(self) -> int:
         return int(self.feat.shape[1])
 
     def rows(self, start: int, stop: int) -> "CellList":
-        """Rows ``[start, stop)`` of the list, as views; K and the width
-        stay the table's (a row shard of the mesh engine)."""
+        """Rows ``[start, stop)`` of the list, as views (packed words
+        too); K and the width stay the table's (a row shard of the mesh
+        engine)."""
+        words = None if self.words is None else self.words[start:stop]
         return CellList(self.count[start:stop], self.feat[start:stop], self.lo[start:stop],
-                        self.hi[start:stop], self.width)
+                        self.hi[start:stop], self.width, words)
 
     def to(self, device) -> "CellList":
         """The same list as tensors on ``device``."""
@@ -289,7 +310,39 @@ class CellList:
             t = torch.from_numpy(a) if isinstance(a, np.ndarray) else a
             return t.to(device).contiguous()
         return CellList(put(self.count), put(self.feat), put(self.lo), put(self.hi),
-                        self.width)
+                        self.width, None if self.words is None else put(self.words))
+
+
+def cell_words(feat, lo, hi):
+    """(R, K) int32: each cell of a uint8 list as ``feat | lo << 16 | hi <<
+    24`` (bits as uint32), numpy or torch as given."""
+    if isinstance(feat, np.ndarray):
+        w = (feat.astype(np.uint32) | (lo.astype(np.uint32) << 16)
+             | (hi.astype(np.uint32) << 24))
+        return w.view(np.int32)
+    return (feat.to(torch.int32) | (lo.to(torch.int32) << 16)
+            | (hi.to(torch.int32) << 24)).contiguous()
+
+
+# the soft kernel's lattice: bounds that are half-integers within this
+# magnitude (and integer queries within it) index its log-sigmoid table
+LATTICE_MAX = 256.0
+
+
+def on_lattice(cells: "CellList") -> bool:
+    """Whether every finite bound in the used slots of a float32 list is a
+    half-integer of magnitude at most ``LATTICE_MAX`` (the soft encoding
+    of a table of at most 256 bins is)."""
+    R, K = tuple(cells.feat.shape)
+    if isinstance(cells.lo, np.ndarray):
+        used = np.arange(K)[None, :] < cells.count[:, None]
+        v = np.concatenate([cells.lo[used], cells.hi[used]]).astype(np.float64)
+        v = v[np.isfinite(v)]
+        return bool(((v - 0.5 == np.floor(v)) & (np.abs(v) <= LATTICE_MAX)).all())
+    used = torch.arange(K, device=cells.count.device)[None, :] < cells.count[:, None]
+    v = torch.cat([cells.lo[used], cells.hi[used]]).double()
+    v = v[torch.isfinite(v)]
+    return bool(((v - 0.5 == torch.floor(v)) & (v.abs() <= LATTICE_MAX)).all())
 
 
 # rows of the table scanned at a time by ``binding_cells``: bounds its

@@ -23,6 +23,7 @@ precision; a card with TF32 matmuls switched on is refused.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.precision import get_cell_mode, soft_match_scores
@@ -131,3 +132,53 @@ def soft_margin_bound(scores: torch.Tensor, leaf: torch.Tensor, n_features: int,
     carried through |leaf|, plus the reassociation of the row sum."""
     carried = soft_score_bound(scores, n_features) @ leaf.abs().double()
     return carried + summation_bound(scores, leaf, extra)
+
+
+# -- the soft kernel's log-sigmoid, in float32 --------------------------------
+
+# cam_match_soft.cu's constants: log2 e as a float32 head and tail, the
+# rounding constant 1.5 * 2^23, and c1..c9 of log1p(t) / t = 1 + t (c1 +
+# t (c2 + ... + t c9)), a degree-9 minimax fit on [0, 1] rounded to float32
+LOG2E_HEAD = float.fromhex("0x1.715476p+0")
+LOG2E_TAIL = float.fromhex("0x1.4ae0c0p-26")
+ROUND = float.fromhex("0x1.8p+23")
+LOG1P_COEFFS = tuple(float.fromhex(h) for h in (
+    "-0x1.ffffd2p-2", "0x1.554df0p-2", "-0x1.ff26e2p-3", "0x1.935ca0p-3", "-0x1.3a7a82p-3",
+    "0x1.b579c2p-4", "-0x1.d86322p-5", "0x1.4b0834p-6", "-0x1.b2f586p-9"))
+# the header's per-side budget (cam_match_soft.cu): the mirror's own error
+# (every float32 in [-104, 104], tools/log_sigmoid_sweep.py) plus the card's
+# ex2.approx (2 ulp on [1, 2)), in units of u of |log_sigmoid|; the cell's
+# lo + hi add brings it to at most 8u
+MIRROR_ULPS = 2.85
+EX2_ULPS = 4.0
+
+
+def _fma32(a: np.ndarray, b, c) -> np.ndarray:
+    """float32 a * b + c with one rounding (the product is exact in
+    float64; the sum rounds there first, which can differ from the card's
+    single rounding only at a float32 tie)."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def log_sigmoid_f32(x: np.ndarray, ex2_ulps: float = 0.0) -> np.ndarray:
+    """The float32 mirror of cam_match_soft.cu's ``log_sigmoid``:
+    ``min(x, 0) - log1p(exp(-|x|))`` step for step as the kernel rounds it,
+    with ex2 correctly rounded — or moved by ``ex2_ulps`` ulps (signed), as
+    far as the card's ex2.approx may be from it."""
+    x = np.asarray(x, dtype=np.float32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        a = np.minimum(np.abs(x), np.float32(88.0))
+        kr = _fma32(a, np.float32(LOG2E_HEAD), np.float32(ROUND))
+        k = (kr - np.float32(ROUND)).astype(np.float32)
+        f = _fma32(a, np.float32(LOG2E_TAIL), _fma32(a, np.float32(LOG2E_HEAD), -k))
+        m = np.exp2(-f.astype(np.float64)).astype(np.float32)
+        if ex2_ulps:
+            m = (m.astype(np.float64) + ex2_ulps * np.spacing(m).astype(np.float64)).astype(
+                np.float32)
+        bits = (np.uint32(0x3F800000) - (kr.view(np.uint32) << np.uint32(23))).astype(np.uint32)
+        t = (m * bits.view(np.float32)).astype(np.float32)
+        p = np.full_like(t, np.float32(LOG1P_COEFFS[-1]))
+        for c in LOG1P_COEFFS[-2::-1]:
+            p = _fma32(p, t, np.float32(c))
+        p = _fma32(p, t, np.float32(1.0))
+        return _fma32(-t, p, np.minimum(x, np.float32(0.0)))

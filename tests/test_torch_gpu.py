@@ -275,7 +275,9 @@ def test_cuda_soft_tau_zero_equals_direct_kernel(card, normal):
 @pytest.mark.parametrize("tau", [0.0, 0.25])
 def test_soft_engine_and_moments_pass_on_the_card(card, tau):
     """predict_proba / uncertainty through the soft kernel: one launch for
-    the margins, one more for the moments; held to the CPU engine."""
+    the probabilities, one for predict(return_uncertainty=True) (margins
+    and moments from the moments launch, equal to predict and uncertainty
+    called apart); held to the CPU engine."""
     from repro_torch.kernels import cam_match as K
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -286,7 +288,10 @@ def test_soft_engine_and_moments_pass_on_the_card(card, tau):
     before = K.cam_match_soft_cuda.launches
     p = cm.predict_proba(q)
     pred, unc = cm.predict(q, return_uncertainty=True)
-    assert K.cam_match_soft_cuda.launches == before + 3  # proba, predict, moments
+    assert K.cam_match_soft_cuda.launches == before + 2  # proba; margins + moments
+    apart = cm.engine().uncertainty(q).numpy()[np.arange(77), pred.astype(np.int64)]
+    np.testing.assert_array_equal(pred, cm.predict(q))
+    np.testing.assert_array_equal(unc, apart)
     np.testing.assert_allclose(p.sum(axis=1), 1.0, rtol=1e-5)
     assert np.isfinite(unc).all() and (unc >= 0).all()
     gpu, cpu = cm.engine(), cm.engine("cpu")
@@ -1161,3 +1166,118 @@ def test_lm_train_use_mesh_command_on_the_card(tmp_path):
         env={**os.environ, "PYTHONPATH": str(root / "src")})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1].startswith("done: 3 steps in ")
+
+
+# -- the redesigned uint8 and soft tau > 0 kernels ----------------------------------
+
+
+def _normal_leaves(lm: torch.Tensor, c: int) -> torch.Tensor:
+    """Seeded normal leaves, ``c`` channels, on the rows of ``lm``."""
+    rng = np.random.default_rng(c)
+    return torch.from_numpy(rng.normal(size=(lm.shape[0], c)).astype(np.float32)).to(lm.device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", ["narrow", 2048, 8192])
+def test_uint8_bit_parallel_equals_int32_inclusive(card, width):
+    """The bit-parallel uint8 kernel against the int32 `inclusive` kernel,
+    bit for bit — match words and normal-leaf margins — at B = 1, 7, 37,
+    256 and 1024, on a narrow table and on tables whose rows list features
+    past its shared-memory window; B = 1 equals each row of a batch."""
+    from repro_torch.kernels import cam_match as K
+
+    for b in (1, 7, 37, 256, 1024):
+        if width == "narrow":
+            q8, _, _, lm, c8 = _operands("uint8", "inclusive", 256, card, b=b, r=300)
+            q32, _, _, _, c32 = _operands("int32", "inclusive", 256, card, b=b, r=300)
+        else:
+            low, high, leaf, q = _wide_tables(width, 256, b=b)
+            lo, hi, lm, _ = ops.pack_tables(low, high, leaf, r_blk=128, f_blk=128, n_bins=256,
+                                            dtype="uint8", inclusive=True)
+            c8 = ops.binding_cells(lo, hi, n_bins=256, inclusive=True,
+                                   n_real_rows=low.shape[0]).to(card)
+            c32 = ops.binding_cells(lo.astype(np.int32), hi.astype(np.int32), n_bins=256,
+                                    inclusive=True, n_real_rows=low.shape[0]).to(card)
+            q8 = ops.pad_queries(q, width, dtype="uint8", device=card)
+            q32 = ops.pad_queries(q, width, dtype="int32", device=card)
+            lm = torch.from_numpy(lm).to(card)
+            assert c8.span > 223  # rows list features past the bitmap window
+        leaves = _normal_leaves(lm, 8)
+        bits = K.cam_match_bits_cuda(q8, c8, mode="inclusive")
+        assert torch.equal(bits, K.cam_match_bits_cuda(q32, c32, mode="inclusive"))
+        out = K.cam_match_cuda(q8, c8, leaves, mode="inclusive")
+        assert torch.equal(out, K.cam_match_cuda(q32, c32, leaves, mode="inclusive"))
+        for i in range(0, b, max(1, b // 5)):
+            assert torch.equal(K.cam_match_cuda(q8[i:i + 1], c8, leaves, mode="inclusive"),
+                               out[i:i + 1])
+
+
+def _soft_leaves_c(dev, c: int, *, lattice: bool, b: int):
+    """Soft operands with ``c`` normal leaf channels; ``lattice=False``
+    shifts the queries by a quarter bin, off the kernel's lattice."""
+    (q, lo, hi, lm, cells), _ = _soft_operands(dev, normal=True, b=b)
+    if not lattice:
+        q = q + 0.25
+    return q, lo, hi, _normal_leaves(lm, c), cells
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lattice", [True, False], ids=["lattice", "computed"])
+@pytest.mark.parametrize("c", [8, 24])
+@pytest.mark.parametrize("tau", [0.1, 0.5])
+def test_soft_tau_kernel_within_the_bounds(card, tau, c, lattice):
+    """The soft tau > 0 kernel (lattice table or computed log-sigmoids,
+    register-tiled leaf product at C = 8 and 24) within the unchanged
+    ``soft_score_bound`` / ``soft_margin_bound`` of the plain version at B
+    = 1, 37 and 45; B = 1 equals each row of the batch; the two paths
+    agree bit for bit."""
+    from repro_torch.kernels import cam_match as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for b in (1, 37, 45):
+        q, lo, hi, lm, cells = _soft_leaves_c(card, c, lattice=lattice, b=b)
+        assert cells.lattice
+        s_ref = soft_scores_ref(q, lo, hi, tau=tau)
+        m_ref = cam_match_ref(q, lo, hi, lm, mode="soft", tau=tau)
+        scores = K.soft_scores_cuda(q, cells, tau=tau)
+        out = K.cam_match_soft_cuda(q, cells, lm, tau=tau)
+        assert ((scores - s_ref).abs().double() <= soft_score_bound(s_ref, lo.shape[1])).all()
+        lim = soft_margin_bound(s_ref, lm, lo.shape[1], extra=K.n_splits(lo.shape[0]) + 2)
+        assert ((out - m_ref).abs().double() <= lim).all()
+        for i in range(b):
+            assert torch.equal(K.cam_match_soft_cuda(q[i:i + 1], cells, lm, tau=tau),
+                               out[i:i + 1])
+        computed = copy.copy(cells)
+        object.__setattr__(computed, "lattice", False)
+        assert torch.equal(K.cam_match_soft_cuda(q, computed, lm, tau=tau), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("side", ["lo", "hi"])
+def test_soft_per_term_error_one_cell_sweep(card, side):
+    """A one-cell table (F = 1, the smallest width) swept over x: each
+    score expf(log_sigmoid(x)) within the per-term budget of
+    ``soft_score_bound`` against float64 — 8u of |ls| and expf's 2 ulp —
+    through the computed log-sigmoid (x dense in [-104, 104], +-0,
+    subnormals) and the lattice table (half-integer x, tau 1 and 0.1)."""
+    from repro_torch.core.precision import soft_inv
+    from repro_torch.kernels import cam_match as K
+
+    u = 2.0 ** -24
+    dense = np.concatenate([np.linspace(-104, 104, 1 << 18),
+                            [0.0, -0.0, 1e-40, -1e-40, 1e-45, -1e-45]])
+    half = np.arange(-255.5, 256.0, 1.0)
+    q = torch.zeros((1, 1), dtype=torch.float32, device=card)
+    for xs, tau, lattice in ((dense, 1.0, False), (half, 1.0, True), (half, 0.1, True)):
+        b = (-xs if side == "lo" else xs).astype(np.float32)[:, None]
+        inf = np.full_like(b, np.inf)
+        lo, hi = (b, inf) if side == "lo" else (-inf, b)
+        cells = ops.CellList(np.ones(len(xs), np.int32), np.zeros((len(xs), 1), np.uint16),
+                             lo, hi, 1).to(card)
+        assert cells.lattice == lattice
+        s = K.soft_scores_cuda(q, cells, tau=tau)[0].double().cpu().numpy()
+        x = (xs.astype(np.float32) * np.float32(soft_inv(tau))).astype(np.float64)
+        ls = np.minimum(x, 0.0) - np.log1p(np.exp(-np.abs(x)))
+        s64 = np.exp(ls)
+        lim = s64 * (8 * u * np.abs(ls) + 4 * u) + 2.0 ** -126
+        assert not np.isnan(s).any() and (np.abs(s - s64) <= lim).all()
