@@ -339,11 +339,10 @@ def ptxas_report(log: str) -> list[str]:
         if not m:
             continue
         k = re.search(r"cam_match_kernelI([hti])NS_\d+(\w+?)ELb([01])EEEv", m.group(1))
-        uk = re.search(r"cam_match_u8_kernelILb([01])ELb([01])E", m.group(1))
+        uk = re.search(r"cam_match_u8_kernelILb([01])E", m.group(1))
         sk = re.search(r"cam_match_soft_kernelILb([01])ELb([01])E", m.group(1))
         if uk:
-            wide = ", wide" if uk.group(2) == "1" else ""
-            name = f"cam_match_u8<{'Inclusive' if uk.group(1) == '1' else 'Direct'}{wide}>"
+            name = f"cam_match_u8<{'Inclusive' if uk.group(1) == '1' else 'Direct'}>"
         elif k:
             wide = ", wide" if k.group(3) == "1" else ""
             name = f"cam_match<{_TYPES[k.group(1)]}, {k.group(2)}{wide}>"
@@ -967,27 +966,28 @@ def bound_ms(eng: XTimeEngine, batch: int, n_matched: int,
     cell-list kernel must read and write, each once — the listed cells and
     counts, the distinct matched leaf rows, the queries and the outputs —
     at HBM rate, against the fewest operations a design shown so far needs,
-    at the 32-bit lane rate.  For uint8 that is the bit-parallel design's
-    (cam_match.cu): two bitmap lookups and an AND per listed cell and
-    32-query tile, the bitmaps (257 words a listed feature and tile) and
-    one add per matched row and query; for the wider dtypes the compare
-    and AND per binding bound and query of the lane-per-query design.
-    Third: the time of what the design evaluates at that rate (two
-    compares per listed cell and query plus the adds, or the uint8 count);
-    fourth: the former count (a compare and an AND per binding bound and
-    query plus the adds), which the uint8 design beats."""
+    at the 32-bit lane rate.  For uint8 that is the lesser of the
+    bit-parallel design's (cam_match.cu: two bitmap lookups and an AND per
+    listed cell and 32-query tile, the bitmaps (257 words a listed feature
+    and tile) and one add per matched row and query) and the former count;
+    for the wider dtypes the former count, the compare and AND per binding
+    bound and query of the lane-per-query design, plus the adds.  Third:
+    the time of what the kernel that runs evaluates at that rate (the
+    bit-parallel count, or two compares per listed cell and query plus the
+    adds); fourth: the former count, which the bit-parallel design beats."""
     a = eng.arrays
     item = np.dtype(eng.table_dtype).itemsize
     nbytes = (list_bytes(a.cells)[0] + distinct * a.c_pad * 4 + batch * a.f_pad * item
               + batch * a.c_pad * 4)
     former = (2 * batch * binding_bounds(eng) + n_matched) / INT32_OPS_PER_S * 1e3
+    n_ops = 2 * batch * binding_bounds(eng) + n_matched
+    design = (2 * batch * listed_cells(a.cells) + n_matched) / INT32_OPS_PER_S * 1e3
     if eng.table_dtype == "uint8":
         tiles = -(-batch // K.QUERIES_PER_TILE)
-        n_ops = tiles * (3 * listed_cells(a.cells) + 257 * a.cells.span) + n_matched
-        design = n_ops / INT32_OPS_PER_S * 1e3
-    else:
-        n_ops = 2 * batch * binding_bounds(eng) + n_matched
-        design = (2 * batch * listed_cells(a.cells) + n_matched) / INT32_OPS_PER_S * 1e3
+        bitmaps = tiles * (3 * listed_cells(a.cells) + 257 * a.cells.span) + n_matched
+        n_ops = min(n_ops, bitmaps)
+        if a.cells.span <= K.BITMAP_FEATURES:
+            design = bitmaps / INT32_OPS_PER_S * 1e3
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, n_ops / INT32_OPS_PER_S * 1e3
     return (*((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), design,
             former)

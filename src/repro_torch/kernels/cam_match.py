@@ -56,6 +56,10 @@ NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the split count — and so the float summation order — depends on R alone
 ROWS_PER_SPLIT = 1024
 QUERIES_PER_TILE = 32
+# a uint8 list whose span is at most this runs the bit-parallel kernel (its
+# bitmaps' shared-memory window, `kMaxWindow` in cam_match.cu); a wider one
+# the lane-per-query kernel
+BITMAP_FEATURES = 223
 
 _DTYPE_CODE = {torch.uint8: 0, torch.uint16: 1, torch.int32: 2}
 _MODE_CODE = {"direct": 0, "inclusive": 1, "msb_lsb": 2, "two_cycle": 3}

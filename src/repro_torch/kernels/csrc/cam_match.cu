@@ -22,11 +22,12 @@
 // row of a batch, packed uint8/uint16 tables against int32 ones, and the
 // soft kernel at tau = 0 against the int32 `direct` one.
 //
-// uint8 tables (`cam_match_u8_kernel`, 'inclusive' and 'direct'): bit-
-// parallel match words.  A block owns one 32-query tile and builds, once,
-// in shared memory, GE[f][v] = the tile's queries with q[f] >= v for v in
-// [0, 256] (GE[f][256] = 0) for the first W features (the features the
-// list names, `CellList.span`, up to the 223 that fit): __match_any_sync
+// uint8 tables whose list names features below 223 only (`CellList.span`
+// <= 223, every compiled table of xtime-tabular's 130 features;
+// `cam_match_u8_kernel`, 'inclusive' and 'direct'): bit-parallel match
+// words.  A block owns one 32-query tile and builds, once, in shared
+// memory, GE[f][v] = the tile's queries with q[f] >= v for v in [0, 256]
+// (GE[f][256] = 0) for the W = span features the list names: __match_any_sync
 // groups the lanes of equal bins into EQ[f][v], and a suffix OR over v
 // (eight words a lane, then shuffles) turns EQ into GE.  A row's word is
 // then the AND over its listed cells (f, lo, hi) of GE[f][lo] & ~GE[f][hi
@@ -34,10 +35,7 @@
 // queries' word with two shared loads and a LOP3 a cell, where a lane a
 // query took ~10 warp instructions a cell.  The cell list is read as one
 // 32-bit word a cell (feat:16 | lo:8 | hi:8, `CellList.words`, packed at
-// bind).  A feature past the window (rows that list features past the
-// first 223) is compared against the queries in device memory, the same
-// compare (a loop over the tile's queries), so the result does not depend
-// on W.  Each warp owns whole 1024-row splits: a lane forms the words of
+// bind).  Each warp owns whole 1024-row splits: a lane forms the words of
 // rows lane, lane + 32, lane + 64, lane + 96 of each 128-row chunk (their
 // first eight cells loaded
 // together, every slot looked up and those past a row's count dropped: no
@@ -50,7 +48,8 @@
 // tile's blocks walk the same rows at once and share them in L2) and
 // builds its bitmaps once for all of them.
 //
-// uint16 and int32 tables, all four modes (`cam_match_kernel`): one block
+// uint16 and int32 tables, all four modes, and uint8 tables whose list
+// names a feature of index 223 or more (`cam_match_kernel`): one block
 // per (32-query tile, split) stages its queries [feature][query] and walks
 // 128-row chunks: it stages the chunk's cell lists, and each warp takes one
 // row at a time with a lane per query, `__ballot_sync` giving the row's
@@ -82,20 +81,24 @@
 // before this chunk's leaf rows are added.  The fallback the design
 // was held against, byte-SIMD compares of four queries (__vcmpgeu4,
 // emulated in several instructions on sm_90), gains at most ~3x on the
-// former count and was not built.
+// former count and was not built.  The bitmaps do not pay past their
+// window: a uint8 table of F_pad 8,064 whose features from 223 on were
+// compared against the queries in device memory (a loop over the tile's
+// queries a cell) took 0.5560 ms at R = 16,384, B = 256 on the same card,
+// against the lane-per-query kernel's 0.2211, so such a list runs that
+// kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <atomic>
 
 #include "cam_match_common.cuh"  // the block shape, the cell list and its walk
 
 namespace {
 
-// Compares run on 32-bit values: zero-extended for uint16, signed for
-// int32.
+// Compares run on 32-bit values: zero-extended for the unsigned tables
+// (so uint8 never sign-extends), signed for int32.
 template <typename T> struct Wide;
+template <> struct Wide<uint8_t> { using type = uint32_t; };
 template <> struct Wide<uint16_t> { using type = uint32_t; };
 template <> struct Wide<int32_t> { using type = int32_t; };
 
@@ -362,23 +365,12 @@ __device__ __forceinline__ void build_bitmaps(uint32_t* ge, const U8Args& a, int
   __syncthreads();
 }
 
-// The 32-query word of one listed cell (f, lo, hi): two bitmap lookups, or
-// past the window (kWide only) the same compare against the queries in
-// device memory.
-template <bool kInclusive, bool kWide>
-__device__ __forceinline__ uint32_t cell_word(const uint32_t* ge, const U8Args& a, int q0,
-                                              int nq, uint32_t cw) {
+// The 32-query word of one listed cell (f, lo, hi): two bitmap lookups.
+template <bool kInclusive>
+__device__ __forceinline__ uint32_t cell_word(const uint32_t* ge, uint32_t cw) {
   const int f = int(cw & 0xFFFFu), lo = int((cw >> 16) & 0xFFu), hi = int(cw >> 24);
-  if (!kWide || f < a.W) {
-    const uint32_t* g = ge + f * kGeStride;
-    return g[lo] & ~g[kInclusive ? hi + 1 : hi];
-  }
-  uint32_t m = 0u;
-  for (int b = 0; b < nq; ++b) {
-    const int v = a.q[(size_t)(q0 + b) * a.F + f];
-    m |= uint32_t(lo <= v && (kInclusive ? v <= hi : v < hi)) << b;
-  }
-  return m;
+  const uint32_t* g = ge + f * kGeStride;
+  return g[lo] & ~g[kInclusive ? hi + 1 : hi];
 }
 
 // Lane l holds row l's word (bit b: query b); returns query `lane`'s word
@@ -471,7 +463,7 @@ __device__ __forceinline__ void add_rows(const float* __restrict__ lrow, int C,
 // memory W * kGeStride words.  Block y's warp w owns splits y * kU8Warps +
 // w, then every gridDim.y * kU8Warps-th after it.  A chunk's cell words
 // are loaded before the previous chunk's leaf rows are added.
-template <bool kInclusive, bool kWide>
+template <bool kInclusive>
 __global__ void __launch_bounds__(kU8Threads, 1) cam_match_u8_kernel(const U8Args a) {
   extern __shared__ __align__(16) uint32_t ge[];
   const int tile = blockIdx.x, q0 = tile * kQueries;
@@ -506,7 +498,7 @@ __global__ void __launch_bounds__(kU8Threads, 1) cam_match_u8_kernel(const U8Arg
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const uint32_t cw = k < cells.n[j] ? cells.cw[j][k] : 0u;  // a slot past the count:
-          const uint32_t m = cell_word<kInclusive, kWide>(ge, a, q0, nq, cw);  // feature 0's,
+          const uint32_t m = cell_word<kInclusive>(ge, cw);  // feature 0's,
           w[j] &= k < cells.n[j] ? m : kFull;  // read and dropped
         }
       }
@@ -516,7 +508,7 @@ __global__ void __launch_bounds__(kU8Threads, 1) cam_match_u8_kernel(const U8Arg
         for (int j = 0; j < 4; ++j) {
           if (k < cells.n[j]) {
             const uint32_t cw = __ldg(a.words + ((size_t)r0 + 32 * j + lane) * a.K + k);
-            w[j] &= cell_word<kInclusive, kWide>(ge, a, q0, nq, cw);
+            w[j] &= cell_word<kInclusive>(ge, cw);
           }
         }
       }
@@ -555,61 +547,28 @@ __global__ void __launch_bounds__(kU8Threads, 1) cam_match_u8_kernel(const U8Arg
   }
 }
 
-// Blocks of this instance the card holds at once with `smem` bytes each:
-// the SMs times the blocks an SM holds, asked of the runtime once per
-// (instance, device, window) and kept (a launch on the serving path pays
-// no query).
-template <bool kInclusive, bool kWide>
-cudaError_t resident_blocks(size_t smem, int* blocks) {
-  constexpr int kDevices = 16;
-  static std::atomic<uint64_t> kept[kDevices];  // smem << 32 | blocks, 0 = none yet
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kDevices) {
-    const uint64_t v = kept[dev].load(std::memory_order_relaxed);
-    if (v != 0 && (v >> 32) == smem) {
-      *blocks = int(v & 0xffffffffu);
-      return cudaSuccess;
-    }
-  }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, cam_match_u8_kernel<kInclusive, kWide>, kU8Threads, smem);
-  if (err != cudaSuccess) return err;
-  *blocks = sms * max(1, per_sm);
-  if (dev < kDevices) kept[dev].store((uint64_t)smem << 32 | uint32_t(*blocks));
-  return cudaSuccess;
-}
-
-template <bool kInclusive, bool kWide>
-cudaError_t launch_u8_as(const U8Args& a, cudaStream_t stream) {
-  const auto kernel = cam_match_u8_kernel<kInclusive, kWide>;
+// grid = (ceil(B / 32), blocks a tile), one wave: as many blocks a tile as
+// fill the card, no more than give each warp a split.
+template <bool kInclusive>
+cudaError_t launch_u8(U8Args a, cudaStream_t stream) {
+  const auto kernel = cam_match_u8_kernel<kInclusive>;
+  a.W = max(1, a.span);
   const size_t smem = (size_t)a.W * kGeStride * 4;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  int resident = 0;
-  err = resident_blocks<kInclusive, kWide>(smem, &resident);
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kU8Threads, smem);
+  }
   if (err != cudaSuccess) return err;
-  // one wave: as many blocks a tile as fill the card, no more than give
-  // each warp a split
   const int tiles = (a.B + kQueries - 1) / kQueries;
   const int splits = (a.R + a.rows_per_split - 1) / a.rows_per_split;
-  const int fill = max(1, resident / tiles);
+  const int fill = max(1, sms * max(1, per_sm) / tiles);
   const int per_tile = min(fill, (splits + kU8Warps - 1) / kU8Warps);
   kernel<<<dim3(tiles, per_tile), kU8Threads, smem, stream>>>(a);
   return cudaGetLastError();
-}
-
-// The window: the features the list names (below its span), as many as
-// fit; kWide where the list names features past them.
-template <bool kInclusive>
-cudaError_t launch_u8(U8Args a, cudaStream_t stream) {
-  a.W = max(1, min(a.span, kMaxWindow));
-  return a.W < a.span ? launch_u8_as<kInclusive, true>(a, stream)
-                      : launch_u8_as<kInclusive, false>(a, stream);
 }
 
 }  // namespace
@@ -637,7 +596,8 @@ extern "C" int xtime_cam_match(int dtype, int mode, const void* q,
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && (mode == 0 || mode == 1)) {
+  const bool bitmaps = dtype == 0 && span <= kMaxWindow;  // else the lane-per-query kernel
+  if (bitmaps && (mode == 0 || mode == 1)) {
     const U8Args a{static_cast<const uint8_t*>(q), count, words, K, leaf, B, R, F, C,
                    rows_per_split, span, 0, ws, bits};
     err = mode == 1 ? launch_u8<true>(a, stream) : launch_u8<false>(a, stream);
@@ -645,6 +605,8 @@ extern "C" int xtime_cam_match(int dtype, int mode, const void* q,
 #define XTIME_LAUNCH(T, CELL)                                                \
   launch<T, CELL>(q, count, feat, lo, hi, K, leaf, B, R, F, C, rows_per_split, \
                   ws, bits, stream)
+  if (dtype == 0 && !bitmaps && mode == 0) err = XTIME_LAUNCH(uint8_t, Direct);
+  if (dtype == 0 && !bitmaps && mode == 1) err = XTIME_LAUNCH(uint8_t, Inclusive);
   if (dtype == 1 && mode == 0) err = XTIME_LAUNCH(uint16_t, Direct);
   if (dtype == 1 && mode == 1) err = XTIME_LAUNCH(uint16_t, Inclusive);
   if (dtype == 2 && mode == 0) err = XTIME_LAUNCH(int32_t, Direct);

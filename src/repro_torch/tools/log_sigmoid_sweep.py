@@ -1,14 +1,14 @@
 """Every float32 x with |x| <= 104 through the soft kernel's log-sigmoid
 mirror (``kernels.ref.log_sigmoid_f32``), against float64.
 
-    python3 src/repro_torch/tools/log_sigmoid_sweep.py [--ex2-ulps N] [--chunk-bits B]
+    python3 src/repro_torch/tools/log_sigmoid_sweep.py [--ex2-ulps N]
 
 Prints the largest relative error in units of u = 2^-24 of |log_sigmoid(x)|
 where that is at least 2^-126 (with the x that gives it), the largest
 absolute error below, and whether any result is NaN.  ``--ex2-ulps`` moves
 every ex2 result by that many ulps, both signs, as far as the card's
 ex2.approx may be from the correctly rounded one.  CPU only: about
-2.1e9 inputs, a few minutes, a few hundred MB at the default chunk.
+2.1e9 inputs, a few minutes, a few hundred MB a chunk.
 """
 
 from __future__ import annotations
@@ -26,16 +26,16 @@ from repro_torch.kernels.ref import log_sigmoid_f32  # noqa: E402
 U = 2.0 ** -24
 TINY = 2.0 ** -126
 LIMIT = np.float32(104.0)
+CHUNK = 1 << 22  # inputs a pass
 
 
-def sweep(ex2_ulps: float, chunk_bits: int) -> tuple[float, float, float, bool]:
+def sweep(ex2_ulps: float) -> tuple[float, float, float, bool]:
     """(worst relative error in u, its x, worst absolute error where
     |log_sigmoid| < 2^-126, any NaN) over every float32 in [-104, 104]."""
     top = int(LIMIT.view(np.uint32))  # bit patterns 0 .. top are +0 .. 104
     worst, worst_x, worst_abs, nan = 0.0, 0.0, 0.0, False
-    step = 1 << chunk_bits
-    for lo in range(0, top + 1, step):
-        pos = np.arange(lo, min(top + 1, lo + step), dtype=np.uint32).view(np.float32)
+    for lo in range(0, top + 1, CHUNK):
+        pos = np.arange(lo, min(top + 1, lo + CHUNK), dtype=np.uint32).view(np.float32)
         for x in (pos, -pos):
             x64 = x.astype(np.float64)
             want = np.minimum(x64, 0.0) - np.log1p(np.exp(-np.abs(x64)))
@@ -56,9 +56,8 @@ def sweep(ex2_ulps: float, chunk_bits: int) -> tuple[float, float, float, bool]:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ex2-ulps", type=float, default=0.0)
-    ap.add_argument("--chunk-bits", type=int, default=22)
     args = ap.parse_args(argv)
-    worst, x, worst_abs, nan = sweep(args.ex2_ulps, args.chunk_bits)
+    worst, x, worst_abs, nan = sweep(args.ex2_ulps)
     print(f"log_sigmoid_f32, ex2 moved by +-{args.ex2_ulps} ulp: max relative error "
           f"{worst:.4f}u at x = {x!r} (|ls| >= 2^-126); max absolute error below "
           f"{worst_abs:.3g}; NaN {nan}")

@@ -2,20 +2,24 @@
 ``cam_match_u8_kernel``) as a plain-torch model, against both packages'
 reference match bits, on the CPU.
 
-The kernel builds, once per 32-query tile, GE[f][v] = the tile's queries
-with q[f] >= v for v in [0, 256] (GE[f][256] = 0) for the features below
-its shared-memory window, and forms each row's 32-query word as the AND
+The kernel takes the uint8 lists whose span (largest listed feature + 1)
+is at most ``BITMAP_FEATURES``; it builds, once per 32-query tile, GE[f][v]
+= the tile's queries with q[f] >= v for v in [0, 256] (GE[f][256] = 0) for
+the features below the span, and forms each row's 32-query word as the AND
 over the row's listed cells (f, lo, hi) of GE[f][lo] & ~GE[f][hi + 1]
-('inclusive') or GE[f][lo] & ~GE[f][hi] ('direct'); a cell past the window
-is compared against the queries themselves.  The model here does the same
+('inclusive') or GE[f][lo] & ~GE[f][hi] ('direct').  A list of a larger
+span runs the lane-per-query kernel instead.  The model here does the same
 in torch, reading the cells from the packed words the kernel reads
 (``CellList.words``), and must equal ``repro_torch.kernels.ref
 .cam_match_bits_ref`` and ``repro.kernels.ref.cam_match_bits_ref`` bit for
 bit on the same seeded numpy inputs: cells with lo = 0 and hi = 255,
 never-match padding rows, rows of more than 8 cells, ragged tiles and a
-window narrower than the table.  The packed word's layout and its round
-trip against the list close the file.
+table wider than the bitmaps' shared-memory window whose list fits it.
+The window's size against the kernel source, the packed word's layout and
+its round trip against the list close the file.
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +27,7 @@ import pytest
 import torch
 
 from repro.kernels.ref import cam_match_bits_ref as j_bits_ref
+from repro_torch.kernels.cam_match import BITMAP_FEATURES, HEADERS, SOURCES
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.ref import cam_match_bits_ref
 
@@ -45,10 +50,12 @@ def _bitmaps(q_tile: torch.Tensor, window: int) -> torch.Tensor:
 
 
 def model_bits(q: torch.Tensor, cells: tops.CellList, *, mode: str,
-               window: int) -> torch.Tensor:
+               window: int | None = None) -> torch.Tensor:
     """(B, R) match bits by the kernel's algorithm: per 32-query tile the
-    bitmaps of features [0, window), each row's word the AND of its listed
-    cells' words (a feature past the window compared directly)."""
+    bitmaps of features [0, window) (the list's span unless given; never
+    less), each row's word the AND of its listed cells' words."""
+    window = cells.span if window is None else window
+    assert cells.span <= window and cells.span <= BITMAP_FEATURES
     feat, lo, hi = (torch.from_numpy(a).to(torch.int64)
                     for a in unpack_cell_words(np.asarray(cells.words)))
     count = torch.as_tensor(np.asarray(cells.count)).to(torch.int64)
@@ -62,31 +69,25 @@ def model_bits(q: torch.Tensor, cells: tops.CellList, *, mode: str,
         for k in range(K):
             used = k < count
             top = hi[:, k] + 1 if mode == "inclusive" else hi[:, k]
-            f = feat[:, k].clamp(max=window - 1)
-            cell = ge[f, lo[:, k]] & ~ge[f, top]
-            past = feat[:, k] >= window
-            if past.any():  # the queries themselves, as the kernel reads them
-                qf = qt[:, feat[past, k]]  # (nq, rows past the window)
-                inside = (qf >= lo[past, k]) & (
-                    qf <= hi[past, k] if mode == "inclusive" else qf < hi[past, k])
-                shifts = torch.arange(nq, dtype=torch.int64)[:, None]
-                cell[past] = (inside.to(torch.int64) << shifts).sum(dim=0)
+            cell = ge[feat[:, k], lo[:, k]] & ~ge[feat[:, k], top]
             word = torch.where(used, word & cell, word)
         bits = (word[None, :] >> torch.arange(nq, dtype=torch.int64)[:, None]) & 1
         out.append(bits.to(torch.bool))
     return torch.cat(out)
 
 
-def _table(rng, r, f, n_bins, *, listed, wide_rows=0):
+def _table(rng, r, f, n_bins, *, listed, wide_rows=0, span=None):
     """Exclusive-high int32 tables, ``listed`` non-wildcard cells a row at
-    random features (the first ``wide_rows`` rows list 12), each side at
+    random features below ``span`` (default ``f``; every row lists feature
+    span - 1; the first ``wide_rows`` rows list 12), each side at
     the grid's edge in a fifth of the cells: lo = 0 (not a wildcard, its
     hi is below n_bins) and hi = n_bins (inclusive 255 at 256 bins)."""
     low = np.zeros((r, f), np.int32)
     high = np.full((r, f), n_bins, np.int32)
     for i in range(r):
         n = 12 if i < wide_rows else listed
-        cols = rng.choice(f, size=n, replace=False)
+        cols = rng.choice(f, size=n, replace=False) if span is None else np.array(
+            [span - 1, *rng.choice(span - 1, size=n - 1, replace=False)])
         lo = rng.integers(0, n_bins - 1, size=n)
         hi = np.minimum(n_bins, lo + rng.integers(1, n_bins // 2, size=n))
         edge = rng.random(n)
@@ -98,11 +99,11 @@ def _table(rng, r, f, n_bins, *, listed, wide_rows=0):
     return low, high
 
 
-def _operands(seed, *, b, r, f, n_bins, mode, listed=6, wide_rows=0):
+def _operands(seed, *, b, r, f, n_bins, mode, listed=6, wide_rows=0, span=None):
     """Seeded queries and uint8 tables in the kernel layout of ``mode``
     (padded rows: never-match padding), with the cell list."""
     rng = np.random.default_rng(seed)
-    low, high = _table(rng, r, f, n_bins, listed=listed, wide_rows=wide_rows)
+    low, high = _table(rng, r, f, n_bins, listed=listed, wide_rows=wide_rows, span=span)
     q = rng.integers(0, n_bins, size=(b, f))
     hold = np.arange(0, r, 3)  # every third row holds a query: matches at any B
     low[hold] = np.minimum(low[hold], q[hold % b])
@@ -120,30 +121,30 @@ def _operands(seed, *, b, r, f, n_bins, mode, listed=6, wide_rows=0):
     return qp, lo, hi, cells
 
 
-CASES = {  # name: (B, R, F, listed cells a row, rows of 12 cells, window)
-    "tile": (32, 90, 16, 6, 0, 16),
-    "ragged-B37": (37, 90, 16, 6, 0, 16),
-    "B1": (1, 70, 16, 5, 0, 16),
-    "B33": (33, 64, 24, 4, 0, 24),
-    "over-8-cells": (40, 96, 24, 6, 20, 24),
-    "past-window": (45, 90, 40, 8, 10, 9),
+CASES = {  # name: (B, R, F, listed cells a row, rows of 12 cells, span or None)
+    "tile": (32, 90, 16, 6, 0, None),
+    "ragged-B37": (37, 90, 16, 6, 0, None),
+    "B1": (1, 70, 16, 5, 0, None),
+    "B33": (33, 64, 24, 4, 0, None),
+    "over-8-cells": (40, 96, 24, 6, 20, None),
+    # a table wider than the bitmaps' window, its list at the window's edge
+    "past-window": (45, 90, 300, 8, 10, BITMAP_FEATURES),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 @pytest.mark.parametrize("mode,n_bins", [("inclusive", 256), ("direct", 200)])
 def test_bit_parallel_model_equals_both_references(case, mode, n_bins):
-    b, r, f, listed, wide_rows, window = CASES[case]
+    b, r, f, listed, wide_rows, span = CASES[case]
     q, lo, hi, cells = _operands(list(CASES).index(case), b=b, r=r, f=f, n_bins=n_bins,
-                                 mode=mode, listed=listed, wide_rows=wide_rows)
+                                 mode=mode, listed=listed, wide_rows=wide_rows, span=span)
     lo_t, hi_t = torch.from_numpy(lo), torch.from_numpy(hi)
     want = cam_match_bits_ref(q, lo_t, hi_t, mode=mode)
     jwant = np.asarray(j_bits_ref(jnp.asarray(q.numpy()), jnp.asarray(lo), jnp.asarray(hi),
                                   mode=mode))
     assert np.array_equal(want.numpy(), jwant)
     assert want.any() and not want.all()
-    window = min(window, cells.span)
-    got = model_bits(q, cells, mode=mode, window=window)
+    got = model_bits(q, cells, mode=mode)
     assert torch.equal(got, want)
     # the edges the case covers
     cnt = np.asarray(cells.count)
@@ -151,7 +152,7 @@ def test_bit_parallel_model_equals_both_references(case, mode, n_bins):
     if wide_rows:
         assert cells.k > 8
     if case == "past-window":
-        assert (np.asarray(cells.feat)[:r] >= window).any()
+        assert q.shape[1] > BITMAP_FEATURES and cells.span == BITMAP_FEATURES
     used = np.arange(cells.k)[None, :] < cnt[:, None]
     assert (np.asarray(cells.lo)[used] == 0).any()
     top = 255 if mode == "inclusive" else n_bins
@@ -159,10 +160,25 @@ def test_bit_parallel_model_equals_both_references(case, mode, n_bins):
 
 
 def test_the_window_does_not_change_the_words():
+    """Bitmaps over any window from the span up give the same words: the
+    kernel's window is the span, the table's width does not enter."""
     q, lo, hi, cells = _operands(7, b=64, r=128, f=32, n_bins=256, mode="inclusive",
                                  listed=9, wide_rows=8)
-    words = [model_bits(q, cells, mode="inclusive", window=w) for w in (1, 5, 17, cells.span)]
+    words = [model_bits(q, cells, mode="inclusive", window=w)
+             for w in (cells.span, cells.span + 5, 32, BITMAP_FEATURES)]
     assert all(torch.equal(w, words[0]) for w in words[1:])
+
+
+def test_bitmap_window_matches_the_kernel_source():
+    """``BITMAP_FEATURES``, the span up to which a uint8 list runs the
+    bit-parallel kernel, is the kernel's own window: the features whose
+    bitmaps (kGeStride words each) fit in kMaxSmem bytes."""
+    src = {p.name: p.read_text() for p in (*SOURCES, *HEADERS)}
+    smem = int(re.search(r"constexpr int kMaxSmem = (\d+);", src["cam_match_common.cuh"])[1])
+    stride = int(re.search(r"constexpr int kGeStride = (\d+);", src["cam_match.cu"])[1])
+    assert "kMaxWindow = kMaxSmem / (kGeStride * 4)" in src["cam_match.cu"]
+    assert re.search(r"span <= kMaxWindow", src["cam_match.cu"])
+    assert BITMAP_FEATURES == smem // (stride * 4) == 223
 
 
 def test_packed_words_layout_and_round_trip():

@@ -1177,13 +1177,33 @@ def _normal_leaves(lm: torch.Tensor, c: int) -> torch.Tensor:
     return torch.from_numpy(rng.normal(size=(lm.shape[0], c)).astype(np.float32)).to(lm.device)
 
 
+def _span_tables(span: int, n_bins: int, *, b: int, r: int = 512):
+    """A table ``span`` features wide whose every row lists 8 cells, one of
+    them the last feature: its cell list's span is ``span``."""
+    rng = np.random.default_rng(span)
+    low = np.zeros((r, span), np.int32)
+    high = np.full((r, span), n_bins, np.int32)
+    q = rng.integers(0, n_bins, size=(b, span))
+    for i in range(r):
+        cols = [span - 1, *rng.choice(span - 1, size=7, replace=False).tolist()]
+        lo = rng.integers(0, n_bins - 1, size=8)
+        hi = np.minimum(n_bins, lo + rng.integers(1, n_bins // 2, size=8))
+        if i % 4 == 0:
+            lo, hi = np.minimum(lo, q[i % b, cols]), np.maximum(hi, q[i % b, cols] + 1)
+        low[i, cols], high[i, cols] = lo, hi
+    leaf = (rng.integers(-16, 17, size=(r, C)) / 16.0).astype(np.float32)
+    return low, high, leaf, q
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("width", ["narrow", 2048, 8192])
+@pytest.mark.parametrize("width", ["narrow", "span223", "span224", 2048, 8192])
 def test_uint8_bit_parallel_equals_int32_inclusive(card, width):
-    """The bit-parallel uint8 kernel against the int32 `inclusive` kernel,
-    bit for bit — match words and normal-leaf margins — at B = 1, 7, 37,
-    256 and 1024, on a narrow table and on tables whose rows list features
-    past its shared-memory window; B = 1 equals each row of a batch."""
+    """The uint8 kernels against the int32 `inclusive` kernel, bit for bit
+    — match words and normal-leaf margins — at B = 1, 7, 37, 256 and 1024:
+    the bit-parallel kernel on a narrow table and on a list of span 223
+    (its widest window, F_pad 256); the lane-per-query kernel, which takes
+    the lists of larger span, at span 224 and on tables whose rows list
+    features past every staged window; B = 1 equals each row of a batch."""
     from repro_torch.kernels import cam_match as K
 
     for b in (1, 7, 37, 256, 1024):
@@ -1191,17 +1211,24 @@ def test_uint8_bit_parallel_equals_int32_inclusive(card, width):
             q8, _, _, lm, c8 = _operands("uint8", "inclusive", 256, card, b=b, r=300)
             q32, _, _, _, c32 = _operands("int32", "inclusive", 256, card, b=b, r=300)
         else:
-            low, high, leaf, q = _wide_tables(width, 256, b=b)
+            if isinstance(width, str):
+                span = int(width[4:])
+                low, high, leaf, q = _span_tables(span, 256, b=b)
+            else:
+                low, high, leaf, q = _wide_tables(width, 256, b=b)
             lo, hi, lm, _ = ops.pack_tables(low, high, leaf, r_blk=128, f_blk=128, n_bins=256,
                                             dtype="uint8", inclusive=True)
             c8 = ops.binding_cells(lo, hi, n_bins=256, inclusive=True,
                                    n_real_rows=low.shape[0]).to(card)
             c32 = ops.binding_cells(lo.astype(np.int32), hi.astype(np.int32), n_bins=256,
                                     inclusive=True, n_real_rows=low.shape[0]).to(card)
-            q8 = ops.pad_queries(q, width, dtype="uint8", device=card)
-            q32 = ops.pad_queries(q, width, dtype="int32", device=card)
+            q8 = ops.pad_queries(q, lo.shape[1], dtype="uint8", device=card)
+            q32 = ops.pad_queries(q, lo.shape[1], dtype="int32", device=card)
             lm = torch.from_numpy(lm).to(card)
-            assert c8.span > 223  # rows list features past the bitmap window
+            if isinstance(width, str):
+                assert c8.span == span and lo.shape[1] == 256
+            else:
+                assert c8.span > K.BITMAP_FEATURES  # the lane-per-query kernel's
         leaves = _normal_leaves(lm, 8)
         bits = K.cam_match_bits_cuda(q8, c8, mode="inclusive")
         assert torch.equal(bits, K.cam_match_bits_cuda(q32, c32, mode="inclusive"))
