@@ -179,11 +179,15 @@ Phases, one line (or block) each:
      copies), on logical shards of the card: llama3.2-3b at full width and
      depth as phase 12 trains it, ``place_params`` onto a (4, 2) mesh
      (the bytes each shard holds == the specs' reckoning) and 4 steps of
-     ``make_train_step(mesh=)`` (ms a step beside phase 12's, the
-     optimizer's 8 shard updates, the card's busy share and kernels a
-     step over 1 more profiled step, tokens/s, peak), 2 steps again from
-     the seed with equal losses; llama3.2-3b cut to depth 2 in float32,
-     the mesh's first step within rtol 2e-4 of one device's; the
+     ``make_train_step(mesh=)``, the split program (ms a step beside
+     phase 12's and the gathered program's, the optimizer's 8 shard
+     updates, the card's busy share and kernels a step over 1 more
+     profiled step, tokens/s, peak), 2 steps again from the seed with
+     equal losses; llama3.2-3b cut to depth 2 in float32, the mesh's
+     first step within rtol 2e-4 of one device's; deepseek-v3 cut to
+     depth 2 in float32 (16 experts, vocab 32,768, capacity 0.5) on a
+     (2, 4) mesh, its first step within rtol 2e-4 of one device's and the
+     same assignments dropped; the
      flash-decode merge at gemma3-1b's decode widths over a 32,768-position
      cache on a (2, 4) mesh against ``decode_attention`` (1e-5 x scale,
      ms of both); the all-to-all MoE at deepseek-v3's widths (E 256, top-8,
@@ -196,10 +200,12 @@ Phases, one line (or block) each:
      moments, step and batch the card holds, its meta trace's dot FLOPs ==
      ``FlopCounterMode`` over one real ``make_train_step(mesh=)`` step, its
      bytes a device beside the next step's peak and its roofline bound
-     beside that step's ms; then three production cells on a 16 x 16 mesh
-     of meta devices, each timed, each printing the reference's three
-     lines: llama3.2-3b train_4k, deepseek-v3-671b decode_32k (through the
-     repaired MoE counts) and xtime-tabular serve_1m.
+     beside that step's ms; then four production cells on a 16 x 16 mesh
+     of meta devices (traced in a process of their own, started before
+     phase 12), each timed, each printing the reference's three lines:
+     llama3.2-3b and deepseek-v3-671b train_4k (device (0, 0) of the
+     split program), deepseek-v3-671b decode_32k (through the repaired MoE
+     counts) and xtime-tabular serve_1m.
 
 Every check that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object of the kernels and the contract line
@@ -253,6 +259,7 @@ from repro_torch.models.common import tree_leaves as lm_tree_leaves  # noqa: E40
 from repro_torch.models.common import tree_tensors as lm_tree_tensors  # noqa: E402
 from repro_torch.optim import adamw as lm_adamw  # noqa: E402
 from repro_torch.models import mamba2 as lm_mamba2  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import registry as lm_registry  # noqa: E402
 from repro_torch.models import transformer as lm_transformer  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
@@ -262,6 +269,7 @@ from repro_torch.models.moe import MoEParams as LMMoEParams  # noqa: E402
 from repro_torch.models.moe import moe_forward as lm_moe_forward  # noqa: E402
 from repro_torch.models.moe_shardmap import make_shardmap_moe  # noqa: E402
 from repro_torch.sharding import partition as lm_partition  # noqa: E402
+from repro_torch.sharding import placement as lm_placement  # noqa: E402
 from repro_torch.launch import dryrun as lm_dryrun  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
 from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
@@ -3240,9 +3248,14 @@ def phase_lm_train(name, stats) -> None:
 
 
 MESH_SHAPE = (4, 2)  # phase 13's training mesh: 4 data groups x 2 model shards
-MESH_STEPS = 4  # ms a step: the median of steps 2-4
+MESH_STEPS = 3  # ms a step: the median of steps 2-3
 MESH_AGAIN = 2  # steps run again from the seed, bit-equal
-MESH_CHECK_S = 256  # the float32 depth-2 check's sequence (B = TRAIN_B)
+MESH_CHECK_S = 256  # the float32 depth-2 checks' sequence (B = TRAIN_B)
+# deepseek-v3's float32 depth-2 check on (2, 4): 1 dense + 1 MoE layer and the
+# MTP block at full width, experts and vocab cut to fit one device's float32
+# step beside nothing else; capacity 0.5, so tokens drop
+DEEPSEEK_CHECK = dict(n_layers=2, first_dense_layers=1, n_experts=16, vocab_size=32768,
+                      capacity_factor=0.5, dtype="float32")
 DECODE_B, DECODE_S, DECODE_POS = 4, 32768, 16000  # gemma3-1b decode: H 4, KV 1, D 256
 MOE_B, MOE_S = 4, 128  # deepseek-v3's MoE widths: d 7,168, E 256, f 2,048, top-8, 1 shared
 
@@ -3297,10 +3310,12 @@ def lm_mesh_train(name, stats) -> None:
     """(a) llama3.2-3b at full width and depth, as phase 12 trains it
     (bfloat16, remat, float32 moments, ``TokenPipeline`` 8 x 1,024, the
     same ``AdamWConfig``), on a (4, 2) mesh of logical shards of the card:
-    ``place_params`` -> ``make_train_step(mesh=)``; the bytes each shard
-    holds against the specs' reckoning (``attach``), ms a step beside
-    phase 12's, the optimizer's ms (its 8 shard updates), tokens/s, peak;
-    ``MESH_AGAIN`` steps again from the seed, bit-equal."""
+    ``place_params`` -> ``make_train_step(mesh=)``, the split program
+    (each shard computes its group's rows with its model slices); the
+    bytes each shard holds against the specs' reckoning (``attach``), ms a
+    step beside phase 12's, the optimizer's ms (its 8 shard updates),
+    tokens/s, kernels a step, peak; ``MESH_AGAIN`` steps again from the
+    seed, bit-equal."""
     cfg = get_config("llama3.2-3b")
     mesh = make_host_mesh(*MESH_SHAPE, devices=[CARD] * 8)
     pipe = lm_tokens.TokenPipeline(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=SEED)
@@ -3343,7 +3358,7 @@ def lm_mesh_train(name, stats) -> None:
             "one_device_busy_ms": one["busy_ms"], "one_device_kernels_per_step":
             one["kernels_per_step"], "tokens_per_s": TRAIN_B * TRAIN_S / (step_ms / 1e3),
             "peak_bytes": peak, "bytes_per_shard": held, "spec_bytes_per_shard": reckoned,
-            "card": name}
+            "program": "split", "card": name}
     stats["lm_mesh"] = [line]
     print(f"lm mesh [{name}] llama3.2-3b on a {MESH_SHAPE[0]} x {MESH_SHAPE[1]} mesh of logical "
           f"shards of the card: {held[0]:,} bytes a shard (the specs' {reckoned:,}); B="
@@ -3355,41 +3370,174 @@ def lm_mesh_train(name, stats) -> None:
           f"({100 * upd_ms / step_ms:.1f}%), card busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / step_ms:.1f}%), {kernels:.0f} kernels a step (one device "
           f"{one['kernels_per_step']:.0f}), {line['tokens_per_s']:.1f} tokens/s, peak "
-          f"{peak / 2**30:.2f} GiB; {MESH_AGAIN} steps again from the seed: losses equal; "
+          f"{peak / 2**30:.2f} GiB (the split program); {MESH_AGAIN} steps again from the "
+          f"seed: losses equal; "
           f"busy ms a step by kernel kind: "
           + ", ".join(f"{k} {v:.1f}" for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])),
           flush=True)
 
 
-def lm_mesh_equals_one_device(name) -> None:
-    """(a) llama3.2-3b cut to depth 2 in float32, TF32 off: the first step's
-    loss on the (4, 2) mesh within rtol 2e-4 of one device's on the same
-    batch and weights (the bound the JAX package's mesh test holds)."""
-    cfg = get_config("llama3.2-3b").replace(n_layers=2, dtype="float32")
-    batch = lm_tokens.TokenPipeline(cfg.vocab_size, TRAIN_B, MESH_CHECK_S, seed=SEED + 40).batch(0)
-    mesh = make_host_mesh(*MESH_SHAPE, devices=[CARD] * 8)
+def worst_leaf(got, ref) -> tuple[str, float]:
+    """The leaf of ``got`` (a parameter tree in the JAX layout) farthest from
+    ``ref``'s, and its largest error over its scale in ``ref`` (at least 1:
+    the bound of the mesh tests)."""
+    worst = ("", 0.0)
+    for (path, g), (_, r) in zip(lm_tree_leaves(got), lm_tree_leaves(ref), strict=True):
+        for a, b in zip(lm_leaf_tensors(g), lm_leaf_tensors(r), strict=True):
+            b = b.to(a.device).float()
+            err = float((a.float() - b).abs().max()) / max(1.0, float(b.abs().max()))
+            if err > worst[1]:
+                worst = (".".join(map(str, path)), err)
+    return worst
+
+
+def mesh_first_step(cfg, shape, batch, seed: int):
+    """The first step on one device and on a ``shape`` mesh of logical
+    shards of the card from the same weights and batch (float32, TF32
+    off): (one device's metrics, the mesh's, the worst updated leaf
+    (``worst_leaf``), the assignments one device's MoE layers drop, the
+    mesh's)."""
+    mesh = make_host_mesh(*shape, devices=[CARD] * 8)
     opt = lm_adamw.AdamW(train_opt_cfg(TRAIN_STEPS))
     bundle = lm_build(cfg)
-    params = bundle.init_params(6)
+    params = bundle.init_params(seed)
     placed = lm_train.place_params(mesh, cfg, params)
-    one = lm_train.make_train_step(bundle, opt)(
-        params, opt.init(params), None, lm_train.on_device(batch, CARD, torch.float32))[3]
+    on_card = lm_train.on_device(batch, CARD, torch.float32)
+    seen = []
+    if cfg.is_moe:
+        route = lm_moe.route_logits
+
+        def counted(*a, **kw):
+            r = route(*a, **kw)
+            seen.append(int((~r.keep).sum()))
+            return r
+
+        lm_moe.route_logits = counted
+        try:
+            with torch.no_grad():
+                bundle.loss_fn(params, on_card)
+        finally:
+            lm_moe.route_logits = route
+    params, _, _, one = lm_train.make_train_step(bundle, opt)(
+        params, opt.init(params), None, on_card)
+    ref = lm_common.tree_map(lambda leaf: lm_common.stack_map(lambda t: t.detach().cpu(), leaf),
+                             params.jax_layout())
     del params
     lm_free()
     bundle.model.shard_x = lm_partition.activation_sharder(mesh)
-    on_mesh = lm_train.make_train_step(bundle, opt, mesh)(
-        placed, opt.init(placed), None,
-        lm_train.place_batch(mesh, lm_train.on_device(batch, CARD, torch.float32)))[3]
-    del placed, bundle
+    step = lm_train.make_train_step(bundle, opt, mesh)
+    placed, _, _, on_mesh = step(placed, opt.init(placed), None,
+                                 lm_train.place_batch(mesh, on_card))
+    worst = worst_leaf(lm_placement.gather_tree(placed, CARD), ref)
+    dropped = (sum(int(n) for n in step.routing.dropped.values())
+               if getattr(step, "routing", None) is not None else 0)
+    del placed, bundle, step, ref
     lm_free()
+    return one, on_mesh, worst, sum(seen), dropped
+
+
+def check_first_step(label, one, on_mesh, worst) -> tuple[float, float, float, float]:
+    """Fails unless the mesh's loss and gradient norm are within rtol 2e-4
+    of one device's and every updated leaf within 2e-4 of its scale.
+    Returns (the mesh's loss, its gradient norm, one device's, one
+    device's)."""
     a, b = float(one["loss"]), float(on_mesh["loss"])
     ga, gb = float(one["grad_norm"]), float(on_mesh["grad_norm"])
-    if abs(b - a) > 2e-4 * abs(a) or abs(gb - ga) > 2e-4 * abs(ga):
-        fail(f"mesh step vs one device, float32 depth 2: loss {b} vs {a}, grad norm {gb} vs {ga}")
-    print(f"lm mesh [{name}] llama3.2-3b depth 2 float32, B={TRAIN_B} x S={MESH_CHECK_S}: first "
-          f"step on the mesh loss {b:.7f} grad norm {gb:.6f}, one device {a:.7f} / {ga:.6f} "
-          f"(rel {abs(b - a) / abs(a):.2e} / {abs(gb - ga) / abs(ga):.2e}; rtol 2e-4)",
-          flush=True)
+    if abs(b - a) > 2e-4 * abs(a) or abs(gb - ga) > 2e-4 * abs(ga) or worst[1] > 2e-4:
+        fail(f"{label}: mesh step vs one device: loss {b} vs {a}, grad norm {gb} vs {ga}, "
+             f"updated leaf {worst[0]} off by {worst[1]:.3e} of its scale")
+    return b, gb, a, ga
+
+
+def first_step_line(a, ga, b, gb, worst) -> str:
+    return (f"first step on the mesh loss {b:.7f} grad norm {gb:.6f}, one device {a:.7f} / "
+            f"{ga:.6f} (rel {abs(b - a) / abs(a):.2e} / {abs(gb - ga) / abs(ga):.2e}; rtol "
+            f"2e-4); updated parameters: the worst leaf {worst[0]} off by {worst[1]:.2e} of "
+            f"its scale (2e-4)")
+
+
+def lm_mesh_equals_one_device(name) -> None:
+    """(a) llama3.2-3b cut to depth 2 in float32, TF32 off: the first
+    step's loss and gradient norm on the (4, 2) mesh within rtol 2e-4 of
+    one device's on the same batch and weights (the bound the JAX
+    package's mesh test holds), every updated parameter within 2e-4 of
+    its scale."""
+    cfg = get_config("llama3.2-3b").replace(n_layers=2, dtype="float32")
+    batch = lm_tokens.TokenPipeline(cfg.vocab_size, TRAIN_B, MESH_CHECK_S, seed=SEED + 40).batch(0)
+    one, on_mesh, worst, _, _ = mesh_first_step(cfg, MESH_SHAPE, batch, 6)
+    b, gb, a, ga = check_first_step("llama3.2-3b depth 2", one, on_mesh, worst)
+    print(f"lm mesh [{name}] llama3.2-3b depth 2 float32, B={TRAIN_B} x S={MESH_CHECK_S}: "
+          + first_step_line(a, ga, b, gb, worst), flush=True)
+
+
+def lm_mesh_moe_equals_one_device(name) -> None:
+    """(a) deepseek-v3 cut to depth 2 in float32 (``DEEPSEEK_CHECK``: one
+    dense and one MoE layer, MLA and the MTP block at full width), TF32
+    off: the first step on a (2, 4) mesh against one device's on the same
+    batch and weights as ``lm_mesh_equals_one_device``'s, and the MoE
+    layer's dropped assignments equal to one device's."""
+    cfg = get_config("deepseek-v3-671b").replace(**DEEPSEEK_CHECK)
+    batch = lm_tokens.TokenPipeline(cfg.vocab_size, TRAIN_B, MESH_CHECK_S, seed=SEED + 42).batch(0)
+    one, on_mesh, worst, seen, dropped = mesh_first_step(cfg, (2, 4), batch, 7)
+    b, gb, a, ga = check_first_step("deepseek-v3 depth 2", one, on_mesh, worst)
+    if dropped != seen or dropped == 0:
+        fail(f"deepseek-v3 mesh step: {dropped} assignments dropped, one device {seen}")
+    print(f"lm mesh [{name}] deepseek-v3 depth 2 float32 ({cfg.n_experts} experts, vocab "
+          f"{cfg.vocab_size}, capacity {cfg.capacity_factor}), B={TRAIN_B} x S={MESH_CHECK_S} on "
+          f"(2, 4): " + first_step_line(a, ga, b, gb, worst)
+          + f"; {dropped} assignments dropped, one device {seen}", flush=True)
+
+
+def lm_mesh_gathered(name, stats) -> None:
+    """(a) The gathered program (each data group's device computes on whole
+    parameters), which the hybrid, ssm and audio families run: zamba2-2.7b
+    cut to depth 2 (one group of 2 + the shared block) in float32, TF32
+    off, on the (4, 2) mesh: the first step against one device's as
+    ``lm_mesh_equals_one_device``; then ``MESH_AGAIN`` steps and one
+    profiled step: the second step's ms and kernels a step beside one
+    device's, peak; ``MESH_AGAIN`` steps again from the seed, bit-equal."""
+    cfg = get_config("zamba2-2.7b").replace(n_layers=2, shared_attn_period=2, dtype="float32")
+    if cfg.family in lm_train.SPLIT_FAMILIES:
+        fail(f"{cfg.name}: the {cfg.family} family runs the split program")
+    pipe = lm_tokens.TokenPipeline(cfg.vocab_size, TRAIN_B, MESH_CHECK_S, seed=SEED + 44)
+    batches = [pipe.batch(i) for i in range(MESH_AGAIN + 1)]
+    one, on_mesh, worst, _, _ = mesh_first_step(cfg, MESH_SHAPE, batches[0], SEED)
+    b, gb, a, ga = check_first_step("zamba2-2.7b depth 2", one, on_mesh, worst)
+
+    bundle = lm_build(cfg)
+    _, _, one_events = train_run(bundle, bundle.init_params(SEED), batches[:MESH_AGAIN],
+                                 lm_adamw.AdamW(train_opt_cfg(TRAIN_STEPS)))
+    one_ms = one_events[-1][0].elapsed_time(one_events[-1][1])
+    _, one_kernels, _ = train_device_ms(bundle, bundle.init_params(SEED), batches[MESH_AGAIN:])
+    del bundle
+    lm_free()
+    mesh = make_host_mesh(*MESH_SHAPE, devices=[CARD] * 8)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, events, _, (busy_ms, kernels, _) = mesh_run(
+        cfg, mesh, batches[:MESH_AGAIN], lm_adamw.AdamW(train_opt_cfg(TRAIN_STEPS)),
+        profiled=batches[MESH_AGAIN:])
+    peak = torch.cuda.max_memory_allocated() - base
+    finite("zamba2-2.7b mesh train", losses, norms)
+    again, _, _, _, _ = mesh_run(cfg, mesh, batches[:MESH_AGAIN],
+                                 lm_adamw.AdamW(train_opt_cfg(TRAIN_STEPS)))
+    if again != losses:
+        fail(f"zamba2-2.7b mesh train: two runs from one seed differ: {again} vs {losses}")
+    ms = events[-1][0].elapsed_time(events[-1][1])
+    line = {"model": "zamba2-2.7b", "layers": cfg.n_layers, "dtype": cfg.dtype,
+            "mesh": list(MESH_SHAPE), "batch": TRAIN_B, "seq": MESH_CHECK_S,
+            "program": "gathered", "first_step_loss": b, "one_device_first_step_loss": a,
+            "worst_leaf_err": worst[1], "losses": losses, "step_ms": ms,
+            "one_device_step_ms": one_ms, "busy_ms": busy_ms, "kernels_per_step": kernels,
+            "one_device_kernels_per_step": one_kernels,
+            "peak_bytes": peak, "card": name}
+    stats["lm_mesh"].append(line)
+    print(f"lm mesh [{name}] zamba2-2.7b depth 2 float32 on the gathered program, B={TRAIN_B} x "
+          f"S={MESH_CHECK_S} on {MESH_SHAPE}: " + first_step_line(a, ga, b, gb, worst)
+          + f"; step 2 {ms:.3f} ms (one device {one_ms:.3f}), card busy {busy_ms:.3f} ms, "
+          f"{kernels:.0f} kernels a step (one device {one_kernels:.0f}), peak "
+          f"{peak / 2**30:.2f} GiB; {MESH_AGAIN} steps again "
+          f"from the seed: losses equal", flush=True)
 
 
 def lm_flash_decode(name, stats) -> None:
@@ -3496,13 +3644,16 @@ def phase_lm_mesh(name, stats) -> None:
     lm_mesh_train(name, stats)
     print(f"lm mesh training {time.perf_counter() - t0:.1f} s", flush=True)
     lm_mesh_equals_one_device(name)
+    lm_mesh_moe_equals_one_device(name)
+    lm_mesh_gathered(name, stats)
     lm_flash_decode(name, stats)
     lm_shardmap_moe(name, stats)
     for line in stats["lm_mesh"]:
         print("lm mesh " + json.dumps(line), flush=True)
 
 
-DRY_CELLS = [("llama3.2-3b", "train_4k"), ("deepseek-v3-671b", "decode_32k"),
+DRY_CELLS = [("llama3.2-3b", "train_4k"), ("deepseek-v3-671b", "train_4k"),
+             ("deepseek-v3-671b", "decode_32k"),
              ("xtime-tabular", "serve_1m")]  # phase 14's production cells, 16 x 16
 
 
@@ -3599,7 +3750,7 @@ def dry_one_device(name, stats) -> None:
 
 
 def dry_production_cells(name, stats) -> None:
-    """(b) three production cells on a 16 x 16 mesh of meta devices, each
+    """(b) the production cells on a 16 x 16 mesh of meta devices, each
     timed, each printing the reference's three lines."""
     out_dir = ROOT / "results" / "dryrun_torch"
     for arch, shape in DRY_CELLS:

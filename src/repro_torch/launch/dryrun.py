@@ -7,8 +7,9 @@ cell of the port's own program — the port of ``repro.launch.dryrun``.
 No environment flag: the production mesh (16 x 16, or 2 x 16 x 16 with
 ``--multi-pod``) is ``make_production_mesh(devices=[meta] * n)``, and every
 tensor is a meta tensor (shapes and dtypes, no memory, no arithmetic).
-For each cell it reports, for the fullest device (a data group's compute
-device):
+For each cell it reports, for the fullest device (the split program's
+device (0, M - 1), the last of group 0's `model` devices; a data group's
+compute device otherwise):
 
   * **argument bytes**, exactly, from the specs: ``ShardedShape.local_bytes``
     (``sharding.partition.attach``) of the parameters, the AdamW moments
@@ -16,23 +17,37 @@ device):
     cells, the cache, token and pos — placed by ``batch_pspec`` /
     ``cache_pspecs`` (``argument_bytes``; no trace);
   * the port's mesh program, traced once on meta under ``OpCounter``
-    (``repro_torch.launch.op_count``): the program ``MeshStep`` runs (the
-    ``model`` axis shards state only; each data group gathers whole
-    parameters onto its compute device and computes there).  ``train``:
-    ``loss_fn`` + backward on ``global_batch / n_groups`` rows with whole
-    parameters (an MoE layer routed by ``GroupRouting``, its counting pass
-    included), the group's gradients added into the device's float32 sums,
-    and one ``AdamW.update`` on the device's shards; ``prefill`` and
-    ``decode``: the forward on the group's rows (and its rows of the cache).
-    Its dot FLOPs, op bytes and peak temp bytes;
-  * the bytes the device holds beyond its arguments: the gathered whole
-    parameters (the group's batch, or its rows of the cache), the float32
-    gradient sums, the trace's temps;
-  * **transfer bytes**, by kind, from the specs: what ``MeshStep._gather``
+    (``repro_torch.launch.op_count``).  A transformer-family ``train``
+    cell traces device (0, M - 1)'s part of the split program
+    (``MeshStep.split_grads(only=M - 1)``: group 0's rows with its model
+    slices, its counting pass where MoE layers route more than one
+    group, its gradients into its float32 sums, then its
+    ``AdamW.update``); every device of the mesh computes
+    (``n_compute_devices``).  Any other cell traces the program the
+    gathered ``MeshStep`` runs (each data group gathers whole parameters
+    onto its compute device and computes there): ``train``: ``loss_fn`` +
+    backward on ``global_batch / n_groups`` rows with whole parameters (an
+    MoE layer routed by ``GroupRouting``, its counting pass included),
+    the group's gradients added into the device's float32 sums, and one
+    ``AdamW.update`` on the device's shards; ``prefill`` and ``decode``:
+    the forward on the group's rows (and its rows of the cache).  Its dot
+    FLOPs, op bytes and peak temp bytes;
+  * the bytes the device holds beyond its arguments: the gathered bytes
+    (split: the peak of the FSDP-gathered slices alive at once, kept
+    apart from the temps, plus its group's batch rows; gathered: the
+    whole parameters and the group's batch, or its rows of the cache),
+    the float32 gradient sums, the trace's temps;
+  * **transfer bytes**, by kind.  Split: what device (0, M - 1) receives
+    in its trace (``collectives.recording``: the FSDP gathers and their
+    backward, the activations' all-gathers, reduce-scatters, all-reduces
+    and all-to-alls), plus its group's batch rows (the whole batch where
+    M = 1, gathered onto (0, 0) by ``MeshStep``) and,
+    from the specs, every other device's gradient of a shard of its
+    blocks (``reduce-scatter``).  Gathered: what ``MeshStep._gather``
     brings to the device (``all-gather``: whole minus its own shard) and
-    what its shard sums send (``reduce-scatter``: its gradient's slice for
-    every other device's shard).  On a meta mesh ``.to(device)`` moves
-    nothing, so ``MeshStep`` itself is never driven here;
+    what its shard sums send (``reduce-scatter``: its gradient's slice
+    for every other device's shard).  On a meta mesh ``.to(device)``
+    moves nothing, so ``MeshStep`` is never driven on devices here;
   * the roofline terms with one H100's constants (``hlo_analysis``) and the
     fit against its 80 GiB.
 
@@ -42,8 +57,15 @@ Deliberate differences from the JAX package's dry run:
     fusion-boundary bytes;
   * Python loops over layers stand in for ``while`` trips: every layer's
     ops are counted as they dispatch;
-  * compute is split by data group (one compute device a group), where
-    GSPMD splits it over every device;
+  * the split program splits attention by query rows where GSPMD splits
+    heads: device (0, M - 1) holds the sequence's last chunk, the most
+    causal work, so it is the fullest (under remat the recomputation stops
+    after the last saved tensor, which skips its final product of a layer
+    alone and in the whole program alike); traced alone, it also computes
+    the loss's reductions over `model`, which device (0, 0) computes in
+    the whole program (a few ops on (B, 512) float32 blocks; the bytes it
+    is counted to receive are the whole program's); the other families'
+    compute is split by data group (one compute device a group);
   * the roofline uses the H100's constants and the fit is 80 GiB;
   * a decode cell writes one position into the cache; sending it back to
     the cache's shards is left out of the transfer bytes (at most the
@@ -59,6 +81,7 @@ import json
 import os
 import time
 import traceback
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -68,11 +91,14 @@ from repro_torch.launch import hlo_analysis
 from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.launch.model_flops import model_flops
 from repro_torch.launch.op_count import OpCost, OpCounter, count
-from repro_torch.launch.train import GroupRouting, loss_and_grads
+from repro_torch.launch.train import SPLIT_FAMILIES, GroupRouting, MeshStep, loss_and_grads
 from repro_torch.models import common, moe as moe_mod
 from repro_torch.models.common import stack_map, tree_map, tree_tensors
 from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import AdamW, AdamWConfig
+from repro_torch.sharding import split as split_mod
+from repro_torch.sharding.collectives import recording
+from repro_torch.sharding.placement import Sharded, layer_spec, local_tree
 from repro_torch.sharding.partition import (
     MeshAxes,
     P,
@@ -265,6 +291,87 @@ def _trace_train(bundle, cfg, cell, axes, whole) -> OpCost:
     return c.cost()
 
 
+def _meta_placed(mesh, tree, specs, dtype: torch.dtype | None = None):
+    """A placed tree of ``Sharded`` meta leaves: every position holds one
+    meta tensor of its local shape (the shapes ``place_tree`` gives)."""
+
+    def leaf_of(leaf, spec):
+        inner = layer_spec(leaf, spec)
+
+        def one(t):
+            shards = np.empty(mesh.devices.shape, dtype=object)
+            sh = Sharded(mesh, inner, tuple(t.shape), dtype or t.dtype, shards)
+            local = torch.empty(sh.local_shape(), dtype=sh.dtype, device=META)
+            for idx in np.ndindex(shards.shape):
+                shards[idx] = local
+            return sh
+
+        return stack_map(one, leaf)
+
+    return tree_map(leaf_of, tree, specs)
+
+
+def _remote_grad_bytes(mesh, params, target: tuple) -> int:
+    """The gradient bytes ``target`` receives from the other devices' uses
+    of its blocks in one step (device ``target``'s own uses are traced):
+    per leaf, one shard's bytes for every use by another (group, model)
+    device of a shard of ``target``'s block, which reaches ``target``
+    either through the FSDP gather's backward (a use of ``target``'s own
+    shard) or through ``GradSink``'s sum of a block's uses (a replica's)."""
+    axes = MeshAxes(mesh)
+    n_groups, n_model = _groups(axes), axes.axis_size(axes.model)
+    memo: dict = {}
+    total = 0
+    for sh in tree_tensors(params):
+        key = (tuple(sh.spec), tuple(sh.shape))
+        if key not in memo:
+            block = sh._block(target)
+            n = 0
+            for g in range(n_groups):
+                for m in range(n_model):
+                    if split_mod.position(mesh, g, m) == target:
+                        continue
+                    n += sum(1 for p in split_mod.uses(mesh, sh, g, m) if sh._block(p) == block)
+            memo[key] = n
+        total += memo[key] * sh.local(0).numel() * sh.dtype.itemsize
+    return total
+
+
+def _trace_split_train(bundle, cfg, cell, mesh, axes) -> tuple[OpCost, dict]:
+    """Device (0, M - 1)'s step in the split program (``MeshStep.split_grads``
+    with ``only=M - 1``: its forward and backward over group 0's rows with its model
+    slices, its gradients into its sums; the counting pass too where more
+    than one group routes an MoE layer), then its ``AdamW.update``.
+    Returns (cost, bytes received by kind)."""
+    n_groups = _groups(axes)
+    if cell.global_batch % n_groups:
+        raise ValueError(f"{cell.global_batch} rows do not split over {n_groups} data groups")
+    mesh = Mesh(np.full(mesh.devices.shape, META, dtype=object), mesh.axis_names)
+    tree = bundle.params_shape().jax_layout()
+    pspecs = param_pspecs(tree, cfg, axes)
+    params = _meta_placed(mesh, tree, pspecs)
+    acc = _meta_placed(mesh, tree, pspecs, torch.float32)
+    mdt = common.dtype_of(_moe_moment_dtype(cfg))
+    opt = AdamW(AdamWConfig(moment_dtype=_moe_moment_dtype(cfg)))
+    state = {"m": _local_tree(tree, pspecs, axes, mdt), "v": _local_tree(tree, pspecs, axes, mdt),
+             "step": torch.zeros((), dtype=torch.int32, device=META)}
+    gnorm = torch.zeros((), dtype=torch.float32, device=META)
+    batch = bundle.input_specs(cell)
+    step = MeshStep(bundle, opt, mesh)
+    last = axes.axis_size(axes.model) - 1
+    target = split_mod.position(mesh, 0, last)
+    flat = int(np.ravel_multi_index(target, mesh.devices.shape))
+    with OpCounter(exclude=split_mod.gathering) as c, recording() as rec:
+        step.split_grads(batch, acc, params, groups=[0], only=last)
+        opt.update(local_tree(acc, flat), state, local_tree(params, flat), gnorm=gnorm)
+    received = defaultdict(float)
+    for (key, kind), n in rec.items():
+        if key == target:
+            received[kind] += n
+    received["reduce-scatter"] += _remote_grad_bytes(mesh, params, target)
+    return c.cost(), received
+
+
 def _trace_serve(bundle, cell, axes, whole, group_cache) -> OpCost:
     """One data group's forward on its compute device; its outputs (the
     logits, and prefill's cache) count as ``end_bytes``."""
@@ -280,9 +387,11 @@ def _trace_serve(bundle, cell, axes, whole, group_cache) -> OpCost:
 
 
 def reckon_lm(cfg, cell: ShapeCell, mesh, flash_blk: int = 1024) -> tuple[OpCost, dict]:
-    """The counted cost of one data group's program on ``mesh``, and what
-    the fullest device holds and sends: ``memory`` and ``transfer`` dicts
-    (bytes)."""
+    """The counted cost of the fullest device's program on ``mesh`` (device
+    (0, M - 1) of the split program for a transformer train cell, else one data
+    group's), and what it holds and moves: ``memory`` and ``transfer``
+    dicts (bytes; the split program's transfer is what the device
+    receives)."""
     axes = MeshAxes(mesh)
     bundle = build_model(cfg, flash_blk, device=META)
     bundle.model.shard_x = activation_sharder(mesh, axes)
@@ -294,14 +403,24 @@ def reckon_lm(cfg, cell: ShapeCell, mesh, flash_blk: int = 1024) -> tuple[OpCost
     group_cache = None
     prev = dict(moe_mod._HOOKS)
     _install_moe_hooks(cfg, axes)
+    n_dev = int(np.prod(mesh.devices.shape))
+    split = cell.kind == "train" and cfg.family in SPLIT_FAMILIES
+    transfer: dict = {}
     try:
         if cell.kind == "train":
-            n_dev = int(np.prod(mesh.devices.shape))
             batch_whole, batch_local = _whole_bytes(shapes["batch"]), _local_bytes(shapes["batch"])
-            gathered += batch_whole  # MeshStep gathers the batch on the first group's device
-            gather_in += batch_whole - batch_local
+            gather_in += batch_whole - batch_local  # MeshStep gathers the batch on (0, 0)
             sums = sum(int(np.prod(s.local_shape(), dtype=np.int64)) * 4
                        for _, s in leaves_with_path(shapes["params"]))
+        if split:
+            cost, transfer = _trace_split_train(bundle, cfg, cell, mesh, axes)
+            # (0, M - 1) receives group 0's rows from (0, 0), which gathers the batch
+            last_is_first = axes.axis_size(axes.model) == 1
+            transfer["all-gather"] += (batch_whole - batch_local if last_is_first
+                                       else batch_whole // _groups(axes))
+            gathered = cost.excluded_bytes + batch_whole // _groups(axes)
+        elif cell.kind == "train":
+            gathered += batch_whole
             scatter_out = (n_dev - 1) * params_local  # its gradient's slice to every shard
             cost = _trace_train(bundle, cfg, cell, axes, whole)
         else:
@@ -317,11 +436,13 @@ def reckon_lm(cfg, cell: ShapeCell, mesh, flash_blk: int = 1024) -> tuple[OpCost
         moe_mod.set_impl(prev["impl"])
     memory = {"argument_bytes": sum(_local_bytes(t) for t in shapes.values()),
               "gathered_bytes": gathered, "sum_bytes": sums}
-    transfer = {"all-gather": float(gather_in)}
-    if cell.kind == "train":
-        transfer["reduce-scatter"] = float(scatter_out)
+    if not split:
+        transfer = {"all-gather": float(gather_in)}
+        if cell.kind == "train":
+            transfer["reduce-scatter"] = float(scatter_out)
+    transfer = {k: float(v) for k, v in sorted(transfer.items())}
     return cost, {"memory": memory, "transfer": transfer, "bundle": bundle,
-                  "n_groups": _groups(axes)}
+                  "n_compute": n_dev if split else _groups(axes)}
 
 
 def lower_cell(arch: str, shape: str, multi_pod: bool, flash_blk: int = 1024):
@@ -345,7 +466,7 @@ def lower_cell(arch: str, shape: str, multi_pod: bool, flash_blk: int = 1024):
         "arch": arch, "shape": shape, "kind": fn_kind[cell.kind],
         "mesh": "2x16x16" if multi_pod else "16x16",
         "n_devices": int(np.prod(mesh.devices.shape)),
-        "n_compute_devices": r["n_groups"],
+        "n_compute_devices": r["n_compute"],
         "model_flops_total": model_flops(cfg, cell, r["bundle"]),
         "memory": r["memory"], "transfer": r["transfer"],
     }

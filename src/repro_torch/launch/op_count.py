@@ -52,6 +52,7 @@ class OpCost:
     temp_bytes: int = 0
     end_bytes: int = 0
     n_ops: int = 0
+    excluded_bytes: int = 0
 
 
 def _tensor_bytes(x) -> int:
@@ -83,15 +84,20 @@ class _Live:
 
 
 class OpCounter(TorchDispatchMode):
-    """``with OpCounter() as c: fn(...)``, then ``c.cost()``."""
+    """``with OpCounter() as c: fn(...)``, then ``c.cost()``.  ``exclude``
+    (a callable): storages allocated while it returns True are kept out of
+    the temps, their own peak ``excluded_bytes`` (the dry run's FSDP
+    gathers)."""
 
-    def __init__(self) -> None:
+    def __init__(self, exclude=None) -> None:
         super().__init__()
         self.flops_table = FlopCounterMode(display=False).flop_registry
         self.dot_flops = 0.0
         self.op_bytes = 0.0
         self.n_ops = 0
         self.live = _Live()
+        self.excluded = _Live()
+        self.exclude = exclude
         self._decomposes: dict = {}
 
     def _has_decomposition(self, func) -> bool:
@@ -134,16 +140,18 @@ class OpCounter(TorchDispatchMode):
         or an ``out=`` returns its input)."""
         storage = t.untyped_storage()
         key = storage._cdata
-        if key in self.live.storages:
+        if key in self.live.storages or key in self.excluded.storages:
             return
         for a in args:
             if isinstance(a, torch.Tensor) and a.untyped_storage()._cdata == key:
                 return
-        self.live.add(storage)
+        excluded = self.exclude is not None and self.exclude()
+        (self.excluded if excluded else self.live).add(storage)
 
     def cost(self) -> OpCost:
         return OpCost(dot_flops=float(self.dot_flops), op_bytes=float(self.op_bytes),
-                      temp_bytes=self.live.peak, end_bytes=self.live.bytes, n_ops=self.n_ops)
+                      temp_bytes=self.live.peak, end_bytes=self.live.bytes, n_ops=self.n_ops,
+                      excluded_bytes=self.excluded.peak)
 
 
 def count(fn, *args, **kwargs) -> tuple[object, OpCost]:

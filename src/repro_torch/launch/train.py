@@ -12,17 +12,28 @@ On a mesh (``mesh=``, ``--use-mesh``) the parameters, moments, gradient
 sums and residuals are ``Sharded`` by ``param_pspecs``
 (``place_params``), and a step is one explicit shard program driven
 from this process, as the tabular mesh engine's (no
-``torch.distributed``): the parameters all-gathered once per compute
-device (mesh order); each data group (the batch axes' blocks, computed on
-its device at model index 0) takes the loss and gradients of its rows;
-the gradients summed into each device's shards group by group in
-ascending mesh order (the reduce-scatter, no float atomics); then
+``torch.distributed``).  The transformer family (``dense``, ``moe``,
+``vlm``) runs the split program (``repro_torch.sharding.split``): device
+(g, m) computes data group g's rows with model slice m of every weight
+the specs split over `model` (column-parallel projections, row-parallel
+outputs whose partials are reduce-scattered over the sequence, the
+attention split by query rows, experts on `model`, vocab-parallel
+embedding and logits), activations between blocks sequence-sharded over
+the group's devices where the specs say so; each layer's `fsdp` blocks
+are gathered over the data axis onto the device just before use and
+gathered again for its backward; each device's gradients of its slices
+go into the float32 sums of the shards that hold them, group by group in
+ascending order (the reduce-scatter over data).  The other families
+(``hybrid``, ``ssm``, ``audio``) gather whole parameters once per compute
+device (mesh order); each data group (the batch axes' blocks, computed
+on its device at model index 0) takes the loss and gradients of its
+rows, summed into each device's shards group by group in ascending mesh
+order: their `model` axis shards state only.  Then, for every family,
 ``AdamW.update`` on each device's shards with the clip norm summed over
 every leaf's blocks in flatten order.  The program gives the one-device
 step: the loss is the groups' mean (equal rows and whole-column masks
 give equal token counts), and an MoE layer routes each group's tokens
-with the whole batch's ranks and capacity (``GroupRouting``).  The
-``model`` axis shards state only: a group computes on whole parameters.
+with the whole batch's ranks and capacity (``GroupRouting``).
 
 CLI:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
@@ -75,6 +86,7 @@ from repro_torch.sharding.partition import (
     param_pspecs,
 )
 from repro_torch.sharding.placement import Sharded, local_tree, place_tree
+from repro_torch.sharding.split import GradSink, Split, position
 
 
 def loss_and_grads(bundle: LMBundle, params, batch: dict) -> tuple:
@@ -169,60 +181,85 @@ def place_batch(mesh, batch: dict) -> dict:
 
 class GroupRouting:
     """``moe_forward`` over one data group's rows with the whole batch's
-    routing (the ``moe.set_impl`` override of the mesh step).
+    routing (the ``moe.set_impl`` override of the gathered mesh step; the
+    split program calls ``route``; with one group, ``moe_forward``'s own
+    routing, no counting pass).
 
     One device routes all T tokens at once: capacity from T, each token's
     rank within its expert counted over every token before it, and the aux
     term a product of whole-batch means.  Groups hold consecutive row
     blocks, so a group's ranks are its own plus the assignments of the
     groups before it.  A first pass without gradients (``counting``)
-    records, per layer (keyed by its ``MoEParams``), those offsets and the
-    whole batch's counts; the gradient pass replays them, and its aux is
-    E * sum(whole-batch dispatch fraction * the group's mean probability),
-    whose mean over the equal groups is the one-device aux.  ``layers``
-    maps ``id`` of each compute device's ``MoEParams`` to its name in the
-    params module, so groups on different devices share a layer's counts."""
+    records, per layer (a key: its name in the params module, or the split
+    program's (segment, layer)), those offsets and the whole batch's
+    counts; the gradient pass replays them, and its aux is E * sum(whole-
+    batch dispatch fraction * the group's mean probability), whose mean
+    over the equal groups is the one-device aux.  ``layers`` maps ``id`` of
+    each compute device's ``MoEParams`` to its name, so groups on
+    different devices share a layer's counts.  ``dropped`` holds, per
+    (group, layer), the count of assignments the gradient pass dropped (a
+    0-d tensor)."""
 
-    def __init__(self, n_groups: int, layers: dict):
+    def __init__(self, n_groups: int, layers: dict | None = None):
         self.n_groups = n_groups
-        self.layers = layers
+        self.layers = layers or {}
         self.group = 0
-        self.counting = True
+        self.counting = n_groups > 1  # one group: its own counts, no first pass
         self.counts: dict = {}  # layer -> (E,) assignments of the groups so far
         self.offsets: list[dict] = [{} for _ in range(n_groups)]
+        self.dropped: dict = {}
 
-    def __call__(self, p, x, *, top_k: int, capacity_factor: float, act: str):
-        b, s, d = x.shape
-        e = p.router.shape[1]
-        t_all = b * s * self.n_groups
+    def route(self, key, logits: list, *, top_k: int, capacity_factor: float) -> tuple:
+        """Routing of each of ``logits`` (equal (T, E) copies of the group's
+        router logits, one a device; None where not computed) and the aux
+        term (on the first copy's device)."""
+        first = next(x for x in logits if x is not None)
+        t, e = first.shape
+        t_all = t * self.n_groups
         capacity = int(max(1, round(t_all * top_k / e * capacity_factor)))
-        key = self.layers[id(p)]
         if self.counting:
             off = self.counts.get(key)
             if off is None:
-                off = torch.zeros((e,), dtype=torch.int64, device=x.device)
+                off = torch.zeros((e,), dtype=torch.int64, device=first.device)
             self.offsets[self.group][key] = off
         else:
-            off = self.offsets[self.group][key]
-        xt = x.reshape(b * s, d)
-        r = moe.route(p.router, xt, k=top_k, capacity=capacity, offset=off)
+            off = self.offsets[self.group].get(key)
+        rs = [None if x is None else moe.route_logits(
+            x, k=top_k, capacity=capacity, offset=None if off is None else off.to(x.device))
+              for x in logits]
+        r = next(x for x in rs if x is not None)
         if self.counting:
             self.counts[key] = off + moe.expert_counts(r.gate_idx, e)
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        else:
-            aux = moe.aux_loss(r, self.counts[key].float() / (t_all * top_k))
+            return rs, torch.zeros((), dtype=torch.float32, device=first.device)
+        self.dropped[(self.group, key)] = (~r.keep).sum()
+        if self.n_groups == 1:
+            return rs, moe.aux_loss(r)
+        return rs, moe.aux_loss(r, self.counts[key].to(first.device).float() / (t_all * top_k))
+
+    def __call__(self, p, x, *, top_k: int, capacity_factor: float, act: str):
+        b, s, d = x.shape
+        xt = x.reshape(b * s, d)
+        (r,), aux = self.route(self.layers[id(p)], [xt.float() @ p.router], top_k=top_k,
+                               capacity_factor=capacity_factor)
         return moe.experts(p, xt, r, act).reshape(b, s, d), aux
+
+
+SPLIT_FAMILIES = ("dense", "moe", "vlm")  # the transformer family: the split program
 
 
 class MeshStep:
     """The mesh train step (``make_train_step(bundle, opt, mesh)``): see the
-    module docstring.  Each compute device keeps one whole copy of the
-    parameters (the all-gather's destination), reused every step."""
+    module docstring.  ``split``: the transformer family's split program;
+    otherwise each compute device keeps one whole copy of the parameters
+    (the all-gather's destination), reused every step.  ``routing``: the
+    last step's MoE routing state (its ``dropped`` counts)."""
 
     def __init__(self, bundle: LMBundle, opt: AdamW, mesh, *, microbatch: int = 0,
                  compress: bool = False):
         self.bundle, self.opt, self.mesh = bundle, opt, mesh
         self.microbatch, self.compress = microbatch, compress
+        self.split = bundle.cfg.family in SPLIT_FAMILIES
+        self.routing = None
         axes = MeshAxes(mesh)
         sizes = mesh.shape
         batch_axes = axes.batch_axes()
@@ -290,6 +327,47 @@ class MeshStep:
             moe.set_impl(prev)
         return loss_sum
 
+    def split_grads(self, rows: dict, acc, params, *, groups=None, only: int | None = None):
+        """The split program's loss and gradients of each group's block of
+        ``rows`` (``groups``: which, default all), the gradients summed into
+        ``acc``'s shards group by group; returns the sum of the groups'
+        losses (on the mesh's first device).  ``only``: compute only that
+        model device of each group and write only its sums (the dry run's
+        solo trace on meta)."""
+        cfg = self.bundle.cfg
+        groups = range(self.n_groups) if groups is None else groups
+        n = _rows(rows) // self.n_groups
+        seq = rows["labels"].shape[1]
+        active = None if only is None else [only]
+        parts = {g: {k: v[g * n:(g + 1) * n] for k, v in rows.items()} for g in groups}
+        routing = GroupRouting(self.n_groups) if cfg.is_moe else None
+        self.routing = routing
+        model = self.bundle.model
+
+        def loss_of(g, sp):
+            return model.loss_fn(params, {k: v.to(sp.devices[sp.root])
+                                          for k, v in parts[g].items()}, sp)[0]
+
+        if routing is not None and routing.counting:
+            with torch.no_grad():
+                for g in groups:
+                    routing.group = g
+                    loss_of(g, Split(self.mesh, g, seq, routing=routing, active=active))
+            routing.counting = False
+        sums = {id(p): a for p, a in zip(tree_tensors(params), tree_tensors(acc), strict=True)}
+        loss_sum = None
+        for g in groups:
+            if routing is not None:
+                routing.group = g
+            sink = GradSink(sums, write=None if only is None else {position(self.mesh, g, only)})
+            sp = Split(self.mesh, g, seq, sink=sink, routing=routing, active=active)
+            with sp.saving():
+                loss = loss_of(g, sp)
+            sink.backward(loss)
+            loss = loss.detach().to(self.group_devices[0])
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+        return loss_sum
+
     def _global_norm(self, grads) -> torch.Tensor:
         dev = self.group_devices[0]
         total = 0
@@ -329,12 +407,14 @@ class MeshStep:
         if per_mb % self.n_groups:
             raise ValueError(f"{per_mb} rows a microbatch do not split over "
                              f"{self.n_groups} data groups")
-        self._gather(params)
+        if not self.split:
+            self._gather(params)
         acc = tree_zeros(params, torch.float32)
         loss_sum = None
         for i in range(n_mb):
             part = {k: v[i * per_mb:(i + 1) * per_mb] for k, v in rows.items()}
-            loss = self._group_grads(part, acc) / self.n_groups
+            loss = (self.split_grads(part, acc, params) if self.split
+                    else self._group_grads(part, acc)) / self.n_groups
             loss_sum = loss if loss_sum is None else loss_sum + loss
         loss = loss_sum / n_mb
         if n_mb * self.n_groups > 1:

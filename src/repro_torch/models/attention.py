@@ -108,37 +108,58 @@ def flash_attention(
     window=0,
     logit_softcap: float = 0.0,
     blk: int = 512,
+    q_start: int | None = None,
 ) -> torch.Tensor:
+    """``q_start`` set: ``q`` holds only the query rows ``q_start`` ..
+    ``q_start + Sq - 1`` of a causal self-attention over ``k``'s S rows
+    (one device's rows in the split program).  The path (whole or blocked)
+    and every row's blocks of keys are then those of the whole query."""
     b, sq, h, d = q.shape
     sk = k.shape[1]  # may differ from sq (cross-attention)
-    dv = v.shape[-1]  # may differ from d (MLA)
     n_kv = k.shape[2]
-    if causal and sq != sk:
-        raise ValueError(f"causal flash requires sq == sk, got {sq} vs {sk}")
-    if sq <= blk or sq % blk or sk % blk:
-        return full_attention(
-            q, k, v, causal=causal, window=window, logit_softcap=logit_softcap
-        )
-    n_blocks = sq // blk
+    if q_start is not None:
+        if not causal or q_start + sq > sk:
+            raise ValueError(f"query rows {q_start}..{q_start + sq} of a causal "
+                             f"self-attention over {sk} rows")
+        if sk <= blk or sk % blk:
+            return full_attention(q, k, v, causal=True, window=window, q_offset=q_start,
+                                  logit_softcap=logit_softcap)
+        pieces = []  # the rows cut at block boundaries
+        a = q_start
+        while a < q_start + sq:
+            e = min((a // blk + 1) * blk, q_start + sq)
+            pieces.append((a, e))
+            a = e
+    else:
+        if causal and sq != sk:
+            raise ValueError(f"causal flash requires sq == sk, got {sq} vs {sk}")
+        if sq <= blk or sq % blk or sk % blk:
+            return full_attention(
+                q, k, v, causal=causal, window=window, logit_softcap=logit_softcap
+            )
+        q_start = 0
+        pieces = [(i * blk, (i + 1) * blk) for i in range(sq // blk)]
+    dv = v.shape[-1]  # may differ from d (MLA)
     n_kv_blocks = sk // blk
     g = h // n_kv
     scale = d ** -0.5
     span = _window_span(window)
-    ar = torch.arange(blk, device=q.device)
 
-    # (nb, B, blk, KV, G, D) query blocks, fp32 math inside
-    qb = _gqa_expand(q, n_kv).reshape(b, n_blocks, blk, n_kv, g, d).transpose(0, 1)
+    # (B, Sq, KV, G, D) queries, (nb, B, blk, KV, D) key/value blocks; fp32 math inside
+    qg = _gqa_expand(q, n_kv)
     kb = k.reshape(b, n_kv_blocks, blk, n_kv, d).transpose(0, 1)
     vb = v.reshape(b, n_kv_blocks, blk, n_kv, dv).transpose(0, 1)
+    ar = torch.arange(blk, device=q.device)
 
     outs = []
-    for i in range(n_blocks):
-        qi = (qb[i] * scale).float()  # (B, blk, KV, G, D)
-        q_pos = i * blk + ar
-        n_kv_chunks = (i + 1) if causal else n_kv_blocks
-        m = torch.full((b, n_kv, g, blk), _MASKED, dtype=torch.float32, device=q.device)
-        l = torch.zeros((b, n_kv, g, blk), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((b, n_kv, g, blk, dv), dtype=torch.float32, device=q.device)
+    for a, e in pieces:
+        n = e - a
+        qi = (qg[:, a - q_start:e - q_start] * scale).float()  # (B, n, KV, G, D)
+        q_pos = torch.arange(a, e, device=q.device)
+        n_kv_chunks = (a // blk + 1) if causal else n_kv_blocks
+        m = torch.full((b, n_kv, g, n), _MASKED, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, n_kv, g, n), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, n_kv, g, n, dv), dtype=torch.float32, device=q.device)
         for cid in range(n_kv_chunks):
             sc = torch.einsum("bqkgd,bskd->bkgqs", qi, kb[cid].float())
             sc = common.softcap(sc, logit_softcap)
@@ -153,8 +174,8 @@ def flash_attention(
             l = l * corr + p.sum(dim=-1)
             acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, vb[cid].float())
             m = m_new
-        o = acc / torch.clamp(l, min=1e-30)[..., None]  # (B, KV, G, blk, Dv)
-        outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, blk, h, dv))
+        o = acc / torch.clamp(l, min=1e-30)[..., None]  # (B, KV, G, n, Dv)
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, n, h, dv))
 
     return torch.cat(outs, dim=1).to(q.dtype)
 
@@ -206,8 +227,16 @@ def attention_forward(
     norm_eps: float = 1e-6,
     flash_blk: int = 512,
     kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,  # cross-attn
+    sp=None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """Returns (output (B,S,d), (k, v) for cache)."""
+    """Returns (output (B,S,d), (k, v) for cache).  ``sp`` set: the causal
+    self-attention on a data group's `model` devices (``_attention_split``;
+    no cache entry)."""
+    if sp is not None:
+        return _attention_split(
+            sp, p, x, n_heads=n_heads, n_kv=n_kv, rope_theta=rope_theta, positions=positions,
+            window=window, logit_softcap=logit_softcap, norm_eps=norm_eps,
+            flash_blk=flash_blk), None
     q = _split_heads(x @ p.wq, n_heads)
     if kv_override is None:
         k = _split_heads(x @ p.wk, n_kv)
@@ -227,6 +256,48 @@ def attention_forward(
         q, k, v, causal=causal, window=window, logit_softcap=logit_softcap, blk=flash_blk
     )
     return out.reshape(*x.shape[:2], -1) @ p.wo, (k, v)
+
+
+def _attention_split(sp, w, x, *, n_heads: int, n_kv: int, rope_theta, positions: list,
+                     window=0, logit_softcap: float = 0.0, norm_eps: float = 1e-6,
+                     flash_blk: int = 512):
+    """``attention_forward`` (causal self-attention) on a data group's
+    `model` devices (``sp``, a ``repro_torch.sharding.split.Split``;
+    ``w`` the gathered ``AttnParams`` fields, ``positions[m]`` (S,) on
+    device m, ``x`` and the result in ``sp.layout``).
+
+    The projections follow the specs: wq/wk/wv column-parallel where `fit`
+    keeps `model` on their columns (else whole, on each device's own rows),
+    wo row-parallel.  The specs split the head columns wherever H * D does
+    (mid-head where H does not), so the attention itself is split by query
+    rows: each device takes its sequence chunk of q with every head (an
+    all-to-all), the whole k and v (all-gathered), and the same blocks of
+    keys per row as the whole attention; its rows of the output go back to
+    the columns wo's slice reads (the inverse all-to-all)."""
+    b = x.parts[sp.root].shape[0]
+    x = sp.to(x, sp.FULL if w.wq.model_dim is not None or w.wk.model_dim is not None
+              else sp.ROWS)
+    q = sp.to(sp.mm(x, w.wq), sp.ROWS)
+    k = sp.to(sp.mm(x, w.wk), sp.FULL)
+    v = sp.to(sp.mm(x, w.wv), sp.FULL)
+
+    def core(qm, m):
+        km, vm = k.parts[m], v.parts[m]
+        r0 = sp.row_start[m]
+        qm, km, vm = _split_heads(qm, n_heads), _split_heads(km, n_kv), _split_heads(vm, n_kv)
+        if w.q_norm is not None:
+            qm = common.rms_norm(qm, w.q_norm[m], norm_eps)
+            km = common.rms_norm(km, w.k_norm[m], norm_eps)
+        if rope_theta is not None:
+            pos = positions[m][None, :]
+            qm = common.apply_rope(qm, pos[:, r0:r0 + qm.shape[1]], rope_theta)
+            km = common.apply_rope(km, pos, rope_theta)
+        out = flash_attention(qm, km, vm, causal=True, window=window,
+                              logit_softcap=logit_softcap, blk=flash_blk, q_start=r0)
+        return out.reshape(b, out.shape[1], -1)
+
+    o = q.map(core)
+    return sp.to(sp.mm(o, w.wo), sp.layout)
 
 
 def attention_decode(

@@ -24,9 +24,17 @@ class FFNParams(nn.Module):
         self.w_down = nn.Parameter(common.dense_init((d_ff, d_model), dtype, **init))
 
 
-def ffn_forward(p: FFNParams, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def ffn_forward(p: FFNParams, x, act: str = "silu", sp=None):
+    """``sp`` set (a ``repro_torch.sharding.split.Split``): on a data
+    group's `model` devices, ``p`` the gathered fields and ``x`` and the
+    result in ``sp.layout``: w_gate and w_up column-parallel, w_down
+    row-parallel, its partials reduce-scattered over the sequence."""
     a = common.act_fn(act)
-    return (a(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+    if sp is None:
+        return (a(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+    x = sp.to(x, sp.input_kind(p.w_gate))  # gathered once for both products
+    h = sp.mm(x, p.w_gate).zip(sp.mm(x, p.w_up), lambda g, u, m: a(g) * u)
+    return sp.to(sp.mm(h, p.w_down), sp.layout)
 
 
 class MLPParams(nn.Module):

@@ -59,11 +59,16 @@ def mla_forward(
     positions: torch.Tensor,  # (S,) or (B, S)
     *,
     flash_blk: int = 512,
+    sp=None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Naive decompressed MLA for train/prefill.
 
     Returns (out, (ckv_normed, k_rope)) — the compressed-cache entries.
+    ``sp`` set: on a data group's `model` devices (``_mla_split``; no cache
+    entry).
     """
+    if sp is not None:
+        return _mla_split(sp, p, x, cfg, positions, flash_blk=flash_blk), None
     b, s, _ = x.shape
     h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     if positions.ndim == 1:
@@ -80,6 +85,48 @@ def mla_forward(
     out = flash_attention(q, k, v, causal=True, window=0, blk=flash_blk)
     out = out.reshape(b, s, h * dv) @ p.wo
     return out, (ckv, k_rope[:, :, 0, :])
+
+
+def _mla_split(sp, w, x, cfg, positions: list, *, flash_blk: int = 512):
+    """``mla_forward``'s output on a data group's `model` devices (``sp``,
+    a ``repro_torch.sharding.split.Split``; ``w`` the gathered
+    ``MLAParams`` fields, ``positions[m]`` (S,) on device m, ``x`` and the
+    result in ``sp.layout``).
+
+    wdq, wdkv and wkr are column-parallel by the specs, so the latents
+    are all-gathered over `model` before q_ln / kv_ln (the norms read the
+    whole latent); wuq and wuk give head columns; wuv is row-parallel by
+    name (its kv_lora rows on `model`), so v is the sum of the devices'
+    partials (an all-reduce in shard order) where ``fit`` keeps that
+    split; wo is row-parallel.  As in ``attention._attention_split`` the attention
+    is split by query rows (each device's sequence chunk, every head)."""
+    h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    b = x.parts[sp.root].shape[0]
+    s = sp.seq_len
+    x = sp.to(x, sp.FULL)
+
+    cq = sp.whole_cols(sp.mm(x, w.wdq)).map(
+        lambda t, m: common.rms_norm(t, w.q_ln[m], cfg.norm_eps))
+    q = sp.to(sp.mm(cq, w.wuq), sp.ROWS)
+    ckv = sp.whole_cols(sp.mm(x, w.wdkv)).map(
+        lambda t, m: common.rms_norm(t, w.kv_ln[m], cfg.norm_eps))
+    k_nope = sp.to(sp.mm(ckv, w.wuk), sp.FULL)
+    v = sp.to(sp.mm(ckv, w.wuv), sp.FULL)
+    k_rope = sp.to(sp.mm(x, w.wkr), sp.FULL)
+
+    def core(qm, m):
+        r0, n = sp.row_start[m], qm.shape[1]
+        pos = positions[m][None, :]
+        qm = qm.reshape(b, n, h, dn + dr)
+        q_rope = common.apply_rope(qm[..., dn:], pos[:, r0:r0 + n], cfg.rope_theta)
+        qm = torch.cat([qm[..., :dn], q_rope], dim=-1)
+        kr = common.apply_rope(k_rope.parts[m][:, :, None, :], pos, cfg.rope_theta)
+        km = torch.cat([k_nope.parts[m].reshape(b, s, h, dn), kr.expand(b, s, h, dr)], dim=-1)
+        out = flash_attention(qm, km, v.parts[m].reshape(b, s, h, dv), causal=True, window=0,
+                              blk=flash_blk, q_start=r0)
+        return out.reshape(b, n, h * dv)
+
+    return sp.to(sp.mm(q.map(core), w.wo), sp.layout)
 
 
 def mla_decode(

@@ -111,9 +111,16 @@ def route(router: torch.Tensor, xt: torch.Tensor, *, k: int,
     ``offset`` (E,), the assignments each expert already holds from tokens
     before these, let a caller route one block of a larger token set with
     that set's ranks; ``hook`` is applied to the logits."""
-    t = xt.shape[0]
-    e = router.shape[1]
-    logits = hook(xt.float() @ router)  # (T, E)
+    return route_logits(hook(xt.float() @ router), k=k, capacity_factor=capacity_factor,
+                        capacity=capacity, offset=offset, hook=hook)
+
+
+def route_logits(logits: torch.Tensor, *, k: int, capacity_factor: float = 1.25,
+                 capacity: int | None = None, offset: torch.Tensor | None = None,
+                 hook: Callable = _identity) -> Routing:
+    """``route`` from the router's (T, E) float32 logits (the split
+    program computes them on each device's own tokens)."""
+    t, e = logits.shape
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = top_k(probs, k)  # (T, k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
@@ -154,37 +161,54 @@ def aux_loss(r: Routing, dispatch_frac: torch.Tensor | None = None) -> torch.Ten
 def experts(p: MoEParams, xt: torch.Tensor, r: Routing, act: str) -> torch.Tensor:
     """Dispatch ``xt`` (T, d) by ``r`` into the (E, C, d) buffer, the grouped
     expert FFN, the token-major combine and the shared expert: (T, d)."""
-    t, d = xt.shape
-    e = p.router.shape[1]
-    cap = r.capacity
-    tk = r.dest.shape[0]
-    top = tk // t
-    st, se, sw = _HOOKS["tokens"], _HOOKS["experts"], _HOOKS["weights"]
-
-    # -- dispatch: scatter the token ids (one spare row takes the drops) --
-    flat_token = torch.arange(tk, device=xt.device) // top
-    buf_tok = torch.full((e * cap + 1,), tk, dtype=torch.int64, device=xt.device)
-    buf_tok[r.dest] = flat_token
-    buf_tok = buf_tok[: e * cap]
-    valid = (buf_tok < tk)[:, None]
-    rows = xt[torch.clamp(buf_tok, max=t - 1)]
-    buf = torch.where(valid, rows, torch.zeros((), dtype=xt.dtype, device=xt.device))
-    buf = se(buf.reshape(e, cap, d))
-
-    # -- grouped expert FFN --
-    a = common.act_fn(act)
-    w_gate, w_up, w_down = sw(p.w_gate), sw(p.w_up), sw(p.w_down)
-    h = a(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
-    out_buf = se(torch.bmm(h, w_down)).reshape(e * cap, d)
-
-    # -- combine (token-major) --
-    gathered = out_buf[torch.clamp(r.dest, max=e * cap - 1)]
-    gathered = st(gathered * (r.gate_vals.reshape(-1) * r.keep)[:, None].to(xt.dtype))
-    out = gathered.reshape(t, top, d).sum(dim=1)
-
+    sw = _HOOKS["weights"]
+    out = expert_block(sw(p.w_gate), sw(p.w_up), sw(p.w_down), xt, r, act)
     if p.shared is not None:
         out = out + ffn_forward(p.shared, xt, act)
     return out
+
+
+def expert_block(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+                 xt: torch.Tensor, r: Routing, act: str, first: int = 0) -> torch.Tensor:
+    """The routed part of ``experts`` for the experts ``first`` ..
+    ``first + len(w_gate) - 1`` (all of them by default): their rows of the
+    (E, C, d) buffer filled from ``xt`` (T, d), their FFN, and the (T, d)
+    token-major combine of their weighted outputs (the other experts'
+    assignments add zeros)."""
+    t, d = xt.shape
+    el = w_gate.shape[0]
+    cap = r.capacity
+    tk = r.dest.shape[0]
+    top = tk // t
+    n = el * cap
+    st, se = _HOOKS["tokens"], _HOOKS["experts"]
+
+    # -- dispatch: scatter the token ids (one spare row takes the drops and
+    # the other experts' assignments) --
+    local = r.dest - first * cap
+    mine = (local >= 0) & (local < n)
+    flat_token = torch.arange(tk, device=xt.device) // top
+    buf_tok = torch.full((n + 1,), tk, dtype=torch.int64, device=xt.device)
+    buf_tok[torch.where(mine, local, n)] = flat_token
+    buf_tok = buf_tok[:n]
+    valid = (buf_tok < tk)[:, None]
+    buf = torch.where(valid, xt[torch.clamp(buf_tok, max=t - 1)],
+                      torch.zeros((), dtype=xt.dtype, device=xt.device))
+    buf = se(buf.reshape(el, cap, d))
+
+    # -- grouped expert FFN (each buffer dropped once read: the whole
+    # batch's capacity makes them the largest temps) --
+    a = common.act_fn(act)
+    h = a(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
+    del buf
+    out_buf = se(torch.bmm(h, w_down)).reshape(n, d)
+    del h
+
+    # -- combine (token-major) --
+    gathered = out_buf[torch.clamp(local, min=0, max=n - 1)]
+    weight = r.gate_vals.reshape(-1) * (r.keep & mine)
+    gathered = st(gathered * weight[:, None].to(xt.dtype))
+    return gathered.reshape(t, top, d).sum(dim=1)
 
 
 def moe_forward(
@@ -194,8 +218,15 @@ def moe_forward(
     top_k: int,
     capacity_factor: float = 1.25,
     act: str = "silu",
+    sp=None,
+    key=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output (B,S,d), aux load-balance loss scalar)."""
+    """Returns (output (B,S,d), aux load-balance loss scalar).  ``sp`` set:
+    expert-parallel on a data group's `model` devices (``_moe_split``;
+    ``key`` the layer's name for ``sp.routing``)."""
+    if sp is not None:
+        return _moe_split(sp, p, x, key=key, top_k=top_k, capacity_factor=capacity_factor,
+                          act=act)
     if _HOOKS["impl"] is not None:
         return _HOOKS["impl"](p, x, top_k=top_k, capacity_factor=capacity_factor, act=act)
     b, s, d = x.shape
@@ -203,3 +234,44 @@ def moe_forward(
     xt = st(x.reshape(b * s, d))
     r = route(p.router, xt, k=top_k, capacity_factor=capacity_factor, hook=st)
     return experts(p, xt, r, act).reshape(b, s, d), aux_loss(r)
+
+
+def _moe_split(sp, w, x, *, key, top_k: int, capacity_factor: float = 1.25,
+               act: str = "silu"):
+    """``moe_forward`` on a data group's `model` devices (``sp``, a
+    ``repro_torch.sharding.split.Split`` whose ``routing`` routes; ``w``
+    the gathered ``MoEParams`` fields, ``key`` the layer's name for the
+    routing, ``x`` and the result in ``sp.layout``).  Returns (output,
+    aux on ``sp.root``'s device).
+
+    Expert-parallel: the router (whole on every device) takes each
+    device's own tokens, the logits are all-gathered, and every device
+    routes the group's tokens alike (the routing's whole-batch capacity
+    and ranks).  Device m holds experts m*E/M .. (m+1)*E/M - 1: it fills
+    their rows of the (E, C, d) buffer from the group's tokens, runs them,
+    and combines their weighted outputs token-major; the combine is summed
+    over `model` in shard order.  Where ``fit`` drops `model` from the
+    experts (E not a multiple of M) every device runs them all over the
+    group's tokens and keeps its rows.  The shared expert is
+    ``ffn_forward`` on the split."""
+    e = w.router[sp.root].shape[1]
+    s = sp.seq_len
+    logits = sp.to(sp.mm(x.map(lambda t, m: t.float()), w.router), sp.FULL)
+    xf = sp.to(x, sp.FULL)
+    b = xf.parts[sp.root].shape[0]
+    rs, aux = sp.routing.route(key, [None if t is None else t.reshape(b * s, e)
+                                     for t in logits.parts],
+                               top_k=top_k, capacity_factor=capacity_factor)
+    split = w.w_gate.model_dim is not None
+
+    def part(t, m):
+        el = w.w_gate[m].shape[0]
+        out = expert_block(w.w_gate[m], w.w_up[m], w.w_down[m], t.reshape(b * s, -1), rs[m],
+                           act, first=m * el if split else 0)
+        return out.reshape(t.shape)
+
+    out = xf.map(part)
+    out = sp.to(sp.dist(sp.PARTIAL if split else sp.FULL, out.parts), sp.layout)
+    if w.shared is not None:
+        out = out + ffn_forward(w.shared, x, act, sp)
+    return out, aux

@@ -165,45 +165,73 @@ class TransformerParams(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def _rms(x, w, eps: float, sp=None):
+    """``rms_norm`` of one tensor, or (``sp`` set) of each computed part of
+    a split value by that device's copy of ``w``."""
+    if sp is None:
+        return common.rms_norm(x, w, eps)
+    return x.map(lambda t, m: common.rms_norm(t, w[m], eps))
+
+
+def _each(fn, x, sp=None):
+    """``fn`` of one tensor, or (``sp`` set) of each computed part of a split
+    value (a ``Dist``, or a list of one tensor a device)."""
+    if sp is None:
+        return fn(x)
+    if isinstance(x, list):
+        return [None if t is None else fn(t) for t in x]
+    return x.map(lambda t, m: fn(t))
+
+
 def _block_forward(
     cfg: ModelConfig,
     kind: str,
-    x: torch.Tensor,
-    prm: BlockParams,
+    x,
+    prm,
     window: int,
     theta: float,
-    positions: torch.Tensor,
+    positions,
     flash_blk: int,
+    sp=None,
+    key=None,
 ):
-    """Full-sequence block.  Returns (x, (k, v) cache entry, aux loss)."""
-    h = common.rms_norm(x, prm.ln1, cfg.norm_eps)
+    """Full-sequence block.  Returns (x, (k, v) cache entry, aux loss).
+
+    ``sp`` set (a ``repro_torch.sharding.split.Split``): the block on a data
+    group's `model` devices, ``prm`` the layer's gathered weights, ``x`` and
+    the result in ``sp.layout``, ``positions`` one (S,) a device, ``key``
+    the layer's name for the MoE routing; no cache entry, the aux on
+    ``sp.root``'s device."""
+    eps = cfg.norm_eps
+    h = _rms(x, prm.ln1, eps, sp)
     if cfg.use_mla:
-        h, kv = mla_forward(prm.attn, h, cfg, positions, flash_blk=flash_blk)
+        h, kv = mla_forward(prm.attn, h, cfg, positions, flash_blk=flash_blk, sp=sp)
     else:
         h, kv = attention_forward(
             prm.attn, h,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
             rope_theta=theta, positions=positions, causal=True, window=window,
-            logit_softcap=cfg.attn_logit_softcap, norm_eps=cfg.norm_eps,
-            flash_blk=flash_blk,
+            logit_softcap=cfg.attn_logit_softcap, norm_eps=eps,
+            flash_blk=flash_blk, sp=sp,
         )
-    if "post_ln1" in prm.FIELDS:
-        h = common.rms_norm(h, prm.post_ln1, cfg.norm_eps)
+    if getattr(prm, "post_ln1", None) is not None:
+        h = _rms(h, prm.post_ln1, eps, sp)
     x = x + h
 
-    f_in = common.rms_norm(x, prm.ln2, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    f_in = _rms(x, prm.ln2, eps, sp)
+    aux = torch.zeros((), dtype=torch.float32,
+                      device=x.device if sp is None else sp.devices[sp.root])
     if kind == "moe":
         f, aux = moe_forward(
             prm.ffn, f_in, top_k=cfg.moe_top_k,
-            capacity_factor=cfg.capacity_factor, act=cfg.act,
+            capacity_factor=cfg.capacity_factor, act=cfg.act, sp=sp, key=key,
         )
         if cfg.moe_dense_residual:
-            f = f + ffn_forward(prm.dense_ffn, f_in, cfg.act)
+            f = f + ffn_forward(prm.dense_ffn, f_in, cfg.act, sp)
     else:
-        f = ffn_forward(prm.ffn, f_in, cfg.act)
-    if "post_ln2" in prm.FIELDS:
-        f = common.rms_norm(f, prm.post_ln2, cfg.norm_eps)
+        f = ffn_forward(prm.ffn, f_in, cfg.act, sp)
+    if getattr(prm, "post_ln2", None) is not None:
+        f = _rms(f, prm.post_ln2, eps, sp)
     return x + f, kv, aux
 
 
@@ -271,12 +299,34 @@ class TransformerLM:
     def _head(self, params: TransformerParams) -> torch.Tensor:
         return params.embed.T if self.cfg.tie_embeddings else params.lm_head
 
-    def embed_tokens(self, params: TransformerParams, tokens: torch.Tensor) -> torch.Tensor:
-        x = params.embed[tokens]
+    def embed_tokens(self, params, tokens, sp=None):
+        """The embedding rows of ``tokens``.  ``sp`` set: ``params`` the
+        placed tree, ``tokens`` one copy a device, the result in
+        ``sp.layout`` (``_split_embed``)."""
+        x = params.embed[tokens] if sp is None else self._split_embed(sp, params, tokens)
         if self.cfg.name.startswith("gemma"):
             # the scale rounded to the embedding dtype before the product
-            x = x * torch.tensor(np.sqrt(self.cfg.d_model), dtype=x.dtype, device=x.device)
+            x = _each(lambda t: t * torch.tensor(np.sqrt(self.cfg.d_model), dtype=t.dtype,
+                                                 device=t.device), x, sp)
         return x
+
+    def _split_embed(self, sp, tree, tokens: list):
+        """The split lookup: vocab rows on `model`, each device's rows looked
+        up where its slice holds them (zeros elsewhere), summed over shards
+        (into ``sp.layout``)."""
+        w = sp.weights({"embed": tree["embed"]}, "embed").embed
+        if w.model_dim == 0:
+            def lookup(tok, m):
+                vm = w[m].shape[0]
+                local = tok - m * vm
+                inside = (local >= 0) & (local < vm)
+                e = w[m][torch.clamp(local, 0, vm - 1)]
+                return torch.where(inside[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                                      device=e.device))
+            return sp.to(sp.dist(sp.PARTIAL, sp.parts(lambda m: lookup(tokens[m], m))),
+                         sp.layout)
+        return sp.to(sp.dist(sp.ROWS, sp.parts(lambda m: w[m][
+            tokens[m].narrow(1, sp.row_start[m], sp.rows[m])])), sp.layout)
 
     # -- forward (train / prefill) ------------------------------------------
 
@@ -308,42 +358,161 @@ class TransformerLM:
 
     # -- losses --------------------------------------------------------------
 
-    def loss_fn(self, params: TransformerParams, batch: dict) -> tuple[torch.Tensor, dict]:
+    def loss_fn(self, params, batch: dict, sp=None) -> tuple[torch.Tensor, dict]:
         """batch: {'tokens' (B,S) | 'embeds' (B,S,d), 'labels' (B,S)}.
-        Returns (loss, {'ce', 'aux', ['mtp'], 'loss'})."""
+        Returns (loss, {'ce', 'aux', ['mtp'], 'loss'}).
+
+        ``sp`` set (a ``repro_torch.sharding.split.Split``): the split
+        program's loss on data group ``sp.group``'s `model` devices,
+        ``params`` the placed parameters (the JAX layout of ``Sharded``
+        leaves, gathered unit by unit), ``batch`` the group's rows; the loss,
+        of the same value as on one device, on ``sp.root``'s device."""
         cfg = self.cfg
+        whole = (lambda t: t) if sp is None else sp.whole
+        tokens = None
         if cfg.embeddings_input:
-            x = batch["embeds"]
+            x = batch["embeds"] if sp is None else sp.from_whole(batch["embeds"])
         else:
-            x = self.embed_tokens(params, batch["tokens"])
-        positions = torch.arange(x.shape[1], device=x.device)
-        hidden, _, aux = self.hidden_states(params, x, positions)
-        loss = _chunked_ce(hidden, self._head(params), batch["labels"])
+            tokens = whole(batch["tokens"])
+            x = self.embed_tokens(params, tokens, sp)
+        labels = whole(batch["labels"])
+        if sp is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+            hidden, _, aux = self.hidden_states(params, x, positions)
+        else:
+            positions = sp.parts(lambda m: torch.arange(sp.seq_len, device=sp.devices[m]))
+            hidden, aux = self._split_hidden(sp, params, x, positions)
+        loss = self._ce(params, hidden, labels, sp=sp)
         metrics = {"ce": loss, "aux": aux}
         if cfg.is_moe:
             loss = loss + cfg.router_aux_coef * aux
         if cfg.mtp_depth > 0 and not cfg.embeddings_input:
-            mtp_loss = self._mtp_loss(params, hidden, batch, positions)
+            mtp_loss = self._mtp_loss(params, hidden, tokens, labels, positions, sp)
             loss = loss + 0.3 * mtp_loss
             metrics["mtp"] = mtp_loss
         metrics["loss"] = loss
         return loss, metrics
 
-    def _mtp_loss(self, params: TransformerParams, hidden, batch, positions):
+    def _mtp_loss(self, params, hidden, tokens, labels, positions, sp=None):
         """DeepSeek-V3 multi-token prediction (depth 1): one extra block over
         [h_t ; emb(t+1)] predicting token t+2."""
         cfg = self.cfg
-        tokens, labels = batch["tokens"], batch["labels"]
-        emb_next = self.embed_tokens(params, torch.roll(tokens, -1, dims=1))
-        h = torch.cat([hidden, emb_next], dim=-1) @ params.mtp.proj
+
+        def ahead(t):
+            return torch.roll(t, -1, dims=1)
+
+        emb_next = self.embed_tokens(params, _each(ahead, tokens, sp), sp)
+        if sp is None:
+            h = torch.cat([hidden, emb_next], dim=-1) @ params.mtp.proj
+            block = params.mtp.block[0]
+        else:
+            mtp = params["mtp"]
+            h = hidden.zip(emb_next, lambda a, e, m: torch.cat([a, e], dim=-1))
+            proj = sp.weights({"proj": mtp["proj"]}, "mtp.proj").proj
+            h = sp.to(sp.mm(h, proj), sp.layout)
+            del proj
+            block = sp.weights(sp.layer(mtp["block"], 0), "mtp.block[0]")
         windows, thetas = layer_meta(cfg, 1)
-        h, _, _ = _block_forward(cfg, "dense", h, params.mtp.block[0], int(windows[0]),
-                                 float(thetas[0]), positions, self.flash_blk)
-        h = common.rms_norm(h, params.mtp.ln, cfg.norm_eps)
-        labels2 = torch.roll(labels, -1, dims=1)
-        mask = torch.ones(labels2.shape, dtype=torch.float32, device=labels2.device)
+        h, _, _ = _block_forward(cfg, "dense", h, block, int(windows[0]), float(thetas[0]),
+                                 positions, self.flash_blk, sp, ("mtp", 0))
+        del block  # the split program's gathered block: one unit alive at a time
+        ln = params.mtp.ln if sp is None else sp.weights({"ln": params["mtp"]["ln"]},
+                                                          "mtp.ln").ln
+        h = _rms(h, ln, cfg.norm_eps, sp)
+        labels2 = _each(ahead, labels, sp)
+        first = labels2 if sp is None else labels2[sp.root]
+        mask = torch.ones(first.shape, dtype=torch.float32, device=first.device)
         mask[:, -2:] = 0.0
-        return _chunked_ce(h, self._head(params), labels2, mask=mask)
+        return self._ce(params, h, labels2, mask=mask, sp=sp)
+
+    def _ce(self, params, hidden, labels, mask=None, sp=None):
+        if sp is None:
+            return _chunked_ce(hidden, self._head(params), labels, mask=mask)
+        return self._split_ce(sp, params, hidden, labels, mask=mask)
+
+    # -- the split program's own parts (a mesh step over `model`) -------------
+
+    def _split_hidden(self, sp, tree, x, positions: list):
+        """``hidden_states`` in the split program: (the final-normed hidden
+        in ``sp.layout``, the aux sum on ``sp.root``'s device).  Each layer's
+        weights are gathered inside its body, so ``common.remat`` gathers
+        them again in the backward."""
+        cfg = self.cfg
+        aux_total = torch.zeros((), dtype=torch.float32, device=sp.devices[sp.root])
+        active = [m for m in range(sp.M) if x.parts[m] is not None]
+        for si, (kind, n, off) in enumerate(self.segments):
+            windows, thetas = layer_meta(cfg, n, off)
+            seg = tree[f"seg{si}"]
+            for i in range(n):
+                def body(*parts, layer=sp.layer(seg, i), key=(si, i), window=int(windows[i]),
+                         theta=float(thetas[i]), kind=kind):
+                    w = sp.weights(layer, f"seg{key[0]}[{key[1]}]")
+                    xs = [None] * sp.M
+                    for m, t in zip(active, parts):
+                        xs[m] = t
+                    y, _, aux = _block_forward(cfg, kind, sp.dist(sp.layout, xs), w, window,
+                                               theta, positions, self.flash_blk, sp, key)
+                    return (*[y.parts[m] for m in active], aux)
+
+                out = common.remat(cfg, body, *[x.parts[m] for m in active])
+                xs = [None] * sp.M
+                for m, t in zip(active, out[:-1]):
+                    xs[m] = t
+                x = sp.dist(sp.layout, xs)
+                aux_total = aux_total + out[-1]
+        w = sp.weights({"final_norm": tree["final_norm"]}, "final_norm").final_norm
+        return _rms(x, w, cfg.norm_eps, sp), aux_total
+
+    def _split_ce(self, sp, tree, hidden, labels: list, mask: torch.Tensor | None = None):
+        """``_chunked_ce`` with vocab-parallel logits: device m holds its
+        vocab columns of each (B, chunk) block's logits; each chunk's
+        log-sum-exp and gold logit are reduced over `model` on ``sp.root`` in
+        shard order, so no device holds a (B, chunk, V) block.  ``mask``
+        (B, S) on ``sp.root``'s device."""
+        if self.cfg.tie_embeddings:
+            head = sp.weights({"embed": tree["embed"]}, "head").embed.T
+        else:
+            head = sp.weights({"lm_head": tree["lm_head"]}, "head").lm_head
+        root = sp.devices[sp.root]
+        tot = torch.zeros((), dtype=torch.float32, device=root)
+        cnt = torch.zeros((), dtype=torch.float32, device=root)
+        if head.model_dim is None:  # the vocab whole on every device: its own rows
+            hr = sp.to(hidden, sp.ROWS)
+
+            def rows_sums(t, m):
+                lab = labels[m].narrow(1, sp.row_start[m], sp.rows[m])
+                logits = (t @ head[m]).float()
+                nll = torch.logsumexp(logits, dim=-1) - torch.gather(
+                    logits, -1, lab[..., None].long())[..., 0]
+                mc = (torch.ones(nll.shape, dtype=torch.float32, device=nll.device)
+                      if mask is None else
+                      mask.narrow(1, sp.row_start[m], sp.rows[m]).to(nll.device).float())
+                return torch.stack([torch.sum(nll * mc), torch.sum(mc)])
+
+            sums = sp.sum_to_root(hr.map(rows_sums))
+            return sums[0] / torch.clamp(sums[1], min=1.0)
+        hf = sp.to(hidden, sp.FULL)
+        b, s = labels[sp.root].shape
+        chunk = s if s <= _CE_CHUNK or s % _CE_CHUNK else _CE_CHUNK
+        for c in range(s // chunk):
+            cols = slice(c * chunk, (c + 1) * chunk)
+
+            def shard(t, m):
+                logits = (t[:, cols] @ head[m]).float()
+                vm = logits.shape[-1]
+                local = labels[m][:, cols].long() - m * vm
+                inside = (local >= 0) & (local < vm)
+                gold = torch.gather(logits, -1, torch.clamp(local, 0, vm - 1)[..., None])[..., 0]
+                return torch.logsumexp(logits, dim=-1), torch.where(inside, gold, 0.0)
+
+            both = hf.map(shard)
+            logz = torch.logsumexp(sp.gather_to_root(both.map(lambda t, m: t[0])), dim=0)
+            gold = sp.sum_to_root(both.map(lambda t, m: t[1]))
+            mc = (mask[:, cols].float() if mask is not None
+                  else torch.ones((b, chunk), dtype=torch.float32, device=root))
+            tot = tot + torch.sum((logz - gold) * mc)
+            cnt = cnt + torch.sum(mc)
+        return tot / torch.clamp(cnt, min=1.0)
 
     # -- serving --------------------------------------------------------------
 
@@ -402,8 +571,11 @@ class TransformerLM:
         return logits.float(), cache
 
 
+_CE_CHUNK = 512  # the cross entropy's logits block along the sequence
+
+
 def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-                mask: torch.Tensor | None = None, chunk: int = 512) -> torch.Tensor:
+                mask: torch.Tensor | None = None, chunk: int = _CE_CHUNK) -> torch.Tensor:
     """Cross entropy with the (B, chunk, V) logits block looped over the
     sequence so the full (B, S, V) logits tensor never materializes (vocab
     up to 262 K); S <= chunk or not a multiple of it takes one block."""

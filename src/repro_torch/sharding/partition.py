@@ -151,6 +151,23 @@ def leaves_with_path(tree) -> list[tuple[tuple, Any]]:
     return out
 
 
+def leaf_axes(spec, axes: MeshAxes) -> tuple[int | None, int | None]:
+    """(the dim a fitted ``spec`` puts on `model`, the dim it puts on the
+    fsdp (batch) axes), None where it puts none: the split program reads
+    which slice of a leaf a device computes with, and which dim it gathers
+    over the data axis, from this alone (an axis ``fit`` dropped is no
+    split: the leaf is whole on every model shard)."""
+    model = fsdp = None
+    batch = set(axes.batch_axes())
+    for i, axis in enumerate(tuple(spec)):
+        names = () if axis is None else (axis if isinstance(axis, tuple) else (axis,))
+        if axes.model is not None and axes.model in names:
+            model = i
+        if batch & set(names):
+            fsdp = i
+    return model, fsdp
+
+
 def _shape(leaf) -> tuple[int, ...]:
     return layout_shape(leaf) if isinstance(leaf, list) else tuple(leaf.shape)
 
@@ -269,11 +286,15 @@ class ActivationSharder:
     The JAX package's ``with_sharding_constraint`` (Megatron-SP style):
     batch over (pod, data); a full-sequence activation (B, S, d) also has
     its *sequence* axis on `model` when it divides.  The constraint leaves
-    the value as it is, and so does this: the port's mesh step
-    (``repro_torch.launch.train``) runs each data group's rows on one
-    device, so no activation is ever split.  ``spec(shape)`` is the fitted
-    spec the JAX package would constrain to (None where it leaves the
-    tensor alone)."""
+    the value as it is, and so does this call.  The layout is kept by the
+    mesh step itself (``repro_torch.launch.train``): for the transformer
+    family its split program (``repro_torch.sharding.split``) holds each
+    data group's activations between blocks sequence-sharded over the
+    group's `model` devices exactly where ``spec`` puts `model` on the
+    sequence, and replicated where it does not; the other families run a
+    group's rows whole on one device.  ``spec(shape)`` is the fitted spec
+    the JAX package would constrain to (None where it leaves the tensor
+    alone)."""
 
     def __init__(self, mesh, axes: MeshAxes | None = None):
         self.axes = axes or MeshAxes(mesh)

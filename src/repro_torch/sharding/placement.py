@@ -145,13 +145,23 @@ def _stack_depth(leaf) -> int:
 def place_leaf(mesh, leaf, spec: P):
     """A layout leaf (a tensor or a ``Stack``) placed by its spec: a
     ``Stack`` becomes a ``Stack`` of per-layer ``Sharded`` with the spec
-    past its stacked axes, which must be unsharded."""
+    past its stacked axes.  Where the spec shards a stacked axis (the
+    rank rule reads gemma3's per-head (L, D) q_norm / k_norm as a
+    matrix), no per-layer slice is a layer's own: each layer's tensor is
+    replicated whole."""
+    inner = layer_spec(leaf, spec)
+    return stack_map(lambda t: Sharded.place(mesh, inner, torch.as_tensor(t)), leaf)
+
+
+def layer_spec(leaf, spec: P) -> P:
+    """The spec each per-layer tensor of a layout leaf is placed by (see
+    ``place_leaf``)."""
     depth = _stack_depth(leaf)
     spec = tuple(spec)
-    if any(a is not None for a in spec[:depth]):
-        raise ValueError(f"spec {spec} shards a stacked axis of a per-layer leaf")
     inner = P(*spec[depth:])
-    return stack_map(lambda t: Sharded.place(mesh, inner, torch.as_tensor(t)), leaf)
+    if any(a is not None for a in spec[:depth]):
+        inner = P(*(None for _ in inner))
+    return inner
 
 
 def place_tree(mesh, tree: Any, specs: Any):

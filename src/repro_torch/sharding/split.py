@@ -1,0 +1,459 @@
+"""The split program's layouts: one data group's `model` devices computing
+one step together, driven from one process.
+
+Device (g, m) of a mesh computes data group g's rows with model slice m of
+every weight the specs split over `model`.  A ``Split`` holds one group's
+M devices, its ``Dist`` values (one tensor a device) and the collectives
+between them (``repro_torch.sharding.collectives``).  A ``Dist`` of a
+(B, S, ...) activation is one of:
+
+  * ``FULL``: every device holds the whole tensor;
+  * ``ROWS``: device m holds its chunk of the sequence (``tensor_split``
+    of S into M);
+  * ``COLS``: device m holds its block of the last dim (the block a
+    column-parallel weight's model slice gives);
+  * ``PARTIAL``: every device holds a whole tensor of partial sums.
+
+Between blocks an activation is ``layout``: ``ROWS`` where
+``ActivationSharder.spec`` puts `model` on the sequence (S divides), else
+``FULL``.  ``mm`` multiplies by a weight as its spec splits it: a
+column-parallel weight takes ``FULL`` rows and gives ``COLS``, a
+row-parallel one takes ``COLS`` and gives ``PARTIAL``, a weight whose
+`model` axis ``fit`` dropped is whole on every device and takes its own
+``ROWS`` (so no product is computed twice).  ``to`` converts: all-gathers
+(``ROWS``/``COLS`` -> ``FULL``), all-to-alls (``COLS`` <-> ``ROWS``),
+reduce-scatters and all-reduces (``PARTIAL`` -> ...), slices (``FULL`` ->
+``ROWS``/``COLS``).
+
+Weights: ``weights(tree, unit)`` gathers one unit's leaves (a layer, the
+embedding, the head) for the group's devices just before use: device
+(g, m) receives the `fsdp` blocks of its model slice from the devices
+(g', m) that hold them (``gather_to``), nothing more.  The gathered
+tensors are not kept for the backward: under ``saving()`` a saved tensor
+that is a gathered weight (or a view of one) is packed as its recipe and
+gathered again when the backward needs it; under ``cfg.remat`` the
+layer's recomputation gathers again.  So at most one unit's gathered
+blocks are alive on a device outside that unit's backward.  The leaves a
+device differentiates are aliases of the shards (``GradSink``): each
+alias's gradient goes into the float32 sums of every position holding
+its block as soon as the backward produces it, the contributions to one
+block summed in the order they were gathered.
+"""
+
+from __future__ import annotations
+
+import weakref
+from contextlib import contextmanager
+from functools import partial
+
+import numpy as np
+import torch
+
+from repro_torch.sharding import collectives as col
+from repro_torch.sharding.partition import MeshAxes, leaf_axes
+
+FULL, ROWS, COLS, PARTIAL = "full", "rows", "cols", "partial"
+
+_GATHERING = [0]
+_WATCHERS: list = []
+
+
+def gathering() -> bool:
+    """True while an FSDP gather allocates (the dry run's counter keeps
+    those bytes apart from the temps)."""
+    return _GATHERING[0] > 0
+
+
+@contextmanager
+def watch_gathers(fn):
+    """``fn(unit, leaf, m, tensor)`` for every tensor an FSDP gather makes
+    (the forward's, a saved weight's regather, a recomputation's): the
+    unit's name, the ``Sharded`` leaf, the model index it is for."""
+    _WATCHERS.append(fn)
+    try:
+        yield
+    finally:
+        _WATCHERS.remove(fn)
+
+
+class Dist:
+    """One value over a group's devices: ``parts[m]`` on device m (None at
+    a position a solo trace does not compute)."""
+
+    __slots__ = ("kind", "parts")
+
+    def __init__(self, kind: str, parts: list):
+        self.kind, self.parts = kind, list(parts)
+
+    def map(self, fn) -> "Dist":
+        """``fn(part, m)`` on every computed part."""
+        return Dist(self.kind, [None if p is None else fn(p, m) for m, p in enumerate(self.parts)])
+
+    def zip(self, other: "Dist", fn) -> "Dist":
+        if other.kind != self.kind:
+            raise ValueError(f"{self.kind} and {other.kind} values do not combine")
+        return Dist(self.kind, [None if a is None else fn(a, b, m)
+                                for m, (a, b) in enumerate(zip(self.parts, other.parts))])
+
+    def __add__(self, other: "Dist") -> "Dist":
+        return self.zip(other, lambda a, b, m: a + b)
+
+
+class Weight:
+    """One leaf as a group's devices compute with it: ``parts[m]`` device
+    m's model slice (gathered over `fsdp`), ``model_dim`` the dim the slice
+    is taken along (None: whole on every device)."""
+
+    __slots__ = ("parts", "model_dim")
+
+    def __init__(self, parts: list, model_dim: int | None):
+        self.parts, self.model_dim = parts, model_dim
+
+    def __getitem__(self, m: int) -> torch.Tensor:
+        return self.parts[m]
+
+    @property
+    def T(self) -> "Weight":
+        md = None if self.model_dim is None else 1 - self.model_dim
+        return Weight([None if p is None else p.T for p in self.parts], md)
+
+
+class NS(dict):
+    """A unit's gathered weights by field name (``w.attn.wq``; a missing or
+    None field reads None)."""
+
+    def __getattr__(self, name):
+        return self.get(name)
+
+
+def layer_of(tree, i: int):
+    """Layer i of a segment's layout (each ``Stack`` leaf's i-th entry)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return type(tree)((k, layer_of(v, i)) for k, v in tree.items())
+    return tree[i]
+
+
+def position(mesh, group: int, m: int) -> tuple:
+    """The mesh index of data group ``group``'s model device ``m`` (groups
+    row-major over the batch axes)."""
+    axes = MeshAxes(mesh)
+    sizes = mesh.shape
+    batch = axes.batch_axes()
+    coords = {}
+    if batch:
+        idx = np.unravel_index(group, [sizes[a] for a in batch])
+        coords = {a: int(i) for a, i in zip(batch, idx)}
+    if axes.model is not None:
+        coords[axes.model] = m
+    return tuple(coords.get(a, 0) for a in mesh.axis_names)
+
+
+def fsdp_positions(mesh, sh, m: int) -> list:
+    """The positions holding model slice m's `fsdp` blocks of ``sh`` (a
+    ``Sharded``), in block order: the first device of each block along
+    the batch axes."""
+    axes = MeshAxes(mesh)
+    n_groups = int(np.prod([axes.axis_size(a) for a in axes.batch_axes()], dtype=np.int64))
+    seen, out = set(), []
+    for g in range(n_groups):
+        p = position(mesh, g, m)
+        b = sh._block(p)
+        if b not in seen:
+            seen.add(b)
+            out.append(p)
+    return out
+
+
+def uses(mesh, sh, group: int, m: int) -> list:
+    """The positions of the shards of ``sh`` device (group, m) computes
+    with (gathers over `fsdp`, or its own)."""
+    _, fd = leaf_axes(sh.spec, MeshAxes(mesh))
+    return [position(mesh, group, m)] if fd is None else fsdp_positions(mesh, sh, m)
+
+
+class GradSink:
+    """Gradients of one group's shard aliases into ``sums`` (param leaf id
+    -> its float32 ``Sharded`` sum).  ``write``: the positions whose sums
+    this process writes (None: all; a solo trace writes its own)."""
+
+    def __init__(self, sums: dict, write=None):
+        self.sums, self.write = sums, write
+        self.inputs: list[torch.Tensor] = []
+        self.slots: dict = {}  # (leaf id, block) -> (leaf, [[position, grad], ...])
+        self.closed = False
+        self._positions: dict = {}
+
+    def alias(self, sh, pos: tuple) -> torch.Tensor:
+        a = sh.shards[pos].detach().requires_grad_()
+        if self.closed:  # a recomputation in the backward: not a new use
+            return a
+        key = (id(sh), sh._block(pos))
+        _, slots = self.slots.setdefault(key, (sh, []))
+        slots.append([pos, None])
+        a.register_post_accumulate_grad_hook(partial(self._arrived, key, len(slots) - 1))
+        self.inputs.append(a)
+        return a
+
+    def _arrived(self, key, i: int, a: torch.Tensor) -> None:
+        _, slots = self.slots[key]
+        slots[i][1], a.grad = a.grad, None
+        if all(g is not None for _, g in slots):
+            self._flush(key)
+
+    def _block_positions(self, sh, block) -> list:
+        spec = tuple(sh.spec)
+        table = self._positions.get(spec)
+        if table is None:
+            table = {}
+            for idx in np.ndindex(sh.shards.shape):
+                table.setdefault(sh._block(idx), []).append(idx)
+            self._positions[spec] = table
+        return table[block]
+
+    def _flush(self, key) -> None:
+        sh, slots = self.slots.pop(key)
+        slots = [(p, g) for p, g in slots if g is not None]
+        if not slots:
+            return
+        acc = self.sums[id(sh)]
+        if len(slots) == 1:
+            total = slots[0][1]
+        else:  # the uses of one block, in the order they were gathered
+            dev = slots[0][1].device
+            total = slots[0][1].to(dev, torch.float32, copy=True)
+            for _, g in slots[1:]:
+                total += g.to(dev, torch.float32)
+        for p in self._block_positions(sh, key[1]):
+            if self.write is not None and p not in self.write:
+                continue
+            t = acc.shards[p]
+            for q, g in slots:
+                if q != p:
+                    col.record(p, "reduce-scatter", g)
+            t.add_(total.to(t.device))
+
+    def backward(self, loss: torch.Tensor) -> None:
+        """The backward of ``loss`` into the sums; every alias's gradient
+        is consumed as it arrives."""
+        self.closed = True
+        if self.inputs:
+            torch.autograd.backward(loss, inputs=self.inputs)
+        for key in list(self.slots):  # blocks some use of which got no gradient
+            self._flush(key)
+        self.inputs = []
+
+
+class Split:
+    """Data group ``group``'s devices on ``mesh`` for a sequence of
+    ``seq_len``.  ``active``: the model indices this process computes
+    (None: all; the dry run traces the last alone); ``root``, the first
+    of them, receives the loss.  ``sink``: where the aliases'
+    gradients go (None: no gradients).  ``routing``: the MoE layers'
+    router state (``launch.train.GroupRouting``)."""
+
+    FULL, ROWS, COLS, PARTIAL = FULL, ROWS, COLS, PARTIAL
+
+    def __init__(self, mesh, group: int, seq_len: int, *, sink: GradSink | None = None,
+                 routing=None, active=None):
+        axes = MeshAxes(mesh)
+        self.mesh, self.axes, self.group = mesh, axes, group
+        self.sink, self.routing = sink, routing
+        sizes = mesh.shape
+        self.batch_axes = axes.batch_axes()
+        self.n_groups = int(np.prod([sizes[a] for a in self.batch_axes], dtype=np.int64))
+        self.M = axes.axis_size(axes.model)
+        self.active = list(range(self.M)) if active is None else list(active)
+        self.root = self.active[0]
+        self.pos = [self.position(group, m) for m in range(self.M)]
+        self.devices = [mesh.devices[p] for p in self.pos]
+        self.seq_len = seq_len
+        self.rows = col.chunk_sizes(seq_len, self.M)
+        self.row_start = [sum(self.rows[:m]) for m in range(self.M)]
+        self.layout = ROWS if self.M == 1 or (seq_len > 1 and seq_len % self.M == 0) else FULL
+        self.unit = ""
+        self._recipes: dict = {}
+        self._fsdp: dict = {}
+
+    # -- positions ------------------------------------------------------------
+
+    def position(self, group: int, m: int) -> tuple:
+        return position(self.mesh, group, m)
+
+    @staticmethod
+    def dist(kind: str, parts: list) -> Dist:
+        return Dist(kind, parts)
+
+    layer = staticmethod(layer_of)
+
+    def parts(self, fn) -> list:
+        """``fn(m)`` at every computed model index, None elsewhere."""
+        return [fn(m) if m in self.active else None for m in range(self.M)]
+
+    def whole(self, t: torch.Tensor) -> list:
+        """A copy of ``t`` (the group's batch) on every computed device."""
+        return self.parts(lambda m: t.to(self.devices[m]))
+
+    def from_whole(self, t: torch.Tensor) -> Dist:
+        """The group's whole (B, S, ...) input in ``layout``."""
+        if self.layout == FULL:
+            return Dist(FULL, self.whole(t))
+        return Dist(ROWS, self.parts(lambda m: t.narrow(1, self.row_start[m], self.rows[m])
+                                     .to(self.devices[m])))
+
+    # -- collectives on values ------------------------------------------------
+
+    def _kw(self, **kw) -> dict:
+        return dict(keys=self.pos, active=self.active, **kw)
+
+    def to(self, d: Dist, kind: str) -> Dist:
+        """``d`` as ``kind`` (see the module docstring)."""
+        src = d.kind
+        if src == kind:
+            return d
+        if self.M == 1:
+            return Dist(kind, d.parts)
+        rows = self.rows
+        if (src, kind) == (ROWS, FULL):
+            return Dist(FULL, col.all_gather(d.parts, 1, sizes=rows, **self._kw()))
+        if (src, kind) == (COLS, FULL):
+            return Dist(FULL, col.all_gather(d.parts, -1, **self._kw()))
+        if (src, kind) == (FULL, ROWS):
+            return Dist(ROWS, d.map(lambda t, m: t.narrow(1, self.row_start[m], rows[m])).parts)
+        if (src, kind) == (FULL, COLS):
+            return Dist(COLS, d.map(lambda t, m: t.chunk(self.M, dim=-1)[m]).parts)
+        if (src, kind) == (COLS, ROWS):
+            return Dist(ROWS, col.all_to_all(d.parts, 1, -1, split_sizes=rows, **self._kw()))
+        if (src, kind) == (ROWS, COLS):
+            return Dist(COLS, col.all_to_all(d.parts, -1, 1, cat_sizes=rows, **self._kw()))
+        if (src, kind) == (PARTIAL, ROWS):
+            return Dist(ROWS, col.reduce_scatter(d.parts, 1, sizes=rows, **self._kw()))
+        if (src, kind) == (PARTIAL, FULL):
+            return Dist(FULL, col.all_reduce(d.parts, **self._kw()))
+        if (src, kind) == (PARTIAL, COLS):
+            return Dist(COLS, col.reduce_scatter(d.parts, -1, **self._kw()))
+        raise ValueError(f"no conversion from {src} to {kind}")
+
+    def whole_cols(self, d: Dist) -> Dist:
+        """``d`` with every device holding whole feature rows: ``COLS`` and
+        ``PARTIAL`` become ``FULL``, ``ROWS`` and ``FULL`` stay."""
+        return self.to(d, FULL) if d.kind in (COLS, PARTIAL) else d
+
+    def input_kind(self, w: Weight) -> str:
+        """The kind ``mm`` by ``w`` takes."""
+        if w.model_dim is None:
+            return ROWS
+        return FULL if w.model_dim == 1 else COLS
+
+    def mm(self, x: Dist, w: Weight) -> Dist:
+        """``x @ w`` as ``w``'s spec splits it (``x`` converted first)."""
+        kind = self.input_kind(w)
+        out = {ROWS: ROWS, FULL: COLS, COLS: PARTIAL}[kind]
+        x = self.to(x, kind)
+        return Dist(out, [None if a is None else a @ w[m] for m, a in enumerate(x.parts)])
+
+    def gather_to_root(self, d: Dist) -> torch.Tensor:
+        """The parts (equal shapes) stacked on a new leading dim on ``root``."""
+        parts = [None if p is None else p[None] for p in d.parts]
+        return self._to_root(lambda: col.all_gather(parts, 0, outs=[self.root], **self._kw()),
+                             d, "reduce-scatter")
+
+    def sum_to_root(self, d: Dist) -> torch.Tensor:
+        """The parts summed on ``root`` in ascending order."""
+        return self._to_root(lambda: col.all_reduce(d.parts, outs=[self.root], **self._kw()),
+                             d, "all-reduce")
+
+    def _to_root(self, reduce, d: Dist, kind: str) -> torch.Tensor:
+        """``reduce()``'s output on ``root``.  Where a solo trace's root is
+        not the group's first device (which takes the loss in the whole
+        program), the traced device receives what the whole program sends
+        it instead of the other parts: its own part's gradient (``kind``)."""
+        if self.root == 0:
+            return reduce()[0]
+        with col.quiet():
+            out = reduce()[self.root]
+        own = d.parts[self.root]
+        if torch.is_grad_enabled() and own.requires_grad:
+            col.record(self.pos[self.root], kind, own)
+        return out
+
+    # -- weights ---------------------------------------------------------------
+
+    def weights(self, tree, unit: str) -> NS:
+        """One unit's leaves (a dict of ``Sharded``) as ``Weight``s, each
+        device's model slice gathered over `fsdp` onto it."""
+        self.unit = unit
+        return self._weights(tree)
+
+    def _weights(self, node):
+        # a method, not a recursive closure: a closure's cycle would keep
+        # the step's float32 sums alive until the cyclic collector runs
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return NS((k, self._weights(v)) for k, v in node.items())
+        md, fd = leaf_axes(node.spec, self.axes)
+        return Weight(self.parts(lambda m: self._leaf(node, m, fd)), md)
+
+    def _alias(self, sh, pos: tuple) -> torch.Tensor:
+        if self.sink is None or not torch.is_grad_enabled():
+            return sh.shards[pos]
+        return self.sink.alias(sh, pos)
+
+    def _fsdp_positions(self, sh, m: int) -> list:
+        key = (tuple(sh.spec), m)
+        out = self._fsdp.get(key)
+        if out is None:
+            out = self._fsdp[key] = fsdp_positions(self.mesh, sh, m)
+        return out
+
+    def _leaf(self, sh, m: int, fsdp_dim) -> torch.Tensor:
+        if fsdp_dim is None:
+            return self._alias(sh, self.pos[m])
+        where = self._fsdp_positions(sh, m)
+        parts = [self._alias(sh, p) for p in where]
+        if where == [self.pos[m]]:  # one block, its own
+            return parts[0]
+        w = self._gather(sh, parts, fsdp_dim, m, where)
+        if torch.is_grad_enabled():
+            self._remember(w, (sh, [p.detach() for p in parts], fsdp_dim, m, where, self.unit))
+        return w
+
+    def _gather(self, sh, parts, dim: int, m: int, where) -> torch.Tensor:
+        _GATHERING[0] += 1
+        try:
+            w = col.gather_to(parts, dim, self.devices[m], key=self.pos[m], part_keys=where)
+        finally:
+            _GATHERING[0] -= 1
+        for fn in _WATCHERS:
+            fn(self.unit, sh, m, w)
+        return w
+
+    def _remember(self, w, recipe) -> None:
+        storage = w.untyped_storage()
+        key = storage._cdata
+        self._recipes[key] = recipe
+        weakref.finalize(storage, self._recipes.pop, key, None)
+
+    def _pack(self, t: torch.Tensor):
+        recipe = self._recipes.get(t.untyped_storage()._cdata)
+        if recipe is None:
+            return t
+        return (recipe, tuple(t.shape), t.stride(), t.storage_offset())
+
+    def _unpack(self, x):
+        if isinstance(x, torch.Tensor):
+            return x
+        (sh, parts, dim, m, where, unit), shape, stride, offset = x
+        prev, self.unit = self.unit, unit
+        with torch.no_grad():
+            w = self._gather(sh, parts, dim, m, where)
+        self.unit = prev
+        return w.as_strided(shape, stride, offset)
+
+    @contextmanager
+    def saving(self):
+        """Saved tensors that are gathered weights kept as recipes."""
+        with torch.autograd.graph.saved_tensors_hooks(self._pack, self._unpack):
+            yield

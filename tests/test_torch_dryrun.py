@@ -55,7 +55,8 @@ from repro_torch.models import moe_shardmap as tmoe_shardmap
 from repro_torch.models.common import tree_tensors
 from repro_torch.models.registry import build_model as tbuild
 from repro_torch.optim.adamw import AdamW, AdamWConfig
-from repro_torch.sharding.placement import Sharded
+from repro_torch.sharding.collectives import recording
+from repro_torch.sharding import split as tsplit
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 META = torch.device("meta")
@@ -266,30 +267,35 @@ def test_argument_bytes_equal_the_placed_state():
 
 
 def test_all_gather_bytes_equal_what_the_mesh_step_gathers(monkeypatch):
-    """The all-gather the dry run reckons for the first group's device is
-    what one ``MeshStep`` on a (2, 2) mesh of logical CPU shards copies
-    into it from the other mesh positions' shards (the parameters and the
-    batch); the reduce-scatter is its gradient's slice for the 3 others."""
+    """What the dry run reckons device (0, M - 1) receives, by kind, is what
+    one ``MeshStep`` on a (2, 2) mesh of logical CPU shards moves into
+    position (0, 1): the collectives' bytes into it (the FSDP gathers and
+    their backward, the split program's activations, the gradient sums of
+    its blocks), and its group's batch rows, copied to it from (0, 0)."""
     _, cfg = smoke_pair("llama3.2-3b")
     cell = ShapeCell("train", 32, 4, "train")
     mesh = make_host_mesh(2, 2, devices=["cpu"] * 4)
     _, r = dryrun.reckon_lm(cfg, cell, mesh)
-    moved = []
-    real = Sharded.gather_into
+    rows = []
+    real = tsplit.Split.whole
 
-    def spy(self, out):
-        moved.append(sum(t.nbytes for idx, t in self.unique() if any(idx)))
-        return real(self, out)
+    def spy(self, t):
+        if self.group == 0:
+            rows.append(t.nbytes)
+        return real(self, t)
 
-    monkeypatch.setattr(Sharded, "gather_into", spy)
+    monkeypatch.setattr(tsplit.Split, "whole", spy)
     bundle = tbuild(cfg, device="cpu")
     params = ttrain.place_params(mesh, cfg, bundle.init_params(0))
     opt = AdamW(AdamWConfig())
     batch = ttrain.place_batch(mesh, _batch(cfg, bundle.input_specs(cell)))
-    ttrain.make_train_step(bundle, opt, mesh)(params, opt.init(params), None, batch)
-    assert r["transfer"]["all-gather"] == sum(moved) > 0
-    local = sum(t.local(0).nbytes for t in tree_tensors(params))
-    assert r["transfer"]["reduce-scatter"] == 3 * local
+    with recording() as rec:
+        ttrain.make_train_step(bundle, opt, mesh)(params, opt.init(params), None, batch)
+    got = {kind: n for (key, kind), n in rec.items() if key == (0, 1)}
+    got["all-gather"] += sum(rows)
+    assert sum(rows) > 0
+    assert r["transfer"] == got
+    assert set(got) == {"all-gather", "reduce-scatter", "all-reduce", "all-to-all"}
 
 
 # -- cells: the grid, the skip rule, the command line, X-TIME ---------------------------------
@@ -318,8 +324,11 @@ def test_smoke_grid_runs_every_cell(arch, monkeypatch, tmp_path):
             assert res["cost_analysis_raw"] is None and res["memory"]["code_bytes"] is None
             assert res["roofline"]["bound_s"] == max(
                 res["roofline"][k] for k in ("compute_s", "memory_s", "collective_s"))
-            assert set(res["counted"]["collective_breakdown"]) == (
-                {"all-gather", "reduce-scatter"} if shape == "train_4k" else {"all-gather"})
+            kinds = {"all-gather"}
+            if shape == "train_4k":  # the split program's own collectives besides
+                kinds |= ({"reduce-scatter", "all-reduce", "all-to-all"}
+                          if cfg.family in ttrain.SPLIT_FAMILIES else {"reduce-scatter"})
+            assert set(res["counted"]["collective_breakdown"]) == kinds
 
 
 def test_long_500k_is_skipped_on_a_full_attention_arch(tmp_path):

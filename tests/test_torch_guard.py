@@ -74,6 +74,7 @@ def test_every_module_is_listed():
                  "repro_torch.optim", "repro_torch.optim.adamw",
                  "repro_torch.optim.compress", "repro_torch.sharding",
                  "repro_torch.sharding.partition", "repro_torch.sharding.placement",
+                 "repro_torch.sharding.collectives", "repro_torch.sharding.split",
                  "repro_torch.models.decode_opt", "repro_torch.models.moe_shardmap",
                  "repro_torch.launch.dryrun", "repro_torch.launch.hlo_analysis",
                  "repro_torch.launch.op_count"):
