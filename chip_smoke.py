@@ -178,34 +178,44 @@ Phases, one line (or block) each:
  13. the LM mesh (no kernel of its own: the same torch ops plus device
      copies), on logical shards of the card: llama3.2-3b at full width and
      depth as phase 12 trains it, ``place_params`` onto a (4, 2) mesh
-     (the bytes each shard holds == the specs' reckoning) and 4 steps of
+     (the bytes each shard holds == the specs' reckoning) and 3 steps of
      ``make_train_step(mesh=)``, the split program (ms a step beside
-     phase 12's and the gathered program's, the optimizer's 8 shard
-     updates, the card's busy share and kernels a step over 1 more
-     profiled step, tokens/s, peak), 2 steps again from the seed with
-     equal losses; llama3.2-3b cut to depth 2 in float32, the mesh's
-     first step within rtol 2e-4 of one device's; deepseek-v3 cut to
-     depth 2 in float32 (16 experts, vocab 32,768, capacity 0.5) on a
-     (2, 4) mesh, its first step within rtol 2e-4 of one device's and the
-     same assignments dropped; the
+     phase 12's, the optimizer's 8 shard updates, the card's busy share
+     and kernels a step over 1 more profiled step, tokens/s, peak), 2
+     steps again from the seed with equal losses; llama3.2-3b cut to depth
+     2 in float32, the mesh's first step within rtol 2e-4 of one device's;
+     deepseek-v3 cut to depth 2 in float32 (16 experts, vocab 32,768,
+     capacity 0.5) on a (2, 4) mesh, its first step within rtol 2e-4 of
+     one device's and the same assignments dropped; zamba2-2.7b cut to
+     depth 2 on the gathered program; the
      flash-decode merge at gemma3-1b's decode widths over a 32,768-position
      cache on a (2, 4) mesh against ``decode_attention`` (1e-5 x scale,
      ms of both); the all-to-all MoE at deepseek-v3's widths (E 256, top-8,
      512 tokens, float32) on a (2, 4) mesh against ``moe_forward`` at cf
      16 (output, aux, the gradients of x, the router and the shared
      expert) and at cf 1.25 the dropped count, two runs equal, ms of both;
+     then the split serve step (``launch.serve.MeshServe``) on a (2, 4)
+     mesh: llama3.2-3b (KV heads on `model`, 32 greedy tokens) and
+     gemma3-1b (sequence-sharded KV, 15 greedy tokens) at full width and
+     depth in bfloat16 (prefill and decode ms beside phase 10's, kernels
+     a step, busy share, peak, cache bytes a shard == ``cache_pspecs``'s,
+     greedy tokens agreeing with one device's, reported), and llama3.2-3b,
+     gemma3-1b and deepseek-v3 (``DEEPSEEK_CHECK``'s cut, decode capacity
+     0.5 so the decode drops too) at depth 2 in float32 against one device
+     (every step's logits within 1e-4 of their scale, tokens and drops
+     equal, two runs bit-equal, ``generate(mesh=)``'s tokens);
  14. the dry run (``repro_torch.launch.dryrun``; no kernel of its own):
      llama3.2-3b as phase 12 trains it on a (1, 1) mesh of the card — the
      argument bytes the dry run reckons == the bytes of the parameters,
      moments, step and batch the card holds, its meta trace's dot FLOPs ==
      ``FlopCounterMode`` over one real ``make_train_step(mesh=)`` step, its
      bytes a device beside the next step's peak and its roofline bound
-     beside that step's ms; then four production cells on a 16 x 16 mesh
-     of meta devices (traced in a process of their own, started before
-     phase 12), each timed, each printing the reference's three lines:
-     llama3.2-3b and deepseek-v3-671b train_4k (device (0, 0) of the
-     split program), deepseek-v3-671b decode_32k (through the repaired MoE
-     counts) and xtime-tabular serve_1m.
+     beside that step's ms; then five production cells on a 16 x 16 mesh
+     of meta devices, traced after phase 13, each timed, each printing
+     the reference's three lines and its fullest device's bytes, fit and
+     ``n_compute_devices``: llama3.2-3b and deepseek-v3-671b train_4k,
+     deepseek-v3-671b decode_32k and llama3.2-3b prefill_32k (device
+     (0, M - 1) of the split program) and xtime-tabular serve_1m.
 
 Every check that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object of the kernels and the contract line
@@ -3637,6 +3647,211 @@ def lm_shardmap_moe(name, stats) -> None:
           f"vs moe_forward {plain:.3f} ms", flush=True)
 
 
+MESH_SERVE_SHAPE = (2, 4)  # phase 13's serve mesh: 2 data groups x 4 model shards
+MESH_SERVE_PROFILED = 1  # decode steps profiled for the busy share and kernels a step
+MESH_SERVE_GEMMA_NEW = 15  # gemma3-1b's greedy tokens on the mesh (phase 10: 32): a cache of 1,040
+MESH_SERVE_CHECK_NEW = 4  # the float32 serve checks' greedy tokens after the prompt
+
+
+def cache_shard_bytes(cache) -> int:
+    """The bytes the mesh's first device holds of a placed cache."""
+    return sum(sh.local(0).numel() * sh.local(0).element_size() for seg in cache for sh in seg)
+
+
+def spec_cache_bytes(cfg, mesh, batch: int, seq: int) -> int:
+    """The bytes one device holds of the cache by ``cache_pspecs``."""
+    shape = lm_build(cfg, "meta").cache_shape(batch, seq)
+    specs = lm_partition.cache_pspecs(shape, cfg, lm_partition.MeshAxes(mesh))
+    return sum(lm_partition.ShardedShape(tuple(t.shape), t.dtype, spec, mesh).local_bytes()
+               for seg, ss in zip(shape, specs) for t, spec in zip(seg, ss))
+
+
+def lm_mesh_serve_run(label, cfg, prompt_len, name, stats, new: int = LM_NEW) -> None:
+    """(d) The split serve program at full width and depth in bfloat16, as
+    phase 10 serves the model (seeded weights, B = 4, its prompt, ``new``
+    greedy tokens), on a (2, 4) mesh of logical shards of the card:
+    ``place_params`` -> ``MeshServe`` (each group's 4 shards compute its
+    rows with their model slices, the KV cache in ``cache_pspecs``'s
+    layout), greedy as ``generate`` runs it: prefill ms (median of 3) and
+    ms a decode step (median of the ``new`` - 1 steps) beside phase 10's one
+    device, kernels a step and the busy share over ``MESH_SERVE_PROFILED``
+    more steps, peak, the cache's bytes a shard against the specs', and
+    how many greedy tokens agree with one device's (bfloat16 sums in
+    another order may flip one, and a flipped token changes the rest of
+    its row, so the count is reported, not held)."""
+    mesh = make_host_mesh(*MESH_SERVE_SHAPE, devices=[CARD] * 8)
+    batch = lm_prompt(cfg, LM_BATCH, prompt_len, SEED + 20)
+    total = prompt_len + new + MESH_SERVE_PROFILED
+    bundle = lm_build(cfg)
+    params = bundle.init_params(SEED)
+    one = lm_serve.generate(bundle, params, batch["tokens"], max_new=new)
+    lm_free()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    placed = lm_train.place_params(mesh, cfg, params)
+    del params
+    lm_free()
+    serve = lm_serve.MeshServe(bundle, mesh)
+    prompt = {"tokens": torch.as_tensor(batch["tokens"], device=CARD)}
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    pre, steps = [], []
+    with torch.inference_mode():
+        for _ in range(3):
+            a, b = ev(), ev()
+            a.record()
+            logits, cache = serve.prefill(placed, prompt, total)
+            b.record()
+            pre.append((a, b))
+        out = [logits.argmax(-1)]
+        for i in range(new - 1):
+            a, b = ev(), ev()
+            a.record()
+            logits, cache = serve.decode_step(placed, cache, out[-1], prompt_len + i)
+            b.record()
+            steps.append((a, b))
+            out.append(logits.argmax(-1))
+        toks = torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+
+        def run():
+            for i in range(MESH_SERVE_PROFILED):
+                serve.decode_step(placed, cache, out[i], prompt_len + new - 1 + i)
+
+        busy_ms, kernels, _ = profiled_steps(run, MESH_SERVE_PROFILED)
+    peak = torch.cuda.max_memory_allocated() - base
+    held = cache_shard_bytes(cache)
+    del placed, cache, serve, bundle, logits
+    lm_free()
+    reckoned = spec_cache_bytes(cfg, mesh, LM_BATCH, total)
+    if held != reckoned:
+        fail(f"{label} mesh serve: a cache shard holds {held} bytes, cache_pspecs {reckoned}")
+    if toks.shape != one.shape or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        fail(f"{label} mesh serve: tokens of shape {toks.shape} outside the vocabulary")
+    pre_ms = float(np.median([a.elapsed_time(b) for a, b in pre]))
+    step_ms = float(np.median([a.elapsed_time(b) for a, b in steps]))
+    agree = int((toks == one).sum())
+    ref = next(x for x in stats.get("lm", []) if x["model"] == label)
+    line = {"model": label, "mesh": list(MESH_SERVE_SHAPE), "logical_shards_of": name,
+            "program": "split serve", "layers": cfg.n_layers, "dtype": cfg.dtype,
+            "batch": LM_BATCH, "prompt": prompt_len, "new": new, "cache_len": total,
+            "prefill_ms": pre_ms, "one_device_prefill_ms": ref["prefill_ms"],
+            "decode_ms": step_ms, "one_device_decode_ms": ref["decode_ms"],
+            "busy_ms": busy_ms, "busy_share": busy_ms / step_ms, "kernels_per_step": kernels,
+            "peak_bytes": peak, "cache_bytes_per_shard": held,
+            "spec_cache_bytes_per_shard": reckoned, "tokens_agree": agree,
+            "tokens": int(toks.size), "card": name}
+    stats["lm_mesh"].append(line)
+    print(f"lm mesh [{name}] {label} serve on a {MESH_SERVE_SHAPE[0]} x {MESH_SERVE_SHAPE[1]} "
+          f"mesh of logical shards of the card (split program, {cfg.n_layers} layers "
+          f"{cfg.dtype}), B={LM_BATCH} prompt {prompt_len} + {new} greedy: prefill "
+          f"{pre_ms:.3f} ms (one device {ref['prefill_ms']:.3f}), decode {step_ms:.3f} ms a "
+          f"step (one device {ref['decode_ms']:.3f}), card busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / step_ms:.1f}%), {kernels:.0f} kernels a step, peak "
+          f"{peak / 2**30:.2f} GiB (the placed shards included), cache of {total} positions "
+          f"{held:,} bytes a shard (cache_pspecs {reckoned:,}); {agree} of {toks.size} greedy "
+          f"tokens equal one device's", flush=True)
+
+
+def lm_mesh_serve_check(label, cfg, prompt_len, name, seed: int, decode_capacity=None) -> None:
+    """(e) Float32, TF32 off: prefill of B = 4 x ``prompt_len`` and
+    ``MESH_SERVE_CHECK_NEW`` greedy decode steps on one device and on the split
+    serve program of a (2, 4) mesh of logical shards of the card, fed one
+    device's tokens: every step's logits within 1e-4 of their scale, the
+    greedy tokens equal, the MoE layers' drops equal (``decode_capacity``:
+    the decode's capacity factor for this check), two mesh runs
+    bit-equal; ``generate(mesh=)``'s tokens one device's."""
+    mesh = make_host_mesh(*MESH_SERVE_SHAPE, devices=[CARD] * 8)
+    bundle = lm_build(cfg)
+    params = bundle.init_params(seed)
+    tokens = torch.as_tensor(lm_prompt(cfg, LM_BATCH, prompt_len, SEED + 50)["tokens"],
+                             device=CARD)
+    total = prompt_len + MESH_SERVE_CHECK_NEW
+    drops, route = [], lm_moe.route_logits
+    prev_cf = lm_transformer.DECODE_CAPACITY_FACTOR
+    if decode_capacity is not None:
+        lm_transformer.DECODE_CAPACITY_FACTOR = decode_capacity
+
+    def counted(*a, **kw):
+        r = route(*a, **kw)
+        drops.append(int((~r.keep).sum()))
+        return r
+
+    try:
+        lm_moe.route_logits = counted
+        with torch.inference_mode():
+            logits, cache = bundle.prefill(params, {"tokens": tokens})
+            cache = lm_serve._pad_cache_seq(cfg, cache, prompt_len, total)
+            ref, toks = [logits], [logits.argmax(-1)]
+            for i in range(MESH_SERVE_CHECK_NEW):
+                logits, cache = bundle.decode_step(params, cache, toks[-1], prompt_len + i)
+                ref.append(logits)
+                toks.append(logits.argmax(-1))
+        lm_moe.route_logits = route
+        del cache
+        placed = lm_train.place_params(mesh, cfg, params)
+        del params
+        lm_free()
+        serve = lm_serve.MeshServe(bundle, mesh)
+        runs = []
+        for _ in range(2):
+            logits, cache = serve.prefill(placed, {"tokens": tokens}, total)
+            got, mesh_drops = [logits], serve.drops()
+            for i in range(MESH_SERVE_CHECK_NEW):
+                logits, cache = serve.decode_step(placed, cache, toks[i], prompt_len + i)
+                got.append(logits)
+                mesh_drops += serve.drops()
+            runs.append((got, mesh_drops))
+            del cache
+        gen = lm_serve.generate(bundle, placed, tokens, max_new=MESH_SERVE_CHECK_NEW + 1,
+                                mesh=mesh)
+    finally:
+        lm_moe.route_logits = route
+        lm_transformer.DECODE_CAPACITY_FACTOR = prev_cf
+    got, mesh_drops = runs[0]
+    worst = max(float((g - r).abs().max()) / max(1.0, float(r.abs().max()))
+                for g, r in zip(got, ref))
+    equal_toks = all(torch.equal(g.argmax(-1), t) for g, t in zip(got, toks))
+    if not worst < 1e-4 or not equal_toks:
+        fail(f"{label} mesh serve vs one device: logits off by {worst:.3e} of their scale, "
+             f"tokens equal {equal_toks}")
+    if mesh_drops != drops or (cfg.is_moe and sum(drops) == 0):
+        fail(f"{label} mesh serve: drops {mesh_drops}, one device {drops}")
+    if not all(torch.equal(a, b) for a, b in zip(runs[1][0], got)):
+        fail(f"{label} mesh serve: two runs differ")
+    if not np.array_equal(gen, torch.stack(toks, dim=1).to(torch.int32).cpu().numpy()):
+        fail(f"{label}: generate(mesh=) tokens differ from one device's")
+    del placed, serve, bundle, runs, got, ref
+    lm_free()
+    print(f"lm mesh [{name}] {label} float32 serve, B={LM_BATCH} prompt {prompt_len} + "
+          f"{MESH_SERVE_CHECK_NEW} greedy on {MESH_SERVE_SHAPE} (split program) vs one device: "
+          f"logits within {worst:.2e} of their scale (1e-4), tokens equal"
+          + (f", {sum(drops)} assignments dropped (decode capacity {decode_capacity}) as one "
+             f"device's" if cfg.is_moe else "") + "; two runs bit-equal", flush=True)
+
+
+def lm_mesh_serve(name, stats) -> None:
+    """Phase 13's serve steps: (d) llama3.2-3b (KV heads on `model`: 8 on
+    4) and gemma3-1b (one KV head: sequence chunks, windows, its tied
+    vocab-parallel head) at full width; (e) llama3.2-3b, gemma3-1b and
+    deepseek-v3 (``DEEPSEEK_CHECK``'s cut: MLA's latent cache by sequence,
+    MoE) at depth 2 in float32 against one device."""
+    llama, gemma = get_config("llama3.2-3b"), get_config("gemma3-1b")
+    for label, cfg, prompt_len, new in (
+            ("llama3.2-3b", llama, LM_PROMPT, LM_NEW),
+            ("gemma3-1b", gemma, 2 * gemma.sliding_window, MESH_SERVE_GEMMA_NEW)):
+        t0 = time.perf_counter()
+        lm_mesh_serve_run(label, cfg, prompt_len, name, stats, new)
+        print(f"lm mesh serve {label} {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    lm_mesh_serve_check("llama3.2-3b depth 2", llama.replace(n_layers=2, dtype="float32"),
+                        LM_PROMPT, name, 8)
+    lm_mesh_serve_check("gemma3-1b depth 2", gemma.replace(n_layers=2, dtype="float32"),
+                        2 * gemma.sliding_window, name, 9)
+    # decode capacity 0.5: 1 slot an expert for B = 4, so the decode drops too
+    lm_mesh_serve_check("deepseek-v3 depth 2", get_config("deepseek-v3-671b").replace(
+        **DEEPSEEK_CHECK), LM_PROMPT, name, 10, decode_capacity=0.5)
+    print(f"lm mesh serve float32 checks {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def phase_lm_mesh(name, stats) -> None:
     """Phase 13: the LM mesh on logical shards of the card."""
     lm_free()
@@ -3648,12 +3863,15 @@ def phase_lm_mesh(name, stats) -> None:
     lm_mesh_gathered(name, stats)
     lm_flash_decode(name, stats)
     lm_shardmap_moe(name, stats)
+    t0 = time.perf_counter()
+    lm_mesh_serve(name, stats)
+    print(f"lm mesh serving {time.perf_counter() - t0:.1f} s", flush=True)
     for line in stats["lm_mesh"]:
         print("lm mesh " + json.dumps(line), flush=True)
 
 
 DRY_CELLS = [("llama3.2-3b", "train_4k"), ("deepseek-v3-671b", "train_4k"),
-             ("deepseek-v3-671b", "decode_32k"),
+             ("deepseek-v3-671b", "decode_32k"), ("llama3.2-3b", "prefill_32k"),
              ("xtime-tabular", "serve_1m")]  # phase 14's production cells, 16 x 16
 
 
@@ -3762,11 +3980,16 @@ def dry_production_cells(name, stats) -> None:
                  f"{res.get('traceback', '')}")
         brief = {k: v for k, v in res.items()
                  if k in ("arch", "shape", "mesh", "status", "trace_s", "wall_s")}
-        print(f"dry run [{name}] {arch} {shape} on 16 x 16 meta devices ({wall:.1f} s):", flush=True)
+        mem = res["memory"]
+        print(f"dry run [{name}] {arch} {shape} on 16 x 16 meta devices ({wall:.1f} s): "
+              f"n_compute_devices {res['n_compute_devices']}, the fullest device holds "
+              f"{mem['total_per_device_gib']} GiB (fits 80 GiB: {mem['fits_h100_80gib']})",
+              flush=True)
         print(json.dumps(brief), flush=True)
         print("memory_analysis:", json.dumps(res["memory"]), flush=True)
         print("roofline:", json.dumps(res["roofline"]), flush=True)
         stats["dryrun"].append({"cell": f"{arch} {shape}", "seconds": wall,
+                                "n_compute_devices": res["n_compute_devices"],
                                 "memory": res["memory"], "counted": res["counted"],
                                 "roofline": res["roofline"]})
 

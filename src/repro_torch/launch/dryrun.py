@@ -17,13 +17,18 @@ compute device otherwise):
     cells, the cache, token and pos — placed by ``batch_pspec`` /
     ``cache_pspecs`` (``argument_bytes``; no trace);
   * the port's mesh program, traced once on meta under ``OpCounter``
-    (``repro_torch.launch.op_count``).  A transformer-family ``train``
-    cell traces device (0, M - 1)'s part of the split program
+    (``repro_torch.launch.op_count``).  A transformer-family cell traces
+    device (0, M - 1)'s part of the split program, every device of the
+    mesh computing (``n_compute_devices``): ``train``, its step
     (``MeshStep.split_grads(only=M - 1)``: group 0's rows with its model
-    slices, its counting pass where MoE layers route more than one
-    group, its gradients into its float32 sums, then its
-    ``AdamW.update``); every device of the mesh computes
-    (``n_compute_devices``).  Any other cell traces the program the
+    slices, its counting pass where MoE layers route more than one group,
+    its gradients into its float32 sums, then its ``AdamW.update``);
+    ``prefill``, its part of group 0's prefill (``MeshServe.prefill``: its
+    query chunk, its vocab slice of the logits, its part of the cache
+    written, its shard of the cache a temp); ``decode``, its part of one
+    step at the cache's last position (``MeshServe.decode_step``: the
+    token's row, the chunk or heads of the cache it holds, the position
+    written into its own shard).  Any other cell traces the program the
     gathered ``MeshStep`` runs (each data group gathers whole parameters
     onto its compute device and computes there): ``train``: ``loss_fn`` +
     backward on ``global_batch / n_groups`` rows with whole parameters (an
@@ -40,14 +45,16 @@ compute device otherwise):
   * **transfer bytes**, by kind.  Split: what device (0, M - 1) receives
     in its trace (``collectives.recording``: the FSDP gathers and their
     backward, the activations' all-gathers, reduce-scatters, all-reduces
-    and all-to-alls), plus its group's batch rows (the whole batch where
-    M = 1, gathered onto (0, 0) by ``MeshStep``) and,
-    from the specs, every other device's gradient of a shard of its
-    blocks (``reduce-scatter``).  Gathered: what ``MeshStep._gather``
-    brings to the device (``all-gather``: whole minus its own shard) and
-    what its shard sums send (``reduce-scatter``: its gradient's slice
-    for every other device's shard).  On a meta mesh ``.to(device)``
-    moves nothing, so ``MeshStep`` is never driven on devices here;
+    and all-to-alls, the decode merge's), plus its group's batch rows
+    (the whole batch where M = 1 in training, gathered onto (0, 0) by
+    ``MeshStep``; the prompt's or the tokens' rows from the mesh's first
+    device in serving) and, in training, from the specs, every other
+    device's gradient of a shard of its blocks (``reduce-scatter``).
+    Gathered: what ``MeshStep._gather`` brings to the device
+    (``all-gather``: whole minus its own shard) and what its shard sums
+    send (``reduce-scatter``: its gradient's slice for every other
+    device's shard).  On a meta mesh ``.to(device)`` moves nothing, so
+    ``MeshStep`` is never driven on devices here;
   * the roofline terms with one H100's constants (``hlo_analysis``) and the
     fit against its 80 GiB.
 
@@ -64,12 +71,21 @@ Deliberate differences from the JAX package's dry run:
     alone and in the whole program alike); traced alone, it also computes
     the loss's reductions over `model`, which device (0, 0) computes in
     the whole program (a few ops on (B, 512) float32 blocks; the bytes it
-    is counted to receive are the whole program's); the other families'
-    compute is split by data group (one compute device a group);
+    is counted to receive are the whole program's); in serving it also
+    gathers the logits a device (0, 0) receives in the whole program
+    (received bytes: the whole program's, nothing); a split decode holds
+    the token's row on the group's last device, which so computes any
+    product by a weight `fit` leaves whole, and the chunk with ``pos``;
+    the decode cache is split by KV heads or by sequence chunks merged in
+    shard order, where GSPMD picks its own; the other families' compute
+    is split by data group (one compute device a group);
+  * ``REPRO_MOE_IMPL=shardmap`` traces a transformer's prefill or decode
+    cell on the gathered forward, whose MoE layers it replaces (the
+    split program's experts are split over `model` already);
   * the roofline uses the H100's constants and the fit is 80 GiB;
-  * a decode cell writes one position into the cache; sending it back to
-    the cache's shards is left out of the transfer bytes (at most the
-    group's cache / seq_len).
+  * a decode cell of the gathered families writes one position into the
+    cache; sending it back to the cache's shards is left out of the
+    transfer bytes (at most the group's cache / seq_len).
 
 Results land in results/dryrun_torch/<arch>__<shape>__<mesh>.json.
 """
@@ -91,6 +107,7 @@ from repro_torch.launch import hlo_analysis
 from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.launch.model_flops import model_flops
 from repro_torch.launch.op_count import OpCost, OpCounter, count
+from repro_torch.launch.serve import MeshServe
 from repro_torch.launch.train import SPLIT_FAMILIES, GroupRouting, MeshStep, loss_and_grads
 from repro_torch.models import common, moe as moe_mod
 from repro_torch.models.common import stack_map, tree_map, tree_tensors
@@ -291,24 +308,34 @@ def _trace_train(bundle, cfg, cell, axes, whole) -> OpCost:
     return c.cost()
 
 
+def _meta_sharded(mesh, spec, shape: tuple, dtype: torch.dtype) -> Sharded:
+    """A ``Sharded`` of meta shards: one meta tensor of the local shape
+    stands for every position's shard."""
+    shards = np.empty(mesh.devices.shape, dtype=object)
+    sh = Sharded(mesh, spec, tuple(shape), dtype, shards)
+    local = torch.empty(sh.local_shape(), dtype=dtype, device=META)
+    for idx in np.ndindex(shards.shape):
+        shards[idx] = local
+    return sh
+
+
 def _meta_placed(mesh, tree, specs, dtype: torch.dtype | None = None):
     """A placed tree of ``Sharded`` meta leaves: every position holds one
     meta tensor of its local shape (the shapes ``place_tree`` gives)."""
 
     def leaf_of(leaf, spec):
         inner = layer_spec(leaf, spec)
-
-        def one(t):
-            shards = np.empty(mesh.devices.shape, dtype=object)
-            sh = Sharded(mesh, inner, tuple(t.shape), dtype or t.dtype, shards)
-            local = torch.empty(sh.local_shape(), dtype=sh.dtype, device=META)
-            for idx in np.ndindex(shards.shape):
-                shards[idx] = local
-            return sh
-
-        return stack_map(one, leaf)
+        return stack_map(lambda t: _meta_sharded(mesh, inner, tuple(t.shape), dtype or t.dtype),
+                         leaf)
 
     return tree_map(leaf_of, tree, specs)
+
+
+def _meta_cache(mesh, shape, specs) -> list:
+    """A transformer cache (per-segment tuples) of ``Sharded`` meta leaves
+    in ``specs``' layout (``MeshServe``'s ``init_cache``)."""
+    return [tuple(_meta_sharded(mesh, spec, tuple(t.shape), t.dtype) for t, spec in zip(seg, ss))
+            for seg, ss in zip(shape, specs)]
 
 
 def _remote_grad_bytes(mesh, params, target: tuple) -> int:
@@ -372,6 +399,38 @@ def _trace_split_train(bundle, cfg, cell, mesh, axes) -> tuple[OpCost, dict]:
     return c.cost(), received
 
 
+def _trace_split_serve(bundle, cfg, cell, mesh, axes) -> tuple[OpCost, dict]:
+    """Device (0, M - 1)'s part of the split serve program (``MeshServe``
+    with ``groups=[0], only=M - 1``): a prefill of group 0's rows writing
+    the device's part of the cache (allocated in the trace, its shard's
+    bytes a temp), or one decode step at the cache's last position on its
+    shard of the cache (an argument).  Returns (cost, bytes received by
+    kind)."""
+    mesh = Mesh(np.full(mesh.devices.shape, META, dtype=object), mesh.axis_names)
+    tree = bundle.params_shape().jax_layout()
+    params = _meta_placed(mesh, tree, param_pspecs(tree, cfg, axes))
+    serve = MeshServe(bundle, mesh)
+    last = axes.axis_size(axes.model) - 1
+    target = split_mod.position(mesh, 0, last)
+    b = cell.global_batch
+    shape = bundle.cache_shape(b, cell.seq_len)
+    specs = cache_pspecs(shape, cfg, axes)
+    cache = None if cell.kind == "prefill" else _meta_cache(mesh, shape, specs)
+    with OpCounter(exclude=split_mod.gathering) as c, recording() as rec:
+        if cell.kind == "prefill":
+            cache = _meta_cache(mesh, shape, specs)
+            serve.prefill(params, bundle.input_specs(cell), groups=[0], only=last, cache=cache)
+        else:
+            token = torch.empty((b,), dtype=torch.int32, device=META)
+            serve.decode_step(params, cache, token, cell.seq_len - 1, groups=[0], only=last)
+        del cache
+    received = defaultdict(float)
+    for (key, kind), n in rec.items():
+        if key == target:
+            received[kind] += n
+    return c.cost(), received
+
+
 def _trace_serve(bundle, cell, axes, whole, group_cache) -> OpCost:
     """One data group's forward on its compute device; its outputs (the
     logits, and prefill's cache) count as ``end_bytes``."""
@@ -388,7 +447,7 @@ def _trace_serve(bundle, cell, axes, whole, group_cache) -> OpCost:
 
 def reckon_lm(cfg, cell: ShapeCell, mesh, flash_blk: int = 1024) -> tuple[OpCost, dict]:
     """The counted cost of the fullest device's program on ``mesh`` (device
-    (0, M - 1) of the split program for a transformer train cell, else one data
+    (0, M - 1) of the split program for a transformer cell, else one data
     group's), and what it holds and moves: ``memory`` and ``transfer``
     dicts (bytes; the split program's transfer is what the device
     receives)."""
@@ -404,7 +463,8 @@ def reckon_lm(cfg, cell: ShapeCell, mesh, flash_blk: int = 1024) -> tuple[OpCost
     prev = dict(moe_mod._HOOKS)
     _install_moe_hooks(cfg, axes)
     n_dev = int(np.prod(mesh.devices.shape))
-    split = cell.kind == "train" and cfg.family in SPLIT_FAMILIES
+    split = cfg.family in SPLIT_FAMILIES and (
+        cell.kind == "train" or os.environ.get("REPRO_MOE_IMPL", "") != "shardmap")
     transfer: dict = {}
     try:
         if cell.kind == "train":
@@ -412,7 +472,16 @@ def reckon_lm(cfg, cell: ShapeCell, mesh, flash_blk: int = 1024) -> tuple[OpCost
             gather_in += batch_whole - batch_local  # MeshStep gathers the batch on (0, 0)
             sums = sum(int(np.prod(s.local_shape(), dtype=np.int64)) * 4
                        for _, s in leaves_with_path(shapes["params"]))
-        if split:
+        if split and cell.kind != "train":
+            cost, transfer = _trace_split_serve(bundle, cfg, cell, mesh, axes)
+            # (0, M - 1) receives group 0's rows (the prompt, or the tokens) from
+            # the mesh's first device, where MeshServe takes the batch
+            rows = int(_whole_bytes(shapes["batch" if cell.kind == "prefill" else "token"])
+                       * _group_rows(cell, axes) // cell.global_batch)
+            if axes.axis_size(axes.model) > 1:
+                transfer["all-gather"] += rows
+            gathered = cost.excluded_bytes + rows
+        elif split:
             cost, transfer = _trace_split_train(bundle, cfg, cell, mesh, axes)
             # (0, M - 1) receives group 0's rows from (0, 0), which gathers the batch
             last_is_first = axes.axis_size(axes.model) == 1

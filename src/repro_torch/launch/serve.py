@@ -1,8 +1,26 @@
 """Batched serving: prefill -> a decode loop with sampling.
 
-The port of ``repro.launch.serve`` (the shard_map flash-decode variant
-waits for the LM mesh).  Eager PyTorch under ``torch.inference_mode()``:
-no jit and no ``torch.compile``.  On the card unless ``--device cpu``.
+The port of ``repro.launch.serve``.  Eager PyTorch under
+``torch.inference_mode()``: no jit and no ``torch.compile``.  On the card
+unless ``--device cpu``.
+
+On a mesh (``generate(..., mesh=)``, parameters placed by
+``launch.train.place_params``) a step is one explicit program driven from
+this process, the serving counterpart of ``launch.train.MeshStep``
+(``MeshServe``).  The transformer family (``dense``, ``moe``, ``vlm``) runs
+the split program (``repro_torch.sharding.split``): device (g, m)
+computes data group g's rows with model slice m of every weight, each
+layer's `fsdp` blocks gathered just before use, the data groups in
+lockstep a layer at a time (an MoE layer routes each group with the whole
+batch's capacity and ranks, ``GroupRouting(lockstep=True)``, so the drops
+are one device's); the cache is allocated at its final length (prompt and
+new tokens) in ``cache_pspecs``'s layout, ``Sharded`` leaves: KV heads on
+`model` where they divide it, else the sequence (the MLA latents always:
+the exact flash merge over each device's chunk of positions), else whole
+on every device.  The last-token logits are gathered to the mesh's first
+device, where the next token is drawn.  The other families keep one
+compute device a data group: whole parameters gathered onto it, its rows'
+one-device prefill and decode there.
 
 CLI:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
@@ -19,8 +37,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import get_config
-from repro_torch.launch.train import _scaled
+from repro_torch.launch.mesh import check_mesh
+from repro_torch.launch.train import SPLIT_FAMILIES, GroupRouting, MeshStep, _scaled
 from repro_torch.models.registry import LMBundle, build_model
+from repro_torch.sharding.partition import MeshAxes, batch_pspec
+from repro_torch.sharding.placement import Sharded
+from repro_torch.sharding.split import Split, position
 
 
 def _pad_cache_seq(cfg, cache, prefill_len: int, total_len: int):
@@ -58,11 +80,12 @@ def _on(dev: torch.device, x) -> torch.Tensor:
 def generate(
     bundle: LMBundle,
     params,
-    tokens,  # (B, S) prompt: a tensor or an integer array
+    tokens,  # (B, S) prompt: a tensor, an integer array or a placed batch's Sharded
     *,
     max_new: int,
     temperature: float = 0.0,
     seed: int = 0,
+    mesh=None,
 ) -> np.ndarray:
     """Greedy / temperature sampling.  Returns (B, max_new) int32 new tokens.
 
@@ -70,15 +93,25 @@ def generate(
     as the reference).  Temperature sampling draws from a
     ``torch.Generator`` seeded with ``seed`` on the model's device; it
     cannot reproduce the bits of the JAX package's
-    ``jax.random.categorical`` draws, only their distribution.
+    ``jax.random.categorical`` draws, only their distribution.  ``mesh``
+    set: ``params`` placed by ``place_params`` on it, the steps
+    ``MeshServe``'s.
     """
     cfg = bundle.cfg
-    dev = bundle.device
+    serve = None if mesh is None else MeshServe(bundle, mesh)
+    dev = bundle.device if serve is None else serve.first
     with torch.inference_mode():
+        if isinstance(tokens, Sharded):
+            tokens = tokens.gather(dev)
         tokens = _on(dev, tokens).long()
         b, s = tokens.shape
-        logits, cache = bundle.prefill(params, {"tokens": tokens})
-        cache = _pad_cache_seq(cfg, cache, s, s + max_new)
+        if serve is None:
+            logits, cache = bundle.prefill(params, {"tokens": tokens})
+            cache = _pad_cache_seq(cfg, cache, s, s + max_new)
+            step = bundle.decode_step
+        else:
+            logits, cache = serve.prefill(params, {"tokens": tokens}, s + max_new)
+            step = serve.decode_step
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
 
@@ -90,9 +123,152 @@ def generate(
 
         out = [sample(logits)]
         for i in range(max_new - 1):
-            logits, cache = bundle.decode_step(params, cache, out[-1], s + i)
+            logits, cache = step(params, cache, out[-1], s + i)
             out.append(sample(logits))
         return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+
+
+class MeshServe:
+    """The mesh serve program (see the module docstring): ``prefill(params,
+    batch, total_len)`` and ``decode_step(params, cache, token, pos)`` with
+    ``params`` placed by ``place_params`` and the batch whole tensors (or
+    ``place_batch``'s), the logits (B, V) float32 on ``first``, the mesh's
+    first device.  ``routing``: the last call's MoE routing (its
+    ``dropped``); ``drops()`` sums it a layer over the row blocks.
+    ``groups`` and ``only`` (the dry run's solo trace): compute only those
+    data groups, and only that model device of each."""
+
+    def __init__(self, bundle: LMBundle, mesh):
+        self.bundle, self.mesh = bundle, check_mesh(mesh)
+        self.split = bundle.cfg.family in SPLIT_FAMILIES
+        self.routing = None
+        self._gathered = None if self.split else MeshStep(bundle, None, self.mesh)
+        axes = MeshAxes(self.mesh)
+        self.n_groups = int(np.prod([axes.axis_size(a) for a in axes.batch_axes()],
+                                    dtype=np.int64))
+        self.first = self.mesh.devices.flat[0]
+
+    def blocks(self, b: int) -> tuple[list[int], int]:
+        """Each data group's block of ``b`` rows under the fitted batch
+        spec, and the block count (1 where the spec is dropped: every group
+        computes the whole batch)."""
+        axes = MeshAxes(self.mesh)
+        entry = tuple(axes.fit(tuple(batch_pspec(axes)), (b,)))[0]
+        names = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+        sizes = dict(zip(self.mesh.axis_names, self.mesh.devices.shape))
+        out = []
+        for g in range(self.n_groups):
+            at = dict(zip(self.mesh.axis_names, position(self.mesh, g, 0)))
+            blk = 0
+            for a in names:
+                blk = blk * sizes[a] + at[a]
+            out.append(blk)
+        return out, int(np.prod([sizes[a] for a in names], dtype=np.int64))
+
+    def _rows(self, t: torch.Tensor, g: int, blocks, n_blocks: int) -> torch.Tensor:
+        n = t.shape[0] // n_blocks
+        return t[blocks[g] * n:(blocks[g] + 1) * n]
+
+    def _splits(self, seq: int, groups, only, rows=None) -> list[Split]:
+        active = None if only is None else [only]
+        return [Split(self.mesh, g, seq, routing=self.routing, active=active, rows=rows)
+                for g in groups]
+
+    def _whole(self, t) -> torch.Tensor:
+        return t.gather(self.first) if isinstance(t, Sharded) else _on(self.first, t)
+
+    def _logits(self, parts: list, groups, blocks) -> torch.Tensor:
+        """The groups' logits on ``first``, one group a row block."""
+        seen, out = set(), []
+        for g, t in zip(groups, parts):
+            if blocks[g] not in seen:
+                seen.add(blocks[g])
+                out.append(t.to(self.first))
+        return torch.cat(out)
+
+    def _routing(self, blocks) -> None:
+        self.routing = (GroupRouting(self.n_groups, lockstep=True, blocks=blocks)
+                        if self.bundle.cfg.is_moe else None)
+
+    def drops(self) -> list[int]:
+        """The last call's dropped assignments a MoE layer (layer order),
+        summed over the row blocks."""
+        if self.routing is None:
+            return []
+        by: dict = {}
+        first = {}
+        for (g, key), n in self.routing.dropped.items():
+            blk = self.routing.blocks[g]
+            if first.setdefault((blk, key), g) == g:
+                by[key] = by.get(key, 0) + int(n)
+        return [by[k] for k in sorted(by)]
+
+    @torch.no_grad()
+    def prefill(self, params, batch: dict, total_len: int | None = None, *, groups=None,
+                only=None, cache=None):
+        """Each group's prefill of its rows of ``batch``; returns (logits
+        (B, V) on ``first``, the cache, of ``total_len`` positions (default
+        the prompt's)).  The gathered families return one cache a group."""
+        batch = {k: self._whole(v) for k, v in batch.items()}
+        first = next(iter(batch.values()))
+        b, s = first.shape[:2]
+        blocks, n_blocks = self.blocks(b)
+        groups = list(range(self.n_groups)) if groups is None else list(groups)
+        part = {g: {k: self._rows(v, g, blocks, n_blocks) for k, v in batch.items()}
+                for g in groups}
+        total = s if total_len is None else int(total_len)
+        if not self.split:
+            return self._gathered_prefill(params, part, total, blocks)
+        self._routing(blocks)
+        if cache is None:
+            cache = self.bundle.model.init_cache(b, total, mesh=self.mesh)
+        sps = self._splits(s, groups, only)
+        logits, cache = self.bundle.model.prefill(
+            params, [{k: v.to(sp.devices[sp.root]) for k, v in part[g].items()}
+                     for g, sp in zip(groups, sps)], sp=sps, cache=cache)
+        return self._logits(logits, groups, blocks), cache
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, token, pos: int, *, groups=None, only=None):
+        """Each group's decode of its rows of ``token`` (B,) at ``pos``: the
+        logits (B, V) on ``first`` and the cache, written in place."""
+        token = self._whole(token)
+        blocks, n_blocks = self.blocks(token.shape[0])
+        groups = list(range(self.n_groups)) if groups is None else list(groups)
+        if not self.split:
+            return self._gathered_decode(params, cache, token, int(pos), blocks, n_blocks)
+        self._routing(blocks)
+        m_last = MeshAxes(self.mesh).axis_size(MeshAxes(self.mesh).model) - 1
+        sps = self._splits(1, groups, only, rows=[0] * m_last + [1])
+        logits, cache = self.bundle.model.decode_step(
+            params, cache, [self._rows(token, g, blocks, n_blocks).to(sp.devices[sp.root])
+                            for g, sp in zip(groups, sps)], pos, sp=sps)
+        return self._logits(logits, groups, blocks), cache
+
+    # -- the gathered families: one compute device a data group -----------------
+
+    def _gathered_prefill(self, params, part: dict, total: int, blocks):
+        gathered = self._gathered
+        gathered._gather(params)
+        logits, caches = [], {}
+        for g, rows in part.items():
+            b, module = gathered._worker(gathered.group_devices[g])
+            rows = {k: v.to(b.device) for k, v in rows.items()}
+            out, c = b.prefill(module, rows)
+            s = next(iter(rows.values())).shape[1]
+            caches[g] = _pad_cache_seq(b.cfg, c, s, total)
+            logits.append(out)
+        return self._logits(logits, list(part), blocks), caches
+
+    def _gathered_decode(self, params, caches: dict, token, pos: int, blocks, n_blocks):
+        gathered = self._gathered
+        logits = []
+        for g, c in caches.items():
+            b, module = gathered._worker(gathered.group_devices[g])
+            out, caches[g] = b.decode_step(
+                module, c, self._rows(token, g, blocks, n_blocks).to(b.device), pos)
+            logits.append(out)
+        return self._logits(logits, list(caches), blocks), caches
 
 
 def teacher_forced(bundle: LMBundle, params, batch: dict, tokens) -> torch.Tensor:

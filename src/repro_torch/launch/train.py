@@ -198,40 +198,67 @@ class GroupRouting:
     each compute device's ``MoEParams`` to its name, so groups on
     different devices share a layer's counts.  ``dropped`` holds, per
     (group, layer), the count of assignments the gradient pass dropped (a
-    0-d tensor)."""
+    0-d tensor).
 
-    def __init__(self, n_groups: int, layers: dict | None = None):
+    ``lockstep`` (the serve programs, which run every group's layer l
+    before any group's layer l + 1): no counting pass; a group's offsets
+    are the counts of the row blocks before its own, taken as those route,
+    and the aux is zero (serving drops it).  ``blocks[g]``: group g's row
+    block (default g; where the batch does not split over the groups,
+    every group computes block 0, the whole batch)."""
+
+    def __init__(self, n_groups: int, layers: dict | None = None, *, lockstep: bool = False,
+                 blocks=None):
         self.n_groups = n_groups
         self.layers = layers or {}
         self.group = 0
-        self.counting = n_groups > 1  # one group: its own counts, no first pass
+        self.lockstep = lockstep
+        self.blocks = list(range(n_groups)) if blocks is None else list(blocks)
+        self.n_blocks = max(self.blocks) + 1
+        # one group: its own counts, no first pass
+        self.counting = n_groups > 1 and not lockstep
         self.counts: dict = {}  # layer -> (E,) assignments of the groups so far
+        self.block_counts: dict = {}  # lockstep: layer -> {block: (E,) assignments}
         self.offsets: list[dict] = [{} for _ in range(n_groups)]
         self.dropped: dict = {}
 
-    def route(self, key, logits: list, *, top_k: int, capacity_factor: float) -> tuple:
-        """Routing of each of ``logits`` (equal (T, E) copies of the group's
-        router logits, one a device; None where not computed) and the aux
-        term (on the first copy's device)."""
+    def route(self, key, logits: list, *, top_k: int, capacity_factor: float,
+              group: int | None = None) -> tuple:
+        """Routing of each of ``logits`` (equal (T, E) copies of group
+        ``group``'s router logits (default ``self.group``), one a device;
+        None where not computed) and the aux term (on the first copy's
+        device)."""
+        g = self.group if group is None else group
         first = next(x for x in logits if x is not None)
         t, e = first.shape
-        t_all = t * self.n_groups
+        t_all = t * (self.n_blocks if self.lockstep else self.n_groups)
         capacity = int(max(1, round(t_all * top_k / e * capacity_factor)))
-        if self.counting:
+        seen = None
+        if self.lockstep:
+            seen = self.block_counts.setdefault(key, {})
+            off = None
+            for c in range(self.blocks[g]):  # the blocks before, in ascending order
+                off = seen[c].to(first.device) if off is None else off + seen[c].to(first.device)
+        elif self.counting:
             off = self.counts.get(key)
             if off is None:
                 off = torch.zeros((e,), dtype=torch.int64, device=first.device)
-            self.offsets[self.group][key] = off
+            self.offsets[g][key] = off
         else:
-            off = self.offsets[self.group].get(key)
+            off = self.offsets[g].get(key)
         rs = [None if x is None else moe.route_logits(
             x, k=top_k, capacity=capacity, offset=None if off is None else off.to(x.device))
               for x in logits]
         r = next(x for x in rs if x is not None)
+        zero = torch.zeros((), dtype=torch.float32, device=first.device)
         if self.counting:
             self.counts[key] = off + moe.expert_counts(r.gate_idx, e)
-            return rs, torch.zeros((), dtype=torch.float32, device=first.device)
-        self.dropped[(self.group, key)] = (~r.keep).sum()
+            return rs, zero
+        self.dropped[(g, key)] = (~r.keep).sum()
+        if self.lockstep:
+            if self.n_blocks > 1:
+                seen[self.blocks[g]] = moe.expert_counts(r.gate_idx, e)
+            return rs, zero
         if self.n_groups == 1:
             return rs, moe.aux_loss(r)
         return rs, moe.aux_loss(r, self.counts[key].to(first.device).float() / (t_all * top_k))

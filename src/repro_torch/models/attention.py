@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import common
+from repro_torch.models.decode_opt import decode_partial, flash_merge_split
 
 _NO_WINDOW = 2**30
 _MASKED = -1e30
@@ -231,12 +232,12 @@ def attention_forward(
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Returns (output (B,S,d), (k, v) for cache).  ``sp`` set: the causal
     self-attention on a data group's `model` devices (``_attention_split``;
-    no cache entry)."""
+    the cache entry as two ``FULL`` values)."""
     if sp is not None:
         return _attention_split(
             sp, p, x, n_heads=n_heads, n_kv=n_kv, rope_theta=rope_theta, positions=positions,
             window=window, logit_softcap=logit_softcap, norm_eps=norm_eps,
-            flash_blk=flash_blk), None
+            flash_blk=flash_blk)
     q = _split_heads(x @ p.wq, n_heads)
     if kv_override is None:
         k = _split_heads(x @ p.wk, n_kv)
@@ -273,31 +274,40 @@ def _attention_split(sp, w, x, *, n_heads: int, n_kv: int, rope_theta, positions
     rows: each device takes its sequence chunk of q with every head (an
     all-to-all), the whole k and v (all-gathered), and the same blocks of
     keys per row as the whole attention; its rows of the output go back to
-    the columns wo's slice reads (the inverse all-to-all)."""
+    the columns wo's slice reads (the inverse all-to-all).  Returns (the
+    output, the cache entry (k, v): every device the whole k, normed and
+    rotated, and v, as ``FULL`` values)."""
     b = x.parts[sp.root].shape[0]
     x = sp.to(x, sp.FULL if w.wq.model_dim is not None or w.wk.model_dim is not None
               else sp.ROWS)
     q = sp.to(sp.mm(x, w.wq), sp.ROWS)
     k = sp.to(sp.mm(x, w.wk), sp.FULL)
-    v = sp.to(sp.mm(x, w.wv), sp.FULL)
+    v = sp.to(sp.mm(x, w.wv), sp.FULL).map(lambda t, m: _split_heads(t, n_kv))
+
+    def keys(km, m):
+        km = _split_heads(km, n_kv)
+        if w.k_norm is not None:
+            km = common.rms_norm(km, w.k_norm[m], norm_eps)
+        if rope_theta is not None:
+            km = common.apply_rope(km, positions[m][None, :], rope_theta)
+        return km
+
+    k = k.map(keys)
 
     def core(qm, m):
-        km, vm = k.parts[m], v.parts[m]
         r0 = sp.row_start[m]
-        qm, km, vm = _split_heads(qm, n_heads), _split_heads(km, n_kv), _split_heads(vm, n_kv)
+        qm = _split_heads(qm, n_heads)
         if w.q_norm is not None:
             qm = common.rms_norm(qm, w.q_norm[m], norm_eps)
-            km = common.rms_norm(km, w.k_norm[m], norm_eps)
         if rope_theta is not None:
             pos = positions[m][None, :]
             qm = common.apply_rope(qm, pos[:, r0:r0 + qm.shape[1]], rope_theta)
-            km = common.apply_rope(km, pos, rope_theta)
-        out = flash_attention(qm, km, vm, causal=True, window=window,
+        out = flash_attention(qm, k.parts[m], v.parts[m], causal=True, window=window,
                               logit_softcap=logit_softcap, blk=flash_blk, q_start=r0)
         return out.reshape(b, out.shape[1], -1)
 
     o = q.map(core)
-    return sp.to(sp.mm(o, w.wo), sp.layout)
+    return sp.to(sp.mm(o, w.wo), sp.layout), (k, v)
 
 
 def attention_decode(
@@ -315,9 +325,17 @@ def attention_decode(
     logit_softcap: float = 0.0,
     norm_eps: float = 1e-6,
     update_cache: bool = True,
+    sp=None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """One token; with ``update_cache`` its k/v are written into the caches
-    at ``pos`` in place.  Returns (output (B,1,d), (k_cache, v_cache))."""
+    at ``pos`` in place.  Returns (output (B,1,d), (k_cache, v_cache)).
+    ``sp`` set: on a data group's `model` devices (``_attention_decode_split``;
+    the caches ``split.CacheLeaf``s)."""
+    if sp is not None:
+        return _attention_decode_split(
+            sp, p, x, k_cache, v_cache, int(pos), n_heads=n_heads, n_kv=n_kv,
+            head_dim=head_dim, rope_theta=rope_theta, window=window,
+            logit_softcap=logit_softcap, norm_eps=norm_eps), (k_cache, v_cache)
     q = _split_heads(x @ p.wq, n_heads)
     at = torch.full((1, 1), pos, device=x.device)
     if update_cache:
@@ -337,3 +355,78 @@ def attention_decode(
         q, k_cache, v_cache, pos, window=window, logit_softcap=logit_softcap
     )
     return out.reshape(x.shape[0], 1, -1) @ p.wo, (k_cache, v_cache)
+
+
+def _attention_decode_split(sp, w, x, kc, vc, pos: int, *, n_heads: int, n_kv: int,
+                            head_dim: int, rope_theta, window=0, logit_softcap: float = 0.0,
+                            norm_eps: float = 1e-6):
+    """``attention_decode`` of one token on a data group's `model` devices
+    (``sp``; ``w`` the gathered ``AttnParams`` fields, ``x`` and the result
+    ``FULL``), in the layout ``cache_pspecs`` gives the caches ``kc``/``vc``
+    (``split.CacheLeaf``s):
+
+      * KV heads on `model` (M divides KV): wq, wk and wv are
+        column-parallel at head boundaries (H = KV * G), so device m
+        projects, caches and attends with its KV heads' query groups alone;
+        wo is row-parallel, its partials all-reduced in shard order;
+      * the sequence on `model`, or the cache whole on every device (``fit``
+        dropped `model`): q, k and v are all-gathered, the new k/v written
+        into the shard whose chunk holds ``pos`` (into every copy of a whole
+        cache), each device takes the partial softmax over its chunk of
+        positions (window and softcap as ``decode_attention``), and the
+        chunks are merged exactly (``decode_opt.flash_merge_split``) into
+        the columns wo's slice reads."""
+    heads = kc.dim == 2
+    if heads and not (w.wq.model_dim == w.wk.model_dim == w.wv.model_dim == 1):
+        raise ValueError("a KV-head cache split needs column-parallel wq/wk/wv")
+    x = sp.to(x, sp.FULL if w.wq.model_dim is not None or w.wk.model_dim is not None
+              else sp.ROWS)
+    q, k, v = sp.mm(x, w.wq), sp.mm(x, w.wk), sp.mm(x, w.wv)
+    hq, hk = n_heads, n_kv
+    if heads:
+        hq, hk = n_heads // sp.M, n_kv // sp.M
+    else:
+        q, k, v = (sp.to(t, sp.FULL) for t in (q, k, v))
+
+    def at(t):
+        return torch.full((1, 1), pos, device=t.device)
+
+    def store(km, m):
+        km = _split_heads(km, hk)
+        if w.k_norm is not None:
+            km = common.rms_norm(km, w.k_norm[m], norm_eps)
+        if rope_theta is not None:
+            km = common.apply_rope(km, at(km), rope_theta)
+        kc.write(m, km, pos)
+        vc.write(m, _split_heads(v.parts[m], hk), pos)
+        return km
+
+    k.map(store)
+
+    def query(qm, m):
+        qm = _split_heads(qm, hq)
+        if w.q_norm is not None:
+            qm = common.rms_norm(qm, w.q_norm[m], norm_eps)
+        if rope_theta is not None:
+            qm = common.apply_rope(qm, at(qm), rope_theta)
+        return qm
+
+    q = q.map(query)
+    b, dtype = x.parts[sp.root].shape[0], q.parts[sp.root].dtype
+    if heads:
+        o = q.map(lambda qm, m: decode_attention(
+            qm, kc.local(m), vc.local(m), pos, window=window,
+            logit_softcap=logit_softcap).reshape(b, 1, -1))
+        return sp.to(sp.mm(o, w.wo), sp.layout)
+
+    d = head_dim
+    parts = q.map(lambda qm, m: decode_partial(
+        (_gqa_expand(qm, n_kv)[:, 0] * (d ** -0.5)).float(), kc.local(m), vc.local(m), pos,
+        start=kc.start[m], window=window, logit_softcap=logit_softcap))
+    num, den = flash_merge_split(sp, parts)
+    kind = sp.input_kind(w.wo)
+    num = sp.to(num.map(lambda t, m: t.reshape(b, 1, n_heads * d)), kind)
+    den = sp.to(den.map(lambda t, m: t.reshape(b, 1, n_heads).repeat_interleave(d, dim=-1)),
+                kind)
+    o = num.zip(den, lambda a, c, m: (a / torch.clamp(c, min=1e-30)).to(dtype))
+    return sp.to(sp.mm(o, w.wo), sp.layout)

@@ -261,7 +261,7 @@ def _moe_split(sp, w, x, *, key, top_k: int, capacity_factor: float = 1.25,
     b = xf.parts[sp.root].shape[0]
     rs, aux = sp.routing.route(key, [None if t is None else t.reshape(b * s, e)
                                      for t in logits.parts],
-                               top_k=top_k, capacity_factor=capacity_factor)
+                               top_k=top_k, capacity_factor=capacity_factor, group=sp.group)
     split = w.w_gate.model_dim is not None
 
     def part(t, m):

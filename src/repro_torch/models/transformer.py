@@ -36,6 +36,8 @@ from repro_torch.models.attention import AttnParams, attention_decode, attention
 from repro_torch.models.ffn import FFNParams, ffn_forward
 from repro_torch.models.mla import MLAParams, mla_decode, mla_forward
 from repro_torch.models.moe import MoEParams, moe_forward
+from repro_torch.sharding.partition import MeshAxes, cache_pspecs
+from repro_torch.sharding.placement import Sharded
 
 # MoE capacity factor at decode: tiny T, generous capacity (as the reference)
 DECODE_CAPACITY_FACTOR = 4.0
@@ -200,8 +202,9 @@ def _block_forward(
     ``sp`` set (a ``repro_torch.sharding.split.Split``): the block on a data
     group's `model` devices, ``prm`` the layer's gathered weights, ``x`` and
     the result in ``sp.layout``, ``positions`` one (S,) a device, ``key``
-    the layer's name for the MoE routing; no cache entry, the aux on
-    ``sp.root``'s device."""
+    the layer's name for the MoE routing; the cache entry as split values
+    (each device's part of the cache is kept by ``split.CacheLeaf.fill``),
+    the aux on ``sp.root``'s device."""
     eps = cfg.norm_eps
     h = _rms(x, prm.ln1, eps, sp)
     if cfg.use_mla:
@@ -235,36 +238,39 @@ def _block_forward(
     return x + f, kv, aux
 
 
-def _block_decode(cfg: ModelConfig, kind: str, x, prm: BlockParams, cache, window: int,
-                  theta: float, pos: int):
+def _block_decode(cfg: ModelConfig, kind: str, x, prm, cache, window: int,
+                  theta: float, pos: int, sp=None, key=None):
     """Single-token block.  cache: this layer's (k, v) or (ckv, k_rope)
-    views, written in place."""
-    h = common.rms_norm(x, prm.ln1, cfg.norm_eps)
+    views, written in place.  ``sp`` set: on a data group's `model`
+    devices as ``_block_forward``'s, ``x`` and the result ``FULL``, the
+    cache two ``split.CacheLeaf``s."""
+    eps = cfg.norm_eps
+    h = _rms(x, prm.ln1, eps, sp)
     if cfg.use_mla:
-        h, cache = mla_decode(prm.attn, h, cache[0], cache[1], pos, cfg)
+        h, cache = mla_decode(prm.attn, h, cache[0], cache[1], pos, cfg, sp=sp)
     else:
         h, cache = attention_decode(
             prm.attn, h, cache[0], cache[1], pos,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
             rope_theta=theta, window=window,
-            logit_softcap=cfg.attn_logit_softcap, norm_eps=cfg.norm_eps,
+            logit_softcap=cfg.attn_logit_softcap, norm_eps=eps, sp=sp,
         )
-    if "post_ln1" in prm.FIELDS:
-        h = common.rms_norm(h, prm.post_ln1, cfg.norm_eps)
+    if getattr(prm, "post_ln1", None) is not None:
+        h = _rms(h, prm.post_ln1, eps, sp)
     x = x + h
 
-    f_in = common.rms_norm(x, prm.ln2, cfg.norm_eps)
+    f_in = _rms(x, prm.ln2, eps, sp)
     if kind == "moe":
         f, _ = moe_forward(
             prm.ffn, f_in, top_k=cfg.moe_top_k,
-            capacity_factor=DECODE_CAPACITY_FACTOR, act=cfg.act,
+            capacity_factor=DECODE_CAPACITY_FACTOR, act=cfg.act, sp=sp, key=key,
         )
         if cfg.moe_dense_residual:
-            f = f + ffn_forward(prm.dense_ffn, f_in, cfg.act)
+            f = f + ffn_forward(prm.dense_ffn, f_in, cfg.act, sp)
     else:
-        f = ffn_forward(prm.ffn, f_in, cfg.act)
-    if "post_ln2" in prm.FIELDS:
-        f = common.rms_norm(f, prm.post_ln2, cfg.norm_eps)
+        f = ffn_forward(prm.ffn, f_in, cfg.act, sp)
+    if getattr(prm, "post_ln2", None) is not None:
+        f = _rms(f, prm.post_ln2, eps, sp)
     return x + f, cache
 
 
@@ -380,8 +386,8 @@ class TransformerLM:
             positions = torch.arange(x.shape[1], device=x.device)
             hidden, _, aux = self.hidden_states(params, x, positions)
         else:
-            positions = sp.parts(lambda m: torch.arange(sp.seq_len, device=sp.devices[m]))
-            hidden, aux = self._split_hidden(sp, params, x, positions)
+            positions = self._split_positions(sp)
+            (hidden,), (aux,) = self._split_hidden([sp], params, [x], [positions])
         loss = self._ce(params, hidden, labels, sp=sp)
         metrics = {"ce": loss, "aux": aux}
         if cfg.is_moe:
@@ -432,36 +438,87 @@ class TransformerLM:
 
     # -- the split program's own parts (a mesh step over `model`) -------------
 
-    def _split_hidden(self, sp, tree, x, positions: list):
-        """``hidden_states`` in the split program: (the final-normed hidden
-        in ``sp.layout``, the aux sum on ``sp.root``'s device).  Each layer's
-        weights are gathered inside its body, so ``common.remat`` gathers
-        them again in the backward."""
+    @staticmethod
+    def _split_positions(sp) -> list:
+        return sp.parts(lambda m: torch.arange(sp.seq_len, device=sp.devices[m]))
+
+    def _split_layers(self, sps: list, tree, xs: list, block) -> tuple[list, list]:
+        """Every layer on the data groups of ``sps`` in lockstep (each layer
+        on every group before the next layer, so an MoE layer's ``lockstep``
+        routing sees the groups before it), then the final norm: (each
+        group's hidden, its aux sum on its root's device).  ``block(g, sp,
+        kind, x, layer, key, window, theta)`` runs one layer of group g
+        (``layer`` its placed leaves, gathered inside, ``key`` (segment,
+        layer)) and returns (x, aux or None)."""
         cfg = self.cfg
-        aux_total = torch.zeros((), dtype=torch.float32, device=sp.devices[sp.root])
-        active = [m for m in range(sp.M) if x.parts[m] is not None]
+        xs = list(xs)
+        auxes = [torch.zeros((), dtype=torch.float32, device=sp.devices[sp.root]) for sp in sps]
         for si, (kind, n, off) in enumerate(self.segments):
             windows, thetas = layer_meta(cfg, n, off)
             seg = tree[f"seg{si}"]
             for i in range(n):
-                def body(*parts, layer=sp.layer(seg, i), key=(si, i), window=int(windows[i]),
-                         theta=float(thetas[i]), kind=kind):
-                    w = sp.weights(layer, f"seg{key[0]}[{key[1]}]")
-                    xs = [None] * sp.M
-                    for m, t in zip(active, parts):
-                        xs[m] = t
-                    y, _, aux = _block_forward(cfg, kind, sp.dist(sp.layout, xs), w, window,
-                                               theta, positions, self.flash_blk, sp, key)
-                    return (*[y.parts[m] for m in active], aux)
+                for g, sp in enumerate(sps):
+                    xs[g], aux = block(g, sp, kind, xs[g], sp.layer(seg, i), (si, i),
+                                       int(windows[i]), float(thetas[i]))
+                    if aux is not None:
+                        auxes[g] = auxes[g] + aux
+        hs = []
+        for g, sp in enumerate(sps):
+            w = sp.weights({"final_norm": tree["final_norm"]}, "final_norm").final_norm
+            hs.append(_rms(xs[g], w, cfg.norm_eps, sp))
+        return hs, auxes
 
-                out = common.remat(cfg, body, *[x.parts[m] for m in active])
-                xs = [None] * sp.M
-                for m, t in zip(active, out[:-1]):
-                    xs[m] = t
-                x = sp.dist(sp.layout, xs)
-                aux_total = aux_total + out[-1]
-        w = sp.weights({"final_norm": tree["final_norm"]}, "final_norm").final_norm
-        return _rms(x, w, cfg.norm_eps, sp), aux_total
+    def _split_hidden(self, sps: list, tree, xs: list, positions: list, on_kv=None):
+        """``hidden_states`` in the split program (``_split_layers``; the
+        final-normed hidden in each group's ``layout``).  Each layer's
+        weights are gathered inside its body, so ``common.remat`` gathers
+        them again in the backward.  ``on_kv(g, segment, layer, kv)``:
+        group g's cache entry of each layer (prefill)."""
+        cfg = self.cfg
+
+        def block(g, sp, kind, x, layer, key, window, theta):
+            active = [m for m in range(sp.M) if x.parts[m] is not None]
+
+            def body(*parts):
+                w = sp.weights(layer, f"seg{key[0]}[{key[1]}]")
+                x = [None] * sp.M
+                for m, t in zip(active, parts):
+                    x[m] = t
+                y, kv, aux = _block_forward(cfg, kind, sp.dist(sp.layout, x), w, window, theta,
+                                            positions[g], self.flash_blk, sp, key)
+                if on_kv is not None:
+                    on_kv(g, key[0], key[1], kv)
+                return (*[y.parts[m] for m in active], aux)
+
+            out = common.remat(cfg, body, *[x.parts[m] for m in active])
+            y = [None] * sp.M
+            for m, t in zip(active, out[:-1]):
+                y[m] = t
+            return sp.dist(sp.layout, y), out[-1]
+
+        return self._split_layers(sps, tree, xs, block)
+
+    def _split_head(self, sp, tree):
+        """The head's gathered weight (d, V): vocab-parallel where the specs
+        split V (tied: the embedding's rows)."""
+        if self.cfg.tie_embeddings:
+            return sp.weights({"embed": tree["embed"]}, "head").embed.T
+        return sp.weights({"lm_head": tree["lm_head"]}, "head").lm_head
+
+    def _split_logits(self, sp, tree, h) -> torch.Tensor:
+        """One token's logits (B, V) float32 on ``sp.root`` from its final
+        hidden ``h`` (B, 1, d) ``FULL``: each device its vocab columns,
+        gathered to the root."""
+        out = sp.mm(h, self._split_head(sp, tree)).map(lambda t, m: t.float())
+        return sp.to_root(out)[:, 0]
+
+    def _split_last(self, sp, h):
+        """The last position's row (B, 1, d) of a hidden in ``sp.layout``,
+        ``FULL``: in ``ROWS`` it is the last device's, all-gathered."""
+        if h.kind == sp.FULL or sp.M == 1:
+            return sp.dist(sp.FULL, h.map(lambda t, m: t[:, -1:]).parts)
+        last = h.map(lambda t, m: t[:, -1:] if m == sp.M - 1 else t[:, :0])
+        return sp.to(sp.dist(sp.ROWS, last.parts), sp.FULL, sizes=[0] * (sp.M - 1) + [1])
 
     def _split_ce(self, sp, tree, hidden, labels: list, mask: torch.Tensor | None = None):
         """``_chunked_ce`` with vocab-parallel logits: device m holds its
@@ -469,10 +526,7 @@ class TransformerLM:
         log-sum-exp and gold logit are reduced over `model` on ``sp.root`` in
         shard order, so no device holds a (B, chunk, V) block.  ``mask``
         (B, S) on ``sp.root``'s device."""
-        if self.cfg.tie_embeddings:
-            head = sp.weights({"embed": tree["embed"]}, "head").embed.T
-        else:
-            head = sp.weights({"lm_head": tree["lm_head"]}, "head").lm_head
+        head = self._split_head(sp, tree)
         root = sp.devices[sp.root]
         tot = torch.zeros((), dtype=torch.float32, device=root)
         cnt = torch.zeros((), dtype=torch.float32, device=root)
@@ -517,10 +571,19 @@ class TransformerLM:
     # -- serving --------------------------------------------------------------
 
     @torch.no_grad()
-    def prefill(self, params: TransformerParams, batch: dict):
+    def prefill(self, params: TransformerParams, batch: dict, sp=None, cache=None):
         """batch: {'tokens' (B, S)} or, for embeddings-input configs,
         {'embeds' (B, S, d)}.  Returns (last-token logits (B, V) float32,
-        cache)."""
+        cache).
+
+        ``sp`` set (a list of ``repro_torch.sharding.split.Split``s, one a
+        data group, run in lockstep): the split program's prefill,
+        ``params`` the placed parameters, ``batch`` a list of the groups'
+        rows, ``cache`` the mesh's cache (``init_cache(mesh=)``), into which
+        each device writes its part of its group's entries.  Returns (each
+        group's logits on its root's device, the cache)."""
+        if sp is not None:
+            return self._split_prefill(sp, params, batch, cache)
         cfg = self.cfg
         x = (
             batch["embeds"] if cfg.embeddings_input
@@ -531,8 +594,18 @@ class TransformerLM:
         logits = hidden[:, -1, :] @ self._head(params)
         return logits.float(), caches
 
-    def init_cache(self, batch: int, seq: int, device=None):
+    def init_cache(self, batch: int, seq: int, device=None, mesh=None):
+        """Zeros of the cache of ``batch`` rows and ``seq`` positions.
+        ``mesh`` set: each device's shard of it allocated where it lives,
+        ``Sharded`` leaves in ``cache_pspecs``'s layout (``seq`` the final
+        length, prompt and new tokens: the sequence's chunks never move)."""
         cfg = self.cfg
+        if mesh is not None:
+            shape = self.init_cache(batch, seq, device="meta")
+            specs = cache_pspecs(shape, cfg, MeshAxes(mesh))
+            return [tuple(Sharded.zeros(mesh, spec, tuple(t.shape), t.dtype)
+                          for t, spec in zip(seg, seg_specs))
+                    for seg, seg_specs in zip(shape, specs)]
         dtype = common.dtype_of(cfg.dtype)
         device = self.device if device is None else device
         caches = []
@@ -549,10 +622,14 @@ class TransformerLM:
         return caches
 
     @torch.no_grad()
-    def decode_step(self, params: TransformerParams, cache, token: torch.Tensor, pos: int):
+    def decode_step(self, params: TransformerParams, cache, token: torch.Tensor, pos: int,
+                    sp=None):
         """token: (B,) int (or (B, 1, d) embeds); pos: the position written.
         Returns (logits (B, V) float32, cache) — the same cache tensors,
-        updated in place."""
+        updated in place.  ``sp`` set: the split program's step, as
+        ``prefill``'s (``token`` a list of the groups' rows)."""
+        if sp is not None:
+            return self._split_decode(sp, params, cache, token, int(pos))
         cfg = self.cfg
         if cfg.embeddings_input and token.ndim == 3:
             x = token
@@ -569,6 +646,47 @@ class TransformerLM:
         x = common.rms_norm(x, params.final_norm, cfg.norm_eps)
         logits = x[:, 0, :] @ self._head(params)
         return logits.float(), cache
+
+    # -- the split program's serve steps ---------------------------------------
+
+    def _split_prefill(self, sps: list, tree, batches: list, cache):
+        cfg = self.cfg
+        xs = []
+        for sp, batch in zip(sps, batches):
+            if cfg.embeddings_input:
+                xs.append(sp.from_whole(batch["embeds"]))
+            else:
+                xs.append(self.embed_tokens(tree, sp.whole(batch["tokens"]), sp))
+
+        def keep(g, si, i, kv):
+            sp = sps[g]
+            for sh, val in zip(cache[si], kv):
+                leaf, val = sp.cache_leaf(sh, i), sp.to(val, sp.FULL)
+                for m in sp.active:
+                    leaf.fill(m, val.parts[m])
+
+        hs, _ = self._split_hidden(sps, tree, xs, [self._split_positions(sp) for sp in sps],
+                                   on_kv=keep)
+        return [self._split_logits(sp, tree, self._split_last(sp, h))
+                for sp, h in zip(sps, hs)], cache
+
+    def _split_decode(self, sps: list, tree, cache, tokens: list, pos: int):
+        cfg = self.cfg
+        xs = []
+        for sp, tok in zip(sps, tokens):
+            if cfg.embeddings_input and tok.ndim == 3:
+                xs.append(sp.dist(sp.FULL, sp.whole(tok)))
+            else:
+                xs.append(self.embed_tokens(tree, _each(lambda t: t[:, None], sp.whole(tok), sp),
+                                            sp))
+
+        def block(g, sp, kind, x, layer, key, window, theta):
+            w = sp.weights(layer, f"seg{key[0]}[{key[1]}]")
+            c = tuple(sp.cache_leaf(sh, key[1]) for sh in cache[key[0]])
+            return _block_decode(cfg, kind, x, w, c, window, theta, pos, sp, key)[0], None
+
+        hs, _ = self._split_layers(sps, tree, xs, block)
+        return [self._split_logits(sp, tree, h) for sp, h in zip(sps, hs)], cache
 
 
 _CE_CHUNK = 512  # the cross entropy's logits block along the sequence

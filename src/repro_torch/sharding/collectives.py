@@ -165,12 +165,13 @@ class _AllGather(Function):
         ctx.shape = tuple(shape)
         outs = []
         for m in plan.computed:
-            out = torch.empty(ctx.shape, dtype=parts[0].dtype, device=plan.devices[m])
-            for j, (p, o) in enumerate(zip(parts, _offsets(ctx.sizes))):
-                out.narrow(dim, o, ctx.sizes[j]).copy_(p)
+            dev = plan.devices[m]
+            # one concatenation an output (a new tensor: parts already on its
+            # device, logical shards of one card, are read in place)
+            outs.append(torch.cat([p if p.device == dev else p.to(dev) for p in parts], dim))
+            for j, p in enumerate(parts):
                 if plan.keys[j] != plan.keys[m]:
                     record(plan.keys[m], plan.kind or "all-gather", p)
-            outs.append(out)
         return tuple(outs)
 
     @staticmethod
@@ -206,8 +207,9 @@ class _ReduceScatter(Function):
                 piece = p.narrow(dim, offs[m], sizes[m])
                 if plan.keys[j] != plan.keys[m]:
                     record(plan.keys[m], plan.kind or "reduce-scatter", piece)
-                total = _copy(piece, dev) if total is None else total + piece.to(dev)
-            outs.append(total)
+                total = piece.to(dev) if total is None else total + piece.to(dev)
+            # the first sum makes the output its own tensor; one part is copied
+            outs.append(_copy(total, dev) if len(parts) == 1 else total)
         return tuple(outs)
 
     @staticmethod

@@ -108,6 +108,17 @@ class Sharded:
                 shards[idx] = t.copy_(part)
         return out
 
+    @classmethod
+    def zeros(cls, mesh, spec: P, shape: tuple, dtype: torch.dtype) -> "Sharded":
+        """Zeros of ``shape`` split onto ``mesh``: each device's shard
+        allocated on it (no whole tensor anywhere)."""
+        shards = np.empty(mesh.devices.shape, dtype=object)
+        out = cls(mesh, spec, tuple(shape), dtype, shards)
+        local = out.local_shape()
+        for idx in np.ndindex(shards.shape):
+            shards[idx] = torch.zeros(local, dtype=dtype, device=mesh.devices[idx])
+        return out
+
     def new_zeros(self, shape=None, *, dtype: torch.dtype | None = None, **_kw) -> "Sharded":
         """Zeros of ``dtype`` with this tensor's spec (``shape`` must be its own)."""
         if shape is not None and torch.Size(shape) != self.shape:

@@ -245,18 +245,67 @@ class GradSink:
         self.inputs = []
 
 
+class CacheLeaf:
+    """One layer's entry of a ``Sharded`` cache leaf (L, B, S, ...) on a
+    data group's devices, as ``cache_pspecs`` lays it out.  ``views[m]``:
+    device m's (B, S_m, ...) view of its shard's entry (None where not
+    computed); ``dim``: the view's dim the spec puts on `model` (1 the
+    sequence, 2 the KV heads, None: whole on every device).  Attention over
+    a sequence split, or over a whole cache, is chunked: device m reads the
+    positions ``start[m]`` .. ``start[m] + size[m] - 1`` (``tensor_split``'s
+    chunks of S, which are the shards' where the spec splits S)."""
+
+    def __init__(self, sp: "Split", sh, layer: int):
+        md, _ = leaf_axes(sh.spec, sp.axes)
+        self.dim = None if md is None else md - 1
+        self.size = col.chunk_sizes(sh.shape[2], sp.M)
+        self.start = [sum(self.size[:m]) for m in range(sp.M)]
+        self.views = sp.parts(lambda m: sh.shards[sp.pos[m]][layer])
+
+    def local(self, m: int) -> torch.Tensor:
+        """The positions device m attends over (its chunk, or its heads)."""
+        v = self.views[m]
+        return v.narrow(1, self.start[m], self.size[m]) if self.dim is None else v
+
+    def write(self, m: int, new: torch.Tensor, pos: int) -> None:
+        """One position's entry ``new`` (B, 1, ...) at ``pos``: into the
+        shard whose chunk holds it (sequence), into every device's copy
+        (whole), or into the device's own heads (``new`` those heads)."""
+        v, at = self.views[m], pos
+        if self.dim == 1:
+            at = pos - self.start[m]
+            if not 0 <= at < self.size[m]:
+                return
+        v[:, at:at + 1] = new.to(v.dtype)
+
+    def fill(self, m: int, full: torch.Tensor) -> None:
+        """A prompt's entries ``full`` (B, S_p, ...), whole on device m,
+        into positions 0 .. S_p - 1 of its part."""
+        v, n = self.views[m], full.shape[1]
+        if self.dim == 1:
+            k = min(self.size[m], n - self.start[m])
+            if k > 0:
+                v[:, :k] = full[:, self.start[m]:self.start[m] + k].to(v.dtype)
+        elif self.dim == 2:
+            v[:, :n] = full.narrow(2, m * v.shape[2], v.shape[2]).to(v.dtype)
+        else:
+            v[:, :n] = full.to(v.dtype)
+
+
 class Split:
     """Data group ``group``'s devices on ``mesh`` for a sequence of
     ``seq_len``.  ``active``: the model indices this process computes
     (None: all; the dry run traces the last alone); ``root``, the first
-    of them, receives the loss.  ``sink``: where the aliases'
+    of them, receives the loss.  ``rows``: each device's length of the
+    sequence in ``ROWS`` (default ``tensor_split``'s chunks; a decode step
+    puts its one token on the last device).  ``sink``: where the aliases'
     gradients go (None: no gradients).  ``routing``: the MoE layers'
     router state (``launch.train.GroupRouting``)."""
 
     FULL, ROWS, COLS, PARTIAL = FULL, ROWS, COLS, PARTIAL
 
     def __init__(self, mesh, group: int, seq_len: int, *, sink: GradSink | None = None,
-                 routing=None, active=None):
+                 routing=None, active=None, rows=None):
         axes = MeshAxes(mesh)
         self.mesh, self.axes, self.group = mesh, axes, group
         self.sink, self.routing = sink, routing
@@ -269,7 +318,7 @@ class Split:
         self.pos = [self.position(group, m) for m in range(self.M)]
         self.devices = [mesh.devices[p] for p in self.pos]
         self.seq_len = seq_len
-        self.rows = col.chunk_sizes(seq_len, self.M)
+        self.rows = col.chunk_sizes(seq_len, self.M) if rows is None else list(rows)
         self.row_start = [sum(self.rows[:m]) for m in range(self.M)]
         self.layout = ROWS if self.M == 1 or (seq_len > 1 and seq_len % self.M == 0) else FULL
         self.unit = ""
@@ -286,6 +335,10 @@ class Split:
         return Dist(kind, parts)
 
     layer = staticmethod(layer_of)
+
+    def cache_leaf(self, sh, layer: int) -> CacheLeaf:
+        """Layer ``layer``'s entry of the cache leaf ``sh`` on this group."""
+        return CacheLeaf(self, sh, layer)
 
     def parts(self, fn) -> list:
         """``fn(m)`` at every computed model index, None elsewhere."""
@@ -307,14 +360,15 @@ class Split:
     def _kw(self, **kw) -> dict:
         return dict(keys=self.pos, active=self.active, **kw)
 
-    def to(self, d: Dist, kind: str) -> Dist:
-        """``d`` as ``kind`` (see the module docstring)."""
+    def to(self, d: Dist, kind: str, sizes=None) -> Dist:
+        """``d`` as ``kind`` (see the module docstring); ``sizes``: each
+        device's rows where they are not ``rows``."""
         src = d.kind
         if src == kind:
             return d
         if self.M == 1:
             return Dist(kind, d.parts)
-        rows = self.rows
+        rows = self.rows if sizes is None else list(sizes)
         if (src, kind) == (ROWS, FULL):
             return Dist(FULL, col.all_gather(d.parts, 1, sizes=rows, **self._kw()))
         if (src, kind) == (COLS, FULL):
@@ -334,6 +388,12 @@ class Split:
         if (src, kind) == (PARTIAL, COLS):
             return Dist(COLS, col.reduce_scatter(d.parts, -1, **self._kw()))
         raise ValueError(f"no conversion from {src} to {kind}")
+
+    def stack(self, d: Dist) -> Dist:
+        """Every device's part (equal shapes) stacked on a new leading dim,
+        on every device (an all-gather)."""
+        parts = [None if p is None else p[None] for p in d.parts]
+        return Dist(FULL, col.all_gather(parts, 0, **self._kw()))
 
     def whole_cols(self, d: Dist) -> Dist:
         """``d`` with every device holding whole feature rows: ``COLS`` and
@@ -363,6 +423,17 @@ class Split:
         """The parts summed on ``root`` in ascending order."""
         return self._to_root(lambda: col.all_reduce(d.parts, outs=[self.root], **self._kw()),
                              d, "all-reduce")
+
+    def to_root(self, d: Dist) -> torch.Tensor:
+        """The whole value of ``d`` on ``root`` (the parts concatenated, or
+        summed in ascending order)."""
+        if d.kind == FULL or self.M == 1:
+            return d.parts[self.root]
+        if d.kind == PARTIAL:
+            return self.sum_to_root(d)
+        dim, sizes = (-1, None) if d.kind == COLS else (1, self.rows)
+        return self._to_root(lambda: col.all_gather(d.parts, dim, sizes=sizes, outs=[self.root],
+                                                    **self._kw()), d, "reduce-scatter")
 
     def _to_root(self, reduce, d: Dist, kind: str) -> torch.Tensor:
         """``reduce()``'s output on ``root``.  Where a solo trace's root is

@@ -325,10 +325,17 @@ def test_smoke_grid_runs_every_cell(arch, monkeypatch, tmp_path):
             assert res["roofline"]["bound_s"] == max(
                 res["roofline"][k] for k in ("compute_s", "memory_s", "collective_s"))
             kinds = {"all-gather"}
+            split = cfg.family in ttrain.SPLIT_FAMILIES
             if shape == "train_4k":  # the split program's own collectives besides
                 kinds |= ({"reduce-scatter", "all-reduce", "all-to-all"}
-                          if cfg.family in ttrain.SPLIT_FAMILIES else {"reduce-scatter"})
+                          if split else {"reduce-scatter"})
+            elif split and shape == "prefill_32k":  # MLA's v all-reduced
+                kinds |= {"reduce-scatter", "all-to-all"} | ({"all-reduce"} if cfg.use_mla
+                                                              else set())
+            elif split:  # the decode merge's and the row-parallel sums
+                kinds |= {"reduce-scatter", "all-reduce"}
             assert set(res["counted"]["collective_breakdown"]) == kinds
+            assert (res["n_compute_devices"] == res["n_devices"]) == split
 
 
 def test_long_500k_is_skipped_on_a_full_attention_arch(tmp_path):
@@ -406,21 +413,27 @@ def test_moe_smoke_configs_trace_loss_and_backward_on_meta(arch):
 
 
 def test_shardmap_env_selects_the_all_to_all_moe(monkeypatch):
-    """REPRO_MOE_IMPL=shardmap traces the MoE layers through
-    ``make_shardmap_moe`` over one group's `model` devices (the same
-    expert products here, as no token drops, in more ops); the hooks are
-    restored after the trace."""
+    """REPRO_MOE_IMPL=shardmap traces a transformer prefill cell on the
+    gathered forward (without it: the split program), its MoE layers
+    through ``make_shardmap_moe`` over one group's `model` devices (the
+    same expert products as the plain gathered forward here, as no token
+    drops, in more ops); the hooks are restored after the trace."""
     _, cfg = smoke_pair("deepseek-v3-671b")
     cell = ShapeCell("prefill", 64, 4, "prefill")
     mesh = make_host_mesh(2, 2, devices=["cpu"] * 4)
-    plain, _ = dryrun.reckon_lm(cfg, cell, mesh)
+    _, split = dryrun.reckon_lm(cfg, cell, mesh)
+    assert split["n_compute"] == 4  # without it, the split program
+    bundle = tbuild(cfg, 1024, device="meta")  # the gathered forward of a group's rows
+    with torch.inference_mode():
+        _, plain = count(bundle.prefill, bundle.model.empty_params(device=META),
+                         bundle.input_specs(ShapeCell("prefill", 64, 2, "prefill")))
     calls = []
     real = tmoe_shardmap.ShardMapMoE.__call__
     monkeypatch.setattr(tmoe_shardmap.ShardMapMoE, "__call__",
                         lambda self, *a, **kw: calls.append(self.n_model) or real(self, *a, **kw))
     monkeypatch.setenv("REPRO_MOE_IMPL", "shardmap")
-    cost, _ = dryrun.reckon_lm(cfg, cell, mesh)
-    assert calls and set(calls) == {2}
+    cost, r = dryrun.reckon_lm(cfg, cell, mesh)
+    assert calls and set(calls) == {2} and r["n_compute"] == 2
     assert cost.dot_flops == plain.dot_flops and cost.n_ops > plain.n_ops
     assert tmoe._HOOKS["impl"] is None
 

@@ -9,8 +9,9 @@ and ``collectives``), no XLA flag:
   * a recording of every FSDP gather: each at most one leaf's model
     slice, and at most one unit's gathered blocks alive at once;
   * the split program's dot FLOPs (a group's M devices, traced on meta)
-    equal the gathered program's, exactly; the device the dry run traces,
-    the group's last, computes the most.
+    equal the gathered program's, exactly, for the train step and for the
+    serve steps (prefill and decode, ``launch.serve.MeshServe``); the
+    device the dry run traces, the group's last, computes the most.
 
 The step against one device and the JAX package: test_torch_mesh_split.py.
 """
@@ -26,9 +27,11 @@ from _torch_lm_train import weights
 from repro_torch.config import ShapeCell
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.launch import dryrun
+from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.mesh import Mesh, make_host_mesh
 from repro_torch.launch.op_count import OpCounter
+from repro_torch.models import moe as tmoe
 from repro_torch.models.common import leaf_tensors, tree_leaves
 from repro_torch.models.registry import build_model as tbuild
 from repro_torch.optim import adamw as tadamw
@@ -289,3 +292,83 @@ def test_the_last_model_device_is_the_fullest(name, remat):
             step.split_grads(batch, acc, params, groups=[0], only=m)
         flops.append(c.cost().dot_flops)
     assert flops[-1] == max(flops) > flops[0], flops
+
+
+# -- the split serve program -----------------------------------------------------------------
+
+
+def _serve_flops(cfg, shape, kind: str, seq: int, split: bool, only=None) -> float:
+    """The dot FLOPs of group 0's prefill of 2 rows x ``seq``, or of its
+    decode step at the last of ``seq`` positions, on a meta mesh of
+    ``shape``: its M devices in the split program (``only``: that one), or
+    its device in the gathered program (whole parameters, an MoE layer
+    routed with the whole batch's capacity, ``GroupRouting``)."""
+    mesh = Mesh(np.full(shape, META, dtype=object), ("data", "model"))
+    axes = tpart.MeshAxes(mesh)
+    bundle = tbuild(cfg, flash_blk=32, device="meta")
+    b = 2 * shape[0]
+    token = torch.empty((b,), dtype=torch.int32, device=META)
+    if split:
+        tree = bundle.params_shape().jax_layout()
+        params = dryrun._meta_placed(mesh, tree, tpart.param_pspecs(tree, cfg, axes))
+        cshape = bundle.cache_shape(b, seq)
+        cache = dryrun._meta_cache(mesh, cshape, tpart.cache_pspecs(cshape, cfg, axes))
+        serve = tserve.MeshServe(bundle, mesh)
+        with OpCounter() as c:
+            if kind == "prefill":
+                serve.prefill(params, bundle.input_specs(ShapeCell(kind, seq, b, kind)),
+                              groups=[0], only=only, cache=cache)
+            else:
+                serve.decode_step(params, cache, token, seq - 1, groups=[0], only=only)
+        return c.cost().dot_flops
+    whole = bundle.model.empty_params(device=META)
+    routing = ttrain.GroupRouting(shape[0], {id(m): name for name, m in whole.named_modules()
+                                             if isinstance(m, tmoe.MoEParams)}, lockstep=True)
+    tmoe.set_impl(routing if cfg.is_moe else None)
+    try:
+        with OpCounter() as c, torch.no_grad():
+            if kind == "prefill":
+                bundle.prefill(whole, bundle.input_specs(ShapeCell(kind, seq, 2, kind)))
+            else:
+                bundle.decode_step(whole, bundle.cache_shape(2, seq), token[:2], seq - 1)
+    finally:
+        tmoe.set_impl(None)
+    return c.cost().dot_flops
+
+
+SERVE_CASES = ([(n, k, (2, 4), 64) for n in sorted(CONFIGS) for k in ("prefill", "decode")]
+               + [(n, k, (1, 8), 60) for n in ("deepseek-v3-671b", "gemma3-1b", "llama3.2-3b")
+                  for k in ("prefill", "decode")])
+
+
+@pytest.mark.parametrize("name,kind,shape,seq", SERVE_CASES,
+                         ids=[f"{n}-{k}-{s[0]}x{s[1]}-S{q}" for n, k, s, q in SERVE_CASES])
+def test_split_serve_dot_flops_sum_to_the_gathered_programs(name, kind, shape, seq):
+    """Traced on meta, each smoke config as it is: the split serve step's
+    dot FLOPs over a group's M devices equal its group's in the gathered
+    program, exactly, for prefill (flash blocks of 32) and decode (the KV
+    cache on heads or sequence chunks at S 64 on (2, 4); at S 60 on
+    (1, 8) whole on every device, its chunks uneven, and heads cut by the
+    model slices): no product is computed twice (a replicated q, cache or
+    router would count M times)."""
+    _, cfg = smoke_pair(name)
+    got = _serve_flops(cfg, shape, kind, seq, split=True)
+    assert got == _serve_flops(cfg, shape, kind, seq, split=False) > 0
+
+
+FULLEST_SERVE = [(n, k) for n in ("deepseek-v3-671b", "gemma3-1b", "llama3.2-3b")
+                 for k in ("prefill", "decode")]
+
+
+@pytest.mark.parametrize("name,kind", FULLEST_SERVE, ids=[f"{n}-{k}" for n, k in FULLEST_SERVE])
+def test_the_last_model_device_is_the_fullest_in_serving(name, kind):
+    """Each of a group's M devices traced alone on meta (``only=m``) on
+    (2, 4), S 64: the last computes the most dot FLOPs, in prefill (the
+    sequence's last chunk: the most causal work) and in decode (the
+    token's row, where a weight `fit` leaves whole is multiplied, and the
+    chunk that holds ``pos``)."""
+    _, cfg = smoke_pair(name)
+    flops = [_serve_flops(cfg, (2, 4), kind, 64, split=True, only=m) for m in range(4)]
+    assert flops[-1] == max(flops) > 0, flops
+    if kind == "prefill":
+        assert flops[-1] > flops[0], flops
