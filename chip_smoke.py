@@ -176,18 +176,22 @@ Phases, one line (or block) each:
      ``train()`` at ``_scaled(llama3.2-3b, 0.05)`` crashed after step 6 and
      resumed from its step-4 checkpoint, equal to an uninterrupted run;
  13. the LM mesh (no kernel of its own: the same torch ops plus device
-     copies), on logical shards of the card: llama3.2-3b at full width and
-     depth as phase 12 trains it, ``place_params`` onto a (4, 2) mesh
+     copies), on logical shards of the card: llama3.2-3b at full width cut
+     to 8 layers, as phase 12 trains it otherwise, ``place_params`` onto a
+     (4, 2) mesh
      (the bytes each shard holds == the specs' reckoning) and 3 steps of
-     ``make_train_step(mesh=)``, the split program (ms a step beside
-     phase 12's, the optimizer's 8 shard updates, the card's busy share
+     ``make_train_step(mesh=)``, the split program (ms a step beside one
+     device's at that depth, the optimizer's 8 shard updates, the card's busy share
      and kernels a step over 1 more profiled step, tokens/s, peak), 2
      steps again from the seed with equal losses; llama3.2-3b cut to depth
      2 in float32, the mesh's first step within rtol 2e-4 of one device's;
      deepseek-v3 cut to depth 2 in float32 (16 experts, vocab 32,768,
      capacity 0.5) on a (2, 4) mesh, its first step within rtol 2e-4 of
-     one device's and the same assignments dropped; zamba2-2.7b cut to
-     depth 2 on the gathered program; the
+     one device's and the same assignments dropped; zamba2-2.7b and
+     rwkv6-1.6b cut to depth 2 in float32 on (4, 2), the split program
+     (the scans by heads), and whisper-tiny whole on the gathered program
+     (the audio family's): each first step against one device's, ms,
+     kernels and peak of a step beside one device's, two runs equal; the
      flash-decode merge at gemma3-1b's decode widths over a 32,768-position
      cache on a (2, 4) mesh against ``decode_attention`` (1e-5 x scale,
      ms of both); the all-to-all MoE at deepseek-v3's widths (E 256, top-8,
@@ -195,27 +199,36 @@ Phases, one line (or block) each:
      16 (output, aux, the gradients of x, the router and the shared
      expert) and at cf 1.25 the dropped count, two runs equal, ms of both;
      then the split serve step (``launch.serve.MeshServe``) on a (2, 4)
-     mesh: llama3.2-3b (KV heads on `model`, 32 greedy tokens) and
-     gemma3-1b (sequence-sharded KV, 15 greedy tokens) at full width and
-     depth in bfloat16 (prefill and decode ms beside phase 10's, kernels
-     a step, busy share, peak, cache bytes a shard == ``cache_pspecs``'s,
-     greedy tokens agreeing with one device's, reported), and llama3.2-3b,
-     gemma3-1b and deepseek-v3 (``DEEPSEEK_CHECK``'s cut, decode capacity
-     0.5 so the decode drops too) at depth 2 in float32 against one device
-     (every step's logits within 1e-4 of their scale, tokens and drops
-     equal, two runs bit-equal, ``generate(mesh=)``'s tokens);
+     mesh: llama3.2-3b (KV heads on `model`, 8 greedy tokens) and
+     gemma3-1b (sequence-sharded KV, 3 greedy tokens), zamba2-2.7b (the
+     float32 SSM state by heads) and rwkv6-1.6b (the WKV state by heads)
+     at full width and depth in bfloat16 (prefill and decode ms beside
+     phase 10's or 11's, kernels a step, busy share, peak, cache bytes a
+     shard == ``cache_pspecs``'s, greedy tokens agreeing with one
+     device's, reported), and llama3.2-3b, gemma3-1b and deepseek-v3
+     (``DEEPSEEK_CHECK``'s cut, decode capacity 0.5 so the decode drops
+     too) at depth 2 in float32 against one device (every step's logits
+     within 1e-4 of their scale, tokens and drops equal, two runs
+     bit-equal, ``generate(mesh=)``'s tokens); llama3.2-3b at full depth
+     teacher-forced on one device's 8 greedy tokens through
+     ``teacher_forced(mesh=)``, float32 (every step's logits within 1e-4
+     of their scale) and bfloat16 (its gap reported), zamba2-2.7b and
+     rwkv6-1.6b likewise on 2 tokens in float32;
  14. the dry run (``repro_torch.launch.dryrun``; no kernel of its own):
      llama3.2-3b as phase 12 trains it on a (1, 1) mesh of the card — the
      argument bytes the dry run reckons == the bytes of the parameters,
      moments, step and batch the card holds, its meta trace's dot FLOPs ==
      ``FlopCounterMode`` over one real ``make_train_step(mesh=)`` step, its
      bytes a device beside the next step's peak and its roofline bound
-     beside that step's ms; then five production cells on a 16 x 16 mesh
-     of meta devices, traced after phase 13, each timed, each printing
+     beside that step's ms; then six production cells on a 16 x 16 mesh
+     of meta devices, each timed, each printing
      the reference's three lines and its fullest device's bytes, fit and
-     ``n_compute_devices``: llama3.2-3b and deepseek-v3-671b train_4k,
-     deepseek-v3-671b decode_32k and llama3.2-3b prefill_32k (device
-     (0, M - 1) of the split program) and xtime-tabular serve_1m.
+     ``n_compute_devices``, traced on the host by the dry run's command
+     line while phase 13 runs on the card: llama3.2-3b and deepseek-v3-671b
+     train_4k,
+     deepseek-v3-671b decode_32k, llama3.2-3b prefill_32k and zamba2-2.7b
+     decode_32k (device (0, M - 1) of the split program; zamba2's also on
+     the gathered program, beside it) and xtime-tabular serve_1m.
 
 Every check that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object of the kernels and the contract line
@@ -1707,6 +1720,9 @@ def phase_degenerate(name) -> None:
               f"uncompressed table's plain version", flush=True)
 
 
+SEARCH_S = 5.0  # host seconds of each random search
+
+
 def search_trials(ds, kind, seconds):
     """``random_search`` with as many trials as fit about ``seconds`` of
     host time, judged from one trial alone (the same seed draws the same
@@ -1751,7 +1767,7 @@ def phase_trained(name) -> None:
 
     ds = make_dataset("churn")
     for kind in ("gbdt", "rf"):
-        res, n, secs = search_trials(ds, kind, 30.0)
+        res, n, secs = search_trials(ds, kind, SEARCH_S)
         print(f"models in [{name}] random_search(churn, kind={kind!r}): {n} trials in "
               f"{secs:.1f} s host; best valid score {res.best.valid_score}, params "
               f"{res.best.params}", flush=True)
@@ -3068,6 +3084,9 @@ def lm_grads(bundle, params, batch: dict) -> tuple[float, list]:
     return float(loss), [lm_leaf_tensors(leaf) for _, leaf in lm_tree_leaves(grads)]
 
 
+CARD_CPU_S = 64  # the card-vs-CPU training check's sequence (its CPU side is the slow one)
+
+
 def lm_train_card_equals_cpu(name) -> None:
     """llama3.2-3b at full width cut to depth 2, float32, TF32 off: one
     loss_fn + backward on the card and on the port's CPU path, one set of
@@ -3076,7 +3095,7 @@ def lm_train_card_equals_cpu(name) -> None:
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 is on for float32 products")
     cfg = get_config("llama3.2-3b").replace(n_layers=2, dtype="float32")
-    batch = lm_tokens.TokenPipeline(cfg.vocab_size, 2, 256, seed=SEED + 30).batch(0)
+    batch = lm_tokens.TokenPipeline(cfg.vocab_size, 2, CARD_CPU_S, seed=SEED + 30).batch(0)
     t0 = time.perf_counter()
     bundle = lm_build(cfg)
     params = bundle.init_params(5)
@@ -3095,7 +3114,7 @@ def lm_train_card_equals_cpu(name) -> None:
     if not abs(loss - ref_loss) <= 1e-5 * abs(ref_loss) or not worst < 1e-4:
         fail(f"llama3.2-3b depth 2 train card vs CPU: loss {loss} vs {ref_loss}, gradients "
              f"max|d|/max|ref| {worst:.3g}")
-    print(f"lm train [{name}] llama3.2-3b depth 2 float32 B=2 S=256: loss_fn + backward card "
+    print(f"lm train [{name}] llama3.2-3b depth 2 float32 B=2 S={CARD_CPU_S}: loss_fn + backward card "
           f"vs CPU: loss {loss:.6f} vs {ref_loss:.6f}, gradients max|d|/max|ref| {worst:.3g} "
           f"(< 1e-4), TF32 off ({time.perf_counter() - t0:.1f} s)", flush=True)
     del grads, ref_grads, params_cpu
@@ -3258,6 +3277,7 @@ def phase_lm_train(name, stats) -> None:
 
 
 MESH_SHAPE = (4, 2)  # phase 13's training mesh: 4 data groups x 2 model shards
+MESH_TRAIN_LAYERS = 8  # the llama3.2-3b mesh train step's depth (of 28)
 MESH_STEPS = 3  # ms a step: the median of steps 2-3
 MESH_AGAIN = 2  # steps run again from the seed, bit-equal
 MESH_CHECK_S = 256  # the float32 depth-2 checks' sequence (B = TRAIN_B)
@@ -3317,16 +3337,16 @@ def mesh_run(cfg, mesh, batches, opt, seed=SEED, profiled=()):
 
 
 def lm_mesh_train(name, stats) -> None:
-    """(a) llama3.2-3b at full width and depth, as phase 12 trains it
-    (bfloat16, remat, float32 moments, ``TokenPipeline`` 8 x 1,024, the
-    same ``AdamWConfig``), on a (4, 2) mesh of logical shards of the card:
-    ``place_params`` -> ``make_train_step(mesh=)``, the split program
-    (each shard computes its group's rows with its model slices); the
-    bytes each shard holds against the specs' reckoning (``attach``), ms a
-    step beside phase 12's, the optimizer's ms (its 8 shard updates),
-    tokens/s, kernels a step, peak; ``MESH_AGAIN`` steps again from the
-    seed, bit-equal."""
-    cfg = get_config("llama3.2-3b")
+    """(a) llama3.2-3b at full width, cut to ``MESH_TRAIN_LAYERS`` layers,
+    as phase 12 trains it otherwise (bfloat16, remat, float32 moments,
+    ``TokenPipeline`` 8 x 1,024, the same ``AdamWConfig``), on a (4, 2) mesh
+    of logical shards of the card: ``place_params`` ->
+    ``make_train_step(mesh=)``, the split program (each shard computes its
+    group's rows with its model slices); the bytes each shard holds against
+    the specs' reckoning (``attach``), ms a step beside one device's at the
+    same depth, the optimizer's ms (its 8 shard updates), tokens/s, kernels
+    a step, peak; ``MESH_AGAIN`` steps again from the seed, bit-equal."""
+    cfg = get_config("llama3.2-3b").replace(n_layers=MESH_TRAIN_LAYERS)
     mesh = make_host_mesh(*MESH_SHAPE, devices=[CARD] * 8)
     pipe = lm_tokens.TokenPipeline(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=SEED)
     batches = [pipe.batch(i) for i in range(MESH_STEPS + 1)]
@@ -3335,6 +3355,14 @@ def lm_mesh_train(name, stats) -> None:
     specs = lm_partition.param_pspecs(shapes, cfg, lm_partition.MeshAxes(mesh))
     reckoned = sum(s.local_bytes() for _, s in lm_partition.leaves_with_path(
         lm_partition.attach(mesh, shapes, specs)))
+    lm_free()
+    bundle = lm_build(cfg)
+    one_losses, _, one_events = train_run(bundle, bundle.init_params(SEED), batches[:MESH_STEPS],
+                                          lm_adamw.AdamW(train_opt_cfg(TRAIN_STEPS)))
+    one_busy, one_kernels, _ = train_device_ms(bundle, bundle.init_params(SEED),
+                                               batches[MESH_STEPS:])
+    one_ms = float(np.median([a.elapsed_time(b) for a, b in one_events][1:]))
+    del bundle
     lm_free()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3354,32 +3382,32 @@ def lm_mesh_train(name, stats) -> None:
     if again != losses[:MESH_AGAIN]:
         fail(f"llama3.2-3b mesh train: two runs from one seed differ: {again} vs "
              f"{losses[:MESH_AGAIN]}")
-    one = stats["lm_train"][0]
     flops = lm_flops.model_flops(cfg, ShapeCell("train", TRAIN_S, TRAIN_B, "train"), meta)
     bound = flops / BF16_FLOPS_PER_S * 1e3
     line = {"model": "llama3.2-3b", "mesh": list(MESH_SHAPE), "logical_shards_of": name,
             "layers": cfg.n_layers, "dtype": cfg.dtype, "remat": True, "batch": TRAIN_B,
             "seq": TRAIN_S, "losses": losses, "grad_norms": norms, "step_ms": steps_ms,
-            "step_ms_median": step_ms, "one_device_step_ms": one["step_ms_median"],
-            "one_device_losses": one["losses"][:MESH_STEPS], "optimizer_ms": opt_ms,
+            "step_ms_median": step_ms, "one_device_step_ms": one_ms,
+            "one_device_losses": one_losses, "optimizer_ms": opt_ms,
             "optimizer_ms_median": upd_ms, "bound_ms": bound, "bound_by": "operations",
             "share": bound / step_ms, "busy_ms": busy_ms, "busy_share": busy_ms / step_ms,
             "kernels_per_step": kernels, "busy_ms_by_kind": kinds,
-            "one_device_busy_ms": one["busy_ms"], "one_device_kernels_per_step":
-            one["kernels_per_step"], "tokens_per_s": TRAIN_B * TRAIN_S / (step_ms / 1e3),
+            "one_device_busy_ms": one_busy, "one_device_kernels_per_step": one_kernels,
+            "tokens_per_s": TRAIN_B * TRAIN_S / (step_ms / 1e3),
             "peak_bytes": peak, "bytes_per_shard": held, "spec_bytes_per_shard": reckoned,
             "program": "split", "card": name}
     stats["lm_mesh"] = [line]
-    print(f"lm mesh [{name}] llama3.2-3b on a {MESH_SHAPE[0]} x {MESH_SHAPE[1]} mesh of logical "
+    print(f"lm mesh [{name}] llama3.2-3b ({cfg.n_layers} layers) on a {MESH_SHAPE[0]} x "
+          f"{MESH_SHAPE[1]} mesh of logical "
           f"shards of the card: {held[0]:,} bytes a shard (the specs' {reckoned:,}); B="
           f"{TRAIN_B} x S={TRAIN_S}, {MESH_STEPS} steps: loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f} (one device: {one['losses'][0]:.4f} -> "
-          f"{one['losses'][MESH_STEPS - 1]:.4f}); {step_ms:.3f} ms a step (median of steps "
-          f"2-{MESH_STEPS}; one device {one['step_ms_median']:.3f}; bound {bound:.3f} ms, "
+          f"{losses[-1]:.4f} (one device: {one_losses[0]:.4f} -> "
+          f"{one_losses[-1]:.4f}); {step_ms:.3f} ms a step (median of steps "
+          f"2-{MESH_STEPS}; one device {one_ms:.3f}; bound {bound:.3f} ms, "
           f"{100 * bound / step_ms:.1f}%), optimizer {upd_ms:.3f} ms "
           f"({100 * upd_ms / step_ms:.1f}%), card busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / step_ms:.1f}%), {kernels:.0f} kernels a step (one device "
-          f"{one['kernels_per_step']:.0f}), {line['tokens_per_s']:.1f} tokens/s, peak "
+          f"{one_kernels:.0f}), {line['tokens_per_s']:.1f} tokens/s, peak "
           f"{peak / 2**30:.2f} GiB (the split program); {MESH_AGAIN} steps again from the "
           f"seed: losses equal; "
           f"busy ms a step by kernel kind: "
@@ -3498,21 +3526,17 @@ def lm_mesh_moe_equals_one_device(name) -> None:
           + f"; {dropped} assignments dropped, one device {seen}", flush=True)
 
 
-def lm_mesh_gathered(name, stats) -> None:
-    """(a) The gathered program (each data group's device computes on whole
-    parameters), which the hybrid, ssm and audio families run: zamba2-2.7b
-    cut to depth 2 (one group of 2 + the shared block) in float32, TF32
-    off, on the (4, 2) mesh: the first step against one device's as
-    ``lm_mesh_equals_one_device``; then ``MESH_AGAIN`` steps and one
-    profiled step: the second step's ms and kernels a step beside one
-    device's, peak; ``MESH_AGAIN`` steps again from the seed, bit-equal."""
-    cfg = get_config("zamba2-2.7b").replace(n_layers=2, shared_attn_period=2, dtype="float32")
-    if cfg.family in lm_train.SPLIT_FAMILIES:
-        fail(f"{cfg.name}: the {cfg.family} family runs the split program")
-    pipe = lm_tokens.TokenPipeline(cfg.vocab_size, TRAIN_B, MESH_CHECK_S, seed=SEED + 44)
-    batches = [pipe.batch(i) for i in range(MESH_AGAIN + 1)]
+def lm_mesh_family(label, cfg, batches, name, stats) -> None:
+    """(a) One family's mesh step in float32, TF32 off, on the (4, 2) mesh:
+    the first step against one device's as ``lm_mesh_equals_one_device``;
+    then ``MESH_AGAIN`` steps and one profiled step: the second step's ms
+    and kernels a step beside one device's, peak; ``MESH_AGAIN`` steps
+    again from the seed, bit-equal.  The program is the family's: split
+    over `model` (``SPLIT_FAMILIES``) or gathered (whole parameters on a
+    data group's device)."""
+    program = "split" if cfg.family in lm_train.SPLIT_FAMILIES else "gathered"
     one, on_mesh, worst, _, _ = mesh_first_step(cfg, MESH_SHAPE, batches[0], SEED)
-    b, gb, a, ga = check_first_step("zamba2-2.7b depth 2", one, on_mesh, worst)
+    b, gb, a, ga = check_first_step(label, one, on_mesh, worst)
 
     bundle = lm_build(cfg)
     _, _, one_events = train_run(bundle, bundle.init_params(SEED), batches[:MESH_AGAIN],
@@ -3528,26 +3552,47 @@ def lm_mesh_gathered(name, stats) -> None:
         cfg, mesh, batches[:MESH_AGAIN], lm_adamw.AdamW(train_opt_cfg(TRAIN_STEPS)),
         profiled=batches[MESH_AGAIN:])
     peak = torch.cuda.max_memory_allocated() - base
-    finite("zamba2-2.7b mesh train", losses, norms)
+    finite(f"{label} mesh train", losses, norms)
     again, _, _, _, _ = mesh_run(cfg, mesh, batches[:MESH_AGAIN],
                                  lm_adamw.AdamW(train_opt_cfg(TRAIN_STEPS)))
     if again != losses:
-        fail(f"zamba2-2.7b mesh train: two runs from one seed differ: {again} vs {losses}")
+        fail(f"{label} mesh train: two runs from one seed differ: {again} vs {losses}")
     ms = events[-1][0].elapsed_time(events[-1][1])
-    line = {"model": "zamba2-2.7b", "layers": cfg.n_layers, "dtype": cfg.dtype,
+    line = {"model": label, "layers": cfg.n_layers, "dtype": cfg.dtype,
             "mesh": list(MESH_SHAPE), "batch": TRAIN_B, "seq": MESH_CHECK_S,
-            "program": "gathered", "first_step_loss": b, "one_device_first_step_loss": a,
+            "program": program, "first_step_loss": b, "one_device_first_step_loss": a,
             "worst_leaf_err": worst[1], "losses": losses, "step_ms": ms,
             "one_device_step_ms": one_ms, "busy_ms": busy_ms, "kernels_per_step": kernels,
             "one_device_kernels_per_step": one_kernels,
             "peak_bytes": peak, "card": name}
     stats["lm_mesh"].append(line)
-    print(f"lm mesh [{name}] zamba2-2.7b depth 2 float32 on the gathered program, B={TRAIN_B} x "
+    print(f"lm mesh [{name}] {label} float32 on the {program} program, B={TRAIN_B} x "
           f"S={MESH_CHECK_S} on {MESH_SHAPE}: " + first_step_line(a, ga, b, gb, worst)
           + f"; step 2 {ms:.3f} ms (one device {one_ms:.3f}), card busy {busy_ms:.3f} ms, "
           f"{kernels:.0f} kernels a step (one device {one_kernels:.0f}), peak "
           f"{peak / 2**30:.2f} GiB; {MESH_AGAIN} steps again "
           f"from the seed: losses equal", flush=True)
+
+
+def lm_mesh_families(name, stats) -> None:
+    """(a) The recurrent families on the split program (zamba2-2.7b cut to
+    depth 2, one group of 2 mamba layers + the shared block: the SSD scan
+    by heads, 80 on 2 shards; rwkv6-1.6b cut to depth 2: 32 WKV heads on
+    2), and whisper-tiny whole on the gathered program, which the audio
+    family keeps (``lm_mesh_family``)."""
+    for label, cfg, seed in (
+            ("zamba2-2.7b depth 2",
+             get_config("zamba2-2.7b").replace(n_layers=2, shared_attn_period=2), 44),
+            ("rwkv6-1.6b depth 2", get_config("rwkv6-1.6b").replace(n_layers=2), 45),
+            ("whisper-tiny", get_config("whisper-tiny"), 46)):
+        cfg = cfg.replace(dtype="float32")
+        want = "whisper" not in label
+        if (cfg.family in lm_train.SPLIT_FAMILIES) != want:
+            fail(f"{cfg.name}: the {cfg.family} family is not on the expected program")
+        get = lm_train.batch_source(cfg, TRAIN_B, MESH_CHECK_S, SEED + seed)
+        t0 = time.perf_counter()
+        lm_mesh_family(label, cfg, [get(i) for i in range(MESH_AGAIN + 1)], name, stats)
+        print(f"lm mesh {label} {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def lm_flash_decode(name, stats) -> None:
@@ -3649,30 +3694,38 @@ def lm_shardmap_moe(name, stats) -> None:
 
 MESH_SERVE_SHAPE = (2, 4)  # phase 13's serve mesh: 2 data groups x 4 model shards
 MESH_SERVE_PROFILED = 1  # decode steps profiled for the busy share and kernels a step
-MESH_SERVE_GEMMA_NEW = 15  # gemma3-1b's greedy tokens on the mesh (phase 10: 32): a cache of 1,040
+MESH_SERVE_LLAMA_NEW = 8  # llama3.2-3b's greedy tokens on the mesh (phase 10: 32)
+MESH_SERVE_GEMMA_NEW = 3  # gemma3-1b's (phase 10: 32): a cache of 1,028, which 4 divides
 MESH_SERVE_CHECK_NEW = 4  # the float32 serve checks' greedy tokens after the prompt
+MESH_SERVE_RECURRENT_NEW = 8  # zamba2-2.7b's and rwkv6-1.6b's greedy tokens on the mesh
+MESH_FORCED_NEW = 8  # llama3.2-3b's teacher-forced steps at full depth, float32 and bfloat16
+MESH_FORCED_RECURRENT = 2  # zamba2-2.7b's and rwkv6-1.6b's, float32
 
 
 def cache_shard_bytes(cache) -> int:
     """The bytes the mesh's first device holds of a placed cache."""
-    return sum(sh.local(0).numel() * sh.local(0).element_size() for seg in cache for sh in seg)
+    return sum(sh.local(0).numel() * sh.local(0).element_size()
+               for _, sh in lm_partition.leaves_with_path(cache))
 
 
 def spec_cache_bytes(cfg, mesh, batch: int, seq: int) -> int:
-    """The bytes one device holds of the cache by ``cache_pspecs``."""
+    """The bytes one device holds of the cache by ``cache_pspecs`` (the
+    recurrent states' float32 included)."""
     shape = lm_build(cfg, "meta").cache_shape(batch, seq)
     specs = lm_partition.cache_pspecs(shape, cfg, lm_partition.MeshAxes(mesh))
     return sum(lm_partition.ShardedShape(tuple(t.shape), t.dtype, spec, mesh).local_bytes()
-               for seg, ss in zip(shape, specs) for t, spec in zip(seg, ss))
+               for (_, t), (_, spec) in zip(lm_partition.leaves_with_path(shape),
+                                            lm_partition.leaves_with_path(specs), strict=True))
 
 
 def lm_mesh_serve_run(label, cfg, prompt_len, name, stats, new: int = LM_NEW) -> None:
     """(d) The split serve program at full width and depth in bfloat16, as
-    phase 10 serves the model (seeded weights, B = 4, its prompt, ``new``
-    greedy tokens), on a (2, 4) mesh of logical shards of the card:
+    phase 10 or 11 serves the model (seeded weights, B = 4, its prompt,
+    ``new`` greedy tokens), on a (2, 4) mesh of logical shards of the card:
     ``place_params`` -> ``MeshServe`` (each group's 4 shards compute its
-    rows with their model slices, the KV cache in ``cache_pspecs``'s
-    layout), greedy as ``generate`` runs it: prefill ms (median of 3) and
+    rows with their model slices, the cache in ``cache_pspecs``'s layout:
+    KV heads or chunks, the recurrent states by heads), greedy as
+    ``generate`` runs it: prefill ms (median of 3) and
     ms a decode step (median of the ``new`` - 1 steps) beside phase 10's one
     device, kernels a step and the busy share over ``MESH_SERVE_PROFILED``
     more steps, peak, the cache's bytes a shard against the specs', and
@@ -3828,16 +3881,64 @@ def lm_mesh_serve_check(label, cfg, prompt_len, name, seed: int, decode_capacity
              f"device's" if cfg.is_moe else "") + "; two runs bit-equal", flush=True)
 
 
+def lm_mesh_teacher_forced(label, cfg, dtypes, steps, name, stats) -> None:
+    """(f) A model at full width and depth, TF32 off, in each of
+    ``dtypes``: one device's greedy tokens (``steps`` after a prompt of
+    B = 4 x 128) teacher-forced through ``teacher_forced`` on one device and
+    on the split serve step of a (2, 4) mesh of logical shards
+    (``teacher_forced(mesh=)``): each step's logits' largest gap over their
+    scale.  Float32 fails above 1e-4; a bfloat16 gap is reported (whether
+    another order of bfloat16 sums explains the greedy runs' token
+    disagreement)."""
+    mesh = make_host_mesh(*MESH_SERVE_SHAPE, devices=[CARD] * 8)
+    batch = lm_prompt(cfg, LM_BATCH, LM_PROMPT, SEED + 20)
+    line = {"model": label, "mesh": list(MESH_SERVE_SHAPE), "program": "split serve",
+            "layers": cfg.n_layers, "batch": LM_BATCH, "prompt": LM_PROMPT, "steps": steps,
+            "teacher_forced": True, "card": name}
+    for dtype in dtypes:
+        cfg = cfg.replace(dtype=dtype)
+        bundle = lm_build(cfg)
+        params = bundle.init_params(SEED)
+        toks = lm_serve.generate(bundle, params, batch["tokens"], max_new=steps)
+        ref = lm_serve.teacher_forced(bundle, params, batch, toks)
+        placed = lm_train.place_params(mesh, cfg, params)
+        del params
+        lm_free()
+        got = lm_serve.teacher_forced(bundle, placed, batch, toks, mesh=mesh)
+        gaps = [float((g - r).abs().max()) / max(1.0, float(r.abs().max()))
+                for g, r in zip(got, ref, strict=True)]
+        agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
+        del placed, bundle, got, ref
+        lm_free()
+        line[dtype] = {"gap_per_step": gaps, "worst_gap": max(gaps), "argmax_agree": agree}
+        print(f"lm mesh [{name}] {label} {dtype} full depth, teacher-forced B={LM_BATCH} "
+              f"prompt {LM_PROMPT} + {steps} steps on {MESH_SERVE_SHAPE} (split serve) "
+              f"vs one device: worst gap {max(gaps):.3e} of scale; per step "
+              + ", ".join(f"{g:.2e}" for g in gaps)
+              + f"; {agree} of {toks.size} argmaxes equal", flush=True)
+        if dtype == "float32" and not max(gaps) <= 1e-4:
+            fail(f"{label} float32 split serve vs one device: logits off by {max(gaps):.3e} "
+                 f"of their scale (1e-4)")
+    stats["lm_mesh"].append(line)
+
+
 def lm_mesh_serve(name, stats) -> None:
     """Phase 13's serve steps: (d) llama3.2-3b (KV heads on `model`: 8 on
     4) and gemma3-1b (one KV head: sequence chunks, windows, its tied
-    vocab-parallel head) at full width; (e) llama3.2-3b, gemma3-1b and
-    deepseek-v3 (``DEEPSEEK_CHECK``'s cut: MLA's latent cache by sequence,
-    MoE) at depth 2 in float32 against one device."""
+    vocab-parallel head) at full width, zamba2-2.7b (the SSM state by its
+    80 heads, the shared block's KV heads, the conv tails whole) and
+    rwkv6-1.6b (the state by its 32 heads, x_prev whole) at full width
+    and depth; (e) llama3.2-3b, gemma3-1b and deepseek-v3
+    (``DEEPSEEK_CHECK``'s cut: MLA's latent cache by sequence, MoE) at
+    depth 2 in float32 against one device; (f) llama3.2-3b (float32 and
+    bfloat16), zamba2-2.7b and rwkv6-1.6b (float32) at full depth
+    teacher-forced against one device."""
     llama, gemma = get_config("llama3.2-3b"), get_config("gemma3-1b")
     for label, cfg, prompt_len, new in (
-            ("llama3.2-3b", llama, LM_PROMPT, LM_NEW),
-            ("gemma3-1b", gemma, 2 * gemma.sliding_window, MESH_SERVE_GEMMA_NEW)):
+            ("llama3.2-3b", llama, LM_PROMPT, MESH_SERVE_LLAMA_NEW),
+            ("gemma3-1b", gemma, 2 * gemma.sliding_window, MESH_SERVE_GEMMA_NEW),
+            ("zamba2-2.7b", get_config("zamba2-2.7b"), LM_PROMPT, MESH_SERVE_RECURRENT_NEW),
+            ("rwkv6-1.6b", get_config("rwkv6-1.6b"), LM_PROMPT, MESH_SERVE_RECURRENT_NEW)):
         t0 = time.perf_counter()
         lm_mesh_serve_run(label, cfg, prompt_len, name, stats, new)
         print(f"lm mesh serve {label} {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3850,6 +3951,13 @@ def lm_mesh_serve(name, stats) -> None:
     lm_mesh_serve_check("deepseek-v3 depth 2", get_config("deepseek-v3-671b").replace(
         **DEEPSEEK_CHECK), LM_PROMPT, name, 10, decode_capacity=0.5)
     print(f"lm mesh serve float32 checks {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    lm_mesh_teacher_forced("llama3.2-3b", llama, ("float32", "bfloat16"), MESH_FORCED_NEW, name,
+                           stats)
+    for label in ("zamba2-2.7b", "rwkv6-1.6b"):
+        lm_mesh_teacher_forced(label, get_config(label), ("float32",), MESH_FORCED_RECURRENT,
+                               name, stats)
+    print(f"lm mesh teacher-forced checks {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def phase_lm_mesh(name, stats) -> None:
@@ -3860,7 +3968,7 @@ def phase_lm_mesh(name, stats) -> None:
     print(f"lm mesh training {time.perf_counter() - t0:.1f} s", flush=True)
     lm_mesh_equals_one_device(name)
     lm_mesh_moe_equals_one_device(name)
-    lm_mesh_gathered(name, stats)
+    lm_mesh_families(name, stats)
     lm_flash_decode(name, stats)
     lm_shardmap_moe(name, stats)
     t0 = time.perf_counter()
@@ -3872,7 +3980,9 @@ def phase_lm_mesh(name, stats) -> None:
 
 DRY_CELLS = [("llama3.2-3b", "train_4k"), ("deepseek-v3-671b", "train_4k"),
              ("deepseek-v3-671b", "decode_32k"), ("llama3.2-3b", "prefill_32k"),
+             ("zamba2-2.7b", "decode_32k"),
              ("xtime-tabular", "serve_1m")]  # phase 14's production cells, 16 x 16
+DRY_GATHERED = [("zamba2-2.7b", "decode_32k")]  # traced on the gathered program too
 
 
 def held_bytes(*trees) -> int:
@@ -3967,14 +4077,34 @@ def dry_one_device(name, stats) -> None:
           f"({100 * line['bound_share']:.1f}%)", flush=True)
 
 
-def dry_production_cells(name, stats) -> None:
-    """(b) the production cells on a 16 x 16 mesh of meta devices, each
-    timed, each printing the reference's three lines."""
+def start_dry_cells() -> tuple:
+    """The production cells, traced on meta devices (no card, host only):
+    the dry run's command line for each cell, in processes of their own at
+    the lowest priority, started together while phase 13 runs on the card
+    (one core each; the card's host thread keeps its own).  Each writes its
+    result to ``results/dryrun_torch``."""
     out_dir = ROOT / "results" / "dryrun_torch"
-    for arch, shape in DRY_CELLS:
-        t0 = time.perf_counter()
-        res = lm_dryrun.run_cell(arch, shape, False, str(out_dir))
-        wall = time.perf_counter() - t0
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    env.update(OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+         "--out-dir", str(out_dir)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env, cwd=str(ROOT), preexec_fn=lambda: os.nice(19)) for arch, shape in DRY_CELLS]
+    return out_dir, procs, time.perf_counter()
+
+
+def dry_production_cells(name, stats, started) -> None:
+    """(b) the production cells on a 16 x 16 mesh of meta devices
+    (``start_dry_cells``), each timed, each printing the reference's three
+    lines."""
+    out_dir, procs, t0 = started
+    for (arch, shape), (rc, out, err, _) in zip(DRY_CELLS, wait_together(procs, t0, 900)):
+        if rc != 0:
+            fail(f"dry run {arch} {shape}: rc {rc}\n{out[-2000:]}{err[-2000:]}")
+        res = json.loads((out_dir / f"{arch}__{shape}__single.json").read_text())
+        wall = res["wall_s"]
         if res["status"] != "ok":
             fail(f"dry run {arch} {shape}: {res['status']} {res.get('error')}\n"
                  f"{res.get('traceback', '')}")
@@ -3992,13 +4122,44 @@ def dry_production_cells(name, stats) -> None:
                                 "n_compute_devices": res["n_compute_devices"],
                                 "memory": res["memory"], "counted": res["counted"],
                                 "roofline": res["roofline"]})
+        if (arch, shape) in DRY_GATHERED:
+            dry_gathered_cell(arch, shape, res, name, stats)
 
 
-def phase_dryrun(name, stats) -> None:
-    """Phase 14: the dry run, held against the card."""
+def dry_gathered_cell(arch, shape, split, name, stats) -> None:
+    """A cell of a family the split program took over, traced once more as
+    the gathered program runs it (one compute device a data group, whole
+    parameters gathered onto it): its fullest device beside the split
+    program's."""
+    out_dir = tempfile.mkdtemp(prefix="dryrun_gathered_")
+    families = lm_dryrun.SPLIT_FAMILIES
+    lm_dryrun.SPLIT_FAMILIES = ("dense", "moe", "vlm")  # the transformers only
+    try:
+        t0 = time.perf_counter()
+        res = lm_dryrun.run_cell(arch, shape, False, out_dir)
+    finally:
+        lm_dryrun.SPLIT_FAMILIES = families
+        shutil.rmtree(out_dir, ignore_errors=True)
+    if res["status"] != "ok":
+        fail(f"dry run {arch} {shape} gathered: {res['status']} {res.get('error')}")
+    mem, smem = res["memory"], split["memory"]
+    print(f"dry run [{name}] {arch} {shape} on the gathered program ({time.perf_counter() - t0:.1f}"
+          f" s): n_compute_devices {res['n_compute_devices']}, the fullest device holds "
+          f"{mem['total_per_device_gib']} GiB (fits 80 GiB: {mem['fits_h100_80gib']}); the split "
+          f"program: {split['n_compute_devices']}, {smem['total_per_device_gib']} GiB "
+          f"({smem['fits_h100_80gib']})", flush=True)
+    print("memory_analysis (gathered):", json.dumps(mem), flush=True)
+    stats["dryrun"].append({"cell": f"{arch} {shape} gathered",
+                            "n_compute_devices": res["n_compute_devices"], "memory": mem,
+                            "counted": res["counted"], "roofline": res["roofline"]})
+
+
+def phase_dryrun(name, stats, started) -> None:
+    """Phase 14: the dry run, held against the card; ``started``: the
+    production cells' processes (``start_dry_cells``)."""
     lm_free()
     dry_one_device(name, stats)
-    dry_production_cells(name, stats)
+    dry_production_cells(name, stats, started)
 
 
 def kernel_entry(name, source, launches, err, ms, plain_ms, bnd, by) -> dict:
@@ -4081,11 +4242,18 @@ def main() -> int:
     phase_lm_train(name, stats)
     print(f"LM training phase {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    phase_lm_mesh(name, stats)
-    print(f"LM mesh phase {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    phase_dryrun(name, stats)
-    print(f"dry run phase {time.perf_counter() - t0:.1f} s", flush=True)
+    dry_cells = start_dry_cells()  # host only: traced while phase 13 runs on the card
+    try:
+        phase_lm_mesh(name, stats)
+        print(f"LM mesh phase {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        phase_dryrun(name, stats, dry_cells)
+        print(f"dry run phase {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        for proc in dry_cells[1]:  # ended on every path
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     lines = [stats["kernel_line"], stats["soft_kernel_line"], *stats["variant_lines"],

@@ -17,8 +17,9 @@ compute device otherwise):
     cells, the cache, token and pos — placed by ``batch_pspec`` /
     ``cache_pspecs`` (``argument_bytes``; no trace);
   * the port's mesh program, traced once on meta under ``OpCounter``
-    (``repro_torch.launch.op_count``).  A transformer-family cell traces
-    device (0, M - 1)'s part of the split program, every device of the
+    (``repro_torch.launch.op_count``).  A cell of a family on the split
+    program (``SPLIT_FAMILIES``: the transformers, zamba2's hybrid,
+    rwkv6's ssm) traces device (0, M - 1)'s part of the split program, every device of the
     mesh computing (``n_compute_devices``): ``train``, its step
     (``MeshStep.split_grads(only=M - 1)``: group 0's rows with its model
     slices, its counting pass where MoE layers route more than one group,
@@ -28,8 +29,9 @@ compute device otherwise):
     written, its shard of the cache a temp); ``decode``, its part of one
     step at the cache's last position (``MeshServe.decode_step``: the
     token's row, the chunk or heads of the cache it holds, the position
-    written into its own shard).  Any other cell traces the program the
-    gathered ``MeshStep`` runs (each data group gathers whole parameters
+    written into its own shard; a recurrent state read and written by its
+    heads).  Any other cell (whisper's) traces the program the gathered
+    ``MeshStep`` runs (each data group gathers whole parameters
     onto its compute device and computes there): ``train``: ``loss_fn`` +
     backward on ``global_batch / n_groups`` rows with whole parameters (an
     MoE layer routed by ``GroupRouting``, its counting pass included),
@@ -77,13 +79,14 @@ Deliberate differences from the JAX package's dry run:
     the token's row on the group's last device, which so computes any
     product by a weight `fit` leaves whole, and the chunk with ``pos``;
     the decode cache is split by KV heads or by sequence chunks merged in
-    shard order, where GSPMD picks its own; the other families' compute
-    is split by data group (one compute device a group);
+    shard order, where GSPMD picks its own; the recurrent scans by heads,
+    as the reference's states; whisper's compute is split by data group
+    (one compute device a group);
   * ``REPRO_MOE_IMPL=shardmap`` traces a transformer's prefill or decode
     cell on the gathered forward, whose MoE layers it replaces (the
     split program's experts are split over `model` already);
   * the roofline uses the H100's constants and the fit is 80 GiB;
-  * a decode cell of the gathered families writes one position into the
+  * a decode cell of the gathered family writes one position into the
     cache; sending it back to the cache's shards is left out of the
     transfer bytes (at most the group's cache / seq_len).
 
@@ -115,7 +118,7 @@ from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import AdamW, AdamWConfig
 from repro_torch.sharding import split as split_mod
 from repro_torch.sharding.collectives import recording
-from repro_torch.sharding.placement import Sharded, layer_spec, local_tree
+from repro_torch.sharding.placement import Sharded, layer_spec, local_tree, zeros_like_cache
 from repro_torch.sharding.partition import (
     MeshAxes,
     P,
@@ -331,11 +334,10 @@ def _meta_placed(mesh, tree, specs, dtype: torch.dtype | None = None):
     return tree_map(leaf_of, tree, specs)
 
 
-def _meta_cache(mesh, shape, specs) -> list:
-    """A transformer cache (per-segment tuples) of ``Sharded`` meta leaves
-    in ``specs``' layout (``MeshServe``'s ``init_cache``)."""
-    return [tuple(_meta_sharded(mesh, spec, tuple(t.shape), t.dtype) for t, spec in zip(seg, ss))
-            for seg, ss in zip(shape, specs)]
+def _meta_cache(mesh, shape, specs):
+    """A cache of ``Sharded`` meta leaves in ``specs``' layout, in the
+    model's structure (``MeshServe``'s ``init_cache``)."""
+    return zeros_like_cache(mesh, shape, specs, make=_meta_sharded)
 
 
 def _remote_grad_bytes(mesh, params, target: tuple) -> int:
@@ -447,8 +449,8 @@ def _trace_serve(bundle, cell, axes, whole, group_cache) -> OpCost:
 
 def reckon_lm(cfg, cell: ShapeCell, mesh, flash_blk: int = 1024) -> tuple[OpCost, dict]:
     """The counted cost of the fullest device's program on ``mesh`` (device
-    (0, M - 1) of the split program for a transformer cell, else one data
-    group's), and what it holds and moves: ``memory`` and ``transfer``
+    (0, M - 1) of the split program for a ``SPLIT_FAMILIES`` cell, else one
+    data group's), and what it holds and moves: ``memory`` and ``transfer``
     dicts (bytes; the split program's transfer is what the device
     receives)."""
     axes = MeshAxes(mesh)

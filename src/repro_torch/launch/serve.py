@@ -5,22 +5,25 @@ The port of ``repro.launch.serve``.  Eager PyTorch under
 unless ``--device cpu``.
 
 On a mesh (``generate(..., mesh=)``, parameters placed by
-``launch.train.place_params``) a step is one explicit program driven from
-this process, the serving counterpart of ``launch.train.MeshStep``
-(``MeshServe``).  The transformer family (``dense``, ``moe``, ``vlm``) runs
-the split program (``repro_torch.sharding.split``): device (g, m)
-computes data group g's rows with model slice m of every weight, each
-layer's `fsdp` blocks gathered just before use, the data groups in
-lockstep a layer at a time (an MoE layer routes each group with the whole
-batch's capacity and ranks, ``GroupRouting(lockstep=True)``, so the drops
-are one device's); the cache is allocated at its final length (prompt and
-new tokens) in ``cache_pspecs``'s layout, ``Sharded`` leaves: KV heads on
-`model` where they divide it, else the sequence (the MLA latents always:
-the exact flash merge over each device's chunk of positions), else whole
-on every device.  The last-token logits are gathered to the mesh's first
-device, where the next token is drawn.  The other families keep one
-compute device a data group: whole parameters gathered onto it, its rows'
-one-device prefill and decode there.
+``launch.train.place_params``) a step is one explicit program driven
+from this process, the serving counterpart of ``launch.train.MeshStep``
+(``MeshServe``). The families of ``launch.train.SPLIT_FAMILIES`` (the
+transformers, zamba2's hybrid and rwkv6's ssm) run the split program
+(``repro_torch.sharding.split``): device (g, m) computes data group g's
+rows with model slice m of every weight, each layer's `fsdp` blocks
+gathered just before use, the data groups in lockstep a layer at a time
+(an MoE layer routes each group with the whole batch's capacity and
+ranks, ``GroupRouting(lockstep=True)``, so the drops are one device's);
+the cache is allocated at its final length (prompt and new tokens) in
+``cache_pspecs``'s layout, ``Sharded`` leaves: KV heads on `model` where
+they divide it, else the sequence (the MLA latents always: the exact
+flash merge over each device's chunk of positions), else whole on every
+device; the recurrent states by heads on `model` where M divides the
+heads, else whole, and the conv tails and x_prev whole and equal on
+every device. The last-token logits are gathered to the mesh's first
+device, where the next token is drawn. The audio family (whisper) keeps
+one compute device a data group: whole parameters gathered onto it, its
+rows' one-device prefill and decode there.
 
 CLI:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
@@ -68,6 +71,12 @@ def _pad_cache_seq(cfg, cache, prefill_len: int, total_len: int):
     if isinstance(cache, dict):  # hybrid, audio
         return {k: pad(v) if k in ("k", "v") else v for k, v in cache.items()}
     return [tuple(pad(leaf) for leaf in seg) for seg in cache]
+
+
+def _prompt_len(batch: dict) -> int:
+    """The prompt's positions: its tokens' (whisper's decoder tokens beside
+    its frames), or its embeddings'."""
+    return (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[1]
 
 
 def _on(dev: torch.device, x) -> torch.Tensor:
@@ -208,10 +217,10 @@ class MeshServe:
                 only=None, cache=None):
         """Each group's prefill of its rows of ``batch``; returns (logits
         (B, V) on ``first``, the cache, of ``total_len`` positions (default
-        the prompt's)).  The gathered families return one cache a group."""
+        the prompt's)).  The gathered family returns one cache a group."""
         batch = {k: self._whole(v) for k, v in batch.items()}
         first = next(iter(batch.values()))
-        b, s = first.shape[:2]
+        b, s = first.shape[0], _prompt_len(batch)
         blocks, n_blocks = self.blocks(b)
         groups = list(range(self.n_groups)) if groups is None else list(groups)
         part = {g: {k: self._rows(v, g, blocks, n_blocks) for k, v in batch.items()}
@@ -245,7 +254,7 @@ class MeshServe:
                             for g, sp in zip(groups, sps)], pos, sp=sps)
         return self._logits(logits, groups, blocks), cache
 
-    # -- the gathered families: one compute device a data group -----------------
+    # -- the gathered family (whisper): one compute device a data group ----------
 
     def _gathered_prefill(self, params, part: dict, total: int, blocks):
         gathered = self._gathered
@@ -255,7 +264,7 @@ class MeshServe:
             b, module = gathered._worker(gathered.group_devices[g])
             rows = {k: v.to(b.device) for k, v in rows.items()}
             out, c = b.prefill(module, rows)
-            s = next(iter(rows.values())).shape[1]
+            s = _prompt_len(rows)
             caches[g] = _pad_cache_seq(b.cfg, c, s, total)
             logits.append(out)
         return self._logits(logits, list(part), blocks), caches
@@ -271,24 +280,31 @@ class MeshServe:
         return self._logits(logits, list(caches), blocks), caches
 
 
-def teacher_forced(bundle: LMBundle, params, batch: dict, tokens) -> torch.Tensor:
+def teacher_forced(bundle: LMBundle, params, batch: dict, tokens, mesh=None) -> torch.Tensor:
     """The logits of a decode fed ``tokens`` (B, N) after the prompt
     ``batch`` ({'tokens' (B, S)}, {'embeds' (B, S, d)} or whisper's
     {'frames' (B, T, d), 'tokens' (B, S)}): step 0 is the prefill's
     last-token logits, step i the decode of ``tokens[:, i-1]`` at position
     S+i-1.  Returns (N, B, V) float32 on the model's device; with a greedy
-    run's tokens, step i's argmax is its token i."""
-    dev = bundle.device
+    run's tokens, step i's argmax is its token i.  ``mesh`` set: ``params``
+    placed by ``place_params`` on it, the steps ``MeshServe``'s, the logits
+    on the mesh's first device."""
+    serve = None if mesh is None else MeshServe(bundle, mesh)
+    dev = bundle.device if serve is None else serve.first
     with torch.inference_mode():
         batch = {k: _on(dev, v) for k, v in batch.items()}
         tokens = _on(dev, tokens).long()
-        s = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[1]
-        n = tokens.shape[1]
-        logits, cache = bundle.prefill(params, batch)
-        cache = _pad_cache_seq(bundle.cfg, cache, s, s + n)
+        s, n = _prompt_len(batch), tokens.shape[1]
+        if serve is None:
+            logits, cache = bundle.prefill(params, batch)
+            cache = _pad_cache_seq(bundle.cfg, cache, s, s + n)
+            step = bundle.decode_step
+        else:
+            logits, cache = serve.prefill(params, batch, s + n)
+            step = serve.decode_step
         out = [logits]
         for i in range(n - 1):
-            logits, cache = bundle.decode_step(params, cache, tokens[:, i], s + i)
+            logits, cache = step(params, cache, tokens[:, i], s + i)
             out.append(logits)
         return torch.stack(out)
 

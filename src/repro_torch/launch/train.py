@@ -10,30 +10,31 @@ checkpoint written by either package resumes in the other.
 
 On a mesh (``mesh=``, ``--use-mesh``) the parameters, moments, gradient
 sums and residuals are ``Sharded`` by ``param_pspecs``
-(``place_params``), and a step is one explicit shard program driven
-from this process, as the tabular mesh engine's (no
-``torch.distributed``).  The transformer family (``dense``, ``moe``,
-``vlm``) runs the split program (``repro_torch.sharding.split``): device
-(g, m) computes data group g's rows with model slice m of every weight
-the specs split over `model` (column-parallel projections, row-parallel
-outputs whose partials are reduce-scattered over the sequence, the
-attention split by query rows, experts on `model`, vocab-parallel
+(``place_params``), and a step is one explicit shard program driven from
+this process, as the tabular mesh engine's (no ``torch.distributed``).
+The transformer family (``dense``, ``moe``, ``vlm``), the hybrid
+(zamba2) and the ssm (rwkv6) run the split program
+(``repro_torch.sharding.split``): device (g, m) computes data group g's
+rows with model slice m of every weight the specs split over `model`
+(column-parallel projections, row-parallel outputs whose partials are
+reduce-scattered over the sequence, the attention split by query rows,
+the recurrent scans by heads, experts on `model`, vocab-parallel
 embedding and logits), activations between blocks sequence-sharded over
 the group's devices where the specs say so; each layer's `fsdp` blocks
 are gathered over the data axis onto the device just before use and
 gathered again for its backward; each device's gradients of its slices
 go into the float32 sums of the shards that hold them, group by group in
-ascending order (the reduce-scatter over data).  The other families
-(``hybrid``, ``ssm``, ``audio``) gather whole parameters once per compute
-device (mesh order); each data group (the batch axes' blocks, computed
-on its device at model index 0) takes the loss and gradients of its
-rows, summed into each device's shards group by group in ascending mesh
-order: their `model` axis shards state only.  Then, for every family,
-``AdamW.update`` on each device's shards with the clip norm summed over
-every leaf's blocks in flatten order.  The program gives the one-device
-step: the loss is the groups' mean (equal rows and whole-column masks
-give equal token counts), and an MoE layer routes each group's tokens
-with the whole batch's ranks and capacity (``GroupRouting``).
+ascending order (the reduce-scatter over data). The audio family
+(whisper) gathers whole parameters once per compute device (mesh order);
+each data group (the batch axes' blocks, computed on its device at model
+index 0) takes the loss and gradients of its rows, summed into each
+device's shards group by group in ascending mesh order: its `model`
+axis shards state only. Then, for every family, ``AdamW.update`` on each
+device's shards with the clip norm summed over every leaf's blocks in
+flatten order. The program gives the one-device step: the loss is the
+groups' mean (equal rows and whole-column masks give equal token
+counts), and an MoE layer routes each group's tokens with the whole
+batch's ranks and capacity (``GroupRouting``).
 
 CLI:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
@@ -271,12 +272,13 @@ class GroupRouting:
         return moe.experts(p, xt, r, act).reshape(b, s, d), aux
 
 
-SPLIT_FAMILIES = ("dense", "moe", "vlm")  # the transformer family: the split program
+# the families on the split program: the transformers, zamba2's and rwkv6's
+SPLIT_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
 
 
 class MeshStep:
     """The mesh train step (``make_train_step(bundle, opt, mesh)``): see the
-    module docstring.  ``split``: the transformer family's split program;
+    module docstring.  ``split``: the split program (``SPLIT_FAMILIES``);
     otherwise each compute device keeps one whole copy of the parameters
     (the all-gather's destination), reused every step.  ``routing``: the
     last step's MoE routing state (its ``dropped`` counts)."""

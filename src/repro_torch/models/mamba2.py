@@ -99,8 +99,11 @@ def _ssd_chunked(
     cmat: torch.Tensor,  # (B, S, N)
     chunk: int,
     h0: torch.Tensor | None = None,  # (B, H, P, N) initial state
+    cb_all: torch.Tensor | None = None,  # (B, nc, Q, Q) C B^T of every chunk
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B,S,H,P) float32, final_state (B,H,P,N) float32)."""
+    """Returns (y (B,S,H,P) float32, final_state (B,H,P,N) float32).
+    ``cb_all``: the chunks' C B^T computed elsewhere (the split program's,
+    shared by every head), else each chunk's here."""
     b, s, h, p = xh.shape
     n = bmat.shape[-1]
     q = ssd_chunk(s, chunk)
@@ -122,7 +125,8 @@ def _ssd_chunked(
         total = cs[:, -1]  # (B,H)
 
         lmat = _intra_decay(cs, tri)  # (B,Q,Q,H)
-        cb = torch.einsum("bqn,bjn->bqj", cq, bq)  # (B,Q,Q) shared across heads
+        # (B,Q,Q) shared across heads
+        cb = torch.einsum("bqn,bjn->bqj", cq, bq) if cb_all is None else cb_all[:, c]
         # "bqj,bqjh,bjh,bjhp->bqhp" as explicit products
         m = cb[:, :, :, None] * lmat * dq[:, None, :, :]  # (B,Q,Q,H)
         y_diag = torch.einsum("bqjh,bjhp->bqhp", m, xq)
@@ -145,12 +149,16 @@ def mamba2_forward(
     x: torch.Tensor,  # (B, S, d)
     cfg,
     h0: torch.Tensor | None = None,
+    sp=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence forward.
 
     Returns (out (B,S,d), final ssm state (B,H,P,N) float32, conv tail
-    (B, W-1, conv_dim)) — the latter two seed the decode cache.
+    (B, W-1, conv_dim)) — the latter two seed the decode cache.  ``sp``
+    set: on a data group's `model` devices (``_forward_split``).
     """
+    if sp is not None:
+        return _forward_split(sp, prm, x, cfg)
     di, h, conv_dim = dims(cfg)
     n = cfg.ssm_state
     b, s, _ = x.shape
@@ -177,9 +185,13 @@ def mamba2_decode(
     ssm_state: torch.Tensor,  # (B, H, P, N) float32
     conv_state: torch.Tensor,  # (B, W-1, conv_dim)
     cfg,
+    sp=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token recurrent step.  Returns (out, ssm_state, conv_state),
-    new tensors (the inputs are read, not written)."""
+    new tensors (the inputs are read, not written).  ``sp`` set: on a data
+    group's `model` devices (``_decode_split``)."""
+    if sp is not None:
+        return _decode_split(sp, prm, x, ssm_state, conv_state, cfg)
     di, h, conv_dim = dims(cfg)
     n = cfg.ssm_state
     b = x.shape[0]
@@ -206,3 +218,149 @@ def mamba2_decode(
     y = y.reshape(b, di).to(x.dtype)
     y = common.rms_norm(y * F.silu(z), prm.norm, cfg.norm_eps)
     return (y @ prm.out_proj)[:, None, :], ssm_state, conv_state
+
+
+# ---------------------------------------------------------------------------
+# The split program: a data group's `model` devices, split by heads
+# ---------------------------------------------------------------------------
+#
+# in_proj is column-parallel over [z | x | B | C | dt], whose slices line up
+# with neither heads nor segments: the product is taken by the spec's slice
+# (one device's dot FLOPs), then one regroup gives device m the whole
+# sequence with z, x and dt of its heads (``sp.heads(H)[m]``) and the whole
+# B and C (one group: every head reads them).  The depthwise conv is per
+# channel; the SSD scan per head, on the whole sequence; C B^T, which every
+# head shares, is computed a chunk range a device and all-gathered.  The
+# gated RMSNorm spans d_inner: each device's float32 sums of squares are
+# all-reduced in shard order.  out_proj is row-parallel (its rows line up
+# with heads where M divides H), its partials reduce-scattered into
+# ``sp.layout``.  The whole vectors (a_log, d_skip, dt_bias, norm, conv_w,
+# conv_b) are read at the device's heads or channels.
+
+
+def _own_cols(cfg, h0: int, hn: int) -> list:
+    """in_proj's columns device computing heads h0 .. h0 + hn - 1 takes:
+    its z, its x, B and C, its dt."""
+    di, _, _ = dims(cfg)
+    n, p = cfg.ssm_state, cfg.ssm_head_dim
+    return [(h0 * p, hn * p), (di + h0 * p, hn * p), (2 * di, 2 * n), (2 * di + 2 * n + h0, hn)]
+
+
+def _take(t: torch.Tensor, cols: list) -> torch.Tensor:
+    """The column ranges ``cols`` of ``t``'s last dim, concatenated."""
+    return torch.cat([t[..., c0:c0 + cn] for c0, cn in cols], dim=-1)
+
+
+def _gated_norm(sp, g, w, heads, p: int, di: int, eps: float):
+    """``rms_norm`` over d_inner of ``g`` (device m its heads' columns):
+    the float32 sums of squares all-reduced in shard order."""
+    ss = g.map(lambda t, m: torch.sum(torch.square(t.float()), dim=-1, keepdim=True))
+    total = sp.to(sp.dist(sp.PARTIAL, ss.parts), sp.FULL)
+
+    def norm(t, m):
+        h0, hn = heads[m]
+        y = t.float() * torch.rsqrt(total.parts[m] / di + eps)
+        return (y * (1.0 + w[m][h0 * p:(h0 + hn) * p].float())).to(t.dtype)
+
+    return g.map(norm)
+
+
+def _heads_out(sp, g, w, heads, p: int, di: int):
+    """out_proj of ``g`` (device m its heads' columns) into ``sp.layout``."""
+    y = sp.to_input(g, di, [(h0 * p, hn * p) for h0, hn in heads], w)
+    return sp.to(sp.mm(y, w), sp.layout)
+
+
+def _forward_split(sp, w, x, cfg):
+    """``mamba2_forward`` on a data group's `model` devices (``w`` the
+    gathered fields, ``x`` and the output in ``sp.layout``).  Returns (the
+    output, each device's heads' final state (B, hn, P, N) float32, the
+    whole conv tail (B, W - 1, conv_dim) equal on every device)."""
+    di, h, conv_dim = dims(cfg)
+    n, p = cfg.ssm_state, cfg.ssm_head_dim
+    heads = sp.heads(h)
+    u = sp.cols(sp.mm(x, w.in_proj), 2 * di + 2 * n + h, [_own_cols(cfg, *hh) for hh in heads])
+    b, s = u.parts[sp.root].shape[:2]
+    parts = u.map(lambda t, m: torch.split(t, [heads[m][1] * p, heads[m][1] * p + 2 * n,
+                                               heads[m][1]], dim=-1))
+
+    def conv(zxd, m):
+        cols = [(heads[m][0] * p, heads[m][1] * p), (di, 2 * n)]
+        return F.silu(_causal_conv(zxd[1], _take(w.conv_w[m], cols), _take(w.conv_b[m], cols)))
+
+    xbc = parts.map(conv)
+    q = ssd_chunk(s, cfg.ssm_chunk)
+    nc = s // q
+    chunks = sp.heads(nc)
+
+    def cb(t, m):  # C B^T of the device's chunks
+        c0, cn = chunks[m]
+        bm = t[..., -2 * n:-n].reshape(b, nc, q, n)[:, c0:c0 + cn].float()
+        cm = t[..., -n:].reshape(b, nc, q, n)[:, c0:c0 + cn].float()
+        return torch.einsum("bcqn,bcjn->bcqj", cm, bm)
+
+    cb_all = sp.to(sp.dist(sp.ROWS, xbc.map(cb).parts), sp.FULL, sizes=[c for _, c in chunks])
+
+    def scan(t, m):
+        h0, hn = heads[m]
+        z, _, dt = parts.parts[m]
+        xin, bmat, cmat = torch.split(t, [hn * p, n, n], dim=-1)
+        xh = xin.reshape(b, s, hn, p)
+        dt = F.softplus(dt.float() + w.dt_bias[m][h0:h0 + hn])
+        y, state = _ssd_chunked(xh, dt, -torch.exp(w.a_log[m][h0:h0 + hn]), bmat, cmat,
+                                cfg.ssm_chunk, cb_all=cb_all.parts[m])
+        y = y + xh.float() * w.d_skip[m][h0:h0 + hn][None, None, :, None]
+        return y.reshape(b, s, hn * p).to(z.dtype) * F.silu(z), state
+
+    both = xbc.map(scan)
+    g = sp.dist(sp.HEADS, both.map(lambda t, m: t[0]).parts)
+    g = _gated_norm(sp, g, w.norm, heads, p, di, cfg.norm_eps)
+    out = _heads_out(sp, g, w.out_proj, heads, p, di)
+    tail = cfg.ssm_conv_width - 1
+    own = sp.dist(sp.COLS, parts.map(lambda t, m: t[1][:, -tail:, :heads[m][1] * p]).parts)
+    xt = sp.gather(own, -1, [hn * p for _, hn in heads])
+    conv_tail = xt.map(lambda t, m: torch.cat([t, parts.parts[m][1][:, -tail:, -2 * n:]], -1))
+    return out, both.map(lambda t, m: t[1]), conv_tail
+
+
+def _decode_split(sp, w, x, ssm_state: list, conv_state: list, cfg):
+    """``mamba2_decode`` on a data group's `model` devices (``x`` and the
+    output ``FULL``; ``ssm_state[m]`` device m's heads' state, ``conv_state[m]``
+    the whole tail): the in_proj row all-gathered to every device, the conv
+    a chunk of channels a device (its product computed once in the group)
+    all-gathered, the scan per head.  Returns (the output, each device's
+    heads' new state, the whole new conv tail equal on every device)."""
+    di, h, conv_dim = dims(cfg)
+    n, p = cfg.ssm_state, cfg.ssm_head_dim
+    heads, chans = sp.heads(h), sp.heads(conv_dim)
+    u = sp.to(sp.mm(x, w.in_proj), sp.FULL)  # (B, 1, 2di + 2N + H) on every device
+    hist = u.map(lambda t, m: torch.cat([conv_state[m], t[:, :, di:2 * di + 2 * n]], dim=1))
+
+    def conv(t, m):
+        c0, cn = chans[m]
+        return F.silu(torch.einsum("bwc,wc->bc", t[..., c0:c0 + cn], w.conv_w[m][:, c0:c0 + cn])
+                      + w.conv_b[m][c0:c0 + cn])[:, None]
+
+    xbc = sp.gather(sp.dist(sp.COLS, hist.map(conv).parts), -1, [c for _, c in chans])
+    b = u.parts[sp.root].shape[0]
+
+    def step(t, m):
+        h0, hn = heads[m]
+        row = u.parts[m][:, 0]
+        z, dt = row[:, h0 * p:(h0 + hn) * p], row[:, 2 * di + 2 * n + h0:2 * di + 2 * n + h0 + hn]
+        xh = t[:, 0, h0 * p:(h0 + hn) * p].reshape(b, hn, p).float()
+        bvec, cvec = t[:, 0, di:di + n].float(), t[:, 0, di + n:di + 2 * n].float()
+        dt = F.softplus(dt.float() + w.dt_bias[m][h0:h0 + hn])
+        decay = torch.exp(dt * (-torch.exp(w.a_log[m][h0:h0 + hn]))[None, :])
+        state = ssm_state[m] * decay[:, :, None, None] + (
+            (dt[:, :, None] * xh)[..., None] * bvec[:, None, None, :])
+        y = torch.einsum("bhpn,bn->bhp", state, cvec)
+        y = y + xh * w.d_skip[m][h0:h0 + hn][None, :, None]
+        y = y.reshape(b, 1, hn * p).to(z.dtype)
+        return y * F.silu(z)[:, None], state
+
+    both = xbc.map(step)
+    g = sp.dist(sp.HEADS, both.map(lambda t, m: t[0]).parts)
+    g = _gated_norm(sp, g, w.norm, heads, p, di, cfg.norm_eps)
+    return (_heads_out(sp, g, w.out_proj, heads, p, di), both.map(lambda t, m: t[1]),
+            hist.map(lambda t, m: t[:, 1:]))

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models import common
+from repro_torch.models import common, split_lm
 
 
 class RWKV6Params(nn.Module):
@@ -178,8 +178,11 @@ def _wkv_chunked(r, k, v, w, u, hd: int, s0=None, chunk: int = WKV_CHUNK):
     return y, state
 
 
-def rwkv6_time_mix(prm: RWKV6Params, x: torch.Tensor, cfg, state=None):
-    """x: (B,S,d).  state: (S0, x_prev) or None.  Returns (out, new_state)."""
+def rwkv6_time_mix(prm: RWKV6Params, x: torch.Tensor, cfg, state=None, sp=None):
+    """x: (B,S,d).  state: (S0, x_prev) or None.  Returns (out, new_state).
+    ``sp`` set: on a data group's `model` devices (``_time_mix_split``)."""
+    if sp is not None:
+        return _time_mix_split(sp, prm, x, cfg, state)
     s0, x_prev = (None, None) if state is None else state
     xs = _shift(x, x_prev)
     mr, mk, mv, mg, mw = (_lerp(x, xs, prm.mu_r), _lerp(x, xs, prm.mu_k),
@@ -199,9 +202,121 @@ def rwkv6_time_mix(prm: RWKV6Params, x: torch.Tensor, cfg, state=None):
     return (y * g) @ prm.wo, (s_new, x[:, -1, :])
 
 
-def rwkv6_channel_mix(prm: RWKV6Params, x: torch.Tensor, x_prev=None):
+def rwkv6_channel_mix(prm: RWKV6Params, x: torch.Tensor, x_prev=None, sp=None):
+    if sp is not None:
+        return _channel_mix_split(sp, prm, x, x_prev)
     xs = _shift(x, x_prev)
     mk = _lerp(x, xs, prm.mu_ck)
     mr = _lerp(x, xs, prm.mu_cr)
     k = torch.square(F.relu(mk @ prm.ck))
     return torch.sigmoid(mr @ prm.cr) * (k @ prm.cv), x[:, -1, :]
+
+
+# ---------------------------------------------------------------------------
+# The split program: a data group's `model` devices, split by heads
+# ---------------------------------------------------------------------------
+#
+# wr, wk, wv and wg are column-parallel (at width 2,048 / M columns are whole
+# heads of 64), wo row-parallel; where a slice cuts a head (rwkv6's smoke
+# config on M = 8), one regroup gives device m its heads'
+# (``sp.heads(H)[m]``) columns.  The WKV scan and the group norm are per
+# head, so local to a device.  The decay's LoRA (whole matrices) is taken
+# by rows (``sp.mm`` of a whole weight) and all-gathered, its second factor
+# and the whole vectors (w0, u, ln_scale, ln_bias) read at the device's
+# heads.  In the channel mix ck and cr are column-parallel and cv
+# row-parallel: sigmoid(mr @ cr) comes out by columns and k @ cv as partial
+# sums, and both go to ``sp.layout`` before the product (an all-to-all and
+# a reduce-scatter, or an all-gather and an all-reduce): the partials are
+# added in ascending shard order, where one device's product adds f's terms
+# inside one matmul.
+
+
+def _shift_split(sp, x, x_prev=None):
+    """``_shift`` of a ``FULL`` value (on each device) or of ``ROWS`` (the
+    row before a device's first is the last row of the nearest device
+    before it that holds rows: all-gathered).  ``x_prev``: one (B, d) a
+    device (equal), or None (zeros)."""
+    if x.kind == sp.FULL or sp.M == 1:
+        return x.map(lambda t, m: _shift(t, None if x_prev is None else x_prev[m]))
+    held = [min(1, r) for r in sp.rows]
+    lasts = sp.gather(sp.dist(sp.ROWS, x.map(lambda t, m: t[:, t.shape[1] - held[m]:]).parts),
+                      1, held)
+
+    def shift(t, m):
+        before = sum(held[:m])
+        if before:
+            pad = lasts.parts[m][:, before - 1]
+        else:
+            pad = None if x_prev is None else x_prev[m]
+        return _shift(t, pad)
+
+    return x.map(shift)
+
+
+def _time_mix_split(sp, w, x, cfg, state=None):
+    """``rwkv6_time_mix`` on a data group's `model` devices (``w`` the
+    gathered fields, ``x`` and the output in ``sp.layout``; ``state``: (one
+    (B, hn, dk, dv) a device, its heads' state, one whole (B, d) x_prev a
+    device) or None).  Returns (the output, (each device's heads' new
+    state, the new x_prev (B, d) ``FULL``))."""
+    s0, x_prev = (None, None) if state is None else state
+    d, hd = cfg.d_model, cfg.rwkv_head_dim
+    heads = sp.heads(d // hd)
+    want = [[(h0 * hd, hn * hd)] for h0, hn in heads]
+    if any(t.model_dim is not None for t in (w.wr, w.wk, w.wv, w.wg)):
+        x = sp.to(x, sp.FULL)
+    xs = _shift_split(sp, x, x_prev)
+
+    def lerp(mu):
+        return x.zip(xs, lambda a, b, m: _lerp(a, b, mu[m]))
+
+    def heads_of(t, wt):
+        return sp.cols(sp.mm(t, wt), d, want)
+
+    r = heads_of(lerp(w.mu_r), w.wr).map(lambda t, m: t.float())
+    k = heads_of(lerp(w.mu_k), w.wk).map(lambda t, m: t.float())
+    v = heads_of(lerp(w.mu_v), w.wv).map(lambda t, m: t.float())
+    g = heads_of(lerp(w.mu_g), w.wg).map(lambda t, m: F.silu(t))
+    lora = sp.to(sp.mm(lerp(w.mu_w).map(lambda t, m: t.float()), w.w_lora_a)
+                 .map(lambda t, m: torch.tanh(t)), sp.FULL)
+
+    def wkv(t, m):
+        h0, hn = heads[m]
+        c0, c1 = h0 * hd, (h0 + hn) * hd
+        decay = torch.exp(-torch.clamp(torch.exp(w.w0[m][c0:c1] + t @ w.w_lora_b[m][:, c0:c1]),
+                                       max=MAX_LOG_DECAY))
+        rm, km, vm = r.parts[m], k.parts[m], v.parts[m]
+        if hn == 0:
+            b = rm.shape[0]
+            return (g.parts[m], torch.zeros((b, 0, hd, hd), dtype=torch.float32,
+                                            device=rm.device))
+        init = None if s0 is None else s0[m]
+        if rm.shape[1] > 1 and rm.shape[1] % WKV_CHUNK == 0:
+            y, s_new = _wkv_chunked(rm, km, vm, decay, w.u[m][c0:c1], hd, init)
+        else:
+            y, s_new = _wkv_scan(rm, km, vm, decay, w.u[m][c0:c1], hd, init)
+        y = _group_norm(y.to(g.parts[m].dtype), w.ln_scale[m][c0:c1], w.ln_bias[m][c0:c1], hn,
+                        cfg.norm_eps)
+        return y * g.parts[m], s_new
+
+    both = lora.map(wkv)
+    y = sp.to_input(sp.dist(sp.HEADS, both.map(lambda t, m: t[0]).parts), d,
+                    [c[0] for c in want], w.wo)
+    return (sp.to(sp.mm(y, w.wo), sp.layout),
+            (both.map(lambda t, m: t[1]), split_lm.last(sp, x).map(lambda t, m: t[:, 0])))
+
+
+def _channel_mix_split(sp, w, x, x_prev=None):
+    """``rwkv6_channel_mix`` on a data group's `model` devices (see the
+    section's note).  Returns (the output in ``sp.layout``, the new x_prev
+    (B, d) ``FULL``)."""
+    layout = x.kind
+    if w.ck.model_dim is not None or w.cr.model_dim is not None:
+        x = sp.to(x, sp.FULL)
+    xs = _shift_split(sp, x, x_prev)
+    mk = x.zip(xs, lambda a, b, m: _lerp(a, b, w.mu_ck[m]))
+    mr = x.zip(xs, lambda a, b, m: _lerp(a, b, w.mu_cr[m]))
+    kv = sp.mm(sp.mm(mk, w.ck).map(lambda t, m: torch.square(F.relu(t))), w.cv)
+    rr = sp.mm(mr, w.cr).map(lambda t, m: torch.sigmoid(t))
+    out = sp.to(rr, layout).zip(sp.to(kv, layout), lambda a, b, m: a * b)
+    return out, split_lm.last(sp, x).map(lambda t, m: t[:, 0])

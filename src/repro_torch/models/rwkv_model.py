@@ -9,6 +9,14 @@ The input layer norm uses the float32 ``ln_in``/``ln_in_b``.  Under
 ``cfg.remat`` each layer's activations are recomputed in the backward
 pass while autograd records (``common.remat``, the reference's
 ``jax.checkpoint`` of its scan body).
+
+The split program (``sp=``: ``loss_fn(params, batch, sp)``, ``prefill`` and
+``decode_step`` with a list of ``Split``s, one a data group): each layer's
+time and channel mix split by heads (``rwkv6_time_mix``/
+``rwkv6_channel_mix(sp=)``), the embedding (then ``ln_in``), head and cross
+entropy vocab-parallel (``split_lm``); the cache in ``cache_pspecs``'s
+layout: the state by heads on `model` where M divides H, else whole on
+every device (``split.StateLeaf``), x_prev whole and equal on every device.
 """
 
 from __future__ import annotations
@@ -17,9 +25,11 @@ import torch
 from torch import nn
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import common
+from repro_torch.models import common, split_lm
 from repro_torch.models.rwkv6 import RWKV6Params, rwkv6_channel_mix, rwkv6_time_mix
 from repro_torch.models.transformer import _chunked_ce
+from repro_torch.sharding.partition import MeshAxes, cache_pspecs
+from repro_torch.sharding.placement import zeros_like_cache
 
 
 class RWKVParams(nn.Module):
@@ -97,17 +107,28 @@ class RWKVLM:
             return x, None
         return x, (torch.stack(states), torch.stack(xp_atts), torch.stack(xp_ffns))
 
-    def loss_fn(self, params: RWKVParams, batch: dict) -> tuple[torch.Tensor, dict]:
+    def loss_fn(self, params: RWKVParams, batch: dict, sp=None) -> tuple[torch.Tensor, dict]:
         """batch: {'tokens' (B,S), 'labels' (B,S)}.  Returns (loss, {'ce',
-        'loss'})."""
+        'loss'}).  ``sp`` set: the split program's loss on data group
+        ``sp.group``'s devices (``params`` placed, ``batch`` the group's
+        rows; the loss on ``sp.root``'s device)."""
+        if sp is not None:
+            hidden = self._split_hidden(sp, params, self._split_embed(sp, params, batch))
+            loss = split_lm.cross_entropy(sp, params, hidden, sp.whole(batch["labels"]))
+            return loss, {"ce": loss, "loss": loss}
         hidden, _ = self.hidden_states(params, self._embed(params, batch["tokens"]))
         loss = _chunked_ce(hidden, params.lm_head, batch["labels"])
         return loss, {"ce": loss, "loss": loss}
 
     # -- serving ---------------------------------------------------------------
 
-    def init_cache(self, batch: int, seq: int, device=None):
+    def init_cache(self, batch: int, seq: int, device=None, mesh=None):
+        """Zeros of the cache; ``mesh`` set: ``Sharded`` leaves in
+        ``cache_pspecs``'s layout, each shard allocated where it lives."""
         cfg = self.cfg
+        if mesh is not None:
+            shape = self.init_cache(batch, seq, device="meta")
+            return zeros_like_cache(mesh, shape, cache_pspecs(shape, cfg, MeshAxes(mesh)))
         device = self.device if device is None else device
         h = cfg.d_model // cfg.rwkv_head_dim
         dtype = common.dtype_of(cfg.dtype)
@@ -119,19 +140,27 @@ class RWKVLM:
         )
 
     @torch.no_grad()
-    def prefill(self, params: RWKVParams, batch: dict):
+    def prefill(self, params: RWKVParams, batch: dict, sp=None, cache=None):
         """batch: {'tokens' (B, S)}.  Returns (last-token logits (B, V)
-        float32, cache)."""
+        float32, cache).  ``sp`` set (a list of ``Split``s, one a data group):
+        the split program's prefill of each group's rows (``batch`` a list)
+        into ``cache`` (``init_cache(mesh=)``); returns (each group's logits
+        on its root's device, the cache)."""
+        if sp is not None:
+            return [self._split_prefill(g, params, b, cache) for g, b in zip(sp, batch)], cache
         hidden, cache = self.hidden_states(params, self._embed(params, batch["tokens"]),
                                            collect_cache=True)
         logits = hidden[:, -1, :] @ params.lm_head
         return logits.float(), cache
 
     @torch.no_grad()
-    def decode_step(self, params: RWKVParams, cache, token: torch.Tensor, pos: int):
+    def decode_step(self, params: RWKVParams, cache, token: torch.Tensor, pos: int, sp=None):
         """token: (B,) int; pos is unused (the state carries the position).
         Returns (logits (B, V) float32, cache) — the same cache tensors,
-        updated in place."""
+        updated in place.  ``sp`` set: the split program's step, as
+        ``prefill``'s (``token`` a list of the groups' rows)."""
+        if sp is not None:
+            return [self._split_decode(g, params, cache, t) for g, t in zip(sp, token)], cache
         cfg = self.cfg
         s_all, xa_all, xf_all = cache
         x = self._embed(params, token[:, None])
@@ -148,3 +177,66 @@ class RWKVLM:
         x = common.rms_norm(x, params.final_norm, cfg.norm_eps)
         logits = x[:, 0, :] @ params.lm_head
         return logits.float(), cache
+
+    # -- the split program ------------------------------------------------------
+
+    def _split_embed(self, sp, tree, batch: dict):
+        x = split_lm.embed(sp, tree, sp.whole(batch["tokens"]))
+        w = sp.weights({"ln_in": tree["ln_in"], "ln_in_b": tree["ln_in_b"]}, "ln_in")
+        return x.map(lambda t, m: common.layer_norm(t, w.ln_in[m], w.ln_in_b[m],
+                                                    self.cfg.norm_eps))
+
+    def _split_layer(self, sp, tree, i: int, x, state=None):
+        """Layer i on data group ``sp.group``'s devices: (x, (its new state,
+        x_prev of the time mix, of the channel mix)); ``state``: each
+        device's (S heads, x_prev_att, x_prev_ffn) lists, or None."""
+        eps = self.cfg.norm_eps
+        w = sp.weights(sp.layer(tree["layers"], i), f"layers[{i}]")
+        ln = sp.weights({"ln1": tree["ln1"], "ln2": tree["ln2"]}, "ln")
+        a, (s_new, xpa) = rwkv6_time_mix(
+            w, x.map(lambda t, m: common.rms_norm(t, ln.ln1[m][i], eps)), self.cfg,
+            state=None if state is None else state[:2], sp=sp)
+        x = x + a
+        f, xpf = rwkv6_channel_mix(w, x.map(lambda t, m: common.rms_norm(t, ln.ln2[m][i], eps)),
+                                   x_prev=None if state is None else state[2], sp=sp)
+        return x + f, (s_new, xpa, xpf)
+
+    def _split_hidden(self, sp, tree, x, keep=None):
+        """``hidden_states`` on data group ``sp.group``'s devices (``x`` and
+        the final-normed result in ``sp.layout``); ``keep(i, s, xpa, xpf)``:
+        each layer's cache entry (prefill)."""
+        cfg = self.cfg
+        for i in range(cfg.n_layers):
+            def body(x, i=i):
+                x, entry = self._split_layer(sp, tree, i, x)
+                if keep is not None:
+                    keep(i, *entry)
+                return x, ()
+
+            x, _ = split_lm.remat_layer(cfg, sp, x, body)
+        w = sp.weights({"final_norm": tree["final_norm"]}, "final_norm").final_norm
+        return x.map(lambda t, m: common.rms_norm(t, w[m], cfg.norm_eps))
+
+    def _leaves(self, sp, cache, i: int):
+        s_all, xa_all, xf_all = cache
+        return (sp.state_leaf(s_all, i), sp.state_leaf(xa_all, i, state=False),
+                sp.state_leaf(xf_all, i, state=False))
+
+    def _split_prefill(self, sp, tree, batch: dict, cache):
+        def keep(i, *entry):
+            for leaf, new in zip(self._leaves(sp, cache, i), entry, strict=True):
+                leaf.store(new)
+
+        h = self._split_hidden(sp, tree, self._split_embed(sp, tree, batch), keep)
+        return split_lm.logits(sp, tree, split_lm.last(sp, h))
+
+    def _split_decode(self, sp, tree, cache, token: torch.Tensor):
+        cfg = self.cfg
+        x = self._split_embed(sp, tree, {"tokens": token[:, None]})
+        for i in range(cfg.n_layers):
+            leaves = self._leaves(sp, cache, i)
+            x, entry = self._split_layer(sp, tree, i, x, [sp.parts(leaf.read) for leaf in leaves])
+            for leaf, new in zip(leaves, entry, strict=True):
+                leaf.store(new)
+        w = sp.weights({"final_norm": tree["final_norm"]}, "final_norm").final_norm
+        return split_lm.logits(sp, tree, x.map(lambda t, m: common.rms_norm(t, w[m], cfg.norm_eps)))

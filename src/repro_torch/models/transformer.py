@@ -31,13 +31,13 @@ import torch
 from torch import nn
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import common
+from repro_torch.models import common, split_lm
 from repro_torch.models.attention import AttnParams, attention_decode, attention_forward
 from repro_torch.models.ffn import FFNParams, ffn_forward
 from repro_torch.models.mla import MLAParams, mla_decode, mla_forward
 from repro_torch.models.moe import MoEParams, moe_forward
 from repro_torch.sharding.partition import MeshAxes, cache_pspecs
-from repro_torch.sharding.placement import Sharded
+from repro_torch.sharding.placement import zeros_like_cache
 
 # MoE capacity factor at decode: tiny T, generous capacity (as the reference)
 DECODE_CAPACITY_FACTOR = 4.0
@@ -308,31 +308,13 @@ class TransformerLM:
     def embed_tokens(self, params, tokens, sp=None):
         """The embedding rows of ``tokens``.  ``sp`` set: ``params`` the
         placed tree, ``tokens`` one copy a device, the result in
-        ``sp.layout`` (``_split_embed``)."""
-        x = params.embed[tokens] if sp is None else self._split_embed(sp, params, tokens)
+        ``sp.layout`` (``split_lm.embed``)."""
+        x = params.embed[tokens] if sp is None else split_lm.embed(sp, params, tokens)
         if self.cfg.name.startswith("gemma"):
             # the scale rounded to the embedding dtype before the product
             x = _each(lambda t: t * torch.tensor(np.sqrt(self.cfg.d_model), dtype=t.dtype,
                                                  device=t.device), x, sp)
         return x
-
-    def _split_embed(self, sp, tree, tokens: list):
-        """The split lookup: vocab rows on `model`, each device's rows looked
-        up where its slice holds them (zeros elsewhere), summed over shards
-        (into ``sp.layout``)."""
-        w = sp.weights({"embed": tree["embed"]}, "embed").embed
-        if w.model_dim == 0:
-            def lookup(tok, m):
-                vm = w[m].shape[0]
-                local = tok - m * vm
-                inside = (local >= 0) & (local < vm)
-                e = w[m][torch.clamp(local, 0, vm - 1)]
-                return torch.where(inside[..., None], e, torch.zeros((), dtype=e.dtype,
-                                                                      device=e.device))
-            return sp.to(sp.dist(sp.PARTIAL, sp.parts(lambda m: lookup(tokens[m], m))),
-                         sp.layout)
-        return sp.to(sp.dist(sp.ROWS, sp.parts(lambda m: w[m][
-            tokens[m].narrow(1, sp.row_start[m], sp.rows[m])])), sp.layout)
 
     # -- forward (train / prefill) ------------------------------------------
 
@@ -386,7 +368,7 @@ class TransformerLM:
             positions = torch.arange(x.shape[1], device=x.device)
             hidden, _, aux = self.hidden_states(params, x, positions)
         else:
-            positions = self._split_positions(sp)
+            positions = split_lm.positions(sp)
             (hidden,), (aux,) = self._split_hidden([sp], params, [x], [positions])
         loss = self._ce(params, hidden, labels, sp=sp)
         metrics = {"ce": loss, "aux": aux}
@@ -434,13 +416,9 @@ class TransformerLM:
     def _ce(self, params, hidden, labels, mask=None, sp=None):
         if sp is None:
             return _chunked_ce(hidden, self._head(params), labels, mask=mask)
-        return self._split_ce(sp, params, hidden, labels, mask=mask)
+        return split_lm.cross_entropy(sp, params, hidden, labels, mask=mask)
 
     # -- the split program's own parts (a mesh step over `model`) -------------
-
-    @staticmethod
-    def _split_positions(sp) -> list:
-        return sp.parts(lambda m: torch.arange(sp.seq_len, device=sp.devices[m]))
 
     def _split_layers(self, sps: list, tree, xs: list, block) -> tuple[list, list]:
         """Every layer on the data groups of ``sps`` in lockstep (each layer
@@ -477,96 +455,18 @@ class TransformerLM:
         cfg = self.cfg
 
         def block(g, sp, kind, x, layer, key, window, theta):
-            active = [m for m in range(sp.M) if x.parts[m] is not None]
-
-            def body(*parts):
+            def body(x):
                 w = sp.weights(layer, f"seg{key[0]}[{key[1]}]")
-                x = [None] * sp.M
-                for m, t in zip(active, parts):
-                    x[m] = t
-                y, kv, aux = _block_forward(cfg, kind, sp.dist(sp.layout, x), w, window, theta,
-                                            positions[g], self.flash_blk, sp, key)
+                y, kv, aux = _block_forward(cfg, kind, x, w, window, theta, positions[g],
+                                            self.flash_blk, sp, key)
                 if on_kv is not None:
                     on_kv(g, key[0], key[1], kv)
-                return (*[y.parts[m] for m in active], aux)
+                return y, (aux,)
 
-            out = common.remat(cfg, body, *[x.parts[m] for m in active])
-            y = [None] * sp.M
-            for m, t in zip(active, out[:-1]):
-                y[m] = t
-            return sp.dist(sp.layout, y), out[-1]
+            y, (aux,) = split_lm.remat_layer(cfg, sp, x, body)
+            return y, aux
 
         return self._split_layers(sps, tree, xs, block)
-
-    def _split_head(self, sp, tree):
-        """The head's gathered weight (d, V): vocab-parallel where the specs
-        split V (tied: the embedding's rows)."""
-        if self.cfg.tie_embeddings:
-            return sp.weights({"embed": tree["embed"]}, "head").embed.T
-        return sp.weights({"lm_head": tree["lm_head"]}, "head").lm_head
-
-    def _split_logits(self, sp, tree, h) -> torch.Tensor:
-        """One token's logits (B, V) float32 on ``sp.root`` from its final
-        hidden ``h`` (B, 1, d) ``FULL``: each device its vocab columns,
-        gathered to the root."""
-        out = sp.mm(h, self._split_head(sp, tree)).map(lambda t, m: t.float())
-        return sp.to_root(out)[:, 0]
-
-    def _split_last(self, sp, h):
-        """The last position's row (B, 1, d) of a hidden in ``sp.layout``,
-        ``FULL``: in ``ROWS`` it is the last device's, all-gathered."""
-        if h.kind == sp.FULL or sp.M == 1:
-            return sp.dist(sp.FULL, h.map(lambda t, m: t[:, -1:]).parts)
-        last = h.map(lambda t, m: t[:, -1:] if m == sp.M - 1 else t[:, :0])
-        return sp.to(sp.dist(sp.ROWS, last.parts), sp.FULL, sizes=[0] * (sp.M - 1) + [1])
-
-    def _split_ce(self, sp, tree, hidden, labels: list, mask: torch.Tensor | None = None):
-        """``_chunked_ce`` with vocab-parallel logits: device m holds its
-        vocab columns of each (B, chunk) block's logits; each chunk's
-        log-sum-exp and gold logit are reduced over `model` on ``sp.root`` in
-        shard order, so no device holds a (B, chunk, V) block.  ``mask``
-        (B, S) on ``sp.root``'s device."""
-        head = self._split_head(sp, tree)
-        root = sp.devices[sp.root]
-        tot = torch.zeros((), dtype=torch.float32, device=root)
-        cnt = torch.zeros((), dtype=torch.float32, device=root)
-        if head.model_dim is None:  # the vocab whole on every device: its own rows
-            hr = sp.to(hidden, sp.ROWS)
-
-            def rows_sums(t, m):
-                lab = labels[m].narrow(1, sp.row_start[m], sp.rows[m])
-                logits = (t @ head[m]).float()
-                nll = torch.logsumexp(logits, dim=-1) - torch.gather(
-                    logits, -1, lab[..., None].long())[..., 0]
-                mc = (torch.ones(nll.shape, dtype=torch.float32, device=nll.device)
-                      if mask is None else
-                      mask.narrow(1, sp.row_start[m], sp.rows[m]).to(nll.device).float())
-                return torch.stack([torch.sum(nll * mc), torch.sum(mc)])
-
-            sums = sp.sum_to_root(hr.map(rows_sums))
-            return sums[0] / torch.clamp(sums[1], min=1.0)
-        hf = sp.to(hidden, sp.FULL)
-        b, s = labels[sp.root].shape
-        chunk = s if s <= _CE_CHUNK or s % _CE_CHUNK else _CE_CHUNK
-        for c in range(s // chunk):
-            cols = slice(c * chunk, (c + 1) * chunk)
-
-            def shard(t, m):
-                logits = (t[:, cols] @ head[m]).float()
-                vm = logits.shape[-1]
-                local = labels[m][:, cols].long() - m * vm
-                inside = (local >= 0) & (local < vm)
-                gold = torch.gather(logits, -1, torch.clamp(local, 0, vm - 1)[..., None])[..., 0]
-                return torch.logsumexp(logits, dim=-1), torch.where(inside, gold, 0.0)
-
-            both = hf.map(shard)
-            logz = torch.logsumexp(sp.gather_to_root(both.map(lambda t, m: t[0])), dim=0)
-            gold = sp.sum_to_root(both.map(lambda t, m: t[1]))
-            mc = (mask[:, cols].float() if mask is not None
-                  else torch.ones((b, chunk), dtype=torch.float32, device=root))
-            tot = tot + torch.sum((logz - gold) * mc)
-            cnt = cnt + torch.sum(mc)
-        return tot / torch.clamp(cnt, min=1.0)
 
     # -- serving --------------------------------------------------------------
 
@@ -602,10 +502,7 @@ class TransformerLM:
         cfg = self.cfg
         if mesh is not None:
             shape = self.init_cache(batch, seq, device="meta")
-            specs = cache_pspecs(shape, cfg, MeshAxes(mesh))
-            return [tuple(Sharded.zeros(mesh, spec, tuple(t.shape), t.dtype)
-                          for t, spec in zip(seg, seg_specs))
-                    for seg, seg_specs in zip(shape, specs)]
+            return zeros_like_cache(mesh, shape, cache_pspecs(shape, cfg, MeshAxes(mesh)))
         dtype = common.dtype_of(cfg.dtype)
         device = self.device if device is None else device
         caches = []
@@ -665,10 +562,9 @@ class TransformerLM:
                 for m in sp.active:
                     leaf.fill(m, val.parts[m])
 
-        hs, _ = self._split_hidden(sps, tree, xs, [self._split_positions(sp) for sp in sps],
+        hs, _ = self._split_hidden(sps, tree, xs, [split_lm.positions(sp) for sp in sps],
                                    on_kv=keep)
-        return [self._split_logits(sp, tree, self._split_last(sp, h))
-                for sp, h in zip(sps, hs)], cache
+        return [split_lm.logits(sp, tree, split_lm.last(sp, h)) for sp, h in zip(sps, hs)], cache
 
     def _split_decode(self, sps: list, tree, cache, tokens: list, pos: int):
         cfg = self.cfg
@@ -686,10 +582,10 @@ class TransformerLM:
             return _block_decode(cfg, kind, x, w, c, window, theta, pos, sp, key)[0], None
 
         hs, _ = self._split_layers(sps, tree, xs, block)
-        return [self._split_logits(sp, tree, h) for sp, h in zip(sps, hs)], cache
+        return [split_lm.logits(sp, tree, h) for sp, h in zip(sps, hs)], cache
 
 
-_CE_CHUNK = 512  # the cross entropy's logits block along the sequence
+_CE_CHUNK = split_lm.CE_CHUNK
 
 
 def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,

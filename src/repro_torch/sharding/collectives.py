@@ -22,7 +22,12 @@ the collective (no ``torch.distributed``, no float atomics):
     along ``split_dim`` of every part, concatenated along ``cat_dim``;
     backward the inverse all-to-all;
   * ``gather_to(parts, dim, device)``: one output on ``device`` (the FSDP
-    gather of one leaf's blocks), backward each part's slice.
+    gather of one leaf's blocks), backward each part's slice;
+  * ``regroup(parts, have, want)``: the parts tile one (B, S, C) value in
+    blocks of rows and columns; output m the rows and column ranges
+    ``want[m]`` names, taken from the parts that hold them (columns may
+    go to several outputs); backward each part's pieces of the outputs'
+    gradients added in ascending output order.
 
 Chunks along a dim are ``torch.tensor_split``'s (the first ``n % k``
 chunks one longer).  ``outs`` names the output positions wanted (default
@@ -334,6 +339,68 @@ class _AllToAll(Function):
         return (None, None, None, None, *res)
 
 
+class _Regroup(Function):
+    @staticmethod
+    def forward(ctx, plan, have, want, *parts):
+        ctx.plan, ctx.have, ctx.want, ctx.like = plan, have, want, _like(parts[0])
+        ctx.part_shapes = [tuple(p.shape) for p in parts]
+        ctx.needs = [p.requires_grad for p in parts]
+        outs = []
+        for m in plan.computed:
+            dev = plan.devices[m]
+            out = torch.empty(_regroup_shape(parts[0].shape, want[m]), dtype=parts[0].dtype,
+                              device=dev)
+            for j, p in enumerate(parts):
+                for (src, dst, rn, cn) in _overlaps(have[j], want[m]):
+                    piece = p[:, src[0]:src[0] + rn, src[1]:src[1] + cn]
+                    if plan.keys[j] != plan.keys[m]:
+                        record(plan.keys[m], plan.kind or "all-to-all", piece)
+                    out[:, dst[0]:dst[0] + rn, dst[1]:dst[1] + cn] = piece.to(dev)
+            outs.append(out)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plan = ctx.plan
+        gin = _grads_in(ctx, grads, lambda m: _regroup_shape(ctx.part_shapes[0], ctx.want[m]))
+        res = []
+        for j in range(plan.n):
+            if not ctx.needs[j]:
+                res.append(None)
+                continue
+            dev = plan.devices[j]
+            full = torch.zeros(ctx.part_shapes[j], dtype=ctx.like.dtype, device=dev)
+            for m, g in gin.items():  # ascending output order
+                for (src, dst, rn, cn) in _overlaps(ctx.have[j], ctx.want[m]):
+                    piece = g[:, dst[0]:dst[0] + rn, dst[1]:dst[1] + cn]
+                    if plan.keys[m] != plan.keys[j]:
+                        record(plan.keys[j], plan.kind or "all-to-all", piece)
+                    full[:, src[0]:src[0] + rn, src[1]:src[1] + cn] += piece.to(dev)
+            res.append(full)
+        return (None, None, None, *res)
+
+
+def _regroup_shape(shape, want) -> tuple:
+    (_, rows), cols = want
+    return (shape[0], rows, sum(n for _, n in cols))
+
+
+def _overlaps(have, want) -> list:
+    """The pieces a part of rows/columns ``have`` ((r0, rn), (c0, cn)) gives
+    an output of ``want`` ((r0, rn), [(c0, cn), ...]): (offsets in the part,
+    offsets in the output, rows, columns), in the output's column order."""
+    (hr0, hrn), (hc0, hcn) = have
+    (wr0, wrn), cols = want
+    r0, r1 = max(hr0, wr0), min(hr0 + hrn, wr0 + wrn)
+    out, at = [], 0
+    for c0, cn in cols:
+        a, b = max(hc0, c0), min(hc0 + hcn, c0 + cn)
+        if r1 > r0 and b > a:
+            out.append(((r0 - hr0, a - hc0), (r0 - wr0, at + a - c0), r1 - r0, b - a))
+        at += cn
+    return out
+
+
 def _norm_dim(dim: int, parts) -> int:
     nd = next(p for p in parts if p is not None).ndim
     return dim % nd
@@ -422,3 +489,20 @@ def all_to_all(parts, split_dim: int, cat_dim: int, *, split_sizes=None, cat_siz
                    else list(split_sizes))
     plan = _Plan(n, keys, outs, active, [p.device for p in parts])
     return _result(plan, _AllToAll.apply(plan, split_dim, cat_dim, split_sizes, *parts))
+
+
+def regroup(parts, have, want, *, keys=None, outs=None, active=None, kind=None) -> list:
+    """The parts are blocks of one (B, S, C) value: part j its rows and
+    columns ``have[j]`` = ((r0, rn), (c0, cn)), every position of the value
+    in one part.  Output m (on part m's device) holds the rows ``want[m][0]``
+    = (r0, rn) and the column ranges ``want[m][1]`` = [(c0, cn), ...],
+    concatenated in that order: each piece copied from the part that holds
+    it (the bytes from other positions recorded as ``kind``, default
+    all-to-all)."""
+    def shape_of(j, like):
+        (_, rn), (_, cn) = have[j]
+        return (like.shape[0], rn, cn)
+
+    parts = _fill(parts, shape_of)
+    plan = _Plan(len(parts), keys, outs, active, [p.device for p in parts], kind)
+    return _result(plan, _Regroup.apply(plan, have, want, *parts))

@@ -190,3 +190,17 @@ def gather_tree(tree: Any, device) -> Any:
     """A placed tree's whole tensors on ``device`` (a ``Stack`` kept a
     ``Stack`` of whole per-layer tensors)."""
     return tree_map(lambda leaf: stack_map(lambda s: s.gather(device), leaf), tree)
+
+
+def zeros_like_cache(mesh, shape, specs, make=None):
+    """A cache of ``Sharded`` zeros in ``specs``' layout (``cache_pspecs``)
+    beside ``shape`` (the model's cache on the meta device: a list of
+    per-segment tuples, a dict, a tuple), each device's shard allocated
+    where it lives; ``make(mesh, spec, shape, dtype)`` makes a leaf
+    (default ``Sharded.zeros``)."""
+    make = Sharded.zeros if make is None else make
+    if isinstance(shape, dict):
+        return {k: zeros_like_cache(mesh, shape[k], specs[k], make) for k in shape}
+    if isinstance(shape, (list, tuple)):
+        return type(shape)(zeros_like_cache(mesh, t, s, make) for t, s in zip(shape, specs))
+    return make(mesh, specs, tuple(shape.shape), shape.dtype)

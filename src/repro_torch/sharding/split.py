@@ -12,7 +12,11 @@ between them (``repro_torch.sharding.collectives``).  A ``Dist`` of a
     of S into M);
   * ``COLS``: device m holds its block of the last dim (the block a
     column-parallel weight's model slice gives);
-  * ``PARTIAL``: every device holds a whole tensor of partial sums.
+  * ``PARTIAL``: every device holds a whole tensor of partial sums;
+  * ``HEADS``: every device holds the whole sequence and its own columns
+    (a recurrent block's heads, ``Split.heads``; ``Split.cols`` makes one
+    with ``collectives.regroup``, ``Split.to_input`` gives it to a
+    weight).
 
 Between blocks an activation is ``layout``: ``ROWS`` where
 ``ActivationSharder.spec`` puts `model` on the sequence (S divides), else
@@ -38,6 +42,11 @@ device differentiates are aliases of the shards (``GradSink``): each
 alias's gradient goes into the float32 sums of every position holding
 its block as soon as the backward produces it, the contributions to one
 block summed in the order they were gathered.
+
+Caches: ``CacheLeaf`` gives each device its view of an attention cache
+leaf (KV heads, sequence chunks, or whole); ``StateLeaf`` of a recurrent
+one (a state by heads, its heads ``Split.heads``'s, or whole on every
+device and kept equal there; a conv tail or an x_prev whole).
 """
 
 from __future__ import annotations
@@ -52,7 +61,7 @@ import torch
 from repro_torch.sharding import collectives as col
 from repro_torch.sharding.partition import MeshAxes, leaf_axes
 
-FULL, ROWS, COLS, PARTIAL = "full", "rows", "cols", "partial"
+FULL, ROWS, COLS, PARTIAL, HEADS = "full", "rows", "cols", "partial", "heads"
 
 _GATHERING = [0]
 _WATCHERS: list = []
@@ -126,13 +135,17 @@ class NS(dict):
         return self.get(name)
 
 
-def layer_of(tree, i: int):
-    """Layer i of a segment's layout (each ``Stack`` leaf's i-th entry)."""
+def layer_of(tree, i):
+    """Layer i of a segment's layout (each ``Stack`` leaf's i-th entry); a
+    tuple (g, i) indexes a ``Stack`` of ``Stack``s (the hybrid's G groups of
+    P mamba layers)."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return type(tree)((k, layer_of(v, i)) for k, v in tree.items())
-    return tree[i]
+    for j in (i if isinstance(i, tuple) else (i,)):
+        tree = tree[j]
+    return tree
 
 
 def position(mesh, group: int, m: int) -> tuple:
@@ -292,6 +305,44 @@ class CacheLeaf:
             v[:, :n] = full.to(v.dtype)
 
 
+class StateLeaf:
+    """One layer's entry of a recurrent cache leaf on a data group's devices,
+    as ``cache_pspecs`` lays it out: a state (B, H, ...) (the SSM state's
+    (B, H, Pd, N), RWKV's (B, H, dk, dv)), heads on `model` where M divides
+    H, else whole on every device; or a leaf the specs never split (the
+    conv tail (B, W - 1, C), RWKV's x_prev (B, d)), whole on every device.
+    ``index``: the layer's index in the leaf's leading dims; ``state``:
+    the leaf is a state, its heads at the view's dim 1.  Device m computes
+    the heads ``sp.heads(H)[m]``, which are its shard's where the state is
+    split."""
+
+    def __init__(self, sp: "Split", sh, index, state: bool):
+        index = index if isinstance(index, tuple) else (index,)
+        md, _ = leaf_axes(sh.spec, sp.axes)
+        self.sp = sp
+        self.split = md is not None
+        self.views = sp.parts(lambda m: sh.shards[sp.pos[m]][index])
+        self.heads = sp.heads(sh.shape[len(index) + 1]) if state else None
+
+    def read(self, m: int) -> torch.Tensor:
+        """Device m's heads of the state (or the whole leaf)."""
+        v = self.views[m]
+        if self.heads is None or self.split:
+            return v
+        h0, hn = self.heads[m]
+        return v.narrow(1, h0, hn)
+
+    def store(self, new: Dist) -> None:
+        """The new entry: a state's heads on each device (``new``) into its
+        own shard where the state is split, else all-gathered over the heads
+        into every device's whole copy; a leaf kept whole (``new`` equal on
+        every device) into every copy.  The copies stay equal."""
+        if self.heads is not None and not self.split:
+            new = self.sp.gather(new, 1, [n for _, n in self.heads])
+        for m in self.sp.active:
+            self.views[m].copy_(new.parts[m])
+
+
 class Split:
     """Data group ``group``'s devices on ``mesh`` for a sequence of
     ``seq_len``.  ``active``: the model indices this process computes
@@ -302,7 +353,7 @@ class Split:
     gradients go (None: no gradients).  ``routing``: the MoE layers'
     router state (``launch.train.GroupRouting``)."""
 
-    FULL, ROWS, COLS, PARTIAL = FULL, ROWS, COLS, PARTIAL
+    FULL, ROWS, COLS, PARTIAL, HEADS = FULL, ROWS, COLS, PARTIAL, HEADS
 
     def __init__(self, mesh, group: int, seq_len: int, *, sink: GradSink | None = None,
                  routing=None, active=None, rows=None):
@@ -339,6 +390,18 @@ class Split:
     def cache_leaf(self, sh, layer: int) -> CacheLeaf:
         """Layer ``layer``'s entry of the cache leaf ``sh`` on this group."""
         return CacheLeaf(self, sh, layer)
+
+    def state_leaf(self, sh, index, state: bool = True) -> StateLeaf:
+        """Layer ``index``'s entry of the recurrent cache leaf ``sh`` (a
+        state by heads, or with ``state=False`` a leaf kept whole)."""
+        return StateLeaf(self, sh, index, state)
+
+    def heads(self, n: int) -> list[tuple[int, int]]:
+        """(first, count) of the heads of ``n`` each device computes: whole
+        heads in ascending order, ``tensor_split``'s chunks (the shards'
+        where M divides n; none on the last devices where n < M)."""
+        sizes = col.chunk_sizes(n, self.M)
+        return [(sum(sizes[:m]), sizes[m]) for m in range(self.M)]
 
     def parts(self, fn) -> list:
         """``fn(m)`` at every computed model index, None elsewhere."""
@@ -389,6 +452,13 @@ class Split:
             return Dist(COLS, col.reduce_scatter(d.parts, -1, **self._kw()))
         raise ValueError(f"no conversion from {src} to {kind}")
 
+    def gather(self, d: Dist, dim: int, sizes: list) -> Dist:
+        """The parts (each device's ``sizes[m]`` along ``dim``, some may be
+        none) concatenated in shard order on every device: ``FULL``."""
+        if self.M == 1:
+            return Dist(FULL, d.parts)
+        return Dist(FULL, col.all_gather(d.parts, dim, sizes=list(sizes), **self._kw()))
+
     def stack(self, d: Dist) -> Dist:
         """Every device's part (equal shapes) stacked on a new leading dim,
         on every device (an all-gather)."""
@@ -399,6 +469,54 @@ class Split:
         """``d`` with every device holding whole feature rows: ``COLS`` and
         ``PARTIAL`` become ``FULL``, ``ROWS`` and ``FULL`` stay."""
         return self.to(d, FULL) if d.kind in (COLS, PARTIAL) else d
+
+    def _have(self, d: Dist, width: int, have_cols=None) -> list:
+        """Each part's (rows, columns) block of a (B, S, width) value."""
+        full = (0, self.seq_len)
+        if d.kind == ROWS:
+            return [((self.row_start[m], self.rows[m]), (0, width)) for m in range(self.M)]
+        if d.kind == COLS:
+            sizes = col.chunk_sizes(width, self.M)
+            return [(full, (sum(sizes[:m]), sizes[m])) for m in range(self.M)]
+        if d.kind == HEADS:
+            return [(full, c) for c in have_cols]
+        raise ValueError(f"{d.kind} parts are not blocks of one value")
+
+    def _regroup(self, d: Dist, have: list, want: list, kind: str) -> Dist:
+        if all(m not in self.active or [have[m][1]] == want[m][1] and have[m][0] == want[m][0]
+               for m in range(self.M)):
+            return Dist(kind, d.parts)  # each device holds its own already
+        return Dist(kind, col.regroup(d.parts, have, want, **self._kw()))
+
+    def cols(self, d: Dist, width: int, want: list) -> Dist:
+        """``d`` (a (B, S, width) value, ``FULL``, ``ROWS`` or ``COLS``) as
+        ``HEADS``: device m the whole sequence and the column ranges
+        ``want[m]`` ([(first, count), ...], concatenated): local slices of a
+        ``FULL`` value, else one ``collectives.regroup``."""
+        if d.kind == FULL or self.M == 1:
+            return Dist(HEADS, d.map(lambda t, m: torch.cat(
+                [t[..., c0:c0 + cn] for c0, cn in want[m]], dim=-1)).parts)
+        full = (0, self.seq_len)
+        return self._regroup(d, self._have(d, width), [(full, w) for w in want], HEADS)
+
+    def to_input(self, d: Dist, width: int, have_cols: list, w: Weight) -> Dist:
+        """A ``HEADS`` value (device m the whole sequence and the one column
+        range ``have_cols[m]`` of ``width``) as ``mm`` by ``w`` takes it:
+        ``COLS`` for a row-parallel weight (the identity where the ranges
+        are its slices), ``ROWS`` for a whole one, ``FULL`` for a
+        column-parallel one (one ``collectives.regroup``)."""
+        kind = self.input_kind(w)
+        full = (0, self.seq_len)
+        if kind == COLS:
+            sizes = col.chunk_sizes(width, self.M)
+            want = [(full, [(sum(sizes[:m]), sizes[m])]) for m in range(self.M)]
+        elif kind == ROWS:
+            want = [((self.row_start[m], self.rows[m]), [(0, width)]) for m in range(self.M)]
+        else:
+            want = [(full, [(0, width)])] * self.M
+        if self.M == 1:
+            return Dist(kind, d.parts)
+        return self._regroup(d, self._have(d, width, have_cols), want, kind)
 
     def input_kind(self, w: Weight) -> str:
         """The kind ``mm`` by ``w`` takes."""

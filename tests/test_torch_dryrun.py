@@ -326,7 +326,16 @@ def test_smoke_grid_runs_every_cell(arch, monkeypatch, tmp_path):
                 res["roofline"][k] for k in ("compute_s", "memory_s", "collective_s"))
             kinds = {"all-gather"}
             split = cfg.family in ttrain.SPLIT_FAMILIES
-            if shape == "train_4k":  # the split program's own collectives besides
+            decode = shape in ("decode_32k", "long_500k")
+            if cfg.family in ("hybrid", "ssm"):  # heads regrouped (all-to-all) besides;
+                # reduce-scatters of row-parallel partials over the sequence and of the
+                # hybrid's attention merge, all-reduces of the hybrid's norm sums and of
+                # the decode's partials
+                kinds |= {"all-to-all"}
+                kinds |= {"reduce-scatter"} if not decode or cfg.family == "hybrid" else set()
+                kinds |= {"all-reduce"} if shape != "prefill_32k" or cfg.family == "hybrid" \
+                    else set()
+            elif shape == "train_4k":  # the split program's own collectives besides
                 kinds |= ({"reduce-scatter", "all-reduce", "all-to-all"}
                           if split else {"reduce-scatter"})
             elif split and shape == "prefill_32k":  # MLA's v all-reduced
@@ -336,6 +345,28 @@ def test_smoke_grid_runs_every_cell(arch, monkeypatch, tmp_path):
                 kinds |= {"reduce-scatter", "all-reduce"}
             assert set(res["counted"]["collective_breakdown"]) == kinds
             assert (res["n_compute_devices"] == res["n_devices"]) == split
+
+
+@pytest.mark.parametrize("arch,shape", [("zamba2-2.7b", "decode_32k"), ("rwkv6-1.6b", "train_4k")])
+def test_recurrent_cells_trace_the_split_program(arch, shape, monkeypatch, tmp_path):
+    """A zamba2 decode cell and an rwkv6 train cell (smoke configs, the
+    grid's lengths) on the 16 x 16 mesh trace device (0, 15) of the split
+    program: every device computes (``n_compute_devices`` 256 where the
+    gathered program has 16), with the same argument bytes, fewer dot FLOPs
+    and fewer gathered bytes than the gathered program's compute device
+    (its whole parameters)."""
+    monkeypatch.setattr(dryrun, "get_config", lambda a: smoke_pair(a)[1])
+    monkeypatch.setattr(dryrun, "SHAPES", {
+        k: dataclasses.replace(c, seq_len=GRID[k]) for k, c in SHAPES.items()})
+    split = dryrun.run_cell(arch, shape, False, str(tmp_path / "split"))
+    monkeypatch.setattr(dryrun, "SPLIT_FAMILIES", ("dense", "moe", "vlm"))
+    gathered = dryrun.run_cell(arch, shape, False, str(tmp_path / "gathered"))
+    assert split["status"] == gathered["status"] == "ok", (split.get("error"),
+                                                          gathered.get("error"))
+    assert (split["n_compute_devices"], gathered["n_compute_devices"]) == (256, 16)
+    assert split["memory"]["argument_bytes"] == gathered["memory"]["argument_bytes"]
+    assert split["memory"]["gathered_bytes"] < gathered["memory"]["gathered_bytes"]
+    assert 0 < split["counted"]["dot_flops_per_dev"] < gathered["counted"]["dot_flops_per_dev"]
 
 
 def test_long_500k_is_skipped_on_a_full_attention_arch(tmp_path):

@@ -11,6 +11,8 @@ devices=["cpu"] * 8)``), no XLA flag.
     configs at capacities where tokens drop (0.5 in prefill and decode),
     their drops one device's; two runs bit-equal on (2, 4); a final length
     `model` does not divide (the cache whole on every device);
+  * whisper-tiny, the family left on the gathered program, through
+    ``teacher_forced(mesh=)`` against one device;
   * ``generate(mesh=)`` on (2, 4) against the JAX package's one-device
     prefill and decode (``run_prefill_decode``) for a dense GQA config,
     gemma3-1b (one KV head, windows, tied head) and deepseek-v3 (MLA, MoE);
@@ -204,23 +206,30 @@ def test_split_serve_where_the_batch_does_not_split_over_the_groups(name):
                for sh in cache)
 
 
-@pytest.mark.parametrize("name", ["zamba2-2.7b", "rwkv6-1.6b"])
-def test_gathered_families_serve_on_the_mesh(name):
-    """The hybrid and ssm families keep one compute device a data group:
-    ``generate(mesh=)`` on (2, 4) gives one device's greedy tokens, and
-    ``MeshServe``'s logits equal one device's within 1e-4 of their scale."""
-    _, cfg = smoke_pair(name, dtype="float32")
+@pytest.mark.parametrize("shape", [(2, 4), (4, 2)], ids=["2x4", "4x2"])
+def test_gathered_families_serve_on_the_mesh(shape):
+    """whisper-tiny (audio), the family the gathered program still serves
+    (one compute device a data group, whole parameters gathered onto it):
+    ``teacher_forced(mesh=)`` over a prompt of 1,500 / 8 frames and 6
+    tokens, then 4 decode steps fed one device's greedy tokens, gives one
+    device's logits within 1e-4 of their scale and their tokens."""
+    _, cfg = smoke_pair("whisper-tiny", dtype="float32")
     bundle = tbuild(cfg, device="cpu")
     params = bundle.init_params(4)
-    tokens = torch.as_tensor(np.random.default_rng(6).integers(0, cfg.vocab_size, (4, 16)))
-    one = tserve.generate(bundle, params, tokens, max_new=3)
-    mesh = cpu_mesh((2, 4))
-    placed = ttrain.place_params(mesh, cfg, params)
-    assert np.array_equal(tserve.generate(bundle, placed, tokens, max_new=3, mesh=mesh), one)
-    with torch.inference_mode():
-        ref, _ = bundle.prefill(params, {"tokens": tokens})
-    got, _ = tserve.MeshServe(bundle, mesh).prefill(placed, {"tokens": tokens}, 19)
+    rng = np.random.default_rng(6)
+    batch = {"frames": torch.as_tensor(rng.standard_normal((4, 24, cfg.d_model))
+                                       .astype(np.float32)),
+             "tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 6)))}
+    ref = tserve.teacher_forced(bundle, params, batch, torch.zeros((4, 5), dtype=torch.long))
+    toks = torch.argmax(ref, -1).T  # one device's greedy tokens, fed back
+    ref = tserve.teacher_forced(bundle, params, batch, toks)
+    mesh = cpu_mesh(shape)
+    assert not tserve.MeshServe(bundle, mesh).split
+    got = tserve.teacher_forced(bundle, ttrain.place_params(mesh, cfg, params), batch, toks,
+                                mesh=mesh)
+    assert got.shape == ref.shape
     assert float((got - ref).abs().max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+    assert torch.equal(torch.argmax(got, -1), torch.argmax(ref, -1))
 
 
 @pytest.mark.parametrize("name", ["llama3.2-3b", "gemma3-1b", "deepseek-v3-671b"])
