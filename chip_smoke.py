@@ -189,8 +189,9 @@ Phases, one line (or block) each:
      capacity 0.5) on a (2, 4) mesh, its first step within rtol 2e-4 of
      one device's and the same assignments dropped; zamba2-2.7b and
      rwkv6-1.6b cut to depth 2 in float32 on (4, 2), the split program
-     (the scans by heads), and whisper-tiny whole on the gathered program
-     (the audio family's): each first step against one device's, ms,
+     (the scans by heads), and whisper-tiny whole on the split program too
+     (its encoder over the frames, its decoder over the tokens): each
+     first step against one device's, ms,
      kernels and peak of a step beside one device's, two runs equal; the
      flash-decode merge at gemma3-1b's decode widths over a 32,768-position
      cache on a (2, 4) mesh against ``decode_attention`` (1e-5 x scale,
@@ -201,10 +202,12 @@ Phases, one line (or block) each:
      then the split serve step (``launch.serve.MeshServe``) on a (2, 4)
      mesh: llama3.2-3b (KV heads on `model`, 8 greedy tokens) and
      gemma3-1b (sequence-sharded KV, 3 greedy tokens), zamba2-2.7b (the
-     float32 SSM state by heads) and rwkv6-1.6b (the WKV state by heads)
-     at full width and depth in bfloat16 (prefill and decode ms beside
-     phase 10's or 11's, kernels a step, busy share, peak, cache bytes a
-     shard == ``cache_pspecs``'s, greedy tokens agreeing with one
+     float32 SSM state by heads), rwkv6-1.6b (the WKV state by heads) and
+     whisper-tiny (1,500 frames, a 64-token prompt, 8 greedy tokens: the
+     cross cache's 6 KV heads by chunks of 375 frames) at full width and
+     depth in bfloat16 (prefill and decode ms beside phase 10's or 11's,
+     kernels a step, busy share, peak, cache bytes a shard ==
+     ``cache_pspecs``'s leaf by leaf, greedy tokens agreeing with one
      device's, reported), and llama3.2-3b, gemma3-1b and deepseek-v3
      (``DEEPSEEK_CHECK``'s cut, decode capacity 0.5 so the decode drops
      too) at depth 2 in float32 against one device (every step's logits
@@ -213,22 +216,24 @@ Phases, one line (or block) each:
      teacher-forced on one device's 8 greedy tokens through
      ``teacher_forced(mesh=)``, float32 (every step's logits within 1e-4
      of their scale) and bfloat16 (its gap reported), zamba2-2.7b and
-     rwkv6-1.6b likewise on 2 tokens in float32;
+     rwkv6-1.6b likewise on 2 tokens in float32, whisper-tiny on 4 tokens
+     after its 64-token prompt over 1,500 frames in float32;
  14. the dry run (``repro_torch.launch.dryrun``; no kernel of its own):
      llama3.2-3b as phase 12 trains it on a (1, 1) mesh of the card — the
      argument bytes the dry run reckons == the bytes of the parameters,
      moments, step and batch the card holds, its meta trace's dot FLOPs ==
      ``FlopCounterMode`` over one real ``make_train_step(mesh=)`` step, its
      bytes a device beside the next step's peak and its roofline bound
-     beside that step's ms; then six production cells on a 16 x 16 mesh
+     beside that step's ms; then seven production cells on a 16 x 16 mesh
      of meta devices, each timed, each printing
-     the reference's three lines and its fullest device's bytes, fit and
-     ``n_compute_devices``, traced on the host by the dry run's command
-     line while phase 13 runs on the card: llama3.2-3b and deepseek-v3-671b
-     train_4k,
-     deepseek-v3-671b decode_32k, llama3.2-3b prefill_32k and zamba2-2.7b
-     decode_32k (device (0, M - 1) of the split program; zamba2's also on
-     the gathered program, beside it) and xtime-tabular serve_1m.
+     the reference's three lines and its fullest device's bytes, fit,
+     dominant roofline term and ``n_compute_devices``, traced on the host
+     by the dry run's command line while phase 13 runs on the card:
+     llama3.2-3b and deepseek-v3-671b train_4k, deepseek-v3-671b
+     decode_32k, llama3.2-3b prefill_32k, zamba2-2.7b and whisper-tiny
+     decode_32k (device (0, M - 1) of the split program; zamba2's and
+     whisper's also on the gathered program, beside it) and xtime-tabular
+     serve_1m.
 
 Every check that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object of the kernels and the contract line
@@ -3575,20 +3580,20 @@ def lm_mesh_family(label, cfg, batches, name, stats) -> None:
 
 
 def lm_mesh_families(name, stats) -> None:
-    """(a) The recurrent families on the split program (zamba2-2.7b cut to
-    depth 2, one group of 2 mamba layers + the shared block: the SSD scan
-    by heads, 80 on 2 shards; rwkv6-1.6b cut to depth 2: 32 WKV heads on
-    2), and whisper-tiny whole on the gathered program, which the audio
-    family keeps (``lm_mesh_family``)."""
+    """(a) The recurrent and audio families on the split program
+    (zamba2-2.7b cut to depth 2, one group of 2 mamba layers + the shared
+    block: the SSD scan by heads, 80 on 2 shards; rwkv6-1.6b cut to depth
+    2: 32 WKV heads on 2; whisper-tiny whole, 4 + 4 layers: its encoder
+    over the frames and its decoder over the tokens split by query rows,
+    the cross-attention's k/v column-parallel) (``lm_mesh_family``)."""
     for label, cfg, seed in (
             ("zamba2-2.7b depth 2",
              get_config("zamba2-2.7b").replace(n_layers=2, shared_attn_period=2), 44),
             ("rwkv6-1.6b depth 2", get_config("rwkv6-1.6b").replace(n_layers=2), 45),
             ("whisper-tiny", get_config("whisper-tiny"), 46)):
         cfg = cfg.replace(dtype="float32")
-        want = "whisper" not in label
-        if (cfg.family in lm_train.SPLIT_FAMILIES) != want:
-            fail(f"{cfg.name}: the {cfg.family} family is not on the expected program")
+        if cfg.family not in lm_train.SPLIT_FAMILIES:
+            fail(f"{cfg.name}: the {cfg.family} family is not on the split program")
         get = lm_train.batch_source(cfg, TRAIN_B, MESH_CHECK_S, SEED + seed)
         t0 = time.perf_counter()
         lm_mesh_family(label, cfg, [get(i) for i in range(MESH_AGAIN + 1)], name, stats)
@@ -3698,24 +3703,30 @@ MESH_SERVE_LLAMA_NEW = 8  # llama3.2-3b's greedy tokens on the mesh (phase 10: 3
 MESH_SERVE_GEMMA_NEW = 3  # gemma3-1b's (phase 10: 32): a cache of 1,028, which 4 divides
 MESH_SERVE_CHECK_NEW = 4  # the float32 serve checks' greedy tokens after the prompt
 MESH_SERVE_RECURRENT_NEW = 8  # zamba2-2.7b's and rwkv6-1.6b's greedy tokens on the mesh
+MESH_SERVE_WHISPER_NEW = 8  # whisper-tiny's, after its 64-token prompt over 1,500 frames
 MESH_FORCED_NEW = 8  # llama3.2-3b's teacher-forced steps at full depth, float32 and bfloat16
 MESH_FORCED_RECURRENT = 2  # zamba2-2.7b's and rwkv6-1.6b's, float32
+MESH_FORCED_WHISPER = 4  # whisper-tiny's, float32
 
 
-def cache_shard_bytes(cache) -> int:
-    """The bytes the mesh's first device holds of a placed cache."""
-    return sum(sh.local(0).numel() * sh.local(0).element_size()
-               for _, sh in lm_partition.leaves_with_path(cache))
+def cache_leaf_bytes(cache) -> dict:
+    """The bytes the mesh's first device holds of each leaf of a placed
+    cache, by its path."""
+    return {"/".join(map(str, path)): sh.local(0).numel() * sh.local(0).element_size()
+            for path, sh in lm_partition.leaves_with_path(cache)}
 
 
-def spec_cache_bytes(cfg, mesh, batch: int, seq: int) -> int:
-    """The bytes one device holds of the cache by ``cache_pspecs`` (the
-    recurrent states' float32 included)."""
-    shape = lm_build(cfg, "meta").cache_shape(batch, seq)
+def spec_cache_bytes(cfg, mesh, batch: int, seq: int, enc_len=None) -> dict:
+    """The bytes one device holds of each leaf of the cache by
+    ``cache_pspecs`` (the recurrent states' float32 included; whisper's
+    cross cache of ``enc_len`` frames), by its path."""
+    kw = {} if enc_len is None else {"enc_len": enc_len}
+    shape = lm_build(cfg, "meta").model.init_cache(batch, seq, device="meta", **kw)
     specs = lm_partition.cache_pspecs(shape, cfg, lm_partition.MeshAxes(mesh))
-    return sum(lm_partition.ShardedShape(tuple(t.shape), t.dtype, spec, mesh).local_bytes()
-               for (_, t), (_, spec) in zip(lm_partition.leaves_with_path(shape),
-                                            lm_partition.leaves_with_path(specs), strict=True))
+    return {"/".join(map(str, path)):
+            lm_partition.ShardedShape(tuple(t.shape), t.dtype, spec, mesh).local_bytes()
+            for (path, t), (_, spec) in zip(lm_partition.leaves_with_path(shape),
+                                            lm_partition.leaves_with_path(specs), strict=True)}
 
 
 def lm_mesh_serve_run(label, cfg, prompt_len, name, stats, new: int = LM_NEW) -> None:
@@ -3728,16 +3739,17 @@ def lm_mesh_serve_run(label, cfg, prompt_len, name, stats, new: int = LM_NEW) ->
     ``generate`` runs it: prefill ms (median of 3) and
     ms a decode step (median of the ``new`` - 1 steps) beside phase 10's one
     device, kernels a step and the busy share over ``MESH_SERVE_PROFILED``
-    more steps, peak, the cache's bytes a shard against the specs', and
-    how many greedy tokens agree with one device's (bfloat16 sums in
-    another order may flip one, and a flipped token changes the rest of
-    its row, so the count is reported, not held)."""
+    more steps, peak, the cache's bytes a shard against the specs' (leaf
+    by leaf), and how many greedy tokens agree with one device's (bfloat16
+    sums in another order may flip one, and a flipped token changes the
+    rest of its row, so the count is reported, not held).  whisper's
+    prompt is its frames and decoder tokens (``lm_prompt``)."""
     mesh = make_host_mesh(*MESH_SERVE_SHAPE, devices=[CARD] * 8)
     batch = lm_prompt(cfg, LM_BATCH, prompt_len, SEED + 20)
     total = prompt_len + new + MESH_SERVE_PROFILED
     bundle = lm_build(cfg)
     params = bundle.init_params(SEED)
-    one = lm_serve.generate(bundle, params, batch["tokens"], max_new=new)
+    one = lm_greedy(bundle, params, batch, new)
     lm_free()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3745,7 +3757,7 @@ def lm_mesh_serve_run(label, cfg, prompt_len, name, stats, new: int = LM_NEW) ->
     del params
     lm_free()
     serve = lm_serve.MeshServe(bundle, mesh)
-    prompt = {"tokens": torch.as_tensor(batch["tokens"], device=CARD)}
+    prompt = lm_on_card(bundle, batch)
     ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
     pre, steps = [], []
     with torch.inference_mode():
@@ -3771,12 +3783,16 @@ def lm_mesh_serve_run(label, cfg, prompt_len, name, stats, new: int = LM_NEW) ->
 
         busy_ms, kernels, _ = profiled_steps(run, MESH_SERVE_PROFILED)
     peak = torch.cuda.max_memory_allocated() - base
-    held = cache_shard_bytes(cache)
+    held_leaves = cache_leaf_bytes(cache)
+    held = sum(held_leaves.values())
     del placed, cache, serve, bundle, logits
     lm_free()
-    reckoned = spec_cache_bytes(cfg, mesh, LM_BATCH, total)
-    if held != reckoned:
-        fail(f"{label} mesh serve: a cache shard holds {held} bytes, cache_pspecs {reckoned}")
+    frames = batch["frames"].shape[1] if "frames" in batch else None
+    reckoned_leaves = spec_cache_bytes(cfg, mesh, LM_BATCH, total, frames)
+    reckoned = sum(reckoned_leaves.values())
+    if held_leaves != reckoned_leaves:
+        fail(f"{label} mesh serve: a cache shard holds {held_leaves} bytes, cache_pspecs "
+             f"{reckoned_leaves}")
     if toks.shape != one.shape or toks.min() < 0 or toks.max() >= cfg.vocab_size:
         fail(f"{label} mesh serve: tokens of shape {toks.shape} outside the vocabulary")
     pre_ms = float(np.median([a.elapsed_time(b) for a, b in pre]))
@@ -3785,7 +3801,8 @@ def lm_mesh_serve_run(label, cfg, prompt_len, name, stats, new: int = LM_NEW) ->
     ref = next(x for x in stats.get("lm", []) if x["model"] == label)
     line = {"model": label, "mesh": list(MESH_SERVE_SHAPE), "logical_shards_of": name,
             "program": "split serve", "layers": cfg.n_layers, "dtype": cfg.dtype,
-            "batch": LM_BATCH, "prompt": prompt_len, "new": new, "cache_len": total,
+            "batch": LM_BATCH, "prompt": prompt_len, "frames": frames, "new": new,
+            "cache_len": total, "cache_bytes_per_leaf": held_leaves,
             "prefill_ms": pre_ms, "one_device_prefill_ms": ref["prefill_ms"],
             "decode_ms": step_ms, "one_device_decode_ms": ref["decode_ms"],
             "busy_ms": busy_ms, "busy_share": busy_ms / step_ms, "kernels_per_step": kernels,
@@ -3800,8 +3817,10 @@ def lm_mesh_serve_run(label, cfg, prompt_len, name, stats, new: int = LM_NEW) ->
           f"step (one device {ref['decode_ms']:.3f}), card busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / step_ms:.1f}%), {kernels:.0f} kernels a step, peak "
           f"{peak / 2**30:.2f} GiB (the placed shards included), cache of {total} positions "
-          f"{held:,} bytes a shard (cache_pspecs {reckoned:,}); {agree} of {toks.size} greedy "
-          f"tokens equal one device's", flush=True)
+          + (f"and {frames} frames " if frames else "")
+          + f"{held:,} bytes a shard (cache_pspecs {reckoned:,}; by leaf "
+          + ", ".join(f"{k} {v:,}" for k, v in held_leaves.items())
+          + f"); {agree} of {toks.size} greedy tokens equal one device's", flush=True)
 
 
 def lm_mesh_serve_check(label, cfg, prompt_len, name, seed: int, decode_capacity=None) -> None:
@@ -3881,30 +3900,32 @@ def lm_mesh_serve_check(label, cfg, prompt_len, name, seed: int, decode_capacity
              f"device's" if cfg.is_moe else "") + "; two runs bit-equal", flush=True)
 
 
-def lm_mesh_teacher_forced(label, cfg, dtypes, steps, name, stats) -> None:
+def lm_mesh_teacher_forced(label, cfg, dtypes, steps, name, stats,
+                           prompt_len: int = LM_PROMPT) -> None:
     """(f) A model at full width and depth, TF32 off, in each of
     ``dtypes``: one device's greedy tokens (``steps`` after a prompt of
-    B = 4 x 128) teacher-forced through ``teacher_forced`` on one device and
+    B = 4 x ``prompt_len``, whisper's beside its frames) teacher-forced
+    through ``teacher_forced`` on one device and
     on the split serve step of a (2, 4) mesh of logical shards
     (``teacher_forced(mesh=)``): each step's logits' largest gap over their
     scale.  Float32 fails above 1e-4; a bfloat16 gap is reported (whether
     another order of bfloat16 sums explains the greedy runs' token
     disagreement)."""
     mesh = make_host_mesh(*MESH_SERVE_SHAPE, devices=[CARD] * 8)
-    batch = lm_prompt(cfg, LM_BATCH, LM_PROMPT, SEED + 20)
+    batch = lm_prompt(cfg, LM_BATCH, prompt_len, SEED + 20)
     line = {"model": label, "mesh": list(MESH_SERVE_SHAPE), "program": "split serve",
-            "layers": cfg.n_layers, "batch": LM_BATCH, "prompt": LM_PROMPT, "steps": steps,
+            "layers": cfg.n_layers, "batch": LM_BATCH, "prompt": prompt_len, "steps": steps,
             "teacher_forced": True, "card": name}
     for dtype in dtypes:
         cfg = cfg.replace(dtype=dtype)
         bundle = lm_build(cfg)
         params = bundle.init_params(SEED)
-        toks = lm_serve.generate(bundle, params, batch["tokens"], max_new=steps)
-        ref = lm_serve.teacher_forced(bundle, params, batch, toks)
+        toks = lm_greedy(bundle, params, batch, steps)
+        ref = lm_serve.teacher_forced(bundle, params, lm_on_card(bundle, batch), toks)
         placed = lm_train.place_params(mesh, cfg, params)
         del params
         lm_free()
-        got = lm_serve.teacher_forced(bundle, placed, batch, toks, mesh=mesh)
+        got = lm_serve.teacher_forced(bundle, placed, lm_on_card(bundle, batch), toks, mesh=mesh)
         gaps = [float((g - r).abs().max()) / max(1.0, float(r.abs().max()))
                 for g, r in zip(got, ref, strict=True)]
         agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
@@ -3912,7 +3933,7 @@ def lm_mesh_teacher_forced(label, cfg, dtypes, steps, name, stats) -> None:
         lm_free()
         line[dtype] = {"gap_per_step": gaps, "worst_gap": max(gaps), "argmax_agree": agree}
         print(f"lm mesh [{name}] {label} {dtype} full depth, teacher-forced B={LM_BATCH} "
-              f"prompt {LM_PROMPT} + {steps} steps on {MESH_SERVE_SHAPE} (split serve) "
+              f"prompt {prompt_len} + {steps} steps on {MESH_SERVE_SHAPE} (split serve) "
               f"vs one device: worst gap {max(gaps):.3e} of scale; per step "
               + ", ".join(f"{g:.2e}" for g in gaps)
               + f"; {agree} of {toks.size} argmaxes equal", flush=True)
@@ -3928,17 +3949,22 @@ def lm_mesh_serve(name, stats) -> None:
     vocab-parallel head) at full width, zamba2-2.7b (the SSM state by its
     80 heads, the shared block's KV heads, the conv tails whole) and
     rwkv6-1.6b (the state by its 32 heads, x_prev whole) at full width
-    and depth; (e) llama3.2-3b, gemma3-1b and deepseek-v3
-    (``DEEPSEEK_CHECK``'s cut: MLA's latent cache by sequence, MoE) at
-    depth 2 in float32 against one device; (f) llama3.2-3b (float32 and
-    bfloat16), zamba2-2.7b and rwkv6-1.6b (float32) at full depth
-    teacher-forced against one device."""
+    and depth, whisper-tiny (4 + 4 layers, 1,500 frames, a 64-token
+    prompt: the self cache by sequence chunks or whole, the cross cache's
+    6 KV heads by chunks of the frames) at full width and depth; (e)
+    llama3.2-3b, gemma3-1b and deepseek-v3 (``DEEPSEEK_CHECK``'s cut:
+    MLA's latent cache by sequence, MoE) at depth 2 in float32 against one
+    device; (f) llama3.2-3b (float32 and bfloat16), zamba2-2.7b, rwkv6-1.6b
+    and whisper-tiny (float32) at full depth teacher-forced against one
+    device."""
     llama, gemma = get_config("llama3.2-3b"), get_config("gemma3-1b")
     for label, cfg, prompt_len, new in (
             ("llama3.2-3b", llama, LM_PROMPT, MESH_SERVE_LLAMA_NEW),
             ("gemma3-1b", gemma, 2 * gemma.sliding_window, MESH_SERVE_GEMMA_NEW),
             ("zamba2-2.7b", get_config("zamba2-2.7b"), LM_PROMPT, MESH_SERVE_RECURRENT_NEW),
-            ("rwkv6-1.6b", get_config("rwkv6-1.6b"), LM_PROMPT, MESH_SERVE_RECURRENT_NEW)):
+            ("rwkv6-1.6b", get_config("rwkv6-1.6b"), LM_PROMPT, MESH_SERVE_RECURRENT_NEW),
+            ("whisper-tiny", get_config("whisper-tiny"), WHISPER_PROMPT,
+             MESH_SERVE_WHISPER_NEW)):
         t0 = time.perf_counter()
         lm_mesh_serve_run(label, cfg, prompt_len, name, stats, new)
         print(f"lm mesh serve {label} {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3957,6 +3983,8 @@ def lm_mesh_serve(name, stats) -> None:
     for label in ("zamba2-2.7b", "rwkv6-1.6b"):
         lm_mesh_teacher_forced(label, get_config(label), ("float32",), MESH_FORCED_RECURRENT,
                                name, stats)
+    lm_mesh_teacher_forced("whisper-tiny", get_config("whisper-tiny"), ("float32",),
+                           MESH_FORCED_WHISPER, name, stats, WHISPER_PROMPT)
     print(f"lm mesh teacher-forced checks {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -3980,9 +4008,10 @@ def phase_lm_mesh(name, stats) -> None:
 
 DRY_CELLS = [("llama3.2-3b", "train_4k"), ("deepseek-v3-671b", "train_4k"),
              ("deepseek-v3-671b", "decode_32k"), ("llama3.2-3b", "prefill_32k"),
-             ("zamba2-2.7b", "decode_32k"),
+             ("zamba2-2.7b", "decode_32k"), ("whisper-tiny", "decode_32k"),
              ("xtime-tabular", "serve_1m")]  # phase 14's production cells, 16 x 16
-DRY_GATHERED = [("zamba2-2.7b", "decode_32k")]  # traced on the gathered program too
+# traced on the gathered program too
+DRY_GATHERED = [("zamba2-2.7b", "decode_32k"), ("whisper-tiny", "decode_32k")]
 
 
 def held_bytes(*trees) -> int:
@@ -4113,8 +4142,8 @@ def dry_production_cells(name, stats, started) -> None:
         mem = res["memory"]
         print(f"dry run [{name}] {arch} {shape} on 16 x 16 meta devices ({wall:.1f} s): "
               f"n_compute_devices {res['n_compute_devices']}, the fullest device holds "
-              f"{mem['total_per_device_gib']} GiB (fits 80 GiB: {mem['fits_h100_80gib']})",
-              flush=True)
+              f"{mem['total_per_device_gib']} GiB (fits 80 GiB: {mem['fits_h100_80gib']}), "
+              f"dominant {res['roofline']['dominant']}", flush=True)
         print(json.dumps(brief), flush=True)
         print("memory_analysis:", json.dumps(res["memory"]), flush=True)
         print("roofline:", json.dumps(res["roofline"]), flush=True)
@@ -4142,12 +4171,16 @@ def dry_gathered_cell(arch, shape, split, name, stats) -> None:
         shutil.rmtree(out_dir, ignore_errors=True)
     if res["status"] != "ok":
         fail(f"dry run {arch} {shape} gathered: {res['status']} {res.get('error')}")
+    if not split["n_compute_devices"] == split["n_devices"] > res["n_compute_devices"]:
+        fail(f"dry run {arch} {shape}: {split['n_compute_devices']} compute devices on the "
+             f"split program, {res['n_compute_devices']} on the gathered one")
     mem, smem = res["memory"], split["memory"]
     print(f"dry run [{name}] {arch} {shape} on the gathered program ({time.perf_counter() - t0:.1f}"
           f" s): n_compute_devices {res['n_compute_devices']}, the fullest device holds "
-          f"{mem['total_per_device_gib']} GiB (fits 80 GiB: {mem['fits_h100_80gib']}); the split "
-          f"program: {split['n_compute_devices']}, {smem['total_per_device_gib']} GiB "
-          f"({smem['fits_h100_80gib']})", flush=True)
+          f"{mem['total_per_device_gib']} GiB (fits 80 GiB: {mem['fits_h100_80gib']}), dominant "
+          f"{res['roofline']['dominant']}; the split program: {split['n_compute_devices']}, "
+          f"{smem['total_per_device_gib']} GiB ({smem['fits_h100_80gib']}), dominant "
+          f"{split['roofline']['dominant']}", flush=True)
     print("memory_analysis (gathered):", json.dumps(mem), flush=True)
     stats["dryrun"].append({"cell": f"{arch} {shape} gathered",
                             "n_compute_devices": res["n_compute_devices"], "memory": mem,

@@ -18,8 +18,9 @@ compute device otherwise):
     ``cache_pspecs`` (``argument_bytes``; no trace);
   * the port's mesh program, traced once on meta under ``OpCounter``
     (``repro_torch.launch.op_count``).  A cell of a family on the split
-    program (``SPLIT_FAMILIES``: the transformers, zamba2's hybrid,
-    rwkv6's ssm) traces device (0, M - 1)'s part of the split program, every device of the
+    program (``SPLIT_FAMILIES``: every LM family, the transformers,
+    zamba2's hybrid, rwkv6's ssm and whisper's encoder-decoder) traces
+    device (0, M - 1)'s part of the split program, every device of the
     mesh computing (``n_compute_devices``): ``train``, its step
     (``MeshStep.split_grads(only=M - 1)``: group 0's rows with its model
     slices, its counting pass where MoE layers route more than one group,
@@ -30,7 +31,11 @@ compute device otherwise):
     step at the cache's last position (``MeshServe.decode_step``: the
     token's row, the chunk or heads of the cache it holds, the position
     written into its own shard; a recurrent state read and written by its
-    heads).  Any other cell (whisper's) traces the program the gathered
+    heads; whisper's cross cache read by its KV heads or its chunk of the
+    frames).  A cell outside ``SPLIT_FAMILIES`` (a serve cell under
+    ``REPRO_MOE_IMPL=shardmap``, or any cell where a caller narrows
+    ``SPLIT_FAMILIES``, as the tests and ``chip_smoke.py`` do to set the
+    split program beside the gathered one) traces the program the gathered
     ``MeshStep`` runs (each data group gathers whole parameters
     onto its compute device and computes there): ``train``: ``loss_fn`` +
     backward on ``global_batch / n_groups`` rows with whole parameters (an
@@ -79,15 +84,17 @@ Deliberate differences from the JAX package's dry run:
     the token's row on the group's last device, which so computes any
     product by a weight `fit` leaves whole, and the chunk with ``pos``;
     the decode cache is split by KV heads or by sequence chunks merged in
-    shard order, where GSPMD picks its own; the recurrent scans by heads,
-    as the reference's states; whisper's compute is split by data group
-    (one compute device a group);
+    shard order, where GSPMD picks its own (whisper's cross cache too, by
+    KV heads or chunks of its frames); the recurrent scans by heads, as
+    the reference's states; whisper's encoder chunks of frames carry equal
+    work (bidirectional), its decoder's causal chunks do not, so (0, M - 1)
+    stays the fullest;
   * ``REPRO_MOE_IMPL=shardmap`` traces a transformer's prefill or decode
     cell on the gathered forward, whose MoE layers it replaces (the
     split program's experts are split over `model` already);
   * the roofline uses the H100's constants and the fit is 80 GiB;
-  * a decode cell of the gathered family writes one position into the
-    cache; sending it back to the cache's shards is left out of the
+  * a decode cell traced on the gathered program writes one position into
+    the cache; sending it back to the cache's shards is left out of the
     transfer bytes (at most the group's cache / seq_len).
 
 Results land in results/dryrun_torch/<arch>__<shape>__<mesh>.json.

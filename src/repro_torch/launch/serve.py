@@ -7,23 +7,25 @@ unless ``--device cpu``.
 On a mesh (``generate(..., mesh=)``, parameters placed by
 ``launch.train.place_params``) a step is one explicit program driven
 from this process, the serving counterpart of ``launch.train.MeshStep``
-(``MeshServe``). The families of ``launch.train.SPLIT_FAMILIES`` (the
-transformers, zamba2's hybrid and rwkv6's ssm) run the split program
-(``repro_torch.sharding.split``): device (g, m) computes data group g's
-rows with model slice m of every weight, each layer's `fsdp` blocks
-gathered just before use, the data groups in lockstep a layer at a time
-(an MoE layer routes each group with the whole batch's capacity and
-ranks, ``GroupRouting(lockstep=True)``, so the drops are one device's);
-the cache is allocated at its final length (prompt and new tokens) in
-``cache_pspecs``'s layout, ``Sharded`` leaves: KV heads on `model` where
-they divide it, else the sequence (the MLA latents always: the exact
-flash merge over each device's chunk of positions), else whole on every
-device; the recurrent states by heads on `model` where M divides the
-heads, else whole, and the conv tails and x_prev whole and equal on
-every device. The last-token logits are gathered to the mesh's first
-device, where the next token is drawn. The audio family (whisper) keeps
-one compute device a data group: whole parameters gathered onto it, its
-rows' one-device prefill and decode there.
+(``MeshServe``). Every LM family (``launch.train.SPLIT_FAMILIES``: the
+transformers, zamba2's hybrid, rwkv6's ssm and whisper's encoder-decoder)
+runs the split program (``repro_torch.sharding.split``): device (g, m)
+computes data group g's rows with model slice m of every weight, each
+layer's `fsdp` blocks gathered just before use, the data groups in
+lockstep a layer at a time (an MoE layer routes each group with the
+whole batch's capacity and ranks, ``GroupRouting(lockstep=True)``, so the
+drops are one device's); the cache is allocated at its final length
+(prompt and new tokens) in ``cache_pspecs``'s layout, ``Sharded``
+leaves: KV heads on `model` where they divide it, else the sequence (the
+MLA latents always: the exact flash merge over each device's chunk of
+positions), else whole on every device; whisper's cross cache
+``xk``/``xv`` (L, B, T, KV, D) the same way over its T frames (by KV
+heads, else T chunks, else whole), written by the prefill and read by
+every decode step, its self cache ``k``/``v`` at the final length (the
+leaves ``_pad_cache_seq`` grows); the recurrent states by heads on
+`model` where M divides the heads, else whole, and the conv tails and
+x_prev whole and equal on every device. The last-token logits are
+gathered to the mesh's first device, where the next token is drawn.
 
 CLI:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
@@ -41,7 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import get_config
 from repro_torch.launch.mesh import check_mesh
-from repro_torch.launch.train import SPLIT_FAMILIES, GroupRouting, MeshStep, _scaled
+from repro_torch.launch.train import SPLIT_FAMILIES, GroupRouting, _scaled
 from repro_torch.models.registry import LMBundle, build_model
 from repro_torch.sharding.partition import MeshAxes, batch_pspec
 from repro_torch.sharding.placement import Sharded
@@ -145,13 +147,15 @@ class MeshServe:
     first device.  ``routing``: the last call's MoE routing (its
     ``dropped``); ``drops()`` sums it a layer over the row blocks.
     ``groups`` and ``only`` (the dry run's solo trace): compute only those
-    data groups, and only that model device of each."""
+    data groups, and only that model device of each.  ``split``: the split
+    program serves the family (every LM family's; another raises)."""
 
     def __init__(self, bundle: LMBundle, mesh):
         self.bundle, self.mesh = bundle, check_mesh(mesh)
         self.split = bundle.cfg.family in SPLIT_FAMILIES
+        if not self.split:
+            raise ValueError(f"the {bundle.cfg.family} family has no split serve program")
         self.routing = None
-        self._gathered = None if self.split else MeshStep(bundle, None, self.mesh)
         axes = MeshAxes(self.mesh)
         self.n_groups = int(np.prod([axes.axis_size(a) for a in axes.batch_axes()],
                                     dtype=np.int64))
@@ -217,7 +221,7 @@ class MeshServe:
                 only=None, cache=None):
         """Each group's prefill of its rows of ``batch``; returns (logits
         (B, V) on ``first``, the cache, of ``total_len`` positions (default
-        the prompt's)).  The gathered family returns one cache a group."""
+        the prompt's; whisper's cross cache of its frames' T))."""
         batch = {k: self._whole(v) for k, v in batch.items()}
         first = next(iter(batch.values()))
         b, s = first.shape[0], _prompt_len(batch)
@@ -226,11 +230,10 @@ class MeshServe:
         part = {g: {k: self._rows(v, g, blocks, n_blocks) for k, v in batch.items()}
                 for g in groups}
         total = s if total_len is None else int(total_len)
-        if not self.split:
-            return self._gathered_prefill(params, part, total, blocks)
         self._routing(blocks)
         if cache is None:
-            cache = self.bundle.model.init_cache(b, total, mesh=self.mesh)
+            frames = {"enc_len": batch["frames"].shape[1]} if "frames" in batch else {}
+            cache = self.bundle.model.init_cache(b, total, mesh=self.mesh, **frames)
         sps = self._splits(s, groups, only)
         logits, cache = self.bundle.model.prefill(
             params, [{k: v.to(sp.devices[sp.root]) for k, v in part[g].items()}
@@ -244,8 +247,6 @@ class MeshServe:
         token = self._whole(token)
         blocks, n_blocks = self.blocks(token.shape[0])
         groups = list(range(self.n_groups)) if groups is None else list(groups)
-        if not self.split:
-            return self._gathered_decode(params, cache, token, int(pos), blocks, n_blocks)
         self._routing(blocks)
         m_last = MeshAxes(self.mesh).axis_size(MeshAxes(self.mesh).model) - 1
         sps = self._splits(1, groups, only, rows=[0] * m_last + [1])
@@ -253,31 +254,6 @@ class MeshServe:
             params, cache, [self._rows(token, g, blocks, n_blocks).to(sp.devices[sp.root])
                             for g, sp in zip(groups, sps)], pos, sp=sps)
         return self._logits(logits, groups, blocks), cache
-
-    # -- the gathered family (whisper): one compute device a data group ----------
-
-    def _gathered_prefill(self, params, part: dict, total: int, blocks):
-        gathered = self._gathered
-        gathered._gather(params)
-        logits, caches = [], {}
-        for g, rows in part.items():
-            b, module = gathered._worker(gathered.group_devices[g])
-            rows = {k: v.to(b.device) for k, v in rows.items()}
-            out, c = b.prefill(module, rows)
-            s = _prompt_len(rows)
-            caches[g] = _pad_cache_seq(b.cfg, c, s, total)
-            logits.append(out)
-        return self._logits(logits, list(part), blocks), caches
-
-    def _gathered_decode(self, params, caches: dict, token, pos: int, blocks, n_blocks):
-        gathered = self._gathered
-        logits = []
-        for g, c in caches.items():
-            b, module = gathered._worker(gathered.group_devices[g])
-            out, caches[g] = b.decode_step(
-                module, c, self._rows(token, g, blocks, n_blocks).to(b.device), pos)
-            logits.append(out)
-        return self._logits(logits, list(caches), blocks), caches
 
 
 def teacher_forced(bundle: LMBundle, params, batch: dict, tokens, mesh=None) -> torch.Tensor:

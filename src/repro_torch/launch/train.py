@@ -12,26 +12,27 @@ On a mesh (``mesh=``, ``--use-mesh``) the parameters, moments, gradient
 sums and residuals are ``Sharded`` by ``param_pspecs``
 (``place_params``), and a step is one explicit shard program driven from
 this process, as the tabular mesh engine's (no ``torch.distributed``).
-The transformer family (``dense``, ``moe``, ``vlm``), the hybrid
-(zamba2) and the ssm (rwkv6) run the split program
-(``repro_torch.sharding.split``): device (g, m) computes data group g's
-rows with model slice m of every weight the specs split over `model`
-(column-parallel projections, row-parallel outputs whose partials are
-reduce-scattered over the sequence, the attention split by query rows,
-the recurrent scans by heads, experts on `model`, vocab-parallel
-embedding and logits), activations between blocks sequence-sharded over
-the group's devices where the specs say so; each layer's `fsdp` blocks
-are gathered over the data axis onto the device just before use and
+Every LM family runs the split program (``SPLIT_FAMILIES``: the
+transformers ``dense``, ``moe`` and ``vlm``, the hybrid (zamba2), the ssm
+(rwkv6) and the audio family (whisper); ``repro_torch.sharding.split``):
+device (g, m) computes data group g's rows with model slice m of every
+weight the specs split over `model` (column-parallel projections,
+row-parallel outputs whose partials are reduce-scattered over the
+sequence, the attention split by query rows, the recurrent scans by
+heads, experts on `model`, vocab-parallel embedding and logits),
+activations between blocks sequence-sharded over the group's devices
+where the specs say so (whisper's encoder over its T frames, its decoder
+over its S tokens: ``Split.over``); each layer's `fsdp` blocks are
+gathered over the data axis onto the device just before use and
 gathered again for its backward; each device's gradients of its slices
 go into the float32 sums of the shards that hold them, group by group in
-ascending order (the reduce-scatter over data). The audio family
-(whisper) gathers whole parameters once per compute device (mesh order);
-each data group (the batch axes' blocks, computed on its device at model
-index 0) takes the loss and gradients of its rows, summed into each
-device's shards group by group in ascending mesh order: its `model`
-axis shards state only. Then, for every family, ``AdamW.update`` on each
-device's shards with the clip norm summed over every leaf's blocks in
-flatten order. The program gives the one-device step: the loss is the
+ascending order (the reduce-scatter over data).  Then ``AdamW.update``
+on each device's shards with the clip norm summed over every leaf's
+blocks in flatten order.  The gathered program (``_gather``: whole
+parameters once per compute device, each data group's loss and
+gradients there, ``_group_grads``) stays as the program tests' dot-FLOP
+yardstick (the dry run's gathered cells reckon the same program); no
+family's step runs it. The program gives the one-device step: the loss is the
 groups' mean (equal rows and whole-column masks give equal token
 counts), and an MoE layer routes each group's tokens with the whole
 batch's ranks and capacity (``GroupRouting``).
@@ -272,22 +273,27 @@ class GroupRouting:
         return moe.experts(p, xt, r, act).reshape(b, s, d), aux
 
 
-# the families on the split program: the transformers, zamba2's and rwkv6's
-SPLIT_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
+# the families on the split program: every LM family (the transformers, zamba2, rwkv6, whisper)
+SPLIT_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
 
 
 class MeshStep:
     """The mesh train step (``make_train_step(bundle, opt, mesh)``): see the
-    module docstring.  ``split``: the split program (``SPLIT_FAMILIES``);
-    otherwise each compute device keeps one whole copy of the parameters
-    (the all-gather's destination), reused every step.  ``routing``: the
-    last step's MoE routing state (its ``dropped`` counts)."""
+    module docstring.  ``split``: the step runs the split program
+    (``SPLIT_FAMILIES``, every LM family's; another family raises).  The
+    gathered program (``_gather``, ``_group_grads``), which only the
+    tests call, keeps one whole copy of the parameters on each
+    compute device (the all-gather's destination), reused every call.
+    ``routing``: the last step's MoE routing state (its ``dropped``
+    counts)."""
 
     def __init__(self, bundle: LMBundle, opt: AdamW, mesh, *, microbatch: int = 0,
                  compress: bool = False):
         self.bundle, self.opt, self.mesh = bundle, opt, mesh
         self.microbatch, self.compress = microbatch, compress
         self.split = bundle.cfg.family in SPLIT_FAMILIES
+        if not self.split:
+            raise ValueError(f"the {bundle.cfg.family} family has no split train step")
         self.routing = None
         axes = MeshAxes(mesh)
         sizes = mesh.shape
@@ -436,14 +442,11 @@ class MeshStep:
         if per_mb % self.n_groups:
             raise ValueError(f"{per_mb} rows a microbatch do not split over "
                              f"{self.n_groups} data groups")
-        if not self.split:
-            self._gather(params)
         acc = tree_zeros(params, torch.float32)
         loss_sum = None
         for i in range(n_mb):
             part = {k: v[i * per_mb:(i + 1) * per_mb] for k, v in rows.items()}
-            loss = (self.split_grads(part, acc, params) if self.split
-                    else self._group_grads(part, acc)) / self.n_groups
+            loss = self.split_grads(part, acc, params) / self.n_groups
             loss_sum = loss if loss_sum is None else loss_sum + loss
         loss = loss_sum / n_mb
         if n_mb * self.n_groups > 1:

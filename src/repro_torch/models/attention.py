@@ -110,20 +110,25 @@ def flash_attention(
     logit_softcap: float = 0.0,
     blk: int = 512,
     q_start: int | None = None,
+    q_len: int | None = None,
 ) -> torch.Tensor:
     """``q_start`` set: ``q`` holds only the query rows ``q_start`` ..
-    ``q_start + Sq - 1`` of a causal self-attention over ``k``'s S rows
-    (one device's rows in the split program).  The path (whole or blocked)
-    and every row's blocks of keys are then those of the whole query."""
+    ``q_start + Sq - 1`` of a whole query of ``q_len`` rows (default ``k``'s
+    S: a self-attention, as a causal one must be; a cross-attention's
+    decoder rows over the encoder's) over ``k``'s S rows (one device's rows
+    in the split program).  The path (whole or blocked) and every row's
+    blocks of keys, in their order, are then those of the whole query."""
     b, sq, h, d = q.shape
     sk = k.shape[1]  # may differ from sq (cross-attention)
     n_kv = k.shape[2]
     if q_start is not None:
-        if not causal or q_start + sq > sk:
-            raise ValueError(f"query rows {q_start}..{q_start + sq} of a causal "
-                             f"self-attention over {sk} rows")
-        if sk <= blk or sk % blk:
-            return full_attention(q, k, v, causal=True, window=window, q_offset=q_start,
+        q_len = sk if q_len is None else q_len
+        if q_start + sq > q_len or (causal and q_len != sk):
+            raise ValueError(f"query rows {q_start}..{q_start + sq} of a "
+                             f"{'causal ' if causal else ''}attention of {q_len} rows "
+                             f"over {sk}")
+        if q_len <= blk or q_len % blk or sk % blk:
+            return full_attention(q, k, v, causal=causal, window=window, q_offset=q_start,
                                   logit_softcap=logit_softcap)
         pieces = []  # the rows cut at block boundaries
         a = q_start
@@ -230,14 +235,14 @@ def attention_forward(
     kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,  # cross-attn
     sp=None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """Returns (output (B,S,d), (k, v) for cache).  ``sp`` set: the causal
-    self-attention on a data group's `model` devices (``_attention_split``;
-    the cache entry as two ``FULL`` values)."""
+    """Returns (output (B,S,d), (k, v) for cache).  ``sp`` set: on a data
+    group's `model` devices (``_attention_split``; ``kv_override`` two
+    ``FULL`` values, the cache entry as two ``FULL`` values)."""
     if sp is not None:
         return _attention_split(
             sp, p, x, n_heads=n_heads, n_kv=n_kv, rope_theta=rope_theta, positions=positions,
-            window=window, logit_softcap=logit_softcap, norm_eps=norm_eps,
-            flash_blk=flash_blk)
+            causal=causal, window=window, logit_softcap=logit_softcap, norm_eps=norm_eps,
+            flash_blk=flash_blk, kv_override=kv_override)
     q = _split_heads(x @ p.wq, n_heads)
     if kv_override is None:
         k = _split_heads(x @ p.wk, n_kv)
@@ -260,12 +265,15 @@ def attention_forward(
 
 
 def _attention_split(sp, w, x, *, n_heads: int, n_kv: int, rope_theta, positions: list,
-                     window=0, logit_softcap: float = 0.0, norm_eps: float = 1e-6,
-                     flash_blk: int = 512):
-    """``attention_forward`` (causal self-attention) on a data group's
-    `model` devices (``sp``, a ``repro_torch.sharding.split.Split``;
-    ``w`` the gathered ``AttnParams`` fields, ``positions[m]`` (S,) on
-    device m, ``x`` and the result in ``sp.layout``).
+                     causal: bool = True, window=0, logit_softcap: float = 0.0,
+                     norm_eps: float = 1e-6, flash_blk: int = 512, kv_override=None):
+    """``attention_forward`` on a data group's `model` devices (``sp``, a
+    ``repro_torch.sharding.split.Split``; ``w`` the gathered ``AttnParams``
+    fields, ``positions[m]`` (S,) on device m, ``x`` and the result in
+    ``sp.layout``): a causal or a bidirectional self-attention, or with
+    ``kv_override`` a cross-attention (its k and v (B, T, KV, D) whole on
+    every device, ``FULL``: whisper's encoder states' products, which the
+    caller computes column-parallel and all-gathers).
 
     The projections follow the specs: wq/wk/wv column-parallel where `fit`
     keeps `model` on their columns (else whole, on each device's own rows),
@@ -273,16 +281,12 @@ def _attention_split(sp, w, x, *, n_heads: int, n_kv: int, rope_theta, positions
     (mid-head where H does not), so the attention itself is split by query
     rows: each device takes its sequence chunk of q with every head (an
     all-to-all), the whole k and v (all-gathered), and the same blocks of
-    keys per row as the whole attention; its rows of the output go back to
-    the columns wo's slice reads (the inverse all-to-all).  Returns (the
-    output, the cache entry (k, v): every device the whole k, normed and
-    rotated, and v, as ``FULL`` values)."""
+    keys per row as the whole attention (a bidirectional or cross row
+    every block of keys); its rows of the output go back to the columns
+    wo's slice reads (the inverse all-to-all).  Returns (the output, the
+    cache entry (k, v): every device the whole k, normed and rotated, and
+    v, as ``FULL`` values)."""
     b = x.parts[sp.root].shape[0]
-    x = sp.to(x, sp.FULL if w.wq.model_dim is not None or w.wk.model_dim is not None
-              else sp.ROWS)
-    q = sp.to(sp.mm(x, w.wq), sp.ROWS)
-    k = sp.to(sp.mm(x, w.wk), sp.FULL)
-    v = sp.to(sp.mm(x, w.wv), sp.FULL).map(lambda t, m: _split_heads(t, n_kv))
 
     def keys(km, m):
         km = _split_heads(km, n_kv)
@@ -292,7 +296,16 @@ def _attention_split(sp, w, x, *, n_heads: int, n_kv: int, rope_theta, positions
             km = common.apply_rope(km, positions[m][None, :], rope_theta)
         return km
 
-    k = k.map(keys)
+    if kv_override is None:  # gathered once for the three products
+        x = sp.to(x, sp.FULL if w.wq.model_dim is not None or w.wk.model_dim is not None
+                  else sp.ROWS)
+    q = sp.to(sp.mm(x, w.wq), sp.ROWS)
+    if kv_override is None:
+        k = sp.to(sp.mm(x, w.wk), sp.FULL)
+        v = sp.to(sp.mm(x, w.wv), sp.FULL).map(lambda t, m: _split_heads(t, n_kv))
+        k = k.map(keys)
+    else:
+        k, v = kv_override
 
     def core(qm, m):
         r0 = sp.row_start[m]
@@ -302,8 +315,9 @@ def _attention_split(sp, w, x, *, n_heads: int, n_kv: int, rope_theta, positions
         if rope_theta is not None:
             pos = positions[m][None, :]
             qm = common.apply_rope(qm, pos[:, r0:r0 + qm.shape[1]], rope_theta)
-        out = flash_attention(qm, k.parts[m], v.parts[m], causal=True, window=window,
-                              logit_softcap=logit_softcap, blk=flash_blk, q_start=r0)
+        out = flash_attention(qm, k.parts[m], v.parts[m], causal=causal, window=window,
+                              logit_softcap=logit_softcap, blk=flash_blk, q_start=r0,
+                              q_len=sp.seq_len)
         return out.reshape(b, out.shape[1], -1)
 
     o = q.map(core)
@@ -328,14 +342,16 @@ def attention_decode(
     sp=None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """One token; with ``update_cache`` its k/v are written into the caches
-    at ``pos`` in place.  Returns (output (B,1,d), (k_cache, v_cache)).
-    ``sp`` set: on a data group's `model` devices (``_attention_decode_split``;
-    the caches ``split.CacheLeaf``s)."""
+    at ``pos`` in place (without: the caches read as they are, whisper's
+    cross-attention, ``pos`` their last position).  Returns (output
+    (B,1,d), (k_cache, v_cache)).  ``sp`` set: on a data group's `model`
+    devices (``_attention_decode_split``; the caches ``split.CacheLeaf``s)."""
     if sp is not None:
         return _attention_decode_split(
             sp, p, x, k_cache, v_cache, int(pos), n_heads=n_heads, n_kv=n_kv,
             head_dim=head_dim, rope_theta=rope_theta, window=window,
-            logit_softcap=logit_softcap, norm_eps=norm_eps), (k_cache, v_cache)
+            logit_softcap=logit_softcap, norm_eps=norm_eps,
+            update_cache=update_cache), (k_cache, v_cache)
     q = _split_heads(x @ p.wq, n_heads)
     at = torch.full((1, 1), pos, device=x.device)
     if update_cache:
@@ -359,7 +375,7 @@ def attention_decode(
 
 def _attention_decode_split(sp, w, x, kc, vc, pos: int, *, n_heads: int, n_kv: int,
                             head_dim: int, rope_theta, window=0, logit_softcap: float = 0.0,
-                            norm_eps: float = 1e-6):
+                            norm_eps: float = 1e-6, update_cache: bool = True):
     """``attention_decode`` of one token on a data group's `model` devices
     (``sp``; ``w`` the gathered ``AttnParams`` fields, ``x`` and the result
     ``FULL``), in the layout ``cache_pspecs`` gives the caches ``kc``/``vc``
@@ -375,18 +391,21 @@ def _attention_decode_split(sp, w, x, kc, vc, pos: int, *, n_heads: int, n_kv: i
         cache), each device takes the partial softmax over its chunk of
         positions (window and softcap as ``decode_attention``), and the
         chunks are merged exactly (``decode_opt.flash_merge_split``) into
-        the columns wo's slice reads."""
+        the columns wo's slice reads.
+
+    Without ``update_cache`` (whisper's cross cache, every position valid)
+    only q is projected and nothing is written."""
     heads = kc.dim == 2
-    if heads and not (w.wq.model_dim == w.wk.model_dim == w.wv.model_dim == 1):
+    projected = (w.wq, w.wk, w.wv) if update_cache else (w.wq,)
+    if heads and not all(t.model_dim == 1 for t in projected):
         raise ValueError("a KV-head cache split needs column-parallel wq/wk/wv")
-    x = sp.to(x, sp.FULL if w.wq.model_dim is not None or w.wk.model_dim is not None
-              else sp.ROWS)
-    q, k, v = sp.mm(x, w.wq), sp.mm(x, w.wk), sp.mm(x, w.wv)
+    x = sp.to(x, sp.FULL if any(t.model_dim is not None for t in projected[:2]) else sp.ROWS)
+    q, *kv = (sp.mm(x, t) for t in projected)
     hq, hk = n_heads, n_kv
     if heads:
         hq, hk = n_heads // sp.M, n_kv // sp.M
     else:
-        q, k, v = (sp.to(t, sp.FULL) for t in (q, k, v))
+        q, *kv = (sp.to(t, sp.FULL) for t in (q, *kv))
 
     def at(t):
         return torch.full((1, 1), pos, device=t.device)
@@ -398,10 +417,11 @@ def _attention_decode_split(sp, w, x, kc, vc, pos: int, *, n_heads: int, n_kv: i
         if rope_theta is not None:
             km = common.apply_rope(km, at(km), rope_theta)
         kc.write(m, km, pos)
-        vc.write(m, _split_heads(v.parts[m], hk), pos)
+        vc.write(m, _split_heads(kv[1].parts[m], hk), pos)
         return km
 
-    k.map(store)
+    if update_cache:
+        kv[0].map(store)
 
     def query(qm, m):
         qm = _split_heads(qm, hq)

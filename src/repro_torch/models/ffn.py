@@ -53,6 +53,20 @@ class MLPParams(nn.Module):
         self.b2 = nn.Parameter(torch.zeros((d_model,), dtype=dtype, device=device))
 
 
-def mlp_forward(p: MLPParams, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
+def mlp_forward(p: MLPParams, x, act: str = "gelu", sp=None):
+    """``sp`` set: as ``ffn_forward``'s, w1 column-parallel (each device
+    adds its block of b1, which the specs leave whole), w2 row-parallel;
+    b2 is added once, to the reduced sum in ``sp.layout``, never to the
+    partials (M of them would add it M times)."""
     a = common.act_fn(act)
-    return a(x @ p.w1 + p.b1) @ p.w2 + p.b2
+    if sp is None:
+        return a(x @ p.w1 + p.b1) @ p.w2 + p.b2
+
+    def hidden(t, m):
+        b1 = p.b1[m]
+        if p.w1.model_dim is not None:  # this device's columns of w1
+            b1 = b1.narrow(0, m * t.shape[-1], t.shape[-1])
+        return a(t + b1)
+
+    y = sp.to(sp.mm(sp.mm(x, p.w1).map(hidden), p.w2), sp.layout)
+    return y.map(lambda t, m: t + p.b2[m])

@@ -287,12 +287,12 @@ class ActivationSharder:
     batch over (pod, data); a full-sequence activation (B, S, d) also has
     its *sequence* axis on `model` when it divides.  The constraint leaves
     the value as it is, and so does this call.  The layout is kept by the
-    mesh step itself (``repro_torch.launch.train``): for the transformer
-    family its split program (``repro_torch.sharding.split``) holds each
-    data group's activations between blocks sequence-sharded over the
-    group's `model` devices exactly where ``spec`` puts `model` on the
-    sequence, and replicated where it does not; the other families run a
-    group's rows whole on one device.  ``spec(shape)`` is the fitted spec
+    mesh step itself (``repro_torch.launch.train``): for every LM family
+    its split program (``repro_torch.sharding.split``) holds each data
+    group's activations between blocks sequence-sharded over the group's
+    `model` devices exactly where ``spec`` puts `model` on the sequence
+    (whisper's encoder states over its frames, its decoder's over its
+    tokens), and replicated where it does not.  ``spec(shape)`` is the fitted spec
     the JAX package would constrain to (None where it leaves the tensor
     alone)."""
 

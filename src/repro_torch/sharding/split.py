@@ -51,6 +51,7 @@ device and kept equal there; a conv tail or an x_prev whole).
 
 from __future__ import annotations
 
+import copy
 import weakref
 from contextlib import contextmanager
 from functools import partial
@@ -260,9 +261,10 @@ class GradSink:
 
 class CacheLeaf:
     """One layer's entry of a ``Sharded`` cache leaf (L, B, S, ...) on a
-    data group's devices, as ``cache_pspecs`` lays it out.  ``views[m]``:
-    device m's (B, S_m, ...) view of its shard's entry (None where not
-    computed); ``dim``: the view's dim the spec puts on `model` (1 the
+    data group's devices, as ``cache_pspecs`` lays it out (S the leaf's
+    own positions: a self cache's, or whisper's cross cache's T frames).
+    ``views[m]``: device m's (B, S_m, ...) view of its shard's entry (None
+    where not computed); ``dim``: the view's dim the spec puts on `model` (1 the
     sequence, 2 the KV heads, None: whole on every device).  Attention over
     a sequence split, or over a whole cache, is chunked: device m reads the
     positions ``start[m]`` .. ``start[m] + size[m] - 1`` (``tensor_split``'s
@@ -345,8 +347,9 @@ class StateLeaf:
 
 class Split:
     """Data group ``group``'s devices on ``mesh`` for a sequence of
-    ``seq_len``.  ``active``: the model indices this process computes
-    (None: all; the dry run traces the last alone); ``root``, the first
+    ``seq_len`` (``over``: the same devices for another sequence).
+    ``active``: the model indices this process computes (None: all; the
+    dry run traces the last alone); ``root``, the first
     of them, receives the loss.  ``rows``: each device's length of the
     sequence in ``ROWS`` (default ``tensor_split``'s chunks; a decode step
     puts its one token on the last device).  ``sink``: where the aliases'
@@ -368,13 +371,25 @@ class Split:
         self.root = self.active[0]
         self.pos = [self.position(group, m) for m in range(self.M)]
         self.devices = [mesh.devices[p] for p in self.pos]
+        self._sequence(seq_len, rows)
+        self.unit = ""
+        self._recipes: dict = {}
+        self._fsdp: dict = {}
+
+    def _sequence(self, seq_len: int, rows) -> None:
         self.seq_len = seq_len
         self.rows = col.chunk_sizes(seq_len, self.M) if rows is None else list(rows)
         self.row_start = [sum(self.rows[:m]) for m in range(self.M)]
         self.layout = ROWS if self.M == 1 or (seq_len > 1 and seq_len % self.M == 0) else FULL
-        self.unit = ""
-        self._recipes: dict = {}
-        self._fsdp: dict = {}
+
+    def over(self, seq_len: int) -> "Split":
+        """This group's devices for another sequence of ``seq_len``
+        (whisper's encoder frames beside its decoder tokens): its own rows
+        and layout, and this split's sink, routing, active set and gathered
+        weights' recipes, so one backward reaches both sequences' weights."""
+        sp = copy.copy(self)
+        sp._sequence(seq_len, None)
+        return sp
 
     # -- positions ------------------------------------------------------------
 

@@ -355,6 +355,10 @@ def test_recurrent_cells_trace_the_split_program(arch, shape, monkeypatch, tmp_p
     gathered program has 16), with the same argument bytes, fewer dot FLOPs
     and fewer gathered bytes than the gathered program's compute device
     (its whole parameters)."""
+    _check_split_against_gathered(arch, shape, monkeypatch, tmp_path)
+
+
+def _check_split_against_gathered(arch, shape, monkeypatch, tmp_path):
     monkeypatch.setattr(dryrun, "get_config", lambda a: smoke_pair(a)[1])
     monkeypatch.setattr(dryrun, "SHAPES", {
         k: dataclasses.replace(c, seq_len=GRID[k]) for k, c in SHAPES.items()})
@@ -367,6 +371,17 @@ def test_recurrent_cells_trace_the_split_program(arch, shape, monkeypatch, tmp_p
     assert split["memory"]["argument_bytes"] == gathered["memory"]["argument_bytes"]
     assert split["memory"]["gathered_bytes"] < gathered["memory"]["gathered_bytes"]
     assert 0 < split["counted"]["dot_flops_per_dev"] < gathered["counted"]["dot_flops_per_dev"]
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "train_4k"])
+def test_whisper_cells_trace_the_split_program(shape, monkeypatch, tmp_path):
+    """whisper-tiny's decode and train cells (the smoke config, the grid's
+    lengths) on the 16 x 16 mesh trace device (0, 15) of the split program
+    (its encoder over the frames and decoder over the tokens, the self and
+    cross caches in ``cache_pspecs``'s layout): 256 compute devices where
+    the gathered program has 16, the same argument bytes, fewer dot FLOPs
+    and fewer gathered bytes than the gathered program's compute device."""
+    _check_split_against_gathered("whisper-tiny", shape, monkeypatch, tmp_path)
 
 
 def test_long_500k_is_skipped_on_a_full_attention_arch(tmp_path):

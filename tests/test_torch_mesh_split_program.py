@@ -11,9 +11,9 @@ and ``collectives``), no XLA flag:
   * the split program's dot FLOPs (a group's M devices, traced on meta)
     equal the gathered program's, exactly, for the train step and for the
     serve steps (prefill and decode, ``launch.serve.MeshServe``), for the
-    transformer configs and the recurrent families (zamba2's hybrid and
-    rwkv6's ssm); the device the dry run traces, the group's last,
-    computes the most.
+    transformer configs, the recurrent families (zamba2's hybrid and
+    rwkv6's ssm) and whisper's encoder-decoder; the device the dry run
+    traces, the group's last, computes the most.
 
 The step against one device and the JAX package: test_torch_mesh_split.py.
 """
@@ -263,9 +263,10 @@ def _group_flops(cfg, shape, seq, split: bool) -> float:
 
 
 RECURRENT = ("rwkv6-1.6b", "zamba2-2.7b")  # split by heads, states on `model`
-FLOP_CASES = ([(n, (2, 4), 64) for n in sorted(CONFIGS) + list(RECURRENT)]
+AUDIO = ("whisper-tiny",)  # an encoder over T frames beside a decoder over S tokens
+FLOP_CASES = ([(n, (2, 4), 64) for n in sorted(CONFIGS) + list(RECURRENT + AUDIO)]
               + [(n, (1, 8), 60) for n in ("deepseek-v3-671b", "gemma3-1b", "llama3.2-3b")
-                 + RECURRENT])
+                 + RECURRENT + AUDIO])
 
 
 @pytest.mark.parametrize("name,shape,seq", FLOP_CASES,
@@ -278,7 +279,9 @@ def test_split_dot_flops_sum_to_the_gathered_programs(name, shape, seq):
     chunks uneven and activations replicated; the recurrent families' SSD
     C B^T and RWKV's decay LoRA, which every head shares, computed once in
     the group, the rest by heads; on (1, 8) rwkv6's 4 heads on 4 of the 8
-    devices).  Under remat the two differ
+    devices; whisper's encoder over 64 or 60 frames, its decoder over 64
+    tokens, the cross-attention's k and v column-parallel products of the
+    encoder states).  Under remat the two differ
     by design: the recomputation stops once the last saved tensor is
     packed, which skips a layer's final product on one device only, so
     the split program recomputes M - 1 more of them."""
@@ -288,7 +291,7 @@ def test_split_dot_flops_sum_to_the_gathered_programs(name, shape, seq):
 
 
 FULLEST_CASES = [(n, remat) for n in ("deepseek-v3-671b", "gemma3-1b", "llama3.2-3b")
-                 + RECURRENT for remat in (False, True)]
+                 + RECURRENT + AUDIO for remat in (False, True)]
 
 
 @pytest.mark.parametrize("name,remat", FULLEST_CASES,
@@ -300,7 +303,9 @@ def test_the_last_model_device_is_the_fullest(name, remat):
     causal attention's key blocks grow with the chunk), with remat and
     without; the dry run's ``compute_s`` is that device's.  rwkv6 attends
     over nothing: its devices compute equal FLOPs (each its heads), the
-    last among the most."""
+    last among the most.  whisper's encoder and cross-attention chunks
+    carry equal work (every row attends every key); its decoder's causal
+    chunks make the last the fullest."""
     _, cfg = smoke_pair(name)
     cfg = cfg.replace(remat=remat)
     shape = (2, 4)
@@ -340,12 +345,15 @@ def _serve_flops(cfg, shape, kind: str, seq: int, split: bool, only=None) -> flo
         tree = bundle.params_shape().jax_layout()
         params = dryrun._meta_placed(mesh, tree, tpart.param_pspecs(tree, cfg, axes))
         cshape = bundle.cache_shape(b, seq)
+        prompt = bundle.input_specs(ShapeCell(kind, seq, b, kind))
+        if kind == "prefill" and cfg.is_encoder_decoder:  # k/v of the decoder's prompt
+            cshape = bundle.model.init_cache(b, prompt["tokens"].shape[1], enc_len=seq,
+                                             device=META)
         cache = dryrun._meta_cache(mesh, cshape, tpart.cache_pspecs(cshape, cfg, axes))
         serve = tserve.MeshServe(bundle, mesh)
         with OpCounter() as c:
             if kind == "prefill":
-                serve.prefill(params, bundle.input_specs(ShapeCell(kind, seq, b, kind)),
-                              groups=[0], only=only, cache=cache)
+                serve.prefill(params, prompt, groups=[0], only=only, cache=cache)
             else:
                 serve.decode_step(params, cache, token, seq - 1, groups=[0], only=only)
         return c.cost().dot_flops
@@ -364,10 +372,10 @@ def _serve_flops(cfg, shape, kind: str, seq: int, split: bool, only=None) -> flo
     return c.cost().dot_flops
 
 
-SERVE_CASES = ([(n, k, (2, 4), 64) for n in sorted(CONFIGS) + list(RECURRENT)
+SERVE_CASES = ([(n, k, (2, 4), 64) for n in sorted(CONFIGS) + list(RECURRENT + AUDIO)
                 for k in ("prefill", "decode")]
                + [(n, k, (1, 8), 60) for n in ("deepseek-v3-671b", "gemma3-1b", "llama3.2-3b")
-                  + RECURRENT for k in ("prefill", "decode")])
+                  + RECURRENT + AUDIO for k in ("prefill", "decode")])
 
 
 @pytest.mark.parametrize("name,kind,shape,seq", SERVE_CASES,
@@ -380,14 +388,16 @@ def test_split_serve_dot_flops_sum_to_the_gathered_programs(name, kind, shape, s
     (1, 8) whole on every device, its chunks uneven, and heads cut by the
     model slices; the recurrent states by heads, the decode's conv a chunk
     of channels a device): no product is computed twice (a replicated q,
-    cache, router or C B^T would count M times)."""
+    cache, router or C B^T would count M times; whisper's cross cache of
+    64 or 60 frames by KV heads or whole, its encoder's and the cross k/v
+    products in prefill)."""
     _, cfg = smoke_pair(name)
     got = _serve_flops(cfg, shape, kind, seq, split=True)
     assert got == _serve_flops(cfg, shape, kind, seq, split=False) > 0
 
 
 FULLEST_SERVE = [(n, k) for n in ("deepseek-v3-671b", "gemma3-1b", "llama3.2-3b") + RECURRENT
-                 for k in ("prefill", "decode")]
+                 + AUDIO for k in ("prefill", "decode")]
 
 
 @pytest.mark.parametrize("name,kind", FULLEST_SERVE, ids=[f"{n}-{k}" for n, k in FULLEST_SERVE])

@@ -11,7 +11,8 @@ devices=["cpu"] * 8)``), no XLA flag.
     configs at capacities where tokens drop (0.5 in prefill and decode),
     their drops one device's; two runs bit-equal on (2, 4); a final length
     `model` does not divide (the cache whole on every device);
-  * whisper-tiny, the family left on the gathered program, through
+  * whisper-tiny (the audio family, on the split program: its self and
+    cross caches in ``cache_pspecs``'s layout) through
     ``teacher_forced(mesh=)`` against one device;
   * ``generate(mesh=)`` on (2, 4) against the JAX package's one-device
     prefill and decode (``run_prefill_decode``) for a dense GQA config,
@@ -207,12 +208,13 @@ def test_split_serve_where_the_batch_does_not_split_over_the_groups(name):
 
 
 @pytest.mark.parametrize("shape", [(2, 4), (4, 2)], ids=["2x4", "4x2"])
-def test_gathered_families_serve_on_the_mesh(shape):
-    """whisper-tiny (audio), the family the gathered program still serves
-    (one compute device a data group, whole parameters gathered onto it):
-    ``teacher_forced(mesh=)`` over a prompt of 1,500 / 8 frames and 6
-    tokens, then 4 decode steps fed one device's greedy tokens, gives one
-    device's logits within 1e-4 of their scale and their tokens."""
+def test_whisper_serves_on_the_split_program(shape):
+    """whisper-tiny (audio) on the split serve program (its encoder over the
+    frames and its decoder over the tokens split over `model`, the self and
+    cross caches in ``cache_pspecs``'s layout): ``teacher_forced(mesh=)``
+    over a prompt of 1,500 / 8 frames and 6 tokens, then 4 decode steps fed
+    one device's greedy tokens, gives one device's logits within 1e-4 of
+    their scale and their tokens."""
     _, cfg = smoke_pair("whisper-tiny", dtype="float32")
     bundle = tbuild(cfg, device="cpu")
     params = bundle.init_params(4)
@@ -224,7 +226,7 @@ def test_gathered_families_serve_on_the_mesh(shape):
     toks = torch.argmax(ref, -1).T  # one device's greedy tokens, fed back
     ref = tserve.teacher_forced(bundle, params, batch, toks)
     mesh = cpu_mesh(shape)
-    assert not tserve.MeshServe(bundle, mesh).split
+    assert tserve.MeshServe(bundle, mesh).split
     got = tserve.teacher_forced(bundle, ttrain.place_params(mesh, cfg, params), batch, toks,
                                 mesh=mesh)
     assert got.shape == ref.shape
