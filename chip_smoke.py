@@ -243,6 +243,7 @@ lines are a JSON object of the kernels and the contract line
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import importlib
 import io
@@ -321,11 +322,16 @@ SMEM_WORDS_PER_CLOCK_PER_SM = 32
 F32_EPS = ref.F32_EPS
 # the former designs' recorded times (ms, L2 flushed, NVIDIA H100 80GB
 # HBM3, 700.00 W) of the kernels this script times beside the redesigned
-# ones: the lane-per-query uint8 kernel and the library log-sigmoid
+# ones: the lane-per-query uint8 kernel and the library log-sigmoid (PR
+# 16's run 1), the lane-per-query uint16/int32 kernel and the tau = 0
+# instance of the soft kernel (PR 23's run 7)
 FORMER_MS = {("uint8", 1): 0.0819, ("uint8", 256): 1.3146, ("uint8", 1024): 5.0377,
-           (0.1, 1, "margin"): 0.1809, (0.1, 256, "margin"): 5.2585,
-           (0.1, 256, "moments"): 6.3947, (0.0, 1, "margin"): 0.1363,
-           (0.0, 256, "margin"): 2.0846}
+             (0.1, 1, "margin"): 0.1809, (0.1, 256, "margin"): 5.2585,
+             (0.1, 256, "moments"): 6.3947, (0.0, 1, "margin"): 0.1360,
+             (0.0, 256, "margin"): 2.0859, ("uint16/inclusive", 256): 1.3940,
+             ("int32/direct", 256): 1.5100, ("int32/inclusive", 256): 1.5096,
+             ("int32/msb_lsb", 256): 1.8937, ("int32/two_cycle", 256): 1.9864,
+             ("uint16/direct", 256): 1.3830}
 
 
 def recorded(key) -> str:
@@ -364,7 +370,7 @@ def smem_words_per_s() -> float:
     return SMEM_WORDS_PER_CLOCK_PER_SM * sms * mhz * 1e6
 
 
-_TYPES = {"h": "uint8", "t": "uint16", "i": "int32"}
+_TYPES = {"h": "uint8", "t": "uint16", "i": "int32", "f": "float32"}
 
 
 def ptxas_report(log: str) -> list[str]:
@@ -374,17 +380,21 @@ def ptxas_report(log: str) -> list[str]:
         m = re.search(r"Function properties for (\S+)", ln)
         if not m:
             continue
-        k = re.search(r"cam_match_kernelI([hti])NS_\d+(\w+?)ELb([01])EEEv", m.group(1))
+        k = re.search(r"cam_match_kernelI([htif])NS_\d+(\w+?)ELb([01])EEEv", m.group(1))
+        bk = re.search(r"cam_match_bp_kernelI([htif])NS_\d+(\w+?)EEEv", m.group(1))
         uk = re.search(r"cam_match_u8_kernelILb([01])E", m.group(1))
-        sk = re.search(r"cam_match_soft_kernelILb([01])ELb([01])E", m.group(1))
+        sk = re.search(r"cam_match_soft_kernelILb([01])E", m.group(1))
         if uk:
             name = f"cam_match_u8<{'Inclusive' if uk.group(1) == '1' else 'Direct'}>"
-        elif k:
+        elif bk:  # the bit-parallel kernel: value and rank routes
+            name = f"cam_match_bp<{_TYPES[bk.group(1)]}, {bk.group(2)}>"
+        elif k:  # the lane-per-query kernel: lists past the tables' window
             wide = ", wide" if k.group(3) == "1" else ""
             name = f"cam_match<{_TYPES[k.group(1)]}, {k.group(2)}{wide}>"
         elif sk:
-            wide = ", wide" if sk.group(2) == "1" else ""
-            name = f"cam_match_soft<{'tau=0' if sk.group(1) == '1' else 'tau>0'}{wide}>"
+            name = f"cam_match_soft<tau>0{', wide' if sk.group(1) == '1' else ''}>"
+        elif "live_tiles_kernel" in m.group(1):
+            name = "live_tiles (float32 tiles' finite queries)"
         else:
             name = "reduce_splits"
         used = lines[i + 2].split(":", 1)[-1].strip()
@@ -460,10 +470,33 @@ def wide_problem(rng, f):
                 n_bins=n_bins, r_blk=256, f_blk=128)
 
 
+def rank_problems(tree, rng):
+    """The tree problem on a grid of 1,024 bins (its bounds x 4, so every
+    query bin still matches one leaf a tree), its 32-query tiles
+    alternating between bins below 256 (the value route) and bins up to
+    1,023 (the rank route); and the same table with its listed int32
+    bounds moved by up to +-3 (negative ones among them) and 1% of its
+    listed cells made never-match (high <= low), as the defect injector
+    leaves a table."""
+    low, high = tree["low"] * 4, tree["high"] * 4
+    b, f = tree["q"].shape
+    q = rng.integers(0, 1024, size=(b, f))
+    for t in range(0, b, 2 * K.QUERIES_PER_TILE):
+        q[t:t + K.QUERIES_PER_TILE] = rng.integers(0, 256, size=q[t:t + K.QUERIES_PER_TILE].shape)
+    wide = dict(tree, name=tree["name"] + " 1024 bins", low=low, high=high, q=q, n_bins=1024)
+    listed = ~ops.wildcard_cells(low, high, n_bins=1024, inclusive=False)
+    nlow = low + np.where(listed, rng.integers(-3, 4, size=low.shape), 0).astype(low.dtype)
+    nhigh = high + np.where(listed, rng.integers(-3, 4, size=high.shape), 0).astype(high.dtype)
+    bad = listed & (rng.random(low.shape) < 0.01)
+    nhigh[bad] = nlow[bad]
+    return wide, dict(wide, name=wide["name"] + " noisy", low=nlow, high=nhigh, int32_only=True)
+
+
 def problems(rng, dev):
     """The shapes phase 3 holds every kernel variant to its plain version at."""
-    return (tree_problem(rng, dev), ragged_problem(rng, dev),
-            *(wide_problem(rng, f) for f in WIDE_WIDTHS))
+    tree = tree_problem(rng, dev)
+    return (tree, ragged_problem(rng, dev), *(wide_problem(rng, f) for f in WIDE_WIDTHS),
+            *rank_problems(tree, rng))
 
 
 # (table dtype, mode, inclusive encoding): every instantiation of the kernel
@@ -507,6 +540,37 @@ def widened(cells: ops.CellList, k: int) -> ops.CellList:
 WIDE_K = 40  # past the 8 cells a row the kernels stage
 
 
+def ranked(cells: ops.CellList) -> ops.CellList:
+    """The same list without its packed words: every tile of a uint16,
+    int32 or float32 list then takes the rank route."""
+    out = copy.copy(cells)
+    object.__setattr__(out, "words", None)
+    return out
+
+
+def route_of(cells: ops.CellList, on_bins: bool = True) -> str:
+    """The route a tile of this list takes: the bit-parallel kernels' value
+    or rank route, or the lane-per-query kernel past their windows."""
+    u8 = cells.lo.dtype == torch.uint8
+    if cells.span > (K.BITMAP_FEATURES if u8 else K.RANK_FEATURES):
+        return "lanes"
+    value = cells.words is not None and cells.span <= K.BITMAP_FEATURES and on_bins
+    return "value" if value else "rank"
+
+
+def routes(q: torch.Tensor, cells: ops.CellList) -> str:
+    """Which route each 32-query tile of a uint16/int32/float32 list takes
+    (the kernel's own test, mirrored): value tiles / rank tiles, or the
+    lane-per-query kernel past the rank tables' window."""
+    if route_of(cells) == "lanes":
+        return "lane-per-query"
+    tiles = [q[t:t + K.QUERIES_PER_TILE, : max(1, cells.span)].double()
+             for t in range(0, q.shape[0], K.QUERIES_PER_TILE)]
+    value = sum(route_of(cells, bool(((x >= 0) & (x <= 255) & (x == torch.round(x))).all()))
+                == "value" for x in tiles)
+    return f"{value} value / {len(tiles) - value} rank tiles"
+
+
 def phase_kernel(dev, stats) -> None:
     rng = np.random.default_rng(SEED)
     launched = {}
@@ -515,6 +579,9 @@ def phase_kernel(dev, stats) -> None:
         normal[p["leaf"] == 0] = 0.0  # keep the class routing of each row
         int32_out = {}
         for dtype, mode, incl in VARIANTS:
+            if (dtype == "uint8" and p["n_bins"] > 256) or (p.get("int32_only")
+                                                              and dtype != "int32"):
+                continue
             dyadic = operands(p, dtype, incl, p["leaf"], dev)
             if dyadic is None:
                 continue
@@ -525,7 +592,8 @@ def phase_kernel(dev, stats) -> None:
             bits_ref = ref.cam_match_bits_ref(q, lo, hi, mode=mode)
             out_ref = ref.cam_match_ref(q, lo, hi, lm, mode=mode)
             out_ref_n = ref.cam_match_ref(q, lo, hi, lm_n, mode=mode)
-            for cl in (cells, widened(cells, WIDE_K)):
+            lists = (cells, widened(cells, WIDE_K), *(() if dtype == "uint8" else (ranked(cells),)))
+            for cl in lists:
                 bits = K.cam_match_bits_cuda(q, cl, mode=mode)
                 out = K.cam_match_cuda(q, cl, lm, mode=mode)
                 again = K.cam_match_cuda(q, cl, lm, mode=mode)
@@ -533,7 +601,7 @@ def phase_kernel(dev, stats) -> None:
                 out_n = K.cam_match_cuda(q, cl, lm_n, mode=mode)
                 fused_n = K.cam_match_cuda(q, cl, lm_n, bias, mode=mode)
                 torch.cuda.synchronize()
-                tag = f"{p['name']} {dtype}/{mode} K={cl.k}"
+                tag = f"{p['name']} {dtype}/{mode} K={cl.k}{'' if cl.words is not None else ' ranked'}"
                 if not torch.equal(bits, bits_ref):
                     fail(f"{tag}: match bits differ from the plain version")
                 if not torch.equal(out, out_ref):
@@ -554,8 +622,10 @@ def phase_kernel(dev, stats) -> None:
                     fail(f"{tag}: packed {dtype} != int32 {enc} margins")
             launched[dtype, mode] = launched.get((dtype, mode), 0) + (
                 K.cam_match_cuda.launches + K.cam_match_bits_cuda.launches - before)
+            how = "" if dtype == "uint8" else (f", without its words (every tile ranked); "
+                                               f"as built: {routes(q, cells)}")
             print(f"kernel {p['name']} {dtype}/{mode}: bits, k/16 margins, "
-                  f"fused bias, cell list K={cells.k} and widened to {WIDE_K}, rerun "
+                  f"fused bias, cell list K={cells.k} and widened to {WIDE_K}{how}, rerun "
                   f"exact; normal leaves "
                   f"within 2(n+splits)·u·Σ|leaf| (max |err| so far "
                   f"{stats['max_abs_err']:.3g})", flush=True)
@@ -597,8 +667,8 @@ def phase_soft_kernel(dev, stats) -> None:
     the moments pass."""
     rng = np.random.default_rng(SEED + 10)
     worst = 0.0  # largest |err| / bound over the tau > 0 checks
-    tree, ragged, *wide = problems(rng, dev)
-    for p in (tree, perturb(ragged, rng), *wide):
+    tree, ragged, *rest = problems(rng, dev)
+    for p in (tree, perturb(ragged, rng), *rest[: len(WIDE_WIDTHS)]):
         normal = rng.normal(size=p["leaf"].shape).astype(np.float32)
         normal[p["leaf"] == 0] = 0.0  # keep the class routing of each row
         q, lo, hi, lm, cells = soft_operands(p, p["leaf"], dev)
@@ -615,8 +685,9 @@ def phase_soft_kernel(dev, stats) -> None:
             s_ref = ref.soft_scores_ref(q, lo, hi, tau=tau)
             plain = {name: ref.cam_match_ref(q, lo, hi, leaf, mode="soft", tau=tau)
                      for name, leaf in (("k/16", lm), ("normal", lm_n), ("moments", mom))}
-            for cl in (cells, widened(cells, WIDE_K)):
-                tag = f"{p['name']} soft tau={tau} K={cl.k}"
+            ranks = (ranked(cells),) if tau == 0.0 else ()  # the words serve tau = 0 alone
+            for cl in (cells, widened(cells, WIDE_K), *ranks):
+                tag = f"{p['name']} soft tau={tau} K={cl.k}{'' if cl.words is not None else ' ranked'}"
                 scores = K.soft_scores_cuda(q, cl, tau=tau)
                 outs = {"k/16": K.cam_match_soft_cuda(q, cl, lm, tau=tau),
                         "normal": K.cam_match_soft_cuda(q, cl, lm_n, tau=tau),
@@ -659,7 +730,9 @@ def phase_soft_kernel(dev, stats) -> None:
                         stats["soft_max_abs_err"] = max(stats["soft_max_abs_err"],
                                                         float(err.max()))
             print(f"kernel {p['name']} soft tau={tau}: cell list K={cells.k} and widened "
-                  f"to {WIDE_K}, fused bias, rerun, "
+                  f"to {WIDE_K}"
+                  + (f", without its words (every tile ranked; as built: {routes(q, cells)})"
+                     if tau == 0.0 else "") + ", fused bias, rerun, "
                   f"never-match rows 0, no NaN; "
                   + ("scores, k/16 + moments margins exact; normal margins within "
                      "2(n+splits+2)u·Σ|s·leaf|; all == int32 direct kernel bit for bit"
@@ -668,7 +741,44 @@ def phase_soft_kernel(dev, stats) -> None:
                      f"and moments within that through |leaf| + 2(n+splits+2)u·Σ|s·leaf| "
                      f"(max |err| normal margins so far {stats['soft_max_abs_err']:.3g}, "
                      f"worst err/bound {worst:.3g})"), flush=True)
+    soft_odd_queries(tree, rng, dev)
     one_cell_sweep(dev)
+
+
+ODD_QUERIES = (float("nan"), float("inf"), -float("inf"), 2.5, -1.0, 300.0, -0.0)
+
+
+def soft_odd_queries(p, rng, dev) -> None:
+    """tau = 0 on the tree problem with 2% of two tiles' entries NaN,
+    +-inf, a half bin, -1, 300 or -0: scores and the k/16 and moments
+    margins equal the plain version bit for bit, with the list's words and
+    without them; a query with a NaN or infinite feature scores 0 on every
+    row (every cell, a wildcard too, compares false against it)."""
+    q, lo, hi, lm, cells = soft_operands(p, p["leaf"], dev)
+    odd = torch.tensor(ODD_QUERIES, device=dev)
+    for t in (1, 3):
+        tile = q[t * K.QUERIES_PER_TILE:(t + 1) * K.QUERIES_PER_TILE]
+        pick = torch.from_numpy(rng.random(tuple(tile.shape)) < 0.02).to(dev)
+        tile[pick] = odd[torch.from_numpy(rng.integers(0, len(ODD_QUERIES),
+                                                       size=int(pick.sum()))).to(dev)]
+    mom = moments_matrix(lm)
+    s_ref = ref.soft_scores_ref(q, lo, hi, tau=0.0)
+    plain = {name: ref.cam_match_ref(q, lo, hi, leaf, mode="soft", tau=0.0)
+             for name, leaf in (("k/16", lm), ("moments", mom))}
+    dead = ~torch.isfinite(q).all(dim=1)
+    if not dead.any() or bool(s_ref[dead].any()):
+        fail("odd soft queries: no non-finite query, or one the plain version matched")
+    for cl in (cells, ranked(cells)):
+        tag = f"{p['name']} soft tau=0 odd queries{'' if cl.words is not None else ' ranked'}"
+        if not torch.equal(K.soft_scores_cuda(q, cl, tau=0.0), s_ref):
+            fail(f"{tag}: scores differ from the plain version")
+        for name, leaf in (("k/16", lm), ("moments", mom)):
+            if not torch.equal(K.cam_match_soft_cuda(q, cl, leaf, tau=0.0), plain[name]):
+                fail(f"{tag}: {name} margins differ from the plain version")
+    print(f"kernel {p['name']} soft tau=0, 2% of tiles 1 and 3 NaN/+-inf/2.5/-1/300/-0 "
+          f"({int(dead.sum())} queries with a non-finite feature): scores, k/16 and moments "
+          f"margins == the plain version bit for bit, with the words and without "
+          f"(as built: {routes(q, cells)})", flush=True)
 
 
 def one_cell_table(bounds: np.ndarray, side: str, dev) -> ops.CellList:
@@ -963,10 +1073,31 @@ def listed_cells(cells: ops.CellList) -> int:
 
 def list_bytes(cells: ops.CellList) -> tuple[int, int]:
     """Bytes of the cell list: the listed cells and counts (what a kernel
-    must read), and as stored with its ELL padding."""
+    must read: a packed word a cell where the list has them), and as
+    stored with its ELL padding."""
     per_cell = cells.feat.element_size() + 2 * cells.lo.element_size()
     R, K = cells.feat.shape
-    return listed_cells(cells) * per_cell + 4 * R, (K * per_cell + 4) * R
+    least = 4 if cells.words is not None else per_cell
+    return listed_cells(cells) * least + 4 * R, (K * per_cell + 4) * R
+
+
+# operations of a rank-route cell and 32-query tile: two six-step binary
+# searches (a shared read, a compare and an add a step), two lookups, an AND
+RANK_CELL_OPS = 39
+
+
+def design_ops(cells: ops.CellList, batch: int, n_matched: int, route: str) -> int:
+    """Operations the route evaluates: per listed cell and 32-query tile
+    the value route's two lookups and an AND, or the rank route's
+    RANK_CELL_OPS, and its tables (257 or 65 words a listed feature and
+    tile); the lane-per-query kernel two compares per listed cell and
+    query; one add per matched row and query either way."""
+    tiles, listed = -(-batch // K.QUERIES_PER_TILE), listed_cells(cells)
+    if route == "value":
+        return tiles * (3 * listed + 257 * cells.span) + n_matched
+    if route == "rank":
+        return tiles * (RANK_CELL_OPS * listed + 65 * cells.span) + n_matched
+    return 2 * batch * listed + n_matched
 
 
 def cell_list_line(name: str, label: str, eng: XTimeEngine) -> None:
@@ -996,34 +1127,30 @@ def match_stats(eng: XTimeEngine, qp: torch.Tensor) -> tuple[int, int]:
     return n, int(rows.sum())
 
 
-def bound_ms(eng: XTimeEngine, batch: int, n_matched: int,
-             distinct: int) -> tuple[float, str, float, float]:
+def bound_ms(eng: XTimeEngine, batch: int, n_matched: int, distinct: int,
+             route: str | None = None) -> tuple[float, str, float, float]:
     """Least time for one cam_match call on this data: the bytes the
-    cell-list kernel must read and write, each once — the listed cells and
-    counts, the distinct matched leaf rows, the queries and the outputs —
-    at HBM rate, against the fewest operations a design shown so far needs,
-    at the 32-bit lane rate.  For uint8 that is the lesser of the
-    bit-parallel design's (cam_match.cu: two bitmap lookups and an AND per
-    listed cell and 32-query tile, the bitmaps (257 words a listed feature
-    and tile) and one add per matched row and query) and the former count;
-    for the wider dtypes the former count, the compare and AND per binding
-    bound and query of the lane-per-query design, plus the adds.  Third:
-    the time of what the kernel that runs evaluates at that rate (the
-    bit-parallel count, or two compares per listed cell and query plus the
-    adds); fourth: the former count, which the bit-parallel design beats."""
+    cell-list kernel must read and write, each once — the listed cells
+    (their packed words, where the list has them) and counts, the distinct
+    matched leaf rows, the queries and the outputs — at HBM rate, against
+    the fewest operations a design shown so far needs, at the 32-bit lane
+    rate: the lesser of the value route's count (``design_ops``, where the
+    list has words within the value tables' window; the queries here are
+    bins) and the former count, the compare and AND per binding bound and
+    query of the lane-per-query design, plus the adds.  Third: the time of
+    what the kernel evaluates on the route it takes (``route``, default the
+    list's own); fourth: the former count, which the bit-parallel design
+    beats."""
     a = eng.arrays
     item = np.dtype(eng.table_dtype).itemsize
     nbytes = (list_bytes(a.cells)[0] + distinct * a.c_pad * 4 + batch * a.f_pad * item
               + batch * a.c_pad * 4)
-    former = (2 * batch * binding_bounds(eng) + n_matched) / INT32_OPS_PER_S * 1e3
     n_ops = 2 * batch * binding_bounds(eng) + n_matched
-    design = (2 * batch * listed_cells(a.cells) + n_matched) / INT32_OPS_PER_S * 1e3
-    if eng.table_dtype == "uint8":
-        tiles = -(-batch // K.QUERIES_PER_TILE)
-        bitmaps = tiles * (3 * listed_cells(a.cells) + 257 * a.cells.span) + n_matched
-        n_ops = min(n_ops, bitmaps)
-        if a.cells.span <= K.BITMAP_FEATURES:
-            design = bitmaps / INT32_OPS_PER_S * 1e3
+    former = n_ops / INT32_OPS_PER_S * 1e3
+    if route_of(a.cells) == "value":
+        n_ops = min(n_ops, design_ops(a.cells, batch, n_matched, "value"))
+    design = design_ops(a.cells, batch, n_matched, route or route_of(a.cells))
+    design = design / INT32_OPS_PER_S * 1e3
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, n_ops / INT32_OPS_PER_S * 1e3
     return (*((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), design,
             former)
@@ -1068,19 +1195,33 @@ def phase_times(cm, batches, name, stats) -> None:
             plain_ms = plain(eng, qp)
             bnd, by, design, former = bound_ms(eng, b, *match_stats(eng, qp))
             rows[label, b] = (ms, plain_ms, bnd, by)
-            if label == "uint8/inclusive":
-                how = (f"the bit-parallel design's {design:.4f} ms of lookups (former "
-                       f"count, a compare and an AND per binding bound and query: "
-                       f"{former:.4f} ms); {recorded(('uint8', b))}")
-            else:
-                how = (f"the cell-list design evaluates {listed_cells(eng.arrays.cells) * b} "
-                       f"cells x queries: {design:.4f} ms of compares")
+            key = ("uint8", b) if label == "uint8/inclusive" else (label, b)
+            how = (f"the bit-parallel design's {design:.4f} ms of lookups "
+                   f"({route_of(eng.arrays.cells)} route); former count, a compare and an "
+                   f"AND per binding bound and query: {former:.4f} ms; {recorded(key)}")
             print(f"times [{name}] cam_match {label} B={b} (R={eng.arrays.r_pad}, "
                   f"F_pad={eng.arrays.f_pad}, K={eng.arrays.cells.k}): kernel {ms:.4f} ms "
                   f"L2 flushed (warm {warm:.4f} ms), plain {plain_ms:.3f} ms, bound "
                   f"{bnd:.4f} ms by {by} ({bnd / ms:.1%} of bound); {how}", flush=True)
         if not overrides:
             cell_list_line(name, label, eng)
+    # the rank route on the same calls: each list without its words
+    for label in ("int32/direct", "int32/msb_lsb"):
+        eng = cm.engine(**dict(TIMED)[label])
+        qp = eng._prep_queries(batches[256])
+        a = eng.arrays
+        rk = ranked(a.cells)
+        fn = lambda: K.cam_match_cuda(qp, rk, a.leaf, eng._bias,  # noqa: E731
+                                      mode=eng.kernel_mode)
+        if not torch.equal(fn(), launcher(eng, qp)()):
+            fail(f"{label}: the rank route's margins differ from the value route's")
+        ms = cold_time(fn, 10)
+        bnd, by, design, former = bound_ms(eng, 256, *match_stats(eng, qp), route="rank")
+        print(f"times [{name}] cam_match {label} B=256, rank route (the list's words dropped): "
+              f"== the value route's margins; kernel {ms:.4f} ms L2 flushed (value route "
+              f"{rows[label, 256][0]:.4f}), bound {bnd:.4f} ms by {by}; the rank route's "
+              f"count {design:.4f} ms; former count {former:.4f} ms; "
+              f"{recorded((label, 256))}", flush=True)
     eng = cm.engine()
     qp = eng._prep_queries(batches[256])
     no_bias = cold_time(launcher(eng, qp, bias=False), 10)
@@ -1129,13 +1270,14 @@ def phase_direct_packed_times(cm, batches, name) -> None:
                                    r_pad=lo.shape[0]),
             table_dtype=dtype, kernel_mode="direct",
             table=SimpleNamespace(low=low, high=high, n_bins=n_bins))
-        bnd, by, design, _ = bound_ms(shim, 256, *match_stats(shim, qp))
+        bnd, by, design, former = bound_ms(shim, 256, *match_stats(shim, qp))
         print(f"times [{name}] cam_match {dtype}/direct B=256 (R={lo.shape[0]}, "
               f"F_pad={lo.shape[1]}, K={cells.k}, {n_bins} bins"
               f"{', clipped' if n_bins < t.n_bins else ''}): == plain version; kernel "
               f"{ms:.4f} ms L2 flushed (warm {warm:.4f} ms), plain {plain_ms:.3f} ms, bound "
               f"{bnd:.4f} ms by {by} ({bnd / ms:.1%} of bound); the design's count "
-              f"{design:.4f} ms; launched by phase 3 only", flush=True)
+              f"{design:.4f} ms ({route_of(cells)} route); former count {former:.4f} ms; "
+              f"{recorded((f'{dtype}/direct', 256))}; launched by phase 3 only", flush=True)
         del cells, lo_d, hi_d, lm_d
 
 
@@ -1154,34 +1296,40 @@ def evaluated_sides(cells: ops.CellList) -> int:
 
 
 def soft_bound_ms(eng: XTimeEngine, batch: int, tau: float, leaf: torch.Tensor,
-                  sfu: float, distinct: int) -> tuple[float, str, float, float]:
+                  sfu: float, distinct: int,
+                  route: str | None = None) -> tuple[float, str, float, float]:
     """Least time for one soft kernel call on this data.  Bytes: the listed
-    cells and counts, the leaf rows the call needs (the ``distinct``
-    matched rows at tau = 0; every table row at tau > 0), the queries and
-    the outputs, each once.  Operations at tau = 0: a compare and an AND
-    per finite bound and query plus one add per matched row and query (one
-    per tree), at the 32-bit lane rate.  At tau > 0 the fewest a design
+    cells (at tau = 0 their packed words, where the list has them) and
+    counts, the leaf rows the call needs (the ``distinct`` matched rows at
+    tau = 0; every table row at tau > 0), the queries and the outputs,
+    each once.  Operations at tau = 0: the lesser of the bit-parallel value
+    route's count (``design_ops``) and the former count, a compare and an
+    AND per finite bound and query, plus one add per matched row and query
+    (one per tree), at the 32-bit lane rate.  At tau > 0 the fewest a design
     shown so far needs, the lattice design's (cam_match_soft.cu): per
     finite bound and query an add forming the table index and an add into
     the row sum at the lane rate and one table read at the shared-memory
     rate, one ex2 per table row and query at the SFU rate ``sfu``, an FMA
     per score and nonzero leaf entry at the float32 rate; each pipe timed
     alone, the longest taken.  Third: the time of what the design evaluates
-    at the same rates (two compares per listed cell and query; at tau > 0
-    two table reads per listed cell and query); fourth: the former count at
-    tau > 0, an ex2 and an lg2 per finite bound and query and an ex2 per
-    row and query on the SFU (the library log-sigmoid's)."""
+    at the same rates (at tau = 0 the route's count, ``route`` default the
+    list's own; at tau > 0 two table reads per listed cell and query);
+    fourth: the former count (at tau > 0 an ex2 and an lg2 per finite bound
+    and query and an ex2 per row and query on the SFU, the library
+    log-sigmoid's)."""
     a, t = eng.arrays, eng.table
     c = leaf.shape[1]
     rows = distinct if tau == 0.0 else t.n_rows
-    nbytes = (list_bytes(a.cells)[0] + rows * c * 4 + batch * a.f_pad * 4
-              + batch * c * 4)
+    listed_bytes = list_bytes(a.cells)[0] if tau == 0.0 else list_bytes(ranked(a.cells))[0]
+    nbytes = listed_bytes + rows * c * 4 + batch * a.f_pad * 4 + batch * c * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     n_fin, adds = finite_bounds(eng), batch * t.n_trees
     if tau == 0.0:
-        t_ops = (2 * batch * n_fin + adds) / INT32_OPS_PER_S * 1e3
-        design = (2 * batch * listed_cells(a.cells) + adds) / INT32_OPS_PER_S * 1e3
-        former = t_ops
+        former = (2 * batch * n_fin + adds) / INT32_OPS_PER_S * 1e3
+        value = design_ops(a.cells, batch, adds, "value") / INT32_OPS_PER_S * 1e3
+        t_ops = min(former, value) if route_of(a.cells) == "value" else former
+        design = design_ops(a.cells, batch, adds, route or route_of(a.cells))
+        design = design / INT32_OPS_PER_S * 1e3
     else:
         smem = smem_words_per_s()
         fma = 2 * batch * int((leaf != 0).sum()) / F32_FLOPS_PER_S * 1e3
@@ -1221,12 +1369,29 @@ def phase_soft_times(soft, batches, name, stats) -> None:
                   f"(R={a.r_pad}, F_pad={a.f_pad}, C={leaf.shape[1]}, K={a.cells.k}, "
                   f"lattice {a.cells.lattice}): kernel "
                   f"{ms:.4f} ms L2 flushed (warm {warm:.4f} ms), plain {plain_ms:.3f} ms, "
-                  f"bound {bnd:.4f} ms by {by} ({bnd / ms:.1%} of bound); the cell-list "
-                  f"design evaluates {listed_cells(a.cells) * b} cells x queries: "
-                  f"{design:.4f} ms of " + ("compares" if tau == 0.0 else
-                                            f"table reads (former count, ex2 + lg2 a finite "
-                                            f"bound: {former:.4f} ms)")
+                  f"bound {bnd:.4f} ms by {by} ({bnd / ms:.1%} of bound); "
+                  + (f"the bit-parallel design's {design:.4f} ms of lookups "
+                     f"({route_of(a.cells)} route); former count, a compare and an AND per "
+                     f"finite bound and query: {former:.4f} ms" if tau == 0.0 else
+                     f"the cell-list design evaluates {listed_cells(a.cells) * b} cells x "
+                     f"queries: {design:.4f} ms of table reads (former count, ex2 + lg2 a "
+                     f"finite bound: {former:.4f} ms)")
                   + f"; {recorded((tau, b, what))}", flush=True)
+    # tau = 0 on the rank route: the list without its words
+    e = soft.engine(tau=0.0)
+    a = e.arrays
+    qp = e._prep_queries(batches[256])
+    rk = ranked(a.cells)
+    fn = lambda: K.cam_match_soft_cuda(qp, rk, a.leaf, e._bias, tau=0.0)  # noqa: E731
+    if not torch.equal(fn(), K.cam_match_soft_cuda(qp, a.cells, a.leaf, e._bias, tau=0.0)):
+        fail("soft tau = 0: the rank route's margins differ from the value route's")
+    distinct = int((K.soft_scores_cuda(qp, a.cells, tau=0.0) > 0).any(dim=0).sum())
+    bnd, by, design, former = soft_bound_ms(e, 256, 0.0, a.leaf, sfu, distinct, route="rank")
+    print(f"times [{name}] cam_match_soft tau=0.0 margin B=256, rank route (the list's words "
+          f"dropped): == the value route's margins; kernel {cold_time(fn, 10):.4f} ms L2 "
+          f"flushed (value route {rows[0.0, 256, 'margin'][0]:.4f}), bound {bnd:.4f} ms by "
+          f"{by}; the rank route's count {design:.4f} ms; former count {former:.4f} ms",
+          flush=True)
     # the short log-sigmoid alone: the same call with the lattice table off
     e = soft.engine()
     a = e.arrays
@@ -1268,11 +1433,12 @@ def phase_soft_times(soft, batches, name, stats) -> None:
     stats["soft_kernel_line"] = kernel_entry("cam_match_soft", "cam_match_soft.cu",
                                              stats["soft_launches"], stats["soft_max_abs_err"],
                                              ms, plain_ms, bnd, by)
-    stats["soft_variant_lines"] = [
-        kernel_entry(f"cam_match_soft[{label}]", "cam_match_soft.cu", stats["soft_launches"],
+    stats["soft_variant_lines"] = [  # tau = 0 runs the hard kernels' bit-parallel kernel
+        kernel_entry(f"cam_match_soft[{label}]", source, stats["soft_launches"],
                      stats["soft_max_abs_err"], *rows[key])
-        for label, key in (("tau=0", (0.0, 256, "margin")),
-                           (f"tau={SOFT_TAU} moments", (SOFT_TAU, 256, "moments")))]
+        for label, source, key in (
+            ("tau=0", "cam_match.cu", (0.0, 256, "margin")),
+            (f"tau={SOFT_TAU} moments", "cam_match_soft.cu", (SOFT_TAU, 256, "moments")))]
 
 
 # -- phase 6: serving, cluster, scoring and the traversal baseline -----------------
@@ -1883,8 +2049,8 @@ def phase_wide_model(name, stats) -> None:
               + f" (max |err| {float(err.max()):.3g}), {launches} launches; kernel {ms:.4f} ms "
               f"L2 flushed, plain {plain_ms:.3f} ms, bound {bnd:.4f} ms by {by}", flush=True)
         lines.append(kernel_entry(f"cam_match_soft[{label}, F_pad={a.f_pad}]",
-                                  "cam_match_soft.cu", launches, float(err.max()), ms, plain_ms,
-                                  bnd, by))
+                                  "cam_match.cu" if tau == 0.0 else "cam_match_soft.cu",
+                                  launches, float(err.max()), ms, plain_ms, bnd, by))
     stats["wide_lines"] = lines
 
 

@@ -2,9 +2,9 @@
 
 They replace the Pallas TPU kernel ``_cam_match_kernel``
 (``cam_match_pallas`` in ``src/repro/kernels/cam_match.py``):
-``csrc/cam_match.cu`` for the four hard cell modes, ``csrc/cam_match_soft.cu``
-for the soft mode on float32 tables (and, over the moments matrix, the
-uncertainty pass).  ``nvcc`` compiles each source for ``sm_90a`` (all at
+``csrc/cam_match.cu`` for the four hard cell modes and the soft mode's exact
+tau = 0 limit, ``csrc/cam_match_soft.cu`` for the soft mode at tau > 0 on
+float32 tables (and, over the moments matrix, the uncertainty pass).  ``nvcc`` compiles each source for ``sm_90a`` (all at
 once, one process each) and links them into one shared library with a
 plain C interface at first use, under ``build/repro_torch/`` in the
 checkout, keyed on a hash of every source and the flags — so a fresh
@@ -12,11 +12,15 @@ checkout builds it on its own and a rebuilt source never loads a stale
 library.  Nothing here runs at import time: the CPU tests import this
 module on machines with no ``nvcc`` and no card.
 
-Both kernels read the table as its per-row cell list (``ops.CellList``,
+The kernels read the table as its per-row cell list (``ops.CellList``,
 built by ``ops.binding_cells`` at bind time): each row's non-wildcard
-cells, in ascending feature order, and nothing of the dense tables (the
-uint8 tables' kernel reads each cell as one packed word,
-``CellList.words``).  The
+cells, in ascending feature order, and nothing of the dense tables.  The
+bit-parallel kernels (every hard mode and tau = 0 on lists of span up to
+``RANK_FEATURES``) build per-tile tables of the queries and take one of
+two routes a tile: the value route, where the tile's queries are bins in
+[0, 255] and the list has its packed words (``CellList.words``, span up to
+``BITMAP_FEATURES``), or the rank route (a binary search over the tile's
+sorted query values); wider lists run the lane-per-query kernel.  The
 wrappers take CUDA tensors only; they check device, dtype, shape and
 contiguity (the list checked its own counts when it was made), allocate
 the outputs and the split workspace with ``torch.empty``, launch on the
@@ -42,7 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.precision import soft_inv
-from repro_torch.kernels.ops import CellList
+from repro_torch.kernels.ops import BITMAP_FEATURES, CellList  # noqa: F401 (the window's name here)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "cam_match.cu", CSRC / "cam_match_soft.cu")
@@ -56,14 +60,16 @@ NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the split count — and so the float summation order — depends on R alone
 ROWS_PER_SPLIT = 1024
 QUERIES_PER_TILE = 32
-# a uint8 list whose span is at most this runs the bit-parallel kernel (its
-# bitmaps' shared-memory window, `kMaxWindow` in cam_match.cu); a wider one
-# the lane-per-query kernel
-BITMAP_FEATURES = 223
+# a list whose span is at most RANK_FEATURES runs the bit-parallel kernels
+# (the rank tables' shared-memory window, `kRankWindow` in cam_match.cu; a
+# uint8 list up to BITMAP_FEATURES, the value tables' `kMaxWindow`); a wider
+# one the lane-per-query kernel
+RANK_FEATURES = 893
 
 _DTYPE_CODE = {torch.uint8: 0, torch.uint16: 1, torch.int32: 2}
 _MODE_CODE = {"direct": 0, "inclusive": 1, "msb_lsb": 2, "two_cycle": 3}
 _INT32_ONLY = ("msb_lsb", "two_cycle")
+_TAU_ZERO = (3, 4)  # float32 tables, the soft mode's tau = 0 indicator
 
 # re-entrant: _library() builds under it, and build() takes it too
 _BUILD_LOCK = threading.RLock()
@@ -154,13 +160,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     rest = [
         p, p,  # leaf, bias
         i, i, i, i, i,  # B, R, F, C, rows_per_split
-        p, p, p, p,  # ws, out, bits or scores, stream
+        p, p,  # ws, out
     ]
-    # dtype, mode, q, count, feat, lo, hi, words, span, K
-    lib.xtime_cam_match.argtypes = [i, i, p, *cells[:4], p, i, i, *rest]
+    # dtype, mode, q, count, feat, lo, hi, words, span, K, ..., bits, scores, live, stream
+    lib.xtime_cam_match.argtypes = [i, i, p, *cells[:4], p, i, i, *rest, p, p, p, p]
     lib.xtime_cam_match.restype = i
-    # tau_zero, inv, lattice, span, q
-    lib.xtime_cam_match_soft.argtypes = [i, ctypes.c_float, i, i, p, *cells, *rest]
+    # inv, lattice, span, q, ..., scores, stream
+    lib.xtime_cam_match_soft.argtypes = [ctypes.c_float, i, i, p, *cells, *rest, p, p]
     lib.xtime_cam_match_soft.restype = i
     lib.xtime_error_string.argtypes = [i]
     lib.xtime_error_string.restype = ctypes.c_char_p
@@ -176,6 +182,8 @@ def _check_cells(q, cells, table_dtype) -> None:
     if not isinstance(cells, CellList):
         raise ValueError(f"the kernels take the table as an ops.CellList, got {type(cells).__name__}")
     tensors = {"q": q, "count": cells.count, "feat": cells.feat, "lo": cells.lo, "hi": cells.hi}
+    if cells.words is not None:
+        tensors["words"] = cells.words
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor) or not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
@@ -199,11 +207,8 @@ def _check_hard(q, cells, mode) -> None:
         raise ValueError(f"mode {mode!r} has no kernel; kernel modes: {list(_MODE_CODE)}")
     if mode in _INT32_ONLY and q.dtype != torch.int32:
         raise ValueError(f"mode {mode!r} runs on int32 tables only, got {q.dtype}")
-    if q.dtype == torch.uint8 and (cells.words is None or not cells.words.is_cuda
-                                   or cells.words.device != q.device
-                                   or not cells.words.is_contiguous()):
-        raise ValueError("a uint8 cell list needs its packed words (CellList.words) "
-                         f"contiguous on {q.device}")
+    if q.dtype == torch.uint8 and cells.words is None:
+        raise ValueError("a uint8 cell list needs its packed words (CellList.words)")
 
 
 def _check_soft(q, cells, tau) -> None:
@@ -227,10 +232,12 @@ def _check_leaf_bias(q, cells, leaf, bias) -> None:
 
 
 def _launch(entry: str, head: tuple, q, cells: CellList, leaf, bias, *, ws, out,
-            extra) -> None:
+            extra: tuple) -> None:
     """Call the C entry ``entry`` (its own leading arguments ``head``, then
-    the operands every entry takes, with ``extra`` its second output) on
-    ``q``'s device and current stream; raise on a non-zero cudaError_t."""
+    the operands every entry takes, with ``extra`` its other outputs: the
+    hard entry's bits, scores and live-query scratch, the soft entry's
+    scores) on ``q``'s device and current stream; raise on a non-zero
+    cudaError_t."""
     lib = _library()
     B, F = q.shape
     R, K = cells.feat.shape
@@ -242,7 +249,7 @@ def _launch(entry: str, head: tuple, q, cells: CellList, leaf, bias, *, ws, out,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, entry)(
             *head, _ptr(q), *listed, K, _ptr(leaf), _ptr(bias), B, R, F, C,
-            ROWS_PER_SPLIT, _ptr(ws), _ptr(out), _ptr(extra), stream,
+            ROWS_PER_SPLIT, _ptr(ws), _ptr(out), *map(_ptr, extra), stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -260,12 +267,19 @@ def _hard(q, mode) -> tuple:
     return _DTYPE_CODE[q.dtype], _MODE_CODE[mode]
 
 
-def _soft(tau, cells: CellList) -> tuple:
-    """tau_zero, inv = float32(1 / tau) as the plain version computes it,
-    whether the list's bounds lie on the kernel's lattice, and its span."""
-    if tau == 0.0:
-        return 1, 0.0, 0, cells.width
-    return 0, soft_inv(tau), int(cells.lattice), cells.span
+def _launch_soft(tau, q, cells: CellList, leaf, bias, *, ws, out, scores) -> None:
+    """tau = 0 on the hard entry (the indicator on the float32 list: the
+    bit-parallel kernel); tau > 0 on the soft entry, with inv =
+    float32(1 / tau) as the plain version computes it, whether the list's
+    bounds lie on the kernel's lattice, and its span."""
+    if tau == 0.0:  # with a word a tile of scratch: its queries whose features are finite
+        live = torch.empty(-(-q.shape[0] // QUERIES_PER_TILE), dtype=torch.int32,
+                           device=q.device)
+        _launch("xtime_cam_match", _TAU_ZERO, q, cells, leaf, bias, ws=ws, out=out,
+                extra=(None, scores, live))
+    else:
+        _launch("xtime_cam_match_soft", (soft_inv(tau), int(cells.lattice), cells.span), q,
+                cells, leaf, bias, ws=ws, out=out, extra=(scores,))
 
 
 def n_splits(n_rows: int) -> int:
@@ -290,7 +304,7 @@ def cam_match_cuda(
         return out
     ws = torch.empty((n_splits(R), B, C), dtype=torch.float32, device=q.device)
     _launch("xtime_cam_match", _hard(q, mode), q, cells, leaf, bias, ws=ws, out=out,
-            extra=None)
+            extra=(None, None, None))
     _counted(cam_match_cuda)
     return out
 
@@ -307,7 +321,7 @@ def cam_match_bits_cuda(q: torch.Tensor, cells: CellList, *, mode: str = "direct
     n_words = -(-B // QUERIES_PER_TILE)
     words = torch.empty((n_words, R), dtype=torch.int32, device=q.device)
     _launch("xtime_cam_match", _hard(q, mode), q, cells, None, None, ws=None, out=None,
-            extra=words)
+            extra=(words, None, None))
     _counted(cam_match_bits_cuda)
     shifts = torch.arange(QUERIES_PER_TILE, device=q.device, dtype=torch.int32)
     unpacked = (words[:, None, :] >> shifts[None, :, None]) & 1  # (words, 32, R)
@@ -335,8 +349,7 @@ def cam_match_soft_cuda(
     if B == 0:
         return out
     ws = torch.empty((n_splits(R), B, C), dtype=torch.float32, device=q.device)
-    _launch("xtime_cam_match_soft", _soft(tau, cells), q, cells, leaf, bias, ws=ws, out=out,
-            extra=None)
+    _launch_soft(tau, q, cells, leaf, bias, ws=ws, out=out, scores=None)
     _counted(cam_match_soft_cuda)
     return out
 
@@ -351,8 +364,7 @@ def soft_scores_cuda(q: torch.Tensor, cells: CellList, *, tau: float) -> torch.T
     scores = torch.empty((B, R), dtype=torch.float32, device=q.device)
     if B == 0:
         return scores
-    _launch("xtime_cam_match_soft", _soft(tau, cells), q, cells, None, None, ws=None, out=None,
-            extra=scores)
+    _launch_soft(tau, q, cells, None, None, ws=None, out=None, scores=scores)
     _counted(soft_scores_cuda)
     return scores
 

@@ -2,16 +2,16 @@
 //
 // Replaces the Pallas TPU kernel `_cam_match_kernel`, launched by
 // `cam_match_pallas` (src/repro/kernels/cam_match.py), for the four hard
-// cell modes:
+// cell modes and for the soft mode's exact tau = 0 limit:
 //
 //     match[b, r] = AND_f cell(q[b, f], low[r, f], high[r, f])
 //     out[b, c]   = SUM_r match[b, r] * leaf[r, c]   (+ bias[c], once)
 //
-// Two kernels.  Both walk a row's non-wildcard cells only, read from the
+// Every kernel here walks a row's non-wildcard cells only, read from the
 // per-row cell list (cam_match_common.cuh) instead of the dense tables: a
 // wildcard cell matches every query bin, and a compiled depth-8 table lists
 // 4.4 cells a row on average, at most 8, of its 256 columns (a never-match
-// padding row lists one).  Both keep one float order, which depends on R
+// padding row lists one).  All keep one float order, which depends on R
 // alone: within each 128-row chunk a query's sum starts at +0 and adds its
 // matched rows' leaf values in ascending row order; each chunk's sum is
 // added once, chunks ascending, to the partial of its 1024-row split (a
@@ -20,140 +20,232 @@
 // cores: every term is `leaf` or nothing, so the result is bit-identical
 // run to run, fused bias against bias added afterwards, B = 1 against a
 // row of a batch, packed uint8/uint16 tables against int32 ones, and the
-// soft kernel at tau = 0 against the int32 `direct` one.
+// soft mode at tau = 0 (float32 tables, the indicator q > lo && q < hi)
+// against the int32 `direct` mode.
 //
-// uint8 tables whose list names features below 223 only (`CellList.span`
-// <= 223, every compiled table of xtime-tabular's 130 features;
-// `cam_match_u8_kernel`, 'inclusive' and 'direct'): bit-parallel match
-// words.  A block owns one 32-query tile and builds, once, in shared
-// memory, GE[f][v] = the tile's queries with q[f] >= v for v in [0, 256]
-// (GE[f][256] = 0) for the W = span features the list names: __match_any_sync
-// groups the lanes of equal bins into EQ[f][v], and a suffix OR over v
-// (eight words a lane, then shuffles) turns EQ into GE.  A row's word is
-// then the AND over its listed cells (f, lo, hi) of GE[f][lo] & ~GE[f][hi
-// + 1] ('inclusive'; GE[f][hi] for 'direct'): one thread forms the 32
-// queries' word with two shared loads and a LOP3 a cell, where a lane a
-// query took ~10 warp instructions a cell.  The cell list is read as one
-// 32-bit word a cell (feat:16 | lo:8 | hi:8, `CellList.words`, packed at
-// bind).  Each warp owns whole 1024-row splits: a lane forms the words of
-// rows lane, lane + 32, lane + 64, lane + 96 of each 128-row chunk (their
-// first eight cells loaded
-// together, every slot looked up and those past a row's count dropped: no
-// branch between the lookups), a shuffle transpose turns the four 32-row
-// groups of words into each query's row masks, and lane b adds query b's
-// matched leaf rows (set bits, ascending) into registers (its split's
-// partials too, up to 8 channels), then into its own slice of the
-// [splits, B, C] workspace: no block barrier after the bitmaps are built.
-// A block owns many splits (strided over the grid's blocks, so every
-// tile's blocks walk the same rows at once and share them in L2) and
-// builds its bitmaps once for all of them.
+// Bit-parallel match words (`cam_match_u8_kernel`, `cam_match_bp_kernel`).
+// A block owns one 32-query tile and builds, once, in shared memory, a
+// table per feature the list names (`CellList.span` of them) from which
+// one thread forms a row's 32-query word: the AND over the row's listed
+// cells (f, lo, hi) of GE[f][.] & ~GE[f][.], GE[f][x] being the tile's
+// queries at or above x.  Each warp owns whole 1024-row splits (strided
+// over the grid's blocks, so every tile's blocks walk the same rows at
+// once and share them in L2): a lane forms the words of rows lane, lane +
+// 32, lane + 64, lane + 96 of each 128-row chunk, `transpose32` turns the
+// four 32-row groups of words into each query's row masks, and lane b adds
+// query b's matched leaf rows (set bits, ascending) into registers (its
+// split's partials too, up to 8 channels), then into its own slice of the
+// [splits, B, C] workspace: no block barrier after the tables are built.
+// Each cell is a mode's two halves, lower(q, lo) (monotone non-decreasing
+// in q) and upper(q, hi) (non-increasing), and a tile takes one of two
+// routes to them, chosen per tile with a block-uniform test:
+//   * value route: where every staged query of the tile is an integer bin
+//     in [0, 255], GE[f][v] for v in [0, 256] (GE[f][256] = 0), built with
+//     __match_any_sync (the lanes of equal bins) and a suffix OR over v.
+//     Each half is then one lookup: lower = GE[L], upper = ~GE[H], L and H
+//     the bound clamped to the bins (tests/test_torch_rankmatch.py proves
+//     each mode's half equal to that lookup, msb_lsb and two_cycle included,
+//     on every (q, bound) in [-300, 300]^2 and on random int32s).  uint8
+//     lists read one packed word a cell, feat | lo << 16 | hi << 24
+//     (`CellList.words`); uint16, int32 and float32 lists one word of the
+//     two lookups' offsets in the tables, L + f * kGeStride | (H + f *
+//     kGeStride) << 16, packed at bind with the bound clamped (the integer
+//     lists' hi + 1, floor(lo) + 1 and ceil(hi) + 1 for float32, so one word
+//     serves every mode: an exclusive upper half reads one word below).
+//     Two shared loads and a LOP3 a cell and 32 queries, where a lane a
+//     query took ~10 warp instructions a cell.
+//   * rank route: any other tile (bins past 255, negative or non-integer
+//     queries) and lists without words: per feature the tile's distinct
+//     query values sorted (padded to 32 with the type's largest value) and
+//     GE over their ranks, GE[f][33]; a bound becomes a rank by a binary
+//     search of six steps with the mode's own half as the predicate, so no
+//     half needs more than its monotonicity (the same test proves it).
+// A float32 query that is NaN or infinite in any feature matches no row,
+// as in the plain version, where every cell, a wildcard one too, compares
+// false against it; a pre-pass (`live_tiles_kernel`) finds such queries
+// once a tile, and they are dropped from the tile's words.
 //
-// uint16 and int32 tables, all four modes, and uint8 tables whose list
-// names a feature of index 223 or more (`cam_match_kernel`): one block
-// per (32-query tile, split) stages its queries [feature][query] and walks
-// 128-row chunks: it stages the chunk's cell lists, and each warp takes one
-// row at a time with a lane per query, `__ballot_sync` giving the row's
-// match word (a tile of at most 8 queries gives each thread a (row, query)
-// pair instead and sets its bit with a shared atomicOr); then the chunk's
-// matched leaf rows are staged and each query's matched rows are added in
-// ascending row order.  A table wider than the staged query window runs
-// the kWide instance, which reads the queries of cells past the window from
-// device memory.
+// Past the tables' window (`kMaxWindow` = 223 features of value tables,
+// `kRankWindow` = 893 of rank tables, in 227 KB) the lane-per-query kernel
+// (`cam_match_kernel`) runs: one block per (32-query tile, split) stages
+// its queries [feature][query] and walks 128-row chunks, a warp a row and
+// a lane a query, `__ballot_sync` giving the row's word (a tile of at most
+// 8 queries gives each thread a (row, query) pair instead), then stages
+// the chunk's matched leaf rows and adds each query's in ascending order.
+// It takes uint8 lists of span over 223 and the other lists of span over
+// 893 (F_pad 8,064 models); a table wider than its staged query window
+// runs its kWide instance, which reads the queries of cells past the
+// window from device memory.
 //
 // Bound on an H100 SXM at xtime-tabular's full width (R = 1M rows, F_pad =
-// 256): the bytes of the cell list, the matched leaf rows, the queries and
-// the outputs, against the operations the least work needs.  For uint8 that
-// is the bit-parallel design's own count: two lookups and an AND per listed
-// cell and 32-query tile, the bitmaps (257 words a listed feature and
-// tile) and one add per matched row and query — bytes-bound (~0.008 ms) up
-// to B ~ 512; chip_smoke.py counts it and prints beside it the former
-// count, a compare and an AND per binding bound and query (0.0898 ms at B
-// = 256), which the words beat 32 to 1.  For uint16 and int32 it is that
-// former count.
+// 256): the bytes of the cell list (the packed words the value route
+// reads), the matched leaf rows, the queries and the outputs, against the
+// operations the least work needs: the value route's own count — two
+// lookups and an AND per listed cell and 32-query tile, the tables (257
+// words a listed feature and tile) and one add per matched row and query —
+// bytes-bound (~0.008 ms) up to B ~ 512; chip_smoke.py counts it and
+// prints beside it the former count, a compare and an AND per binding
+// bound and query (0.0898 ms at B = 256), which the words beat 32 to 1.
 //
 // Measured (chip_smoke.py phase 5, L2 flushed, NVIDIA H100 80GB HBM3,
 // 700.00 W): the lane-per-query design took 0.0819 / 1.3146 / 5.0377 ms at
-// B = 1 / 256 / 1024 for uint8, bound by its integer issue rate; the
-// bit-parallel one takes 0.0476 / 0.1480 / 0.4732 ms (PERF.md).  Two of its
-// choices came from the card on the way: a branch per listed cell
-// serialised the shared-memory lookups, and one warp's split of eight
-// chunks at B = 1 waits on memory unless the next chunk's cells are loaded
-// before this chunk's leaf rows are added.  The fallback the design
-// was held against, byte-SIMD compares of four queries (__vcmpgeu4,
-// emulated in several instructions on sm_90), gains at most ~3x on the
-// former count and was not built.  The bitmaps do not pay past their
-// window: a uint8 table of F_pad 8,064 whose features from 223 on were
-// compared against the queries in device memory (a loop over the tile's
-// queries a cell) took 0.5560 ms at R = 16,384, B = 256 on the same card,
-// against the lane-per-query kernel's 0.2211, so such a list runs that
-// kernel.
+// B = 1 / 256 / 1024 for uint8, bound by its integer issue rate, 1.3830
+// (uint16 direct) to 1.9864 ms (int32 two_cycle) at B = 256, and the soft
+// kernel's former tau = 0 instance 2.0859; the bit-parallel kernels take
+// 0.0456-0.0476 / 0.1480-0.1536 / 0.4579-0.4732 ms for uint8, 0.1370-0.1522
+// ms for every uint16/int32 mode and 0.1416 for tau = 0 (its pre-pass
+// included) at B = 256 on the value route (~6% of the bytes bound: the
+// split walk, not the cells, is what is left), and 0.41-0.52 ms on the rank
+// route (the same calls without the words: twelve dependent shared reads a
+// cell, random banks) (PERF.md).
+// Two of the design's choices came from the card on the way: a branch per listed cell serialised the
+// shared-memory lookups, and one warp's split of eight chunks at B = 1
+// waits on memory unless the next chunk's cells are loaded before this
+// chunk's leaf rows are added.  The tables do not pay past their window: a
+// uint8 table of F_pad 8,064 whose features from 223 on were compared
+// against the queries in device memory (a loop over the tile's queries a
+// cell) took 0.5560 ms at R = 16,384, B = 256 on the same card, against
+// the lane-per-query kernel's 0.2211, so such a list runs that kernel.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "cam_match_common.cuh"  // the block shape, the cell list and its walk
 
 namespace {
 
 // Compares run on 32-bit values: zero-extended for the unsigned tables
-// (so uint8 never sign-extends), signed for int32.
+// (so uint8 never sign-extends), signed for int32, float32 as it is.
 template <typename T> struct Wide;
 template <> struct Wide<uint8_t> { using type = uint32_t; };
 template <> struct Wide<uint16_t> { using type = uint32_t; };
 template <> struct Wide<int32_t> { using type = int32_t; };
+template <> struct Wide<float> { using type = float; };
 
-// Cell functors: the torch versions are repro_torch/core/precision.py.
+// Cell functors, each the AND of its lower half (monotone non-decreasing
+// in q) and its upper half (non-increasing); kInclusiveHi: the upper half
+// is q <= hi, so the value route reads GE one place higher.  The torch
+// versions are repro_torch/core/precision.py.
 struct Direct {
-  template <typename W>
-  __device__ __forceinline__ static bool match(W q, W lo, W hi) {
-    return lo <= q && q < hi;
-  }
+  static constexpr bool kInclusiveHi = false;
+  template <typename W> __device__ __forceinline__ static bool lower(W q, W lo) { return lo <= q; }
+  template <typename W> __device__ __forceinline__ static bool upper(W q, W hi) { return q < hi; }
 };
 
 struct Inclusive {
-  template <typename W>
-  __device__ __forceinline__ static bool match(W q, W lo, W hi) {
-    return lo <= q && q <= hi;
-  }
+  static constexpr bool kInclusiveHi = true;
+  template <typename W> __device__ __forceinline__ static bool lower(W q, W lo) { return lo <= q; }
+  template <typename W> __device__ __forceinline__ static bool upper(W q, W hi) { return q <= hi; }
 };
 
 // Eq. 3 on 4-bit nibbles.  `>>` on int32 is arithmetic, as in the
 // reference, so negative bounds of perturbed tables split the same way.
 struct MsbLsb {
-  __device__ __forceinline__ static bool match(int32_t q, int32_t lo, int32_t hi) {
-    const int32_t qm = q >> 4, ql = q & 15;
-    const int32_t tlm = lo >> 4, tll = lo & 15;
-    const int32_t thm = hi >> 4, thl = hi & 15;
-    const bool lower = ((qm >= tlm + 1) || (ql >= tll)) && (qm >= tlm);
-    const bool upper = ((qm < thm) || (ql < thl)) && (qm < thm + 1);
-    return lower && upper;
+  static constexpr bool kInclusiveHi = false;
+  __device__ __forceinline__ static bool lower(int32_t q, int32_t lo) {
+    const int32_t qm = q >> 4, ql = q & 15, tlm = lo >> 4, tll = lo & 15;
+    return ((qm >= tlm + 1) || (ql >= tll)) && (qm >= tlm);
+  }
+  __device__ __forceinline__ static bool upper(int32_t q, int32_t hi) {
+    const int32_t qm = q >> 4, ql = q & 15, thm = hi >> 4, thl = hi & 15;
+    return ((qm < thm) || (ql < thl)) && (qm < thm + 1);
   }
 };
 
 // Table I: cycle 1 evaluates the OR brackets, cycle 2 the MSB terms; the
-// match line only discharges, so the result is the AND of both cycles.
+// match line only discharges, so the result is the AND of both cycles,
+// regrouped here by bound.
 struct TwoCycle {
-  __device__ __forceinline__ static bool match(int32_t q, int32_t lo, int32_t hi) {
-    const int32_t qm = q >> 4, ql = q & 15;
-    const int32_t tlm = lo >> 4, tll = lo & 15;
-    const int32_t thm = hi >> 4, thl = hi & 15;
-    const bool cycle1 = (((qm - 1) >= tlm) || (ql >= tll)) && ((qm < thm) || (ql < thl));
-    const bool cycle2 = (qm >= tlm) && ((qm - 1) < thm);
-    return cycle1 && cycle2;
+  static constexpr bool kInclusiveHi = false;
+  __device__ __forceinline__ static bool lower(int32_t q, int32_t lo) {
+    const int32_t qm = q >> 4, ql = q & 15, tlm = lo >> 4, tll = lo & 15;
+    return (((qm - 1) >= tlm) || (ql >= tll)) && (qm >= tlm);
+  }
+  __device__ __forceinline__ static bool upper(int32_t q, int32_t hi) {
+    const int32_t qm = q >> 4, ql = q & 15, thm = hi >> 4, thl = hi & 15;
+    return ((qm < thm) || (ql < thl)) && ((qm - 1) < thm);
   }
 };
+
+// The soft cell's exact tau = 0 limit on float32 tables: inside (lo, hi).
+struct Indicator {
+  static constexpr bool kInclusiveHi = false;
+  __device__ __forceinline__ static bool lower(float q, float lo) { return q > lo; }
+  __device__ __forceinline__ static bool upper(float q, float hi) { return q < hi; }
+};
+
+template <typename Cell, typename W>
+__device__ __forceinline__ bool cell_match(W q, W lo, W hi) {
+  return Cell::lower(q, lo) && Cell::upper(q, hi);
+}
+
+// Bit b set for each query of the tile below nq.
+__device__ __forceinline__ uint32_t valid_queries(int nq) {
+  return nq == kQueries ? kFull : (1u << nq) - 1u;
+}
+
+// The tile's queries that can match a row: `live` (the float32 tiles'
+// words, from live_tiles_kernel) or, without it, those below nq.
+__device__ __forceinline__ uint32_t live_queries(const uint32_t* __restrict__ live, int tile,
+                                                 int nq) {
+  return live != nullptr ? __ldg(live + tile) : valid_queries(nq);
+}
+
+// grid = ceil(B / 32); block = kQueries warps, warp b query b.  live[tile]
+// = the float32 tile's queries whose every feature is finite (a NaN or
+// infinite query compares false against every cell, wildcards included,
+// so it matches no row): once a tile, ahead of the match kernel, whose
+// every block reads it.  Its loads are what it waits on: a warp a query,
+// 16-byte loads, eight in flight a lane.
+constexpr int kLiveThreads = kQueries * 32;
+__global__ void __launch_bounds__(kLiveThreads)
+live_tiles_kernel(const float* __restrict__ q, int B, int F, uint32_t* __restrict__ live) {
+  const int lane = threadIdx.x % 32, b = threadIdx.x / 32;
+  const int q0 = blockIdx.x * kQueries, nq = min(kQueries, B - q0);
+  const bool quads = F % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  bool ok = b < nq;
+  if (ok) {
+    const float* row = q + (size_t)(q0 + b) * F;
+    if (quads) {
+#pragma unroll 8
+      for (int i = lane; i < F / 4; i += 32) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(row) + i);
+        ok &= isfinite(v.x) && isfinite(v.y) && isfinite(v.z) && isfinite(v.w);
+      }
+    } else {
+#pragma unroll 8
+      for (int f = lane; f < F; f += 32) ok &= isfinite(__ldg(row + f));
+    }
+  }
+  const uint32_t mine = __all_sync(kFull, ok) ? 1u << b : 0u;
+  __shared__ uint32_t words[kQueries];
+  if (lane == 0) words[b] = mine;
+  __syncthreads();
+  if (b == 0) {
+    const uint32_t w = words[lane];
+    const uint32_t all = __reduce_or_sync(kFull, w);
+    if (lane == 0) live[blockIdx.x] = all;
+  }
+}
+
+// -- the lane-per-query kernel: lists past the tables' window ----------------
 
 // grid = (ceil(B / 32), splits); block = kThreads; dynamic shared memory
 // Layout<T>::bytes(F, kMatchBytes); kWide where the query window is not
 // the whole width.
-//   q     (B, F) table dtype     cells: the table's cell list, (R, K)
-//   leaf  (R, C) float32 or null
-//   ws    [splits, B, C] partials or null
-//   bits  [ceil(B / 32), R] match words (bit b = query 32*x + b) or null
+//   q      (B, F) table dtype     cells: the table's cell list, (R, K)
+//   leaf   (R, C) float32 or null
+//   ws     [splits, B, C] partials or null
+//   bits   [ceil(B / 32), R] match words (bit b = query 32*x + b) or null
+//   scores (B, R) float32 0 / 1 (float32 tables) or null
+//   live   [ceil(B / 32)] the float32 tiles' live queries, else null
 constexpr size_t kMatchBytes = (kChunk + kQueries * (kChunk / 32) + 4) * 4;
 
 // Blocks an SM holds: eight (all its threads) for packed tables; shared
-// memory holds int32 ones to four.  ptxas fits the registers to it.
+// memory holds int32 and float32 ones to four.  ptxas fits the registers.
 template <typename T>
 constexpr int kMinBlocks = sizeof(T) == 4 ? 4 : 8;
 
@@ -162,7 +254,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<T>)
 cam_match_kernel(const T* __restrict__ q, CellArgs<T> cells,
                  const float* __restrict__ leaf, int B, int R, int F, int C,
                  int rows_per_split, float* __restrict__ ws,
-                 uint32_t* __restrict__ bits) {
+                 uint32_t* __restrict__ bits, float* __restrict__ scores,
+                 const uint32_t* __restrict__ live_words) {
   using W = typename Wide<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   T* s_q = reinterpret_cast<T*>(smem);
@@ -183,6 +276,7 @@ cam_match_kernel(const T* __restrict__ q, CellArgs<T> cells,
   const int row_end = min(R, row_begin + rows_per_split);
   float* part = zeroed_partials(ws, B, C, q0, nq);
   stage_queries(q, s_q, F, Fs, q0, nq);
+  const uint32_t live = live_queries(live_words, q_tile, nq);
 
   for (int r0 = row_begin; r0 < row_end; r0 += kChunk) {
     const int nr = min(kChunk, row_end - r0);
@@ -195,9 +289,9 @@ cam_match_kernel(const T* __restrict__ q, CellArgs<T> cells,
     if (by_pair) {  // a thread per (row, query): rows adjacent across lanes
       for (int p = tid; p < nr * nq; p += kThreads) {
         const int r = p % nr, b = p / nr;
-        bool ok = true;
+        bool ok = (live >> b) & 1u;
         walk_row(cells, st, r0, r, [&](int f, T lo, T hi) {
-          ok &= Cell::match(W(query_at<kWide>(s_q, q, F, Fs, q0, nq, f, b)), W(lo), W(hi));
+          ok &= cell_match<Cell>(W(query_at<kWide>(s_q, q, F, Fs, q0, nq, f, b)), W(lo), W(hi));
         });
         if (ok) {
           atomicOr(&s_match[r], 1u << b);
@@ -206,10 +300,10 @@ cam_match_kernel(const T* __restrict__ q, CellArgs<T> cells,
       }
     } else {  // a warp per row, a lane per query
       for (int r = warp; r < nr; r += kWarps) {
-        bool ok = lane < nq;
+        bool ok = (live >> lane) & 1u;
         walk_row(cells, st, r0, r, [&](int f, T lo, T hi) {
-          ok &= Cell::match(W(query_at<kWide>(s_q, q, F, Fs, q0, nq, f, lane)), W(lo),
-                            W(hi));
+          ok &= cell_match<Cell>(W(query_at<kWide>(s_q, q, F, Fs, q0, nq, f, lane)), W(lo),
+                                 W(hi));
         });
         const uint32_t word = __ballot_sync(kFull, ok);
         if (lane == 0) {
@@ -221,6 +315,12 @@ cam_match_kernel(const T* __restrict__ q, CellArgs<T> cells,
     __syncthreads();  // s_match, s_any and the cell reads are done
     if (bits != nullptr) {
       for (int r = tid; r < nr; r += kThreads) bits[(size_t)q_tile * R + r0 + r] = s_match[r];
+    }
+    if (scores != nullptr) {
+      for (int p = tid; p < nq * nr; p += kThreads) {
+        const int b = p / nr, r = p % nr;
+        scores[(size_t)(q0 + b) * R + r0 + r] = (s_match[r] >> b) & 1u ? 1.f : 0.f;
+      }
     }
     if (part == nullptr || *s_any == 0) continue;  // no match: every sum is +0
 
@@ -257,90 +357,98 @@ cam_match_kernel(const T* __restrict__ q, CellArgs<T> cells,
   }
 }
 
-template <typename T, typename Cell, bool kWide>
-cudaError_t launch_as(const T* q, const CellArgs<T>& cells, const float* leaf, int B,
-                      int R, int F, int C, int rows_per_split, float* ws,
-                      uint32_t* bits, cudaStream_t stream) {
-  const size_t smem = Layout<T>::bytes(F, kMatchBytes);
-  cudaError_t err = allow_smem(cam_match_kernel<T, Cell, kWide>, smem);
-  if (err != cudaSuccess) return err;
-  cam_match_kernel<T, Cell, kWide><<<match_grid(B, R, rows_per_split), kThreads, smem,
-                                     stream>>>(q, cells, leaf, B, R, F, C,
-                                               rows_per_split, ws, bits);
-  return cudaGetLastError();
-}
+// -- bit-parallel match words ------------------------------------------------
 
-template <typename T, typename Cell>
-cudaError_t launch(const void* q, const int32_t* count, const uint16_t* feat,
-                   const void* lo, const void* hi, int K, const float* leaf,
-                   int B, int R, int F, int C, int rows_per_split, float* ws,
-                   uint32_t* bits, cudaStream_t stream) {
-  const CellArgs<T> cells{count, feat, static_cast<const T*>(lo),
-                          static_cast<const T*>(hi), K};
-  const T* qt = static_cast<const T*>(q);
-  if (Layout<T>::window(F, kMatchBytes) < F) {
-    return launch_as<T, Cell, true>(qt, cells, leaf, B, R, F, C, rows_per_split, ws,
-                                    bits, stream);
-  }
-  return launch_as<T, Cell, false>(qt, cells, leaf, B, R, F, C, rows_per_split, ws, bits,
-                                   stream);
-}
-
-// -- uint8 tables: bit-parallel match words ----------------------------------
-
-constexpr int kU8Threads = 512;  // 16 warps: one block an SM at full width
-constexpr int kU8Warps = kU8Threads / 32;
+constexpr int kBPThreads = 512;  // 16 warps: one block an SM at full width
+constexpr int kBPWarps = kBPThreads / 32;
 constexpr int kBins = 256;
-// words of a feature's bitmaps: GE[0..256], padded so a lane's eight
-// words of the suffix pass are two aligned 16-byte loads
+// Shared memory of a bit-parallel block: kHead words (the last is GE[-1]
+// = all ones, the word below feature 0's table), then the tables.  Value
+// tables: kGeStride words a feature, GE[0..256] padded so a lane's eight
+// words of the suffix pass are two aligned 16-byte loads; word 257 (GE[257]
+// = 0) ends an inclusive upper half past the bins and word 259, all ones,
+// is GE[-1] of the next feature.  Rank tables: kRankStride words a
+// feature, 32 sorted values then GE[0..32].
+constexpr int kHead = 4;
 constexpr int kGeStride = 260;
 constexpr int kMaxWindow = kMaxSmem / (kGeStride * 4);  // 223 features
+constexpr int kRankStride = 32 + 33;
+constexpr int kRankWindow = (kMaxSmem - kHead * 4) / (kRankStride * 4);  // 893 features
+static_assert(kMaxWindow * kGeStride * 4 + kHead * 4 <= kMaxSmem, "the head fits beside");
 
-struct U8Args {
-  const uint8_t* q;        // (B, F)
-  const int32_t* count;    // (R,)
-  const uint32_t* words;   // (R, K): feat | lo << 16 | hi << 24
+template <typename T>
+struct BPArgs {
+  const T* q;               // (B, F)
+  const int32_t* count;     // (R,)
+  const uint16_t* feat;     // (R, K)
+  const T* lo;              // (R, K)
+  const T* hi;              // (R, K)
+  const uint32_t* words;    // (R, K) packed cells (the value route's) or null
   int K;
-  const float* leaf;       // (R, C) or null
+  const float* leaf;        // (R, C) or null
   int B, R, F, C, rows_per_split;
-  int span;                // the list's largest feature + 1
-  int W;                   // features whose bitmaps are in shared memory
-  float* ws;               // [splits, B, C] partials or null
-  uint32_t* bits;          // [ceil(B / 32), R] match words or null
+  int span;                 // features the tables hold: the list's largest + 1
+  float* ws;                // [splits, B, C] partials or null
+  uint32_t* bits;           // [ceil(B / 32), R] match words or null
+  float* scores;            // (B, R) 0 / 1 or null
+  const uint32_t* live;     // [ceil(B / 32)] the float32 tiles' live queries, else null
 };
 
-// The tile's bitmaps GE[f][v] (bit b: q[q0 + b][f] >= v) for features
-// [0, W), v in [0, 256], into ge[f * kGeStride + v]; GE[f][256] = 0.
-__device__ __forceinline__ void build_bitmaps(uint32_t* ge, const U8Args& a, int q0,
-                                              int nq) {
+// Whether every query of the tile is an integer bin in [0, 255] at the
+// features [0, span) the tables cover: the value route's test.  Block-wide.
+template <typename T>
+__device__ __forceinline__ bool on_bins(const T* __restrict__ q, int F, int span, int q0,
+                                        int nq) {
+  bool ok = true;
+  for (int i = threadIdx.x; i < nq * span; i += blockDim.x) {
+    const T x = q[(size_t)(q0 + i / span) * F + i % span];
+    if constexpr (std::is_same<T, float>::value) {
+      ok &= x >= 0.f && x <= 255.f && x == rintf(x);
+    } else if constexpr (std::is_signed<T>::value) {
+      ok &= x >= 0 && x <= 255;
+    } else {
+      ok &= x <= 255u;
+    }
+  }
+  return __syncthreads_and(ok) != 0;
+}
+
+// The value tables GE[f][v] (bit b: q[q0 + b][f] >= v) for features [0, W),
+// v in [0, 256], into ge[f * kGeStride + v] (GE[f][256..258] = 0, word 259
+// and ge[-1] all ones); the tile's queries are bins in [0, 255].
+template <typename T>
+__device__ __forceinline__ void build_bitmaps(uint32_t* ge, const T* __restrict__ q, int F,
+                                              int W, int q0, int nq) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   uint4* ge4 = reinterpret_cast<uint4*>(ge);
-  for (int i = threadIdx.x; i < a.W * kGeStride / 4; i += kU8Threads) {
-    ge4[i] = make_uint4(0u, 0u, 0u, 0u);
+  constexpr int kQuads = kGeStride / 4;
+  for (int i = threadIdx.x; i < W * kQuads; i += kBPThreads) {
+    ge4[i] = make_uint4(0u, 0u, 0u, i % kQuads == kQuads - 1 ? kFull : 0u);
   }
+  if (threadIdx.x == 0) ge[-1] = kFull;
   __syncthreads();
   // EQ[f][v]: the lanes of equal bins, one store per bin (padding lanes
   // take a bin of their own and store nothing); eight features' bins are
   // loaded before any is grouped
-  for (int f0 = warp; f0 < a.W; f0 += 8 * kU8Warps) {
+  for (int f0 = warp; f0 < W; f0 += 8 * kBPWarps) {
     int v[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int f = f0 + i * kU8Warps;
-      v[i] = lane < nq && f < a.W ? int(__ldg(a.q + (size_t)(q0 + lane) * a.F + f)) : kBins;
+      const int f = f0 + i * kBPWarps;
+      v[i] = lane < nq && f < W ? int(__ldg(q + (size_t)(q0 + lane) * F + f)) : kBins;
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int f = f0 + i * kU8Warps;
+      const int f = f0 + i * kBPWarps;
       const uint32_t peers = __match_any_sync(kFull, v[i]);
-      if (lane < nq && f < a.W && lane == __ffs(peers) - 1) ge[f * kGeStride + v[i]] = peers;
+      if (lane < nq && f < W && lane == __ffs(peers) - 1) ge[f * kGeStride + v[i]] = peers;
     }
   }
   __syncthreads();
   // GE[f][v] = OR of EQ[f][u] over u >= v: lane l holds v in [8l, 8l + 8),
   // ORs them downwards, then takes the OR of every lane above it
-  for (int f = warp; f < a.W; f += kU8Warps) {
-    uint4* g = ge4 + f * (kGeStride / 4) + 2 * lane;
+  for (int f = warp; f < W; f += kBPWarps) {
+    uint4* g = ge4 + f * kQuads + 2 * lane;
     uint4 lo = g[0], hi = g[1];
     hi.z |= hi.w;
     hi.y |= hi.z;
@@ -365,26 +473,113 @@ __device__ __forceinline__ void build_bitmaps(uint32_t* ge, const U8Args& a, int
   __syncthreads();
 }
 
-// The 32-query word of one listed cell (f, lo, hi): two bitmap lookups.
-template <bool kInclusive>
-__device__ __forceinline__ uint32_t cell_word(const uint32_t* ge, uint32_t cw) {
-  const int f = int(cw & 0xFFFFu), lo = int((cw >> 16) & 0xFFu), hi = int(cw >> 24);
-  const uint32_t* g = ge + f * kGeStride;
-  return g[lo] & ~g[kInclusive ? hi + 1 : hi];
+template <typename W>
+__device__ __forceinline__ uint32_t bits_of(W x) {
+  if constexpr (std::is_same<W, float>::value) {
+    return __float_as_uint(x);
+  } else {
+    return uint32_t(x);
+  }
 }
 
-// Lane l holds row l's word (bit b: query b); returns query `lane`'s word
-// (bit l: row l).  Five rounds of swapping the off-diagonal blocks.
-__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    const int j = 16 >> i;
-    const uint32_t m = kFull / ((1u << j) + 1u);  // 0x0000FFFF, 0x00FF00FF, ... 0x55555555
-    const uint32_t y = __shfl_xor_sync(kFull, x, j);
-    x = (lane & j) ? ((x & ~m) | ((y & ~m) >> j)) : ((x & m) | ((y & m) << j));
+// The rank tables' pad value, the type's largest: +inf, INT32_MAX, UINT32_MAX.
+template <typename V>
+__device__ __forceinline__ uint32_t pad_bits() {
+  if constexpr (std::is_same<V, float>::value) {
+    return 0x7f800000u;
+  } else if constexpr (std::is_signed<V>::value) {
+    return 0x7fffffffu;
+  } else {
+    return 0xffffffffu;
   }
-  return x;
 }
+
+// The rank tables for features [0, W) into tab[f * kRankStride ...]: the
+// distinct values of the `live` queries, ascending, padded to 32 with the
+// type's largest value, then GE[j] = the queries at or above the j-th
+// value, j in [0, 32] (0 past the distinct count).  A warp a feature.
+template <typename T>
+__device__ __forceinline__ void build_ranks(uint32_t* tab, const T* __restrict__ q, int F,
+                                            int W, int q0, uint32_t live) {
+  using V = typename Wide<T>::type;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const bool in = (live >> lane) & 1u;
+  for (int f = warp; f < W; f += kBPWarps) {
+    uint32_t* vals = tab + f * kRankStride;
+    uint32_t* ge = vals + 32;
+    V x = in ? V(__ldg(q + (size_t)(q0 + lane) * F + f)) : V(0);
+    if constexpr (std::is_same<V, float>::value) x = x + 0.f;  // -0 -> +0: one value
+    const uint32_t peers = __match_any_sync(kFull, bits_of(x)) & live;
+    const bool lead = in && lane == __ffs(peers) - 1;
+    const uint32_t leads = __ballot_sync(kFull, lead);
+    int rank = 0;  // distinct values below this lane's
+#pragma unroll
+    for (int l = 0; l < 32; ++l) {
+      const V y = __shfl_sync(kFull, x, l);
+      rank += ((leads >> l) & 1u) && y < x ? 1 : 0;
+    }
+    const int n = __popc(leads);
+    if (lead) {
+      vals[rank] = bits_of(x);
+      ge[rank] = peers;  // EQ, for the suffix OR below
+    }
+    __syncwarp();
+    uint32_t g = lane < n ? ge[lane] : 0u;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t o = __shfl_down_sync(kFull, g, d);
+      if (lane + d < 32) g |= o;
+    }
+    if (lane >= n) vals[lane] = pad_bits<V>();
+    ge[lane] = g;
+    if (lane == 0) ge[32] = 0u;
+  }
+  __syncthreads();
+}
+
+// The 32-query word of one listed cell through the rank tables: the count
+// of values whose lower half fails (GE of that rank: the queries that
+// pass it) and of values whose upper half holds (~GE of that rank), each
+// by six steps over the 32 sorted values.  A half that holds for the pad
+// value holds for every value, so counting the pads changes nothing: GE
+// past the distinct count is 0.
+template <typename T, typename Cell>
+__device__ __forceinline__ uint32_t rank_word(const uint32_t* tab, int f,
+                                              typename Wide<T>::type lo,
+                                              typename Wide<T>::type hi) {
+  using V = typename Wide<T>::type;
+  const V* v = reinterpret_cast<const V*>(tab + f * kRankStride);
+  const uint32_t* ge = tab + f * kRankStride + 32;
+  int jl = 0, ju = 0;
+#pragma unroll
+  for (int s = 16; s >= 1; s >>= 1) {
+    jl += Cell::lower(v[jl + s - 1], lo) ? 0 : s;
+    ju += Cell::upper(v[ju + s - 1], hi) ? s : 0;
+  }
+  jl += Cell::lower(v[jl], lo) ? 0 : 1;  // 32 where all 32 values fail
+  ju += Cell::upper(v[ju], hi) ? 1 : 0;
+  return ge[jl] & ~ge[ju];
+}
+
+// Value-route cell decoders: the 32-query word of one packed cell.
+// uint8 lists: feat | lo << 16 | hi << 24.
+template <bool kInclusive>
+struct U8Cell {
+  __device__ __forceinline__ static uint32_t word(const uint32_t* ge, uint32_t cw) {
+    const int f = int(cw & 0xFFFFu), lo = int((cw >> 16) & 0xFFu), hi = int(cw >> 24);
+    const uint32_t* g = ge + f * kGeStride;
+    return g[lo] & ~g[kInclusive ? hi + 1 : hi];
+  }
+};
+
+// uint16, int32 and float32 lists: the two lookups' offsets, lo | hi << 16,
+// the upper one an inclusive half's (an exclusive one reads one below).
+template <bool kInclusive>
+struct OffsetCell {
+  __device__ __forceinline__ static uint32_t word(const uint32_t* ge, uint32_t cw) {
+    return ge[cw & 0xFFFFu] & ~ge[int(cw >> 16) - (kInclusive ? 0 : 1)];
+  }
+};
 
 // Channels a lane keeps its split's partials of in registers; wider
 // leaf matrices add each chunk into the workspace instead (the same adds).
@@ -398,7 +593,8 @@ struct ChunkCells {
   uint32_t cw[4][kSlots];
 };
 
-__device__ __forceinline__ void load_chunk(const U8Args& a, int r0, int nr, int lane,
+template <typename T>
+__device__ __forceinline__ void load_chunk(const BPArgs<T>& a, int r0, int nr, int lane,
                                            ChunkCells& c) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -416,6 +612,88 @@ __device__ __forceinline__ void load_chunk(const U8Args& a, int r0, int nr, int 
       for (int k = 0; k < kSlots; ++k) c.cw[j][k] = in && k < a.K ? __ldg(row + k) : 0u;
     }
   }
+}
+
+// The value route's rows: each chunk's packed cells, loaded a chunk ahead.
+template <typename T, typename Decode>
+struct ValueRows {
+  const BPArgs<T>& a;
+  const uint32_t* ge;
+  ChunkCells cells;
+
+  __device__ __forceinline__ void load(int r0, int nr, int lane) {
+    load_chunk(a, r0, nr, lane, cells);
+  }
+  // rows r0 + lane + 32j: their words, over their listed cells
+  __device__ __forceinline__ void words(int r0, int nr, int lane, uint32_t live,
+                                        uint32_t (&w)[4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) w[j] = 32 * j + lane < nr ? live : 0u;
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {  // no branch: the lookups overlap
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t cw = k < cells.n[j] ? cells.cw[j][k] : 0u;  // a slot past the count:
+        const uint32_t m = Decode::word(ge, cw);  // a lookup of feature 0's,
+        w[j] &= k < cells.n[j] ? m : kFull;  // read and dropped
+      }
+    }
+    const int most = max(max(cells.n[0], cells.n[1]), max(cells.n[2], cells.n[3]));
+    for (int k = kSlots; k < most; ++k) {  // rows of more cells: from device memory
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (k < cells.n[j]) {
+          w[j] &= Decode::word(ge, __ldg(a.words + ((size_t)r0 + 32 * j + lane) * a.K + k));
+        }
+      }
+    }
+  }
+};
+
+// The rank route's rows: each slot's feature and bounds, the four rows'
+// searches side by side (a slot past a row's count is searched and dropped).
+template <typename T, typename Cell>
+struct RankRows {
+  const BPArgs<T>& a;
+  const uint32_t* tab;
+
+  __device__ __forceinline__ void load(int, int, int) {}
+  __device__ __forceinline__ void words(int r0, int nr, int lane, uint32_t live,
+                                        uint32_t (&w)[4]) {
+    using V = typename Wide<T>::type;
+    int n[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool in = 32 * j + lane < nr;
+      n[j] = in ? __ldg(a.count + r0 + 32 * j + lane) : 0;
+      w[j] = in ? live : 0u;
+    }
+    const int most = max(max(n[0], n[1]), max(n[2], n[3]));
+    for (int k = 0; k < most; ++k) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool use = k < n[j];
+        const size_t i = ((size_t)r0 + 32 * j + lane) * a.K + k;
+        const int f = use ? int(__ldg(a.feat + i)) : 0;
+        const V lo = use ? V(__ldg(a.lo + i)) : V(0), hi = use ? V(__ldg(a.hi + i)) : V(0);
+        const uint32_t m = rank_word<T, Cell>(tab, f, lo, hi);
+        w[j] &= use ? m : kFull;
+      }
+    }
+  }
+};
+
+// Lane l holds row l's word (bit b: query b); returns query `lane`'s word
+// (bit l: row l).  Five rounds of swapping the off-diagonal blocks.
+__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const int j = 16 >> i;
+    const uint32_t m = kFull / ((1u << j) + 1u);  // 0x0000FFFF, 0x00FF00FF, ... 0x55555555
+    const uint32_t y = __shfl_xor_sync(kFull, x, j);
+    x = (lane & j) ? ((x & ~m) | ((y & ~m) >> j)) : ((x & m) | ((y & m) << j));
+  }
+  return x;
 }
 
 // s[c] = SUM over the rows of `m`, ascending, of lrow[r * C + c], from +0:
@@ -459,21 +737,17 @@ __device__ __forceinline__ void add_rows(const float* __restrict__ lrow, int C,
   }
 }
 
-// grid = (ceil(B / 32), blocks a tile); block = kU8Threads; dynamic shared
-// memory W * kGeStride words.  Block y's warp w owns splits y * kU8Warps +
-// w, then every gridDim.y * kU8Warps-th after it.  A chunk's cell words
-// are loaded before the previous chunk's leaf rows are added.
-template <bool kInclusive>
-__global__ void __launch_bounds__(kU8Threads, 1) cam_match_u8_kernel(const U8Args a) {
-  extern __shared__ __align__(16) uint32_t ge[];
-  const int tile = blockIdx.x, q0 = tile * kQueries;
-  const int nq = min(kQueries, a.B - q0);
-  build_bitmaps(ge, a, q0, nq);
+// The splits of this block's warps (warp w of block y owns splits y *
+// kBPWarps + w, then every gridDim.y * kBPWarps-th after it), each row's
+// word from `rows`: the words out, the leaf sums into the workspace.  A
+// chunk's cells are loaded before the previous chunk's leaf rows are added.
+template <typename T, typename Rows>
+__device__ __forceinline__ void walk_splits(const BPArgs<T>& a, int tile, int q0, int nq,
+                                            uint32_t live, Rows& rows) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const uint32_t valid = nq == kQueries ? kFull : (1u << nq) - 1u;  // a row of no cells
   const bool in_regs = a.C <= kRegC;
   const int splits = (a.R + a.rows_per_split - 1) / a.rows_per_split;
-  for (int sp = blockIdx.y * kU8Warps + warp; sp < splits; sp += gridDim.y * kU8Warps) {
+  for (int sp = blockIdx.y * kBPWarps + warp; sp < splits; sp += gridDim.y * kBPWarps) {
     const int row_begin = sp * a.rows_per_split;
     const int row_end = min(a.R, row_begin + a.rows_per_split);
     // query `lane`'s partials (this lane's alone)
@@ -484,41 +758,26 @@ __global__ void __launch_bounds__(kU8Threads, 1) cam_match_u8_kernel(const U8Arg
     if (part != nullptr && !in_regs && lane < nq) {
       for (int c = 0; c < a.C; ++c) part[c] = 0.f;
     }
-    ChunkCells cells;
-    load_chunk(a, row_begin, min(kChunk, row_end - row_begin), lane, cells);
+    rows.load(row_begin, min(kChunk, row_end - row_begin), lane);
     for (int r0 = row_begin; r0 < row_end; r0 += kChunk) {
       const int nr = min(kChunk, row_end - r0);
       __syncwarp();
-      // rows r0 + lane + 32j: their words, over their listed cells
-      uint32_t w[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = 32 * j + lane < nr ? valid : 0u;
-#pragma unroll
-      for (int k = 0; k < kSlots; ++k) {  // no branch: the lookups overlap
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t cw = k < cells.n[j] ? cells.cw[j][k] : 0u;  // a slot past the count:
-          const uint32_t m = cell_word<kInclusive>(ge, cw);  // feature 0's,
-          w[j] &= k < cells.n[j] ? m : kFull;  // read and dropped
-        }
-      }
-      const int most = max(max(cells.n[0], cells.n[1]), max(cells.n[2], cells.n[3]));
-      for (int k = kSlots; k < most; ++k) {  // rows of more cells: from device memory
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (k < cells.n[j]) {
-            const uint32_t cw = __ldg(a.words + ((size_t)r0 + 32 * j + lane) * a.K + k);
-            w[j] &= cell_word<kInclusive>(ge, cw);
-          }
-        }
-      }
-      if (r0 + kChunk < row_end) {
-        load_chunk(a, r0 + kChunk, min(kChunk, row_end - r0 - kChunk), lane, cells);
-      }
+      uint32_t w[4];  // rows r0 + lane + 32j
+      rows.words(r0, nr, lane, live, w);
+      if (r0 + kChunk < row_end) rows.load(r0 + kChunk, min(kChunk, row_end - r0 - kChunk), lane);
       if (a.bits != nullptr) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           if (32 * j + lane < nr) a.bits[(size_t)tile * a.R + r0 + 32 * j + lane] = w[j];
+        }
+      }
+      if (a.scores != nullptr) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (32 * j + lane >= nr) continue;
+          for (int b = 0; b < nq; ++b) {
+            a.scores[(size_t)(q0 + b) * a.R + r0 + 32 * j + lane] = (w[j] >> b) & 1u ? 1.f : 0.f;
+          }
         }
       }
       if (part == nullptr) continue;
@@ -547,75 +806,177 @@ __global__ void __launch_bounds__(kU8Threads, 1) cam_match_u8_kernel(const U8Arg
   }
 }
 
+// grid = (ceil(B / 32), blocks a tile); block = kBPThreads; dynamic shared
+// memory kHead + span * kGeStride words.  uint8 lists of span <= 223.
+template <bool kInclusive>
+__global__ void __launch_bounds__(kBPThreads, 1) cam_match_u8_kernel(const BPArgs<uint8_t> a) {
+  extern __shared__ __align__(16) uint32_t tables[];
+  uint32_t* ge = tables + kHead;
+  const int tile = blockIdx.x, q0 = tile * kQueries;
+  const int nq = min(kQueries, a.B - q0);
+  build_bitmaps(ge, a.q, a.F, a.span, q0, nq);
+  ValueRows<uint8_t, U8Cell<kInclusive>> rows{a, ge};
+  walk_splits(a, tile, q0, nq, valid_queries(nq), rows);
+}
+
+// grid = (ceil(B / 32), blocks a tile); block = kBPThreads; dynamic shared
+// memory kHead + span * (kGeStride where a.words, else kRankStride) words.
+// uint16, int32 (every mode) and float32 (tau = 0) lists of span <= 893;
+// `words` null where the list has none or its span passes kMaxWindow.
+template <typename T, typename Cell>
+__global__ void __launch_bounds__(kBPThreads, 1) cam_match_bp_kernel(const BPArgs<T> a) {
+  extern __shared__ __align__(16) uint32_t tables[];
+  uint32_t* tab = tables + kHead;
+  const int tile = blockIdx.x, q0 = tile * kQueries;
+  const int nq = min(kQueries, a.B - q0);
+  const uint32_t live = live_queries(a.live, tile, nq);
+  if (a.words != nullptr && on_bins(a.q, a.F, a.span, q0, nq)) {  // uniform in the block
+    build_bitmaps(tab, a.q, a.F, a.span, q0, nq);
+    ValueRows<T, OffsetCell<Cell::kInclusiveHi>> rows{a, tab};
+    walk_splits(a, tile, q0, nq, live, rows);
+  } else {
+    build_ranks(tab, a.q, a.F, a.span, q0, live);
+    RankRows<T, Cell> rows{a, tab};
+    walk_splits(a, tile, q0, nq, live, rows);
+  }
+}
+
 // grid = (ceil(B / 32), blocks a tile), one wave: as many blocks a tile as
 // fill the card, no more than give each warp a split.
-template <bool kInclusive>
-cudaError_t launch_u8(U8Args a, cudaStream_t stream) {
-  const auto kernel = cam_match_u8_kernel<kInclusive>;
-  a.W = max(1, a.span);
-  const size_t smem = (size_t)a.W * kGeStride * 4;
+template <typename Kernel, typename Args>
+cudaError_t launch_words(Kernel kernel, const Args& a, size_t smem, cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kU8Threads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBPThreads, smem);
   }
   if (err != cudaSuccess) return err;
   const int tiles = (a.B + kQueries - 1) / kQueries;
   const int splits = (a.R + a.rows_per_split - 1) / a.rows_per_split;
   const int fill = max(1, sms * max(1, per_sm) / tiles);
-  const int per_tile = min(fill, (splits + kU8Warps - 1) / kU8Warps);
-  kernel<<<dim3(tiles, per_tile), kU8Threads, smem, stream>>>(a);
+  const int per_tile = min(fill, (splits + kBPWarps - 1) / kBPWarps);
+  kernel<<<dim3(tiles, per_tile), kBPThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// What every launch takes: the C entry's operands.
+struct Launch {
+  const void* q;
+  const int32_t* count;
+  const uint16_t* feat;
+  const void* lo;
+  const void* hi;
+  const uint32_t* words;
+  int span, K;
+  const float* leaf;
+  int B, R, F, C, rows_per_split;
+  float* ws;
+  uint32_t* bits;
+  float* scores;
+  uint32_t* live;
+  cudaStream_t stream;
+};
+
+template <typename T>
+BPArgs<T> bp_args(const Launch& l) {
+  return BPArgs<T>{static_cast<const T*>(l.q), l.count, l.feat, static_cast<const T*>(l.lo),
+                   static_cast<const T*>(l.hi), l.words, l.K, l.leaf, l.B, l.R, l.F, l.C,
+                   l.rows_per_split, max(1, l.span), l.ws, l.bits, l.scores, l.live};
+}
+
+// The lane-per-query kernel; its kWide instance where the staged query
+// window is not the whole width.
+template <typename T, typename Cell>
+cudaError_t launch_lanes(const Launch& l) {
+  const CellArgs<T> cells{l.count, l.feat, static_cast<const T*>(l.lo),
+                          static_cast<const T*>(l.hi), l.K};
+  const T* q = static_cast<const T*>(l.q);
+  const size_t smem = Layout<T>::bytes(l.F, kMatchBytes);
+  const bool wide = Layout<T>::window(l.F, kMatchBytes) < l.F;
+  const auto kernel = wide ? cam_match_kernel<T, Cell, true> : cam_match_kernel<T, Cell, false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<match_grid(l.B, l.R, l.rows_per_split), kThreads, smem, l.stream>>>(
+      q, cells, l.leaf, l.B, l.R, l.F, l.C, l.rows_per_split, l.ws, l.bits, l.scores, l.live);
+  return cudaGetLastError();
+}
+
+// uint8 lists: the value route's kernel up to its window, else the lanes.
+template <bool kInclusive>
+cudaError_t launch_u8(const Launch& l) {
+  if (l.span <= kMaxWindow) {
+    const BPArgs<uint8_t> a = bp_args<uint8_t>(l);
+    const size_t smem = (size_t)(kHead + a.span * kGeStride) * 4;
+    return launch_words(cam_match_u8_kernel<kInclusive>, a, smem, l.stream);
+  }
+  return launch_lanes<uint8_t, std::conditional_t<kInclusive, Inclusive, Direct>>(l);
+}
+
+// uint16, int32 and float32 lists: the bit-parallel kernel up to the rank
+// tables' window (the value route where the list has words and its span
+// fits their window), else the lanes.
+template <typename T, typename Cell>
+cudaError_t launch_bp(const Launch& l) {
+  if (l.span > kRankWindow) return launch_lanes<T, Cell>(l);
+  BPArgs<T> a = bp_args<T>(l);
+  if (a.span > kMaxWindow) a.words = nullptr;
+  const size_t smem = (size_t)(kHead + a.span * (a.words ? kGeStride : kRankStride)) * 4;
+  return launch_words(cam_match_bp_kernel<T, Cell>, a, smem, l.stream);
 }
 
 }  // namespace
 
-// dtype: 0 uint8, 1 uint16, 2 int32.  mode: 0 direct, 1 inclusive,
-// 2 msb_lsb, 3 two_cycle (the last two on int32 only).  count/feat/lo/hi
-// are the table's cell list (R rows, K slots; lo/hi in the table dtype);
-// `words` its packed cells and `span` its largest feature + 1 (uint8 only:
-// feat | lo << 16 | hi << 24, (R, K)).
+// dtype: 0 uint8, 1 uint16, 2 int32, 3 float32.  mode: 0 direct,
+// 1 inclusive, 2 msb_lsb, 3 two_cycle (the last two on int32 only), 4 the
+// soft mode's tau = 0 indicator (float32 only).  count/feat/lo/hi are the
+// table's cell list (R rows, K slots; lo/hi in the table dtype); `words`
+// its packed cells (`CellList.words`: uint8 feat | lo << 16 | hi << 24,
+// required; the other dtypes' value-route offsets, or null) and `span` its
+// largest feature + 1.
 //
 // With `out` set: the margins, through `ws` ([splits, B, C] float32,
 // splits = ceil(R / rows_per_split)); `bias` may be null.  With `bits`
-// set: the match words only (`leaf`, `ws` and `out` null).  Returns a
-// cudaError_t; the launch is asynchronous on `stream`.
+// set: the match words only; with `scores` (float32 only): the (B, R)
+// scores 0 / 1 only (`leaf`, `ws` and `out` null).  float32 takes `live`,
+// ceil(B / 32) words of scratch for its tiles' live queries (the other
+// dtypes null).  Returns a cudaError_t; the launches are asynchronous on
+// `stream`.
 extern "C" int xtime_cam_match(int dtype, int mode, const void* q,
                                const int32_t* count, const uint16_t* feat,
                                const void* lo, const void* hi, const uint32_t* words,
                                int span, int K, const float* leaf, const float* bias, int B,
                                int R, int F, int C, int rows_per_split,
-                               float* ws, float* out, uint32_t* bits,
-                               void* stream_ptr) {
-  if (bad_launch(B, R, F, C, K, rows_per_split, leaf, ws, out) ||
-      (dtype == 0 && (words == nullptr || span < 0 || span > F))) {
+                               float* ws, float* out, uint32_t* bits, float* scores,
+                               uint32_t* live, void* stream_ptr) {
+  if (bad_launch(B, R, F, C, K, rows_per_split, leaf, ws, out) || span < 0 || span > F ||
+      (dtype == 0 && words == nullptr) || ((mode == 4) != (dtype == 3)) ||
+      (scores != nullptr && dtype != 3) || (bits != nullptr && dtype == 3) ||
+      ((live != nullptr) != (dtype == 3))) {
     return cudaErrorInvalidValue;
   }
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err = cudaErrorInvalidValue;
-  const bool bitmaps = dtype == 0 && span <= kMaxWindow;  // else the lane-per-query kernel
-  if (bitmaps && (mode == 0 || mode == 1)) {
-    const U8Args a{static_cast<const uint8_t*>(q), count, words, K, leaf, B, R, F, C,
-                   rows_per_split, span, 0, ws, bits};
-    err = mode == 1 ? launch_u8<true>(a, stream) : launch_u8<false>(a, stream);
+  const Launch l{q, count, feat, lo, hi, words, span, K, leaf, B, R, F, C, rows_per_split,
+                 ws, bits, scores, live, static_cast<cudaStream_t>(stream_ptr)};
+  if (dtype == 3) {
+    live_tiles_kernel<<<(B + kQueries - 1) / kQueries, kLiveThreads, 0, l.stream>>>(
+        static_cast<const float*>(q), B, F, live);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
   }
-#define XTIME_LAUNCH(T, CELL)                                                \
-  launch<T, CELL>(q, count, feat, lo, hi, K, leaf, B, R, F, C, rows_per_split, \
-                  ws, bits, stream)
-  if (dtype == 0 && !bitmaps && mode == 0) err = XTIME_LAUNCH(uint8_t, Direct);
-  if (dtype == 0 && !bitmaps && mode == 1) err = XTIME_LAUNCH(uint8_t, Inclusive);
-  if (dtype == 1 && mode == 0) err = XTIME_LAUNCH(uint16_t, Direct);
-  if (dtype == 1 && mode == 1) err = XTIME_LAUNCH(uint16_t, Inclusive);
-  if (dtype == 2 && mode == 0) err = XTIME_LAUNCH(int32_t, Direct);
-  if (dtype == 2 && mode == 1) err = XTIME_LAUNCH(int32_t, Inclusive);
-  if (dtype == 2 && mode == 2) err = XTIME_LAUNCH(int32_t, MsbLsb);
-  if (dtype == 2 && mode == 3) err = XTIME_LAUNCH(int32_t, TwoCycle);
-#undef XTIME_LAUNCH
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0 && mode == 0) err = launch_u8<false>(l);
+  if (dtype == 0 && mode == 1) err = launch_u8<true>(l);
+  if (dtype == 1 && mode == 0) err = launch_bp<uint16_t, Direct>(l);
+  if (dtype == 1 && mode == 1) err = launch_bp<uint16_t, Inclusive>(l);
+  if (dtype == 2 && mode == 0) err = launch_bp<int32_t, Direct>(l);
+  if (dtype == 2 && mode == 1) err = launch_bp<int32_t, Inclusive>(l);
+  if (dtype == 2 && mode == 2) err = launch_bp<int32_t, MsbLsb>(l);
+  if (dtype == 2 && mode == 3) err = launch_bp<int32_t, TwoCycle>(l);
+  if (dtype == 3 && mode == 4) err = launch_bp<float, Indicator>(l);
   if (err != cudaSuccess || out == nullptr) return err;
-  return reduce_splits(ws, bias, out, R, rows_per_split, B, C, stream);
+  return reduce_splits(ws, bias, out, R, rows_per_split, B, C, l.stream);
 }
 
 extern "C" const char* xtime_error_string(int code) {

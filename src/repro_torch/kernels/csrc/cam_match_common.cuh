@@ -2,18 +2,19 @@
 // block shape, the launch checks, the shared-memory layout, the staging of
 // the block's queries, of a chunk's cell lists and of its leaf rows, the
 // walk over one row's listed cells and the fixed-order reduction of the
-// per-split partials.  The uint16/int32 hard kernel and the soft kernel
-// differ only in what a lane does per listed cell and in how a chunk's
-// leaf product is taken; the uint8 kernel (bit-parallel match words) keeps
-// the constants, the launch checks and the reduction, and walks its own
-// way (cam_match.cu).  Every kernel adds a chunk's matched rows in
-// ascending order from +0 and each chunk once into its split's partial,
-// so the reduction below gives the same bits whichever kernel ran.
+// per-split partials.  The hard lane-per-query kernel and the soft tau > 0
+// kernel differ only in what a lane does per listed cell and in how a
+// chunk's leaf product is taken; the bit-parallel kernels (match words from
+// per-tile tables) keep the constants, the launch checks and the
+// reduction, and walk their own way (cam_match.cu).  Every kernel adds a
+// chunk's matched rows in ascending order from +0 and each chunk once into
+// its split's partial, so the reduction below gives the same bits
+// whichever kernel ran.
 //
 // Tables of any width: a block stages its queries [feature][query] for the
 // first `window` features, as many as fit beside the chunk area and the
 // kernel's own bytes (all of them up to F_pad = 6,400 uint8, 3,200 uint16,
-// 1,536 int32, 1,408 soft).  A wider table launches the kernel's kWide
+// 1,536 int32 or float32, 1,408 soft).  A wider table launches the kernel's kWide
 // instance, which reads a listed cell's query past the window from device
 // memory instead (`query_at`), as the walk reads cells past kStagedCells.
 // The compare is the same whichever memory the query came from, so the

@@ -9,14 +9,16 @@
 //     score[b, r]   = exp(SUM_f ls(q[b, f], low[r, f], high[r, f]))
 //     out[b, c]     = SUM_r score[b, r] * leaf[r, c]   (+ bias[c], once)
 //
-// with inv = float32(1 / tau), tau in bin units; tau = 0 is the exact
-// indicator (q > lo && q < hi) -> 0 / -inf.  `uncertainty` runs it over
+// with inv = float32(1 / tau), tau in bin units, tau > 0 (the exact tau = 0
+// indicator q > lo && q < hi, scores 0 / 1, runs the hard kernels'
+// bit-parallel kernel on the float32 list: cam_match.cu, mode 4, with the
+// margins of the int32 `direct` mode bit for bit).  `uncertainty` runs it over
 // the (R, 3C) moments matrix [leaf, leaf^2, class mass] with no bias; its
 // first C columns are the margin's, bit for bit (each output's float
 // sequence does not depend on C), so the engine takes the margins of
 // `predict(return_uncertainty=True)` from that one launch.
 //
-// Design: the structure of the hard kernel's uint16/int32 path
+// Design: the structure of the hard kernels' lane-per-query kernel
 // (cam_match.cu).  One block owns a 32-query tile and a fixed row split,
 // stages its queries once and walks 128-row chunks; each warp takes one row
 // at a time with a lane per query and sums the log-scores of the row's
@@ -35,12 +37,7 @@
 // cores: the result is identical run to run and for B = 1 against a row of
 // a batch.
 //
-// tau = 0 (the kTauZero instances): every score is exactly 0 or 1, so the
-// partial sums are the very float adds of the hard kernel's `direct` mode:
-// the margins are bit-equal to it.
-//
-// tau > 0 (the kWide = false / true instances with kTauZero false): the
-// log-sigmoids set the pace, so
+// The log-sigmoids set the pace, so
 //   * each is a short sequence around one special-function op
 //     (`log_sigmoid`, below), and
 //   * a tile whose queries are integers within +-256, on a list whose
@@ -92,18 +89,17 @@
 // hold its scores to s(8u |ls| + 4u) + 2^-126 against float64.
 //
 // Bound on an H100 SXM at xtime-tabular's full width (R = 1M rows, F_pad =
-// 256): at tau > 0 the lattice design's count — per finite bound and query
-// an add forming the index and an add into the sum, and a table read at
-// the shared-memory rate (32 words a clock an SM), the longest: ~0.23 ms at
-// B = 256 — beside it the former count, an ex2 and an lg2 per finite bound
-// and query on the SFU (~1 ms); at tau = 0 a compare per finite bound and
-// query (~0.12 ms at B = 256); at B = 1 the bytes of the cell list and the
-// leaf rows (~0.02 ms).  chip_smoke.py counts them.  Measured (phase 5, L2
-// flushed, NVIDIA H100 80GB HBM3, 700.00 W), tau = 0.1 at B = 256: 5.2585
-// ms with the library log-sigmoid (the former design), 3.7080 with the
-// short one, 2.9136 with the lattice table; the tau = 0 instance, whose
-// code is the first port's, 2.0859: the block's walk, barriers and
-// staging, not the log-sigmoids, are what is left (PERF.md).
+// 256): the lattice design's count — per finite bound and query an add
+// forming the index and an add into the sum, and a table read at the
+// shared-memory rate (32 words a clock an SM), the longest: ~0.23 ms at B
+// = 256 — beside it the former count, an ex2 and an lg2 per finite bound
+// and query on the SFU (~1 ms); at B = 1 the bytes of the cell list and
+// the leaf rows (~0.02 ms).  chip_smoke.py counts them.  Measured (phase
+// 5, L2 flushed, NVIDIA H100 80GB HBM3, 700.00 W), tau = 0.1 at B = 256:
+// 5.2585 ms with the library log-sigmoid (the former design), 3.7080 with
+// the short one, 2.9136 with the lattice table (PERF.md).  The tau = 0
+// instance this kernel had (the first port's code, 2.0859 ms at B = 256)
+// gave way to the bit-parallel kernel of cam_match.cu.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -114,11 +110,6 @@
 namespace {
 
 constexpr float kRound = 0x1.8p+23f;  // 1.5 * 2^23: adding it rounds to an integer
-
-// The cell's exact tau = 0 indicator: log-score 0 inside, -inf outside.
-__device__ __forceinline__ float indicator_logscore(float q, float lo, float hi) {
-  return (q > lo && q < hi) ? 0.f : -INFINITY;
-}
 
 // log(sigmoid(x)) = min(x, 0) - log1p(exp(-|x|)), as derived in the header;
 // ref.log_sigmoid_f32 is its float32 mirror (the same constants).
@@ -157,7 +148,7 @@ constexpr float kLatticeMid = 512.5f;
 constexpr float kLatticeMax = 256.f;  // |q|, |bound| at most this on the lattice
 constexpr size_t kLatticeBytes = kLattice * 4;
 
-// One listed cell's log-score at tau > 0, evaluated.  An infinite side's
+// One listed cell's log-score, evaluated.  An infinite side's
 // log-sigmoid is exactly +0, so it is not evaluated (a warp-uniform branch
 // when the warp walks one row); the sum keeps the lo-side + hi-side
 // grouping.  Never hi - lo: with infinite bounds that would be inf - inf.
@@ -278,37 +269,33 @@ __device__ __forceinline__ void leaf_product(const float* s_score, const float* 
   }
 }
 
-// Bytes of the kernel's own after the chunk area: the scores, and at tau >
-// 0 the lattice table.
-template <bool kTauZero>
-constexpr size_t kSoftBytes = kScoreBytes + (kTauZero ? 0 : kLatticeBytes);
+// Bytes of the kernel's own after the chunk area: the scores and the
+// lattice table.
+constexpr size_t kSoftBytes = kScoreBytes + kLatticeBytes;
 
 // grid = (ceil(B / 32), splits); block = kThreads; dynamic shared memory
-// Layout<float>::bytes(F, kSoftBytes<kTauZero>); kWide where the query
-// window is not the whole width.  kTauZero: the indicator (tau = 0, the
-// code of the first port, kept as it was); else the sigmoid cells with
-// `inv`, through the lattice table where `lattice` (the cell list's bounds
-// are on it) and the tile's queries are.
+// Layout<float>::bytes(span, kSoftBytes); kWide where the query window is
+// not the whole span.  The sigmoid cells with `inv`, through the lattice
+// table where `lattice` (the cell list's bounds are on it) and the tile's
+// queries are.
 //   q      (B, F) float32 bins     cells: the soft table's cell list, (R, K)
 //   leaf   (R, C) float32 or null
 //   ws     [splits, B, C] partials or null
 //   scores (B, R) row scores or null
-template <bool kTauZero, bool kWide>
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
 cam_match_soft_kernel(const float* __restrict__ q, CellArgs<float> cells,
                       const float* __restrict__ leaf, int B, int R, int F, int C,
                       int rows_per_split, float inv, int lattice, int span,
                       float* __restrict__ ws, float* __restrict__ scores) {
-  constexpr size_t kExtra = kSoftBytes<kTauZero>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_q = reinterpret_cast<float*>(smem);
-  const int Fq = kTauZero ? F : span;  // tau > 0: only the features the list names
-  const int Fs = Layout<float>::window(Fq, kExtra);
-  unsigned char* area = smem + Layout<float>::queries(Fq, kExtra);
+  const int Fs = Layout<float>::window(span, kSoftBytes);  // only the features the list names
+  unsigned char* area = smem + Layout<float>::queries(span, kSoftBytes);
   const Staged<float> st(area);
   float* s_leaf = reinterpret_cast<float*>(area);  // after the log-scores
   float* s_score = reinterpret_cast<float*>(area + Layout<float>::chunk);  // [row][query]
-  float* s_lat = s_score + kChunk * kQStride;  // tau > 0: the lattice table
+  float* s_lat = s_score + kChunk * kQStride;  // the lattice table
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int q0 = blockIdx.x * kQueries;
@@ -318,23 +305,19 @@ cam_match_soft_kernel(const float* __restrict__ q, CellArgs<float> cells,
   const int row_end = min(R, row_begin + rows_per_split);
   float* part = zeroed_partials(ws, B, C, q0, nq);
   stage_queries(q, s_q, F, Fs, q0, nq);
-  const float* lat = nullptr;  // the table, where the tile may read it
-  if (!kTauZero) {
-    for (int j = tid; j < kLattice; j += kThreads) {
-      s_lat[j] = log_sigmoid((float(j) - kLatticeMid) * inv);
-    }
-    // (a wide table's queries past the window are not checked: it computes)
-    if (queries_on_lattice(q, F, Fs, q0, nq) && lattice && !kWide) lat = s_lat;
+  for (int j = tid; j < kLattice; j += kThreads) {
+    s_lat[j] = log_sigmoid((float(j) - kLatticeMid) * inv);
   }
-  const auto logscore = [&](float x, float lo, float hi) {
-    return kTauZero ? indicator_logscore(x, lo, hi) : sigmoid_logscore(x, lo, hi, inv);
-  };
+  // the table, where the tile may read it (a wide table's queries past the
+  // window are not checked: it computes)
+  const float* lat =
+      queries_on_lattice(q, F, Fs, q0, nq) && lattice && !kWide ? s_lat : nullptr;
   // the sum of chunk row r's log-scores for query b
   const auto row_sum = [&](int r0, int r, int b) {
-    if (!kTauZero && lat != nullptr) return lattice_row_sum(cells, st, r0, r, s_q, b, lat);
+    if (lat != nullptr) return lattice_row_sum(cells, st, r0, r, s_q, b, lat);
     float acc = 0.f;
     walk_row(cells, st, r0, r, [&](int f, float lo, float hi) {
-      acc += logscore(query_at<kWide>(s_q, q, F, Fs, q0, nq, f, b), lo, hi);
+      acc += sigmoid_logscore(query_at<kWide>(s_q, q, F, Fs, q0, nq, f, b), lo, hi, inv);
     });
     return acc;
   };
@@ -355,9 +338,7 @@ cam_match_soft_kernel(const float* __restrict__ q, CellArgs<float> cells,
     } else {  // a warp per row, a lane per query
       for (int r = warp; r < nr; r += kWarps) {
         float acc = 0.f;
-        // padding lanes of a ragged tile skip the transcendentals; at
-        // tau = 0 they are cheaper to run
-        if (kTauZero || lane < nq) acc = row_sum(r0, r, lane);
+        if (lane < nq) acc = row_sum(r0, r, lane);  // padding lanes skip the transcendentals
         const float s = expf(acc);
         s_score[r * kQStride + lane] = s;
         if (scores != nullptr && lane < nq) scores[(size_t)(q0 + lane) * R + r0 + r] = s;
@@ -368,13 +349,13 @@ cam_match_soft_kernel(const float* __restrict__ q, CellArgs<float> cells,
     for (int c0 = 0; c0 < C; c0 += kLeafCols) {
       const int cw = min(kLeafCols, C - c0);
       __syncthreads();  // the cell reads, scores, earlier channels' readers
-      if (kTauZero || C % 4 != 0) {
+      if (C % 4 != 0) {
         stage_leaf(leaf, s_leaf, C, r0, nr, c0, cw, [](int) { return true; });
       } else {
         stage_leaf4(leaf, s_leaf, C, r0, nr, c0, cw);
       }
       __syncthreads();
-      if (kTauZero || by_pair || C % 4 != 0) {  // a few queries: an output a thread
+      if (by_pair || C % 4 != 0) {  // a few queries: an output a thread
         leaf_product<false>(s_score, s_leaf, part, C, nq, nr, c0, cw);
       } else {
         leaf_product<true>(s_score, s_leaf, part, C, nq, nr, c0, cw);
@@ -383,50 +364,35 @@ cam_match_soft_kernel(const float* __restrict__ q, CellArgs<float> cells,
   }
 }
 
-template <bool kTauZero, bool kWide>
-cudaError_t launch_soft_as(const float* q, const CellArgs<float>& cells,
-                           const float* leaf, int B, int R, int F, int C,
-                           int rows_per_split, float inv, int lattice, int span,
-                           float* ws, float* scores, cudaStream_t stream) {
-  const size_t smem = Layout<float>::bytes(kTauZero ? F : span, kSoftBytes<kTauZero>);
-  cudaError_t err = allow_smem(cam_match_soft_kernel<kTauZero, kWide>, smem);
-  if (err != cudaSuccess) return err;
-  cam_match_soft_kernel<kTauZero, kWide><<<match_grid(B, R, rows_per_split), kThreads,
-                                           smem, stream>>>(q, cells, leaf, B, R, F, C,
-                                                           rows_per_split, inv, lattice,
-                                                           span, ws, scores);
-  return cudaGetLastError();
-}
-
-template <bool kTauZero>
+// kWide where the staged query window is not the whole span.
 cudaError_t launch_soft(const float* q, const CellArgs<float>& cells,
                         const float* leaf, int B, int R, int F, int C,
                         int rows_per_split, float inv, int lattice, int span,
                         float* ws, float* scores, cudaStream_t stream) {
-  const int Fq = kTauZero ? F : span;
-  if (Layout<float>::window(Fq, kSoftBytes<kTauZero>) < Fq) {
-    return launch_soft_as<kTauZero, true>(q, cells, leaf, B, R, F, C, rows_per_split, inv,
-                                          lattice, span, ws, scores, stream);
-  }
-  return launch_soft_as<kTauZero, false>(q, cells, leaf, B, R, F, C, rows_per_split, inv,
-                                         lattice, span, ws, scores, stream);
+  const size_t smem = Layout<float>::bytes(span, kSoftBytes);
+  const auto kernel = Layout<float>::window(span, kSoftBytes) < span
+                          ? cam_match_soft_kernel<true> : cam_match_soft_kernel<false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<match_grid(B, R, rows_per_split), kThreads, smem, stream>>>(
+      q, cells, leaf, B, R, F, C, rows_per_split, inv, lattice, span, ws, scores);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// tau_zero: 1 runs the exact tau = 0 indicator, 0 the sigmoid cells with
-// `inv` = float32(1 / tau) (computed on the host exactly as the plain
-// version computes it).  lattice: 1 when every finite bound of the list is
-// a half-integer of magnitude <= 256 (CellList.lattice); the tiles whose
-// queries are integers of magnitude <= 256 then read their log-sigmoids
-// from the lattice table.  span: the list's largest feature + 1
-// (CellList.span); at tau > 0 only those features' queries are staged.
+// inv = float32(1 / tau), tau > 0 (computed on the host exactly as the
+// plain version computes it).  lattice: 1 when every finite bound of the
+// list is a half-integer of magnitude <= 256 (CellList.lattice); the tiles
+// whose queries are integers of magnitude <= 256 then read their
+// log-sigmoids from the lattice table.  span: the list's largest feature
+// + 1 (CellList.span); only those features' queries are staged.
 //
 // With `out` set: the margins, through `ws` ([splits, B, C] float32,
 // splits = ceil(R / rows_per_split)); `bias` may be null.  With `scores`
 // set: the (B, R) row scores only (`leaf`, `ws` and `out` null).  Returns
 // a cudaError_t; the launch is asynchronous on `stream`.
-extern "C" int xtime_cam_match_soft(int tau_zero, float inv, int lattice, int span,
+extern "C" int xtime_cam_match_soft(float inv, int lattice, int span,
                                     const float* q,
                                     const int32_t* count, const uint16_t* feat,
                                     const float* lo, const float* hi, int K,
@@ -435,16 +401,13 @@ extern "C" int xtime_cam_match_soft(int tau_zero, float inv, int lattice, int sp
                                     float* ws, float* out, float* scores,
                                     void* stream_ptr) {
   if (bad_launch(B, R, F, C, K, rows_per_split, leaf, ws, out) ||
-      (tau_zero == 0 && !(inv > 0.f && inv < INFINITY)) || span < 0 || span > F) {
+      !(inv > 0.f && inv < INFINITY) || span < 0 || span > F) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const CellArgs<float> cells{count, feat, lo, hi, K};
-  const cudaError_t err =
-      tau_zero ? launch_soft<true>(q, cells, leaf, B, R, F, C, rows_per_split, inv, 0, F,
-                                   ws, scores, stream)
-               : launch_soft<false>(q, cells, leaf, B, R, F, C, rows_per_split, inv,
-                                    lattice, max(span, 1), ws, scores, stream);
+  const cudaError_t err = launch_soft(q, cells, leaf, B, R, F, C, rows_per_split, inv,
+                                      lattice, max(span, 1), ws, scores, stream);
   if (err != cudaSuccess || out == nullptr) return err;
   return reduce_splits(ws, bias, out, R, rows_per_split, B, C, stream);
 }

@@ -243,9 +243,11 @@ class CellList:
     numpy arrays or tensors; the construction checks the shapes, dtypes
     and ``count <= K``, ``feat < width`` once, so a kernel launch need not,
     and records ``span``, the largest feature index it holds + 1.
-    A uint8 list also carries ``words`` (``cell_words``, made here unless
-    given): each cell packed into the one 32-bit word the uint8 kernel
-    reads; None otherwise.  A
+    ``words`` (made here unless given) packs each cell into the one 32-bit
+    word the bit-parallel kernels' value route reads: a uint8 list's
+    ``cell_words``; a uint16, int32 or float32 list's ``value_words``
+    where its span fits the value tables (``BITMAP_FEATURES``) and no
+    listed bound is NaN, else None (the kernel then searches ranks).  A
     float32 (soft) list carries ``lattice``: whether every finite bound it
     lists is a half-integer of magnitude at most ``LATTICE_MAX``, so the
     soft kernel may read its log-sigmoids from a table (``on_lattice``).
@@ -283,12 +285,16 @@ class CellList:
                     f"{fmax} (width {self.width}) out of range"
                 )
             object.__setattr__(self, "span", fmax + 1)
-        if _np_dtype(self.lo) == np.uint8 and self.words is None:
-            object.__setattr__(self, "words", cell_words(self.feat, self.lo, self.hi))
-        elif self.words is not None and (
-                _np_dtype(self.lo) != np.uint8 or _np_dtype(self.words) != np.int32
-                or tuple(self.words.shape) != (R, K)):
-            raise ValueError(f"words must be the ({R}, K = {K}) int32 packing of a uint8 list")
+        if self.words is None:
+            if _np_dtype(self.lo) == np.uint8:
+                words = cell_words(self.feat, self.lo, self.hi)
+            elif self.span <= BITMAP_FEATURES and not _nan_bounds(self):
+                words = value_words(self.feat, self.lo, self.hi)
+            else:
+                words = None
+            object.__setattr__(self, "words", words)
+        elif _np_dtype(self.words) != np.int32 or tuple(self.words.shape) != (R, K):
+            raise ValueError(f"words must be the ({R}, K = {K}) int32 packing of the list")
         if _np_dtype(self.lo) == np.float32:
             object.__setattr__(self, "lattice", on_lattice(self))
 
@@ -324,6 +330,65 @@ def cell_words(feat, lo, hi):
             | (hi.to(torch.int32) << 24)).contiguous()
 
 
+# the bit-parallel kernels' value tables (cam_match.cu `kGeStride`,
+# `kMaxWindow`): GE[f][v] for v in [0, 256] of each feature below the
+# list's span, GE_STRIDE words a feature, for spans up to BITMAP_FEATURES
+GE_STRIDE = 260
+BITMAP_FEATURES = 223
+
+
+def value_words(feat, lo, hi):
+    """(R, K) int32: each cell of a uint16, int32 or float32 list as the
+    offsets of its two lookups in the value tables, ``lo_at | hi_at << 16``
+    (bits as uint32), ``lo_at = f * GE_STRIDE + L``, ``hi_at = f *
+    GE_STRIDE + H``.  For a query bin q in [0, 255] the cell's lower half
+    is GE[f][L] and an inclusive upper half ~GE[f][H], an exclusive one
+    ~GE[f][H - 1] (GE[f][-1] all ones, GE[f][256] and GE[f][257] 0).
+    Integer bounds: L = clip(lo, 0, 256), H = clip(hi + 1, 0, 257); float32
+    (the tau = 0 indicator lo < q < hi): L = clip(floor(lo) + 1, 0, 256), H
+    = clip(ceil(hi) + 1, 0, 257).  Features below ``BITMAP_FEATURES``;
+    numpy or torch as given."""
+    if isinstance(feat, np.ndarray):
+        base = feat.astype(np.int64) * GE_STRIDE
+        if lo.dtype == np.float32:
+            lo_v = np.floor(np.nan_to_num(lo.astype(np.float64), nan=0.0)) + 1
+            hi_v = np.ceil(np.nan_to_num(hi.astype(np.float64), nan=0.0)) + 1
+        else:
+            lo_v, hi_v = lo.astype(np.int64), hi.astype(np.int64) + 1
+        lo_at = base + np.clip(lo_v, 0, 256).astype(np.int64)
+        hi_at = base + np.clip(hi_v, 0, 257).astype(np.int64)
+        return (lo_at | (hi_at << 16)).astype(np.uint32).view(np.int32)
+    base = feat.to(torch.int64) * GE_STRIDE
+    if lo.dtype == torch.float32:
+        lo_v = torch.floor(torch.nan_to_num(lo.double(), nan=0.0)) + 1
+        hi_v = torch.ceil(torch.nan_to_num(hi.double(), nan=0.0)) + 1
+    else:
+        lo_v, hi_v = lo.to(torch.int64), hi.to(torch.int64) + 1
+    lo_at = base + lo_v.clamp(0, 256).to(torch.int64)
+    hi_at = base + hi_v.clamp(0, 257).to(torch.int64)
+    w = lo_at | (hi_at << 16)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32).contiguous()
+
+
+def _used_bounds(cells: "CellList"):
+    """The bounds in the used slots of a list, lo then hi, as float64
+    (numpy or torch as the list holds them)."""
+    K = int(cells.feat.shape[1])
+    if isinstance(cells.lo, np.ndarray):
+        used = np.arange(K)[None, :] < cells.count[:, None]
+        return np.concatenate([cells.lo[used], cells.hi[used]]).astype(np.float64)
+    used = torch.arange(K, device=cells.count.device)[None, :] < cells.count[:, None]
+    return torch.cat([cells.lo[used], cells.hi[used]]).double()
+
+
+def _nan_bounds(cells: "CellList") -> bool:
+    """Whether a used slot of a float32 list holds a NaN bound."""
+    if _np_dtype(cells.lo) != np.float32:
+        return False
+    v = _used_bounds(cells)
+    return bool(np.isnan(v).any() if isinstance(v, np.ndarray) else torch.isnan(v).any())
+
+
 # the soft kernel's lattice: bounds that are half-integers within this
 # magnitude (and integer queries within it) index its log-sigmoid table
 LATTICE_MAX = 256.0
@@ -333,14 +398,10 @@ def on_lattice(cells: "CellList") -> bool:
     """Whether every finite bound in the used slots of a float32 list is a
     half-integer of magnitude at most ``LATTICE_MAX`` (the soft encoding
     of a table of at most 256 bins is)."""
-    R, K = tuple(cells.feat.shape)
-    if isinstance(cells.lo, np.ndarray):
-        used = np.arange(K)[None, :] < cells.count[:, None]
-        v = np.concatenate([cells.lo[used], cells.hi[used]]).astype(np.float64)
+    v = _used_bounds(cells)
+    if isinstance(v, np.ndarray):
         v = v[np.isfinite(v)]
         return bool(((v - 0.5 == np.floor(v)) & (np.abs(v) <= LATTICE_MAX)).all())
-    used = torch.arange(K, device=cells.count.device)[None, :] < cells.count[:, None]
-    v = torch.cat([cells.lo[used], cells.hi[used]]).double()
     v = v[torch.isfinite(v)]
     return bool(((v - 0.5 == torch.floor(v)) & (v.abs() <= LATTICE_MAX)).all())
 
@@ -482,7 +543,9 @@ def cam_match(
     """Kernel entry on pre-padded operands; returns unpadded (out_b, out_c).
 
     CUDA tensors launch the Hopper kernels (``kernels.cam_match``: the
-    soft kernel for ``mode='soft'``, the hard one otherwise) on the
+    soft wrappers for ``mode='soft'``, which run the bit-parallel hard
+    kernel at tau = 0 and the soft kernel at tau > 0; the hard wrappers
+    otherwise) on the
     table's ``cells`` (``binding_cells``, on the card) — they either run
     or raise; CPU tensors take the plain version on the dense ``low`` /
     ``high``.  ``bias`` is the optional (1, C_pad) fused-epilogue row,

@@ -197,8 +197,11 @@ def test_packed_words_layout_and_round_trip():
     t = cells.to("cpu")
     assert torch.equal(t.words, torch.from_numpy(w))
     assert np.array_equal(np.asarray(cells.rows(10, 30).words), w[10:30])
-    # only uint8 lists carry words, and span is the largest feature + 1
+    # an int32 list of the same table carries the value route's offset words
+    # instead (tests/test_torch_rankmatch.py), and span is the largest feature + 1
     assert cells.span == int(feat.max()) + 1
     wide = tops.binding_cells(lo.astype(np.int32), hi.astype(np.int32), n_bins=256,
                               inclusive=True, n_real_rows=64)
-    assert wide.words is None and wide.span == cells.span
+    assert wide.span == cells.span
+    assert np.array_equal(np.asarray(wide.words), tops.value_words(
+        np.asarray(wide.feat), np.asarray(wide.lo), np.asarray(wide.hi)))

@@ -1308,3 +1308,136 @@ def test_soft_per_term_error_one_cell_sweep(card, side):
         s64 = np.exp(ls)
         lim = s64 * (8 * u * np.abs(ls) + 4 * u) + 2.0 ** -126
         assert not np.isnan(s).any() and (np.abs(s - s64) <= lim).all()
+
+
+# -- the bit-parallel kernel's two routes (uint16, int32, soft tau = 0) ----------------
+
+
+def _ranked(cells: ops.CellList) -> ops.CellList:
+    """The list without its packed words: every tile takes the rank route."""
+    out = copy.copy(cells)
+    object.__setattr__(out, "words", None)
+    return out
+
+
+def _route_operands(dtype, mode, n_bins, dev, *, b, tiles_on_bins, noisy=False, span=None):
+    """``_tables`` at ``n_bins`` (noisy: bounds moved by up to +-3, negative
+    ones among them, 2% never-match) whose query tiles ``tiles_on_bins``
+    hold bins below 256 (the value route) and the others bins up to
+    ``n_bins`` - 1 (the rank route); ``span``: the table that wide, its
+    rows listing a feature near the edge."""
+    rng = np.random.default_rng(n_bins + len(tiles_on_bins) + 7 * noisy)
+    f = F if span is None else span
+    q = rng.integers(0, n_bins, size=(b, f))
+    for t in tiles_on_bins:
+        q[32 * t:32 * t + 32] = rng.integers(0, min(256, n_bins), size=q[32 * t:32 * t + 32].shape)
+    if span is None:
+        low, high = _tables(rng, n_bins, q, r=R, wild=0.1 if noisy else 0.6, noisy=noisy)
+    else:
+        low, high = _span_cut(rng, n_bins, q)
+    leaf = (rng.integers(-16, 17, size=(R, C)) / 16.0).astype(np.float32)
+    incl = mode == "inclusive"
+    if incl:
+        lo, hi, lm, _ = ops.pack_tables(low, high, leaf, r_blk=R_BLK, f_blk=F_BLK,
+                                        n_bins=n_bins, dtype=dtype, inclusive=True)
+    else:
+        lo, hi, lm = ops.pad_tables(low, high, leaf, r_blk=R_BLK, f_blk=F_BLK, n_bins=n_bins)
+        lo, hi = lo.astype(dtype), hi.astype(dtype)
+    cells = ops.binding_cells(lo, hi, n_bins=n_bins, inclusive=incl, n_real_rows=R)
+    qp = ops.pad_queries(q, lo.shape[1], dtype=dtype, device=dev)
+    return (qp, *(torch.from_numpy(a).to(dev) for a in (lo, hi, lm)), cells.to(dev))
+
+
+def _span_cut(rng, n_bins, q):
+    """Tables as wide as ``q``, every row listing 6 cells, one of them the
+    last feature, every fourth row widened to hold a query."""
+    f = q.shape[1]
+    low = np.zeros((R, f), np.int32)
+    high = np.full((R, f), n_bins, np.int32)
+    for i in range(R):
+        cols = [f - 1, *rng.choice(f - 1, size=5, replace=False).tolist()]
+        lo = rng.integers(0, n_bins - 1, size=6)
+        hi = np.minimum(n_bins, lo + rng.integers(1, n_bins // 2, size=6))
+        if i % 4 == 0:
+            lo, hi = np.minimum(lo, q[i % q.shape[0], cols]), np.maximum(hi, q[i % q.shape[0], cols] + 1)
+        low[i, cols], high[i, cols] = lo, hi
+    return low, high
+
+
+ROUTE_CASES = {  # name: (n_bins, tiles on the bins of 2, noisy, span)
+    "value": (256, (0, 1), False, None),
+    "rank": (1000, (), False, None),
+    "both": (1000, (1,), False, None),
+    "both-noisy": (1000, (0,), True, None),
+    "rank-span-600": (1000, (0,), False, 600),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,mode,case", [
+    (d, m, c) for d, m in (("int32", "direct"), ("int32", "inclusive"), ("int32", "msb_lsb"),
+                           ("int32", "two_cycle"), ("uint16", "direct"), ("uint16", "inclusive"))
+    for c in ROUTE_CASES if d == "int32" or not ROUTE_CASES[c][2]])  # uint16: no negative bound
+def test_cuda_bit_parallel_routes(card, dtype, mode, case):
+    """The bit-parallel kernel on its value route (bins below 256), its
+    rank route (bins past 255, a list without its words, a span past the
+    value tables' window) and both in one call: bits and k/16 margins
+    equal the plain version (``_check_hard``, the list as built and
+    widened), the list without its words gives the same, packed uint16
+    equals int32, B = 1 equals each row."""
+    from repro_torch.kernels import cam_match as K
+
+    n_bins, on_bins, noisy, span = ROUTE_CASES[case]
+    q, lo, hi, lm, cells = _route_operands(dtype, mode, n_bins, card, b=45,
+                                           tiles_on_bins=on_bins, noisy=noisy, span=span)
+    if span is not None:
+        assert K.BITMAP_FEATURES < cells.span <= K.RANK_FEATURES and cells.words is None
+    out = _check_hard(K, q, lo, hi, lm, cells, mode, card)
+    assert torch.equal(K.cam_match_cuda(q, _ranked(cells), lm, mode=mode), out)
+    assert torch.equal(K.cam_match_bits_cuda(q, _ranked(cells), mode=mode),
+                       cam_match_bits_ref(q, lo, hi, mode=mode))
+    for i in (0, 31, 32, 44):
+        assert torch.equal(K.cam_match_cuda(q[i:i + 1], cells, lm, mode=mode), out[i:i + 1])
+    if dtype == "uint16":
+        q32, _, _, lm32, c32 = _route_operands("int32", mode, n_bins, card, b=45,
+                                               tiles_on_bins=on_bins, span=span)
+        assert torch.equal(out, K.cam_match_cuda(q32, c32, lm32, mode=mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["value", "rank", "odd-queries", "perturbed"])
+def test_cuda_soft_tau_zero_routes(card, case):
+    """Soft tau = 0 on the bit-parallel kernel: the value route (bin
+    queries), the rank route (the list without its words) and queries with
+    NaN, +-inf, half bins, -1 and 300 (a query with a non-finite feature
+    scores 0): scores and k/16 margins equal the plain version bit for bit,
+    and, on bin queries, the int32 `direct` kernel's margins and bits."""
+    from repro_torch.kernels import cam_match as K
+
+    (q, lo, hi, lm, cells), (low, high, leaf, qi) = _soft_operands(
+        card, perturbed=case == "perturbed")
+    assert cells.words is not None
+    if case == "odd-queries":
+        rng = np.random.default_rng(5)
+        pick = torch.from_numpy(rng.random(tuple(q[32:].shape)) < 0.05).to(card)
+        odd = torch.tensor([float("nan"), float("inf"), -float("inf"), 2.5, -1.0, 300.0],
+                           device=card)
+        q[32:][pick] = odd[torch.from_numpy(rng.integers(0, 6, size=int(pick.sum()))).to(card)]
+        assert not torch.isfinite(q).all()
+    cl = _ranked(cells) if case == "rank" else cells
+    s_ref = soft_scores_ref(q, lo, hi, tau=0.0)
+    scores = K.soft_scores_cuda(q, cl, tau=0.0)
+    out = K.cam_match_soft_cuda(q, cl, lm, tau=0.0)
+    assert torch.equal(scores, s_ref) and torch.equal(out, cam_match_ref(q, lo, hi, lm, mode="soft",
+                                                                         tau=0.0))
+    if case == "odd-queries":
+        assert not s_ref[~torch.isfinite(q).all(dim=1)].any()
+        return
+    ilo, ihi, ilm = ops.pad_tables(low, high, leaf, r_blk=R_BLK, f_blk=F_BLK, n_bins=256)
+    icells = ops.binding_cells(ilo, ihi, n_bins=256, inclusive=False, n_real_rows=R).to(card)
+    iq = ops.pad_queries(qi, ilo.shape[1], dtype="int32", device=card)
+    assert torch.equal(out, K.cam_match_cuda(iq, icells, torch.from_numpy(ilm).to(card),
+                                             mode="direct"))
+    bits = cam_match_bits_ref(iq, *(torch.from_numpy(a).to(card) for a in (ilo, ihi)),
+                              mode="direct")
+    assert torch.equal(scores, bits.float())
