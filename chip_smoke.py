@@ -76,7 +76,13 @@ Phases, one line (or block) each:
      ``Ensemble.predict``; a model 8,000 features wide (past every
      variant's staged query window) through every hard variant and the
      soft kernel and its moments pass, held to the traversal or the plain
-     version and timed;
+     version and timed; xtime-tabular's 4,096 trees of depth 8 at the
+     width of Bosch Production Line Performance (968 features, R =
+     1,048,576) through ``raw_margin``/``predict`` at B = 1, 256 and 1,024
+     in uint8/inclusive, uint16/inclusive, int32/direct and soft tau = 0,
+     each on a cluster of blocks a tile, held to the traversal, the plain
+     version and the lane-per-query walk (``walk=True``) bit for bit, and
+     timed beside the walk;
   8. the operator's tools, on the phase 4 artifacts (launch counts set to
      0 just before the tuned path and read just after): ``autotune_kernel``
      at full width on batch 256 with buckets 1, 16 and 1024 (each layout's
@@ -200,10 +206,10 @@ Phases, one line (or block) each:
      16 (output, aux, the gradients of x, the router and the shared
      expert) and at cf 1.25 the dropped count, two runs equal, ms of both;
      then the split serve step (``launch.serve.MeshServe``) on a (2, 4)
-     mesh: llama3.2-3b (KV heads on `model`, 8 greedy tokens) and
+     mesh: llama3.2-3b (KV heads on `model`, 4 greedy tokens) and
      gemma3-1b (sequence-sharded KV, 3 greedy tokens), zamba2-2.7b (the
      float32 SSM state by heads), rwkv6-1.6b (the WKV state by heads) and
-     whisper-tiny (1,500 frames, a 64-token prompt, 8 greedy tokens: the
+     whisper-tiny (1,500 frames, a 64-token prompt, 4 greedy tokens: the
      cross cache's 6 KV heads by chunks of 375 frames) at full width and
      depth in bfloat16 (prefill and decode ms beside phase 10's or 11's,
      kernels a step, busy share, peak, cache bytes a shard ==
@@ -213,7 +219,7 @@ Phases, one line (or block) each:
      too) at depth 2 in float32 against one device (every step's logits
      within 1e-4 of their scale, tokens and drops equal, two runs
      bit-equal, ``generate(mesh=)``'s tokens); llama3.2-3b at full depth
-     teacher-forced on one device's 8 greedy tokens through
+     teacher-forced on one device's 4 greedy tokens through
      ``teacher_forced(mesh=)``, float32 (every step's logits within 1e-4
      of their scale) and bfloat16 (its gap reported), zamba2-2.7b and
      rwkv6-1.6b likewise on 2 tokens in float32, whisper-tiny on 4 tokens
@@ -381,13 +387,15 @@ def ptxas_report(log: str) -> list[str]:
         if not m:
             continue
         k = re.search(r"cam_match_kernelI([htif])NS_\d+(\w+?)ELb([01])EEEv", m.group(1))
-        bk = re.search(r"cam_match_bp_kernelI([htif])NS_\d+(\w+?)EEEv", m.group(1))
-        uk = re.search(r"cam_match_u8_kernelILb([01])E", m.group(1))
+        bk = re.search(r"cam_match_bp_kernelI([htif])NS_\d+(\w+?)ELb([01])EEEv", m.group(1))
+        uk = re.search(r"cam_match_u8_kernelILb([01])ELb([01])E", m.group(1))
         sk = re.search(r"cam_match_soft_kernelILb([01])E", m.group(1))
-        if uk:
-            name = f"cam_match_u8<{'Inclusive' if uk.group(1) == '1' else 'Direct'}>"
-        elif bk:  # the bit-parallel kernel: value and rank routes
-            name = f"cam_match_bp<{_TYPES[bk.group(1)]}, {bk.group(2)}>"
+        if uk:  # the bit-parallel kernels, one block a tile or a cluster
+            name = (f"cam_match_u8<{'Inclusive' if uk.group(1) == '1' else 'Direct'}"
+                    f"{', cluster' if uk.group(2) == '1' else ''}>")
+        elif bk:  # value and rank routes
+            name = (f"cam_match_bp<{_TYPES[bk.group(1)]}, {bk.group(2)}"
+                    f"{', cluster' if bk.group(3) == '1' else ''}>")
         elif k:  # the lane-per-query kernel: lists past the tables' window
             wide = ", wide" if k.group(3) == "1" else ""
             name = f"cam_match<{_TYPES[k.group(1)]}, {k.group(2)}{wide}>"
@@ -550,12 +558,20 @@ def ranked(cells: ops.CellList) -> ops.CellList:
 
 def route_of(cells: ops.CellList, on_bins: bool = True) -> str:
     """The route a tile of this list takes: the bit-parallel kernels' value
-    or rank route, or the lane-per-query kernel past their windows."""
-    u8 = cells.lo.dtype == torch.uint8
-    if cells.span > (K.BITMAP_FEATURES if u8 else K.RANK_FEATURES):
+    or rank route (on one block a tile or a cluster), or the lane-per-query
+    kernel past a cluster's windows."""
+    kernel, _ = K.kernel_route(cells)
+    if kernel == "lanes":
         return "lanes"
-    value = cells.words is not None and cells.span <= K.BITMAP_FEATURES and on_bins
+    value = cells.words is not None and ops.packing(cells) is not None and on_bins
     return "value" if value else "rank"
+
+
+def blocks_a_tile(cells: ops.CellList) -> str:
+    """How many blocks serve a 32-query tile of this list (`kernel_route`)."""
+    kernel, n = K.kernel_route(cells)
+    return "the lane-per-query kernel" if kernel == "lanes" else (
+        "one block a tile" if n == 1 else f"a cluster of {n} blocks a tile")
 
 
 def routes(q: torch.Tensor, cells: ops.CellList) -> str:
@@ -1058,11 +1074,17 @@ def cold_time(fn, iters: int) -> float:
     return sum(st.elapsed_time(en) for st, en in pairs) / iters
 
 
+_BINDING_BOUNDS: dict[int, int] = {}
+
+
 def binding_bounds(eng: XTimeEngine) -> int:
     """Bounds that constrain a query: low > 0 or high < n_bins, on the
-    compiled table.  A wildcard side needs no compare."""
+    compiled table (counted once a table: every variant's engine shares
+    it).  A wildcard side needs no compare."""
     t = eng.table
-    return int((t.low > 0).sum()) + int((t.high < t.n_bins).sum())
+    if id(t) not in _BINDING_BOUNDS:
+        _BINDING_BOUNDS[id(t)] = int((t.low > 0).sum()) + int((t.high < t.n_bins).sum())
+    return _BINDING_BOUNDS[id(t)]
 
 
 def listed_cells(cells: ops.CellList) -> int:
@@ -2052,6 +2074,128 @@ def phase_wide_model(name, stats) -> None:
                                   "cam_match.cu" if tau == 0.0 else "cam_match_soft.cu",
                                   launches, float(err.max()), ms, plain_ms, bnd, by))
     stats["wide_lines"] = lines
+
+
+# xtime-tabular's trees and depth at the width of Bosch Production Line
+# Performance (gbm-bench: 968 numeric features), R = 1,048,576, F_pad 1,024:
+# its span passes one block's value (223) and rank (893) table windows
+BOSCH_FEATURES = 968
+BOSCH_BATCHES = (1, 256, 1024)
+BOSCH_TIMED = [("uint8/inclusive", {}), ("uint16/inclusive", {"table_dtype": "uint16"}),
+               ("int32/direct", {"table_dtype": "int32"}),
+               ("soft tau=0", {"mode": "soft", "tau": 0.0})]
+
+
+def plain_margins(eng: XTimeEngine, qp: torch.Tensor, b: int) -> tuple[np.ndarray, float]:
+    """The engine's margins by the plain version on the card (its epilogue
+    as the engine applies it) and the milliseconds that took."""
+    a = eng.arrays
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = ref.cam_match_ref(qp, a.low, a.high, a.leaf, mode=eng.kernel_mode, tau=eng.tau)
+    end.record()
+    torch.cuda.synchronize()
+    if eng._bias is not None:
+        out = out + eng._bias
+    return eng._epilogue(out)[:b].cpu().numpy(), start.elapsed_time(end)
+
+
+def phase_bosch_width(name, stats) -> None:
+    """The 968-feature model at full size through ``cm.raw_margin`` /
+    ``cm.predict`` at B = 1, 256 and 1,024 in uint8/inclusive,
+    uint16/inclusive, int32/direct and soft tau = 0, each engine bound,
+    driven with the counts set to 0 just before and read just after, held
+    to the host traversal (64 rows a batch) and to the plain version on
+    the card (every row; at B = 1,024 the first variant's, which every
+    variant equals bit for bit), timed with the L2 flushed beside its bound and
+    beside the lane-per-query walk on the same list (``walk=True``, equal
+    bit for bit: margins at every batch, match bits or scores at 256), and
+    let go before the next is bound.  Every variant runs a cluster."""
+    xt = get_config("xtime-tabular")
+    depth = xt.max_leaves.bit_length() - 1
+    t0 = time.perf_counter()
+    ens = random_deep_ensemble(n_trees=xt.n_trees, depth=depth, n_features=BOSCH_FEATURES,
+                               n_bins=xt.n_bins, task=xt.task, n_classes=xt.n_classes,
+                               seed=SEED + 60)
+    t1 = time.perf_counter()
+    cm = repro_torch.build(ens)
+    t2 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 61)
+    batches = {b: rng.integers(0, xt.n_bins, size=(b, BOSCH_FEATURES)).astype(np.uint8)
+               for b in BOSCH_BATCHES}
+    want = {b: (ens.raw_margin(x[:64]), ens.predict(x[:64])) for b, x in batches.items()}
+    print(f"968 features: {xt.n_trees} trees x depth {depth}, {BOSCH_FEATURES} features, "
+          f"{xt.n_classes} classes -> {cm.table.n_rows} CAM rows; ensemble {t1 - t0:.1f} s, "
+          f"build {t2 - t1:.1f} s (host)", flush=True)
+    sfu, _ = sfu_per_s()
+    matched, plains, lines = {}, {}, []
+    for label, overrides in BOSCH_TIMED:
+        t0 = time.perf_counter()
+        eng = cm.engine(**overrides)
+        torch.cuda.synchronize()
+        bind_s = time.perf_counter() - t0
+        reset_launches()
+        margins = {b: cm.raw_margin(x, **overrides) for b, x in batches.items()}
+        preds = {b: cm.predict(x, **overrides) for b, x in batches.items()}
+        torch.cuda.synchronize()
+        launches = counted(f"968 {label}")
+        a = eng.arrays
+        kernel, members = K.kernel_route(a.cells)
+        print(f"times [{name}] 968 {label}: bound in {bind_s:.1f} s (host; R={a.r_pad}, "
+              f"F_pad={a.f_pad}, K={a.cells.k}, span {a.cells.span}, "
+              f"{float(a.cells.count[: cm.table.n_rows].double().mean()):.3f} cells a row), "
+              f"{launches} launches in {2 * len(batches)} calls, {route_of(a.cells)} route on "
+              f"{blocks_a_tile(a.cells)}", flush=True)
+        if kernel != "bit-parallel" or members < 2:
+            fail(f"968 {label}: the list does not run on a cluster ({kernel}, {members})")
+        for b, x in batches.items():
+            if not (np.array_equal(margins[b][:64], want[b][0])
+                    and np.array_equal(preds[b][:64], want[b][1])):
+                fail(f"968 {label} batch {b}: differs from Ensemble.raw_margin/predict")
+            if not np.isfinite(margins[b]).all() or margins[b].shape != (b, xt.n_classes):
+                fail(f"968 {label} batch {b}: margins not finite of shape ({b}, {xt.n_classes})")
+            qp = eng._prep_queries(x)
+            if b not in plains or b < 1024:  # B = 1,024 once: ~8-12 s a variant
+                plains[b] = (*plain_margins(eng, qp, b), label)
+            plain, plain_ms, whose = plains[b]
+            if not np.array_equal(margins[b], plain):
+                fail(f"968 {label} batch {b}: margins differ from the plain version on the card")
+            if eng.kernel_mode == "soft":
+                def call(walk=False):
+                    return K.cam_match_soft_cuda(qp, a.cells, a.leaf, eng._bias, tau=0.0,
+                                                 walk=walk)
+
+                def lines_of(walk=False):
+                    return K.soft_scores_cuda(qp, a.cells, tau=0.0, walk=walk)
+                bnd, by, _, _ = soft_bound_ms(eng, b, 0.0, a.leaf, sfu, matched[b][1])
+            else:
+                def call(walk=False):
+                    return K.cam_match_cuda(qp, a.cells, a.leaf, eng._bias,
+                                            mode=eng.kernel_mode, walk=walk)
+
+                def lines_of(walk=False):
+                    return K.cam_match_bits_cuda(qp, a.cells, mode=eng.kernel_mode, walk=walk)
+                matched.setdefault(b, match_stats(eng, qp))  # every variant matches alike
+                bnd, by, _, _ = bound_ms(eng, b, *matched[b])
+            if not torch.equal(call(), call(walk=True)):
+                fail(f"968 {label} batch {b}: the cluster's margins differ from the walk's")
+            if b == 256 and not torch.equal(lines_of(), lines_of(walk=True)):
+                fail(f"968 {label} batch {b}: the cluster's match lines differ from the walk's")
+            ms = cold_time(call, 20 if b == 1 else 10)
+            walk_ms = cold_time(lambda: call(walk=True), 20 if b == 1 else 10)
+            print(f"times [{name}] 968 cam_match {label} B={b}: == Ensemble.raw_margin (64 "
+                  f"rows), == plain version (all rows), == the walk bit for bit; cluster "
+                  f"{ms:.4f} ms L2 flushed, the walk {walk_ms:.4f} ms ({walk_ms / ms:.2f}x), "
+                  f"plain {plain_ms:.3f} ms{'' if whose == label else f' ({whose})'}, bound "
+                  f"{bnd:.4f} ms by {by} ({bnd / ms:.1%} of bound)", flush=True)
+            if b == 256:
+                lines.append(kernel_entry(f"cam_match[{label}, F_pad={a.f_pad}, R={a.r_pad}]",
+                                          "cam_match.cu", launches, 0.0, ms, plain_ms, bnd, by))
+        del eng, a, call, lines_of
+        cm._engines.clear()  # let the engine's tables go before the next binds
+        gc.collect()
+        torch.cuda.empty_cache()
+    stats["bosch_lines"] = lines
 
 
 # -- phase 8: the operator's tools ----------------------------------------------
@@ -3865,12 +4009,12 @@ def lm_shardmap_moe(name, stats) -> None:
 
 MESH_SERVE_SHAPE = (2, 4)  # phase 13's serve mesh: 2 data groups x 4 model shards
 MESH_SERVE_PROFILED = 1  # decode steps profiled for the busy share and kernels a step
-MESH_SERVE_LLAMA_NEW = 8  # llama3.2-3b's greedy tokens on the mesh (phase 10: 32)
+MESH_SERVE_LLAMA_NEW = 4  # llama3.2-3b's greedy tokens on the mesh (phase 10: 32)
 MESH_SERVE_GEMMA_NEW = 3  # gemma3-1b's (phase 10: 32): a cache of 1,028, which 4 divides
 MESH_SERVE_CHECK_NEW = 4  # the float32 serve checks' greedy tokens after the prompt
-MESH_SERVE_RECURRENT_NEW = 8  # zamba2-2.7b's and rwkv6-1.6b's greedy tokens on the mesh
-MESH_SERVE_WHISPER_NEW = 8  # whisper-tiny's, after its 64-token prompt over 1,500 frames
-MESH_FORCED_NEW = 8  # llama3.2-3b's teacher-forced steps at full depth, float32 and bfloat16
+MESH_SERVE_RECURRENT_NEW = 4  # zamba2-2.7b's and rwkv6-1.6b's greedy tokens on the mesh
+MESH_SERVE_WHISPER_NEW = 4  # whisper-tiny's, after its 64-token prompt over 1,500 frames
+MESH_FORCED_NEW = 4  # llama3.2-3b's teacher-forced steps at full depth, float32 and bfloat16
 MESH_FORCED_RECURRENT = 2  # zamba2-2.7b's and rwkv6-1.6b's, float32
 MESH_FORCED_WHISPER = 4  # whisper-tiny's, float32
 
@@ -4416,6 +4560,7 @@ def main() -> int:
                          ("degenerate tables", lambda: phase_degenerate(name)),
                          ("trained", lambda: phase_trained(name)),
                          ("wide model", lambda: phase_wide_model(name, stats)),
+                         ("968 features", lambda: phase_bosch_width(name, stats)),
                          ("operator's tools", lambda: phase_tools(cm, soft, batches, name,
                                                                   stats)),
                          ("mesh and checkpoint", lambda: phase_mesh_all(ens, cm, soft, batches,
@@ -4456,7 +4601,7 @@ def main() -> int:
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     lines = [stats["kernel_line"], stats["soft_kernel_line"], *stats["variant_lines"],
-             *stats["soft_variant_lines"], *stats["wide_lines"]]
+             *stats["soft_variant_lines"], *stats["wide_lines"], *stats["bosch_lines"]]
     print(json.dumps({"kernels": lines}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,12 +15,16 @@ module on machines with no ``nvcc`` and no card.
 The kernels read the table as its per-row cell list (``ops.CellList``,
 built by ``ops.binding_cells`` at bind time): each row's non-wildcard
 cells, in ascending feature order, and nothing of the dense tables.  The
-bit-parallel kernels (every hard mode and tau = 0 on lists of span up to
-``RANK_FEATURES``) build per-tile tables of the queries and take one of
-two routes a tile: the value route, where the tile's queries are bins in
-[0, 255] and the list has its packed words (``CellList.words``, span up to
-``BITMAP_FEATURES``), or the rank route (a binary search over the tile's
-sorted query values); wider lists run the lane-per-query kernel.  The
+bit-parallel kernels (every hard mode and tau = 0) build per-tile tables
+of the queries and take one of two routes a tile: the value route, where
+the tile's queries are bins in [0, 255] and the list has its packed words
+(``CellList.words``), or the rank route (a binary search over the tile's
+sorted query values).  One block holds a tile's tables for spans up to
+``BITMAP_FEATURES`` (value) or ``RANK_FEATURES`` (rank tables); a wider
+list runs on a thread-block cluster of up to ``MAX_MEMBERS`` blocks a
+tile, each holding one window of features and reading the others'
+through distributed shared memory; past that, on the lane-per-query
+kernel (``kernel_route`` says which, by span alone).  The
 wrappers take CUDA tensors only; they check device, dtype, shape and
 contiguity (the list checked its own counts when it was made), allocate
 the outputs and the split workspace with ``torch.empty``, launch on the
@@ -46,7 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.precision import soft_inv
-from repro_torch.kernels.ops import BITMAP_FEATURES, CellList  # noqa: F401 (the window's name here)
+from repro_torch.kernels.ops import BITMAP_FEATURES, MAX_MEMBERS, CellList, packing
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "cam_match.cu", CSRC / "cam_match_soft.cu")
@@ -60,10 +64,8 @@ NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the split count — and so the float summation order — depends on R alone
 ROWS_PER_SPLIT = 1024
 QUERIES_PER_TILE = 32
-# a list whose span is at most RANK_FEATURES runs the bit-parallel kernels
-# (the rank tables' shared-memory window, `kRankWindow` in cam_match.cu; a
-# uint8 list up to BITMAP_FEATURES, the value tables' `kMaxWindow`); a wider
-# one the lane-per-query kernel
+# the features of rank tables one block holds (`kRankWindow` in
+# cam_match.cu; of value tables BITMAP_FEATURES, `kMaxWindow`)
 RANK_FEATURES = 893
 
 _DTYPE_CODE = {torch.uint8: 0, torch.uint16: 1, torch.int32: 2}
@@ -162,8 +164,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i, i, i, i, i,  # B, R, F, C, rows_per_split
         p, p,  # ws, out
     ]
-    # dtype, mode, q, count, feat, lo, hi, words, span, K, ..., bits, scores, live, stream
-    lib.xtime_cam_match.argtypes = [i, i, p, *cells[:4], p, i, i, *rest, p, p, p, p]
+    # dtype, mode, q, count, feat, lo, hi, words, span, K, ..., bits, scores, live, walk,
+    # stream
+    lib.xtime_cam_match.argtypes = [i, i, p, *cells[:4], p, i, i, *rest, p, p, p, i, p]
     lib.xtime_cam_match.restype = i
     # inv, lattice, span, q, ..., scores, stream
     lib.xtime_cam_match_soft.argtypes = [ctypes.c_float, i, i, p, *cells, *rest, p, p]
@@ -232,24 +235,26 @@ def _check_leaf_bias(q, cells, leaf, bias) -> None:
 
 
 def _launch(entry: str, head: tuple, q, cells: CellList, leaf, bias, *, ws, out,
-            extra: tuple) -> None:
+            extra: tuple, walk: bool = False) -> None:
     """Call the C entry ``entry`` (its own leading arguments ``head``, then
     the operands every entry takes, with ``extra`` its other outputs: the
-    hard entry's bits, scores and live-query scratch, the soft entry's
-    scores) on ``q``'s device and current stream; raise on a non-zero
-    cudaError_t."""
+    hard entry's bits, scores and live-query scratch, then ``walk``, the
+    soft entry's scores) on ``q``'s device and current stream; raise on a
+    non-zero cudaError_t."""
     lib = _library()
     B, F = q.shape
     R, K = cells.feat.shape
     C = 0 if leaf is None else leaf.shape[1]
     listed = [_ptr(cells.count), _ptr(cells.feat), _ptr(cells.lo), _ptr(cells.hi)]
+    tail = [*map(_ptr, extra)]
     if entry == "xtime_cam_match":
         listed += [_ptr(cells.words), cells.span]
+        tail.append(int(walk))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, entry)(
             *head, _ptr(q), *listed, K, _ptr(leaf), _ptr(bias), B, R, F, C,
-            ROWS_PER_SPLIT, _ptr(ws), _ptr(out), *map(_ptr, extra), stream,
+            ROWS_PER_SPLIT, _ptr(ws), _ptr(out), *tail, stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -267,16 +272,19 @@ def _hard(q, mode) -> tuple:
     return _DTYPE_CODE[q.dtype], _MODE_CODE[mode]
 
 
-def _launch_soft(tau, q, cells: CellList, leaf, bias, *, ws, out, scores) -> None:
+def _launch_soft(tau, q, cells: CellList, leaf, bias, *, ws, out, scores, walk) -> None:
     """tau = 0 on the hard entry (the indicator on the float32 list: the
-    bit-parallel kernel); tau > 0 on the soft entry, with inv =
-    float32(1 / tau) as the plain version computes it, whether the list's
-    bounds lie on the kernel's lattice, and its span."""
+    bit-parallel kernel, or with ``walk`` the lane-per-query one); tau > 0
+    on the soft entry, with inv = float32(1 / tau) as the plain version
+    computes it, whether the list's bounds lie on the kernel's lattice, and
+    its span."""
+    if walk and tau != 0.0:
+        raise ValueError("walk=True runs the hard entry's lane-per-query kernel: tau = 0 only")
     if tau == 0.0:  # with a word a tile of scratch: its queries whose features are finite
         live = torch.empty(-(-q.shape[0] // QUERIES_PER_TILE), dtype=torch.int32,
                            device=q.device)
         _launch("xtime_cam_match", _TAU_ZERO, q, cells, leaf, bias, ws=ws, out=out,
-                extra=(None, scores, live))
+                extra=(None, scores, live), walk=walk)
     else:
         _launch("xtime_cam_match_soft", (soft_inv(tau), int(cells.lattice), cells.span), q,
                 cells, leaf, bias, ws=ws, out=out, extra=(scores,))
@@ -286,6 +294,19 @@ def n_splits(n_rows: int) -> int:
     return -(-n_rows // ROWS_PER_SPLIT)
 
 
+def kernel_route(cells: CellList) -> tuple[str, int]:
+    """What a hard or tau = 0 launch on ``cells`` runs, by its span alone
+    (cam_match.cu ``launch_u8``/``launch_bp``): ("bit-parallel", n), n
+    blocks a 32-query tile of BITMAP_FEATURES value tables a block (uint8
+    lists, and the others' with words) or RANK_FEATURES rank tables (the
+    others without), one block alone or a cluster of n up to MAX_MEMBERS;
+    else ("lanes", 0), the lane-per-query kernel."""
+    span = max(1, cells.span)
+    value = cells.words is not None and packing(cells) is not None
+    n = -(-span // (BITMAP_FEATURES if value else RANK_FEATURES))
+    return ("bit-parallel", n) if n <= MAX_MEMBERS else ("lanes", 0)
+
+
 def cam_match_cuda(
     q: torch.Tensor,  # (B, F_pad) table dtype
     cells: CellList,  # the table's cell list on q's device, (R_pad, K)
@@ -293,8 +314,11 @@ def cam_match_cuda(
     bias: torch.Tensor | None = None,  # (1, C_pad) float32, added once
     *,
     mode: str = "direct",
+    walk: bool = False,
 ) -> torch.Tensor:
-    """(B, C_pad) float32 leaf sums on the card."""
+    """(B, C_pad) float32 leaf sums on the card; ``walk`` runs the
+    lane-per-query kernel whatever the span (timing and tests: the
+    routes equal it bit for bit)."""
     _check_hard(q, cells, mode)
     _check_leaf_bias(q, cells, leaf, bias)
     R, C = leaf.shape
@@ -304,7 +328,7 @@ def cam_match_cuda(
         return out
     ws = torch.empty((n_splits(R), B, C), dtype=torch.float32, device=q.device)
     _launch("xtime_cam_match", _hard(q, mode), q, cells, leaf, bias, ws=ws, out=out,
-            extra=(None, None, None))
+            extra=(None, None, None), walk=walk)
     _counted(cam_match_cuda)
     return out
 
@@ -312,7 +336,8 @@ def cam_match_cuda(
 cam_match_cuda.launches = 0
 
 
-def cam_match_bits_cuda(q: torch.Tensor, cells: CellList, *, mode: str = "direct") -> torch.Tensor:
+def cam_match_bits_cuda(q: torch.Tensor, cells: CellList, *, mode: str = "direct",
+                        walk: bool = False) -> torch.Tensor:
     """(B, R) boolean match lines from the same kernel (no leaf product)."""
     _check_hard(q, cells, mode)
     B, R = q.shape[0], cells.count.shape[0]
@@ -321,7 +346,7 @@ def cam_match_bits_cuda(q: torch.Tensor, cells: CellList, *, mode: str = "direct
     n_words = -(-B // QUERIES_PER_TILE)
     words = torch.empty((n_words, R), dtype=torch.int32, device=q.device)
     _launch("xtime_cam_match", _hard(q, mode), q, cells, None, None, ws=None, out=None,
-            extra=(words, None, None))
+            extra=(words, None, None), walk=walk)
     _counted(cam_match_bits_cuda)
     shifts = torch.arange(QUERIES_PER_TILE, device=q.device, dtype=torch.int32)
     unpacked = (words[:, None, :] >> shifts[None, :, None]) & 1  # (words, 32, R)
@@ -338,9 +363,11 @@ def cam_match_soft_cuda(
     bias: torch.Tensor | None = None,  # (1, C_pad) float32, added once
     *,
     tau: float,
+    walk: bool = False,
 ) -> torch.Tensor:
     """(B, C_pad) float32 soft leaf sums ``SUM_r score[b, r] * leaf[r, :]``
-    on the card; ``tau`` in bin units, 0 the exact indicator."""
+    on the card; ``tau`` in bin units, 0 the exact indicator (``walk``: on
+    the lane-per-query kernel)."""
     _check_soft(q, cells, tau)
     _check_leaf_bias(q, cells, leaf, bias)
     R, C = leaf.shape
@@ -349,7 +376,7 @@ def cam_match_soft_cuda(
     if B == 0:
         return out
     ws = torch.empty((n_splits(R), B, C), dtype=torch.float32, device=q.device)
-    _launch_soft(tau, q, cells, leaf, bias, ws=ws, out=out, scores=None)
+    _launch_soft(tau, q, cells, leaf, bias, ws=ws, out=out, scores=None, walk=walk)
     _counted(cam_match_soft_cuda)
     return out
 
@@ -357,14 +384,15 @@ def cam_match_soft_cuda(
 cam_match_soft_cuda.launches = 0
 
 
-def soft_scores_cuda(q: torch.Tensor, cells: CellList, *, tau: float) -> torch.Tensor:
+def soft_scores_cuda(q: torch.Tensor, cells: CellList, *, tau: float,
+                     walk: bool = False) -> torch.Tensor:
     """(B, R) float32 row scores from the soft kernel (no leaf product)."""
     _check_soft(q, cells, tau)
     B, R = q.shape[0], cells.count.shape[0]
     scores = torch.empty((B, R), dtype=torch.float32, device=q.device)
     if B == 0:
         return scores
-    _launch_soft(tau, q, cells, None, None, ws=None, out=None, scores=scores)
+    _launch_soft(tau, q, cells, None, None, ws=None, out=None, scores=scores, walk=walk)
     _counted(soft_scores_cuda)
     return scores
 

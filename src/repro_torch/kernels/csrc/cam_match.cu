@@ -24,8 +24,9 @@
 // against the int32 `direct` mode.
 //
 // Bit-parallel match words (`cam_match_u8_kernel`, `cam_match_bp_kernel`).
-// A block owns one 32-query tile and builds, once, in shared memory, a
-// table per feature the list names (`CellList.span` of them) from which
+// A block (or a cluster of blocks, below) owns one 32-query tile and
+// builds, once, in shared memory, a table per feature the list names
+// (`CellList.span` of them) from which
 // one thread forms a row's 32-query word: the AND over the row's listed
 // cells (f, lo, hi) of GE[f][.] & ~GE[f][.], GE[f][x] being the tile's
 // queries at or above x.  Each warp owns whole 1024-row splits (strided
@@ -65,17 +66,31 @@
 // false against it; a pre-pass (`live_tiles_kernel`) finds such queries
 // once a tile, and they are dropped from the tile's words.
 //
-// Past the tables' window (`kMaxWindow` = 223 features of value tables,
-// `kRankWindow` = 893 of rank tables, in 227 KB) the lane-per-query kernel
+// Past one block's window (`kMaxWindow` = 223 features of value tables,
+// `kRankWindow` = 893 of rank tables, in 227 KB) a thread-block cluster
+// serves a tile (the kernels' kCluster instances): n = ceil(span / window)
+// blocks along the grid's y, at most `kMaxMembers` = 8 (the portable
+// cluster size: 1,784 features of value tables, 7,144 of rank tables).
+// Member r builds the tables of features [r * window, (r + 1) * window),
+// the cluster syncs, every member's warps walk their own splits as one
+// block's do and read a cell's two lookups from the member holding its
+// feature through distributed shared memory (`map_shared_rank`; their own
+// window's from their own tables), and the cluster syncs again before any
+// member exits.  Only where a table word lives changes: the words, the
+// transpose and the leaf sums are one block's, so the results are
+// bit-identical.  uint8 words carry the feature (member f / 223); the other
+// lists carry window words, the offsets within the member and the member
+// (`ops.window_words`).  Past eight windows the lane-per-query kernel
 // (`cam_match_kernel`) runs: one block per (32-query tile, split) stages
 // its queries [feature][query] and walks 128-row chunks, a warp a row and
 // a lane a query, `__ballot_sync` giving the row's word (a tile of at most
 // 8 queries gives each thread a (row, query) pair instead), then stages
 // the chunk's matched leaf rows and adds each query's in ascending order.
-// It takes uint8 lists of span over 223 and the other lists of span over
-// 893 (F_pad 8,064 models); a table wider than its staged query window
-// runs its kWide instance, which reads the queries of cells past the
-// window from device memory.
+// It takes uint8 lists of span over 1,784 and the others of span over
+// 7,144 or without words past 1,784 (F_pad 8,064 models), and any list
+// with `walk` set; a table wider than its staged query window runs its
+// kWide instance, which reads the queries of cells past the window from
+// device memory.
 //
 // Bound on an H100 SXM at xtime-tabular's full width (R = 1M rows, F_pad =
 // 256): the bytes of the cell list (the packed words the value route
@@ -101,12 +116,19 @@
 // Two of the design's choices came from the card on the way: a branch per listed cell serialised the
 // shared-memory lookups, and one warp's split of eight chunks at B = 1
 // waits on memory unless the next chunk's cells are loaded before this
-// chunk's leaf rows are added.  The tables do not pay past their window: a
-// uint8 table of F_pad 8,064 whose features from 223 on were compared
-// against the queries in device memory (a loop over the tile's queries a
-// cell) took 0.5560 ms at R = 16,384, B = 256 on the same card, against
-// the lane-per-query kernel's 0.2211, so such a list runs that kernel.
+// chunk's leaf rows are added.  Past one block's window, comparing the
+// features from 223 on against the queries in device memory (a loop over
+// the tile's queries a cell) took 0.5560 ms at F_pad 8,064, R = 16,384, B
+// = 256 on the same card, against the lane-per-query kernel's 0.2211; the
+// cluster holds every feature's tables in its members' shared memory
+// instead.  Its remote lookups are what it waits on
+// (src/repro_torch/tools/cluster_probe.py): on the 968-feature model at R
+// = 1M, B = 256 (uint8) it took 0.8900 ms, the same code with every lookup
+// sent to its own rank 0.3708 and to its own shared memory 0.2939, the
+// builds alone 0.0508; reading a block's own window's lookups from its own
+// tables gained nothing (0.9025) (PERF.md).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -116,6 +138,8 @@
 #include "cam_match_common.cuh"  // the block shape, the cell list and its walk
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 // Compares run on 32-bit values: zero-extended for the unsigned tables
 // (so uint8 never sign-extends), signed for int32, float32 as it is.
@@ -375,6 +399,60 @@ constexpr int kMaxWindow = kMaxSmem / (kGeStride * 4);  // 223 features
 constexpr int kRankStride = 32 + 33;
 constexpr int kRankWindow = (kMaxSmem - kHead * 4) / (kRankStride * 4);  // 893 features
 static_assert(kMaxWindow * kGeStride * 4 + kHead * 4 <= kMaxSmem, "the head fits beside");
+// A list wider than one block's window runs on a cluster of blocks a tile,
+// at most the portable cluster size: member r holds the tables of features
+// [r * W, (r + 1) * W), W the route's window, and every member's warps read
+// a cell's lookups from the member of its feature (distributed shared
+// memory).  Window words (`ops.window_words`, uint16/int32/float32 lists):
+// the lower lookup's offset in the member's tables | (H - L + 256) << 16 |
+// member << 26.
+constexpr int kMaxMembers = 8;
+constexpr int kDeltaBias = 256;
+static_assert(kMaxMembers <= 8 && (kMaxWindow - 1) * kGeStride + 257 < (1 << 16),
+              "a window word holds the member in 3 bits and the offset in 16");
+
+// Where a block's tables come from: one block a tile holds features [0,
+// span); member `rank` of a cluster its window [f0, f0 + n) of W features.
+struct Window {
+  int f0, n;
+  uint32_t rank;
+};
+
+template <bool kCluster>
+__device__ __forceinline__ Window window_of(int span, int W) {
+  if constexpr (kCluster) {
+    const int r = int(cg::this_cluster().block_rank());
+    return Window{r * W, max(0, min(W, span - r * W)), uint32_t(r)};
+  } else {
+    return Window{0, span, 0u};
+  }
+}
+
+// Every thread of every member: the tables are built (before the walk),
+// or no member reads them any more (before a block exits).
+template <bool kCluster>
+__device__ __forceinline__ void cluster_sync() {
+  if constexpr (kCluster) cg::this_cluster().sync();
+}
+
+// Member m's copy of `local`, an address in this block's tables, through
+// distributed shared memory.
+__device__ __forceinline__ const uint32_t* member_tables(const uint32_t* local, int m) {
+  return cg::this_cluster().map_shared_rank(const_cast<uint32_t*>(local), m);
+}
+
+// Feature f's tables (`stride` words a feature, W features a window): in
+// this block's shared memory, or in member f / W's.
+template <bool kCluster>
+__device__ __forceinline__ const uint32_t* feature_tables(const uint32_t* tab, int f, int W,
+                                                          int stride) {
+  if constexpr (kCluster) {
+    const int m = f / W;
+    return member_tables(tab + (f - m * W) * stride, m);
+  } else {
+    return tab + f * stride;
+  }
+}
 
 template <typename T>
 struct BPArgs {
@@ -542,14 +620,13 @@ __device__ __forceinline__ void build_ranks(uint32_t* tab, const T* __restrict__
 // pass it) and of values whose upper half holds (~GE of that rank), each
 // by six steps over the 32 sorted values.  A half that holds for the pad
 // value holds for every value, so counting the pads changes nothing: GE
-// past the distinct count is 0.
+// past the distinct count is 0.  `tf`: the feature's kRankStride words.
 template <typename T, typename Cell>
-__device__ __forceinline__ uint32_t rank_word(const uint32_t* tab, int f,
-                                              typename Wide<T>::type lo,
+__device__ __forceinline__ uint32_t rank_word(const uint32_t* tf, typename Wide<T>::type lo,
                                               typename Wide<T>::type hi) {
   using V = typename Wide<T>::type;
-  const V* v = reinterpret_cast<const V*>(tab + f * kRankStride);
-  const uint32_t* ge = tab + f * kRankStride + 32;
+  const V* v = reinterpret_cast<const V*>(tf);
+  const uint32_t* ge = tf + 32;
   int jl = 0, ju = 0;
 #pragma unroll
   for (int s = 16; s >= 1; s >>= 1) {
@@ -561,23 +638,39 @@ __device__ __forceinline__ uint32_t rank_word(const uint32_t* tab, int f,
   return ge[jl] & ~ge[ju];
 }
 
-// Value-route cell decoders: the 32-query word of one packed cell.
+// Value-route cell decoders: the 32-query word of one packed cell, and
+// `idle(rank)`, a word whose lookups stay in member `rank`'s own tables
+// (read, and dropped, for the slots past a row's count).
 // uint8 lists: feat | lo << 16 | hi << 24.
-template <bool kInclusive>
+template <bool kInclusive, bool kCluster>
 struct U8Cell {
+  __device__ __forceinline__ static uint32_t idle(uint32_t rank) {
+    return kCluster ? rank * kMaxWindow : 0u;
+  }
   __device__ __forceinline__ static uint32_t word(const uint32_t* ge, uint32_t cw) {
     const int f = int(cw & 0xFFFFu), lo = int((cw >> 16) & 0xFFu), hi = int(cw >> 24);
-    const uint32_t* g = ge + f * kGeStride;
+    const uint32_t* g = feature_tables<kCluster>(ge, f, kMaxWindow, kGeStride);
     return g[lo] & ~g[kInclusive ? hi + 1 : hi];
   }
 };
 
-// uint16, int32 and float32 lists: the two lookups' offsets, lo | hi << 16,
-// the upper one an inclusive half's (an exclusive one reads one below).
-template <bool kInclusive>
+// uint16, int32 and float32 lists, the upper lookup an inclusive half's
+// (an exclusive one reads one below): one block's value words, lo | hi <<
+// 16; a cluster's window words, lo | (hi - lo + kDeltaBias) << 16 | member
+// << 26, both offsets in the member's tables.
+template <bool kInclusive, bool kCluster>
 struct OffsetCell {
+  __device__ __forceinline__ static uint32_t idle(uint32_t rank) {
+    return kCluster ? rank << 26 | uint32_t(kDeltaBias) << 16 : 0u;
+  }
   __device__ __forceinline__ static uint32_t word(const uint32_t* ge, uint32_t cw) {
-    return ge[cw & 0xFFFFu] & ~ge[int(cw >> 16) - (kInclusive ? 0 : 1)];
+    const int lo = int(cw & 0xFFFFu);
+    if constexpr (kCluster) {
+      const uint32_t* g = member_tables(ge, int(cw >> 26));
+      return g[lo] & ~g[lo + int((cw >> 16) & 0x3FFu) - kDeltaBias - (kInclusive ? 0 : 1)];
+    } else {
+      return ge[lo] & ~ge[int(cw >> 16) - (kInclusive ? 0 : 1)];
+    }
   }
 };
 
@@ -619,6 +712,7 @@ template <typename T, typename Decode>
 struct ValueRows {
   const BPArgs<T>& a;
   const uint32_t* ge;
+  uint32_t rank;  // this block's in its cluster (0 alone)
   ChunkCells cells;
 
   __device__ __forceinline__ void load(int r0, int nr, int lane) {
@@ -633,9 +727,10 @@ struct ValueRows {
     for (int k = 0; k < kSlots; ++k) {  // no branch: the lookups overlap
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const uint32_t cw = k < cells.n[j] ? cells.cw[j][k] : 0u;  // a slot past the count:
-        const uint32_t m = Decode::word(ge, cw);  // a lookup of feature 0's,
-        w[j] &= k < cells.n[j] ? m : kFull;  // read and dropped
+        // a slot past the count: lookups in this block's own tables, read and dropped
+        const uint32_t cw = k < cells.n[j] ? cells.cw[j][k] : Decode::idle(rank);
+        const uint32_t m = Decode::word(ge, cw);
+        w[j] &= k < cells.n[j] ? m : kFull;
       }
     }
     const int most = max(max(cells.n[0], cells.n[1]), max(cells.n[2], cells.n[3]));
@@ -651,11 +746,13 @@ struct ValueRows {
 };
 
 // The rank route's rows: each slot's feature and bounds, the four rows'
-// searches side by side (a slot past a row's count is searched and dropped).
-template <typename T, typename Cell>
+// searches side by side (a slot past a row's count is searched in this
+// block's own tables and dropped).
+template <typename T, typename Cell, bool kCluster>
 struct RankRows {
   const BPArgs<T>& a;
   const uint32_t* tab;
+  uint32_t rank;  // this block's in its cluster (0 alone)
 
   __device__ __forceinline__ void load(int, int, int) {}
   __device__ __forceinline__ void words(int r0, int nr, int lane, uint32_t live,
@@ -674,9 +771,10 @@ struct RankRows {
       for (int j = 0; j < 4; ++j) {
         const bool use = k < n[j];
         const size_t i = ((size_t)r0 + 32 * j + lane) * a.K + k;
-        const int f = use ? int(__ldg(a.feat + i)) : 0;
+        const int f = use ? int(__ldg(a.feat + i)) : int(rank) * kRankWindow;
         const V lo = use ? V(__ldg(a.lo + i)) : V(0), hi = use ? V(__ldg(a.hi + i)) : V(0);
-        const uint32_t m = rank_word<T, Cell>(tab, f, lo, hi);
+        const uint32_t m = rank_word<T, Cell>(
+            feature_tables<kCluster>(tab, f, kRankWindow, kRankStride), lo, hi);
         w[j] &= use ? m : kFull;
       }
     }
@@ -807,59 +905,109 @@ __device__ __forceinline__ void walk_splits(const BPArgs<T>& a, int tile, int q0
 }
 
 // grid = (ceil(B / 32), blocks a tile); block = kBPThreads; dynamic shared
-// memory kHead + span * kGeStride words.  uint8 lists of span <= 223.
-template <bool kInclusive>
+// memory kHead + min(span, 223) * kGeStride words.  uint8 lists of span <=
+// 223 on one block a tile, and (kCluster) of span <= kMaxMembers * 223 on
+// clusters of ceil(span / 223) blocks along y, a cluster a tile.
+template <bool kInclusive, bool kCluster>
 __global__ void __launch_bounds__(kBPThreads, 1) cam_match_u8_kernel(const BPArgs<uint8_t> a) {
   extern __shared__ __align__(16) uint32_t tables[];
   uint32_t* ge = tables + kHead;
   const int tile = blockIdx.x, q0 = tile * kQueries;
   const int nq = min(kQueries, a.B - q0);
-  build_bitmaps(ge, a.q, a.F, a.span, q0, nq);
-  ValueRows<uint8_t, U8Cell<kInclusive>> rows{a, ge};
+  const Window w = window_of<kCluster>(a.span, kMaxWindow);
+  build_bitmaps(ge, a.q + w.f0, a.F, w.n, q0, nq);
+  cluster_sync<kCluster>();
+  ValueRows<uint8_t, U8Cell<kInclusive, kCluster>> rows{a, ge, w.rank};
   walk_splits(a, tile, q0, nq, valid_queries(nq), rows);
+  cluster_sync<kCluster>();
 }
 
 // grid = (ceil(B / 32), blocks a tile); block = kBPThreads; dynamic shared
-// memory kHead + span * (kGeStride where a.words, else kRankStride) words.
-// uint16, int32 (every mode) and float32 (tau = 0) lists of span <= 893;
-// `words` null where the list has none or its span passes kMaxWindow.
-template <typename T, typename Cell>
+// memory `table_words` + kHead words.  uint16, int32 (every mode) and
+// float32 (tau = 0) lists: on one block a tile where the span fits a
+// block's window (value tables where a.words, rank tables else), and
+// (kCluster) on clusters of ceil(span / window) blocks along y up to
+// kMaxMembers, a cluster a tile (a.words: window words).  A value cluster's
+// rank tiles hold kRankWindow features a member, so fewer members fill.
+template <typename T, typename Cell, bool kCluster>
 __global__ void __launch_bounds__(kBPThreads, 1) cam_match_bp_kernel(const BPArgs<T> a) {
   extern __shared__ __align__(16) uint32_t tables[];
   uint32_t* tab = tables + kHead;
   const int tile = blockIdx.x, q0 = tile * kQueries;
   const int nq = min(kQueries, a.B - q0);
   const uint32_t live = live_queries(a.live, tile, nq);
-  if (a.words != nullptr && on_bins(a.q, a.F, a.span, q0, nq)) {  // uniform in the block
-    build_bitmaps(tab, a.q, a.F, a.span, q0, nq);
-    ValueRows<T, OffsetCell<Cell::kInclusiveHi>> rows{a, tab};
+  // uniform in the block, and in the cluster: every member tests the same queries
+  if (a.words != nullptr && on_bins(a.q, a.F, a.span, q0, nq)) {
+    const Window w = window_of<kCluster>(a.span, kMaxWindow);
+    build_bitmaps(tab, a.q + w.f0, a.F, w.n, q0, nq);
+    cluster_sync<kCluster>();
+    ValueRows<T, OffsetCell<Cell::kInclusiveHi, kCluster>> rows{a, tab, w.rank};
     walk_splits(a, tile, q0, nq, live, rows);
   } else {
-    build_ranks(tab, a.q, a.F, a.span, q0, live);
-    RankRows<T, Cell> rows{a, tab};
+    const Window w = window_of<kCluster>(a.span, kRankWindow);
+    build_ranks(tab, a.q + w.f0, a.F, w.n, q0, live);
+    cluster_sync<kCluster>();
+    RankRows<T, Cell, kCluster> rows{a, tab, w.rank};
     walk_splits(a, tile, q0, nq, live, rows);
   }
+  cluster_sync<kCluster>();
 }
 
+// Table words a block of the bit-parallel kernels holds: the value tables
+// of its window and, for uint16/int32/float32 lists, the rank tables of
+// its rank window (its tiles off the bins), whichever is larger.
+inline int table_words(int span, bool value, bool ranks) {
+  const int v = value ? min(span, kMaxWindow) * kGeStride : 0;
+  return max(v, ranks ? min(span, kRankWindow) * kRankStride : 0);
+}
+
+// Blocks a tile of a list of this span: one a window of W features.
+inline int members(int span, int W) { return (span + W - 1) / W; }
+
 // grid = (ceil(B / 32), blocks a tile), one wave: as many blocks a tile as
-// fill the card, no more than give each warp a split.
+// fill the card, no more than give each warp a split.  n > 1: clusters of
+// n blocks along y (a cluster a tile), as many a tile as the card holds at
+// once; a cluster the card cannot hold is refused, and nothing runs.
 template <typename Kernel, typename Args>
-cudaError_t launch_words(Kernel kernel, const Args& a, size_t smem, cudaStream_t stream) {
+cudaError_t launch_words(Kernel kernel, const Args& a, int n, size_t smem,
+                         cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBPThreads, smem);
-  }
   if (err != cudaSuccess) return err;
   const int tiles = (a.B + kQueries - 1) / kQueries;
   const int splits = (a.R + a.rows_per_split - 1) / a.rows_per_split;
-  const int fill = max(1, sms * max(1, per_sm) / tiles);
-  const int per_tile = min(fill, (splits + kBPWarps - 1) / kBPWarps);
-  kernel<<<dim3(tiles, per_tile), kBPThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  const int most = (splits + kBPWarps - 1) / kBPWarps;  // blocks a tile with a split a warp
+  if (n == 1) {
+    int dev = 0, sms = 0, per_sm = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBPThreads, smem);
+    }
+    if (err != cudaSuccess) return err;
+    const int fill = max(1, sms * max(1, per_sm) / tiles);
+    kernel<<<dim3(tiles, min(fill, most)), kBPThreads, smem, stream>>>(a);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = n;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, n);
+  cfg.blockDim = dim3(kBPThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  int held = 0;  // clusters of n the card holds at once
+  err = cudaOccupancyMaxActiveClusters(&held, reinterpret_cast<const void*>(kernel), &cfg);
+  if (err != cudaSuccess) return err;
+  if (held < 1) return cudaErrorLaunchOutOfResources;
+  const int per_tile = min(max(1, held / tiles), (most + n - 1) / n);
+  cfg.gridDim = dim3(tiles, per_tile * n);
+  void* args[] = {const_cast<Args*>(&a)};
+  return cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
 }
 
 // What every launch takes: the C entry's operands.
@@ -877,6 +1025,7 @@ struct Launch {
   uint32_t* bits;
   float* scores;
   uint32_t* live;
+  bool walk;  // the lane-per-query kernel at any span (timing, tests)
   cudaStream_t stream;
 };
 
@@ -904,27 +1053,38 @@ cudaError_t launch_lanes(const Launch& l) {
   return cudaGetLastError();
 }
 
-// uint8 lists: the value route's kernel up to its window, else the lanes.
+// The routes, by span alone (kernels/cam_match.py `kernel_route` mirrors
+// them).  uint8 lists: the value tables on one block a tile where span <=
+// kMaxWindow, on a cluster of ceil(span / kMaxWindow) blocks up to
+// kMaxMembers, else the lanes.
 template <bool kInclusive>
 cudaError_t launch_u8(const Launch& l) {
-  if (l.span <= kMaxWindow) {
-    const BPArgs<uint8_t> a = bp_args<uint8_t>(l);
-    const size_t smem = (size_t)(kHead + a.span * kGeStride) * 4;
-    return launch_words(cam_match_u8_kernel<kInclusive>, a, smem, l.stream);
+  const BPArgs<uint8_t> a = bp_args<uint8_t>(l);
+  const int n = members(a.span, kMaxWindow);
+  if (l.walk || n > kMaxMembers) {
+    return launch_lanes<uint8_t, std::conditional_t<kInclusive, Inclusive, Direct>>(l);
   }
-  return launch_lanes<uint8_t, std::conditional_t<kInclusive, Inclusive, Direct>>(l);
+  const size_t smem = (size_t)(kHead + table_words(a.span, true, false)) * 4;
+  if (a.span <= kMaxWindow) {
+    return launch_words(cam_match_u8_kernel<kInclusive, false>, a, 1, smem, l.stream);
+  }
+  return launch_words(cam_match_u8_kernel<kInclusive, true>, a, n, smem, l.stream);
 }
 
-// uint16, int32 and float32 lists: the bit-parallel kernel up to the rank
-// tables' window (the value route where the list has words and its span
-// fits their window), else the lanes.
+// uint16, int32 and float32 lists: with words (value words to kMaxWindow,
+// window words to kMaxMembers windows) ceil(span / kMaxWindow) blocks a
+// tile; without (NaN bounds, or the span past the window words') ceil(span
+// / kRankWindow); one block a tile alone, a cluster up to kMaxMembers, else
+// the lanes.
 template <typename T, typename Cell>
 cudaError_t launch_bp(const Launch& l) {
-  if (l.span > kRankWindow) return launch_lanes<T, Cell>(l);
   BPArgs<T> a = bp_args<T>(l);
-  if (a.span > kMaxWindow) a.words = nullptr;
-  const size_t smem = (size_t)(kHead + a.span * (a.words ? kGeStride : kRankStride)) * 4;
-  return launch_words(cam_match_bp_kernel<T, Cell>, a, smem, l.stream);
+  if (a.span > kMaxMembers * kMaxWindow) a.words = nullptr;
+  const int n = members(a.span, a.words ? kMaxWindow : kRankWindow);
+  if (l.walk || n > kMaxMembers) return launch_lanes<T, Cell>(l);
+  const size_t smem = (size_t)(kHead + table_words(a.span, a.words != nullptr, true)) * 4;
+  if (n == 1) return launch_words(cam_match_bp_kernel<T, Cell, false>, a, 1, smem, l.stream);
+  return launch_words(cam_match_bp_kernel<T, Cell, true>, a, n, smem, l.stream);
 }
 
 }  // namespace
@@ -934,8 +1094,10 @@ cudaError_t launch_bp(const Launch& l) {
 // soft mode's tau = 0 indicator (float32 only).  count/feat/lo/hi are the
 // table's cell list (R rows, K slots; lo/hi in the table dtype); `words`
 // its packed cells (`CellList.words`: uint8 feat | lo << 16 | hi << 24,
-// required; the other dtypes' value-route offsets, or null) and `span` its
-// largest feature + 1.
+// required; the other dtypes' value or window words, or null) and `span`
+// its largest feature + 1, which alone chooses the kernel (`launch_u8`,
+// `launch_bp`); `walk` non-zero runs the lane-per-query kernel at any span
+// instead (to time it, and to hold the routes to it).
 //
 // With `out` set: the margins, through `ws` ([splits, B, C] float32,
 // splits = ceil(R / rows_per_split)); `bias` may be null.  With `bits`
@@ -950,7 +1112,7 @@ extern "C" int xtime_cam_match(int dtype, int mode, const void* q,
                                int span, int K, const float* leaf, const float* bias, int B,
                                int R, int F, int C, int rows_per_split,
                                float* ws, float* out, uint32_t* bits, float* scores,
-                               uint32_t* live, void* stream_ptr) {
+                               uint32_t* live, int walk, void* stream_ptr) {
   if (bad_launch(B, R, F, C, K, rows_per_split, leaf, ws, out) || span < 0 || span > F ||
       (dtype == 0 && words == nullptr) || ((mode == 4) != (dtype == 3)) ||
       (scores != nullptr && dtype != 3) || (bits != nullptr && dtype == 3) ||
@@ -958,7 +1120,7 @@ extern "C" int xtime_cam_match(int dtype, int mode, const void* q,
     return cudaErrorInvalidValue;
   }
   const Launch l{q, count, feat, lo, hi, words, span, K, leaf, B, R, F, C, rows_per_split,
-                 ws, bits, scores, live, static_cast<cudaStream_t>(stream_ptr)};
+                 ws, bits, scores, live, walk != 0, static_cast<cudaStream_t>(stream_ptr)};
   if (dtype == 3) {
     live_tiles_kernel<<<(B + kQueries - 1) / kQueries, kLiveThreads, 0, l.stream>>>(
         static_cast<const float*>(q), B, F, live);

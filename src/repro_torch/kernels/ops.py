@@ -244,13 +244,16 @@ class CellList:
     and ``count <= K``, ``feat < width`` once, so a kernel launch need not,
     and records ``span``, the largest feature index it holds + 1.
     ``words`` (made here unless given) packs each cell into the one 32-bit
-    word the bit-parallel kernels' value route reads: a uint8 list's
-    ``cell_words``; a uint16, int32 or float32 list's ``value_words``
-    where its span fits the value tables (``BITMAP_FEATURES``) and no
-    listed bound is NaN, else None (the kernel then searches ranks).  A
-    float32 (soft) list carries ``lattice``: whether every finite bound it
-    lists is a half-integer of magnitude at most ``LATTICE_MAX``, so the
-    soft kernel may read its log-sigmoids from a table (``on_lattice``).
+    word the bit-parallel kernels' value route reads (``packing``): a
+    uint8 list's ``cell_words``; a uint16, int32 or float32 list's
+    ``value_words`` where its span fits one block's value tables
+    (``BITMAP_FEATURES``), its ``window_words`` where it fits a cluster's
+    (``MAX_MEMBERS`` windows of them), provided no listed bound is NaN;
+    else None (the kernel then searches ranks).  A
+    float32 (soft) list carries ``lattice`` (made here unless given):
+    whether every finite bound it lists is a half-integer of magnitude at
+    most ``LATTICE_MAX``, so the soft kernel may read its log-sigmoids
+    from a table (``on_lattice``); other lists False.
     """
 
     count: np.ndarray | torch.Tensor
@@ -259,7 +262,7 @@ class CellList:
     hi: np.ndarray | torch.Tensor
     width: int
     words: np.ndarray | torch.Tensor | None = field(default=None, repr=False, compare=False)
-    lattice: bool = field(default=False, init=False, repr=False, compare=False)
+    lattice: bool | None = field(default=None, repr=False, compare=False)
     span: int = field(default=0, init=False, repr=False, compare=False)
 
     def __post_init__(self) -> None:
@@ -286,17 +289,14 @@ class CellList:
                 )
             object.__setattr__(self, "span", fmax + 1)
         if self.words is None:
-            if _np_dtype(self.lo) == np.uint8:
-                words = cell_words(self.feat, self.lo, self.hi)
-            elif self.span <= BITMAP_FEATURES and not _nan_bounds(self):
-                words = value_words(self.feat, self.lo, self.hi)
-            else:
-                words = None
-            object.__setattr__(self, "words", words)
+            kind = packing(self)
+            if kind is not None and not _nan_bounds(self):
+                object.__setattr__(self, "words", _PACKERS[kind](self.feat, self.lo, self.hi))
         elif _np_dtype(self.words) != np.int32 or tuple(self.words.shape) != (R, K):
             raise ValueError(f"words must be the ({R}, K = {K}) int32 packing of the list")
-        if _np_dtype(self.lo) == np.float32:
-            object.__setattr__(self, "lattice", on_lattice(self))
+        if self.lattice is None:
+            object.__setattr__(self, "lattice", _np_dtype(self.lo) == np.float32
+                               and on_lattice(self))
 
     @property
     def k(self) -> int:
@@ -304,19 +304,24 @@ class CellList:
 
     def rows(self, start: int, stop: int) -> "CellList":
         """Rows ``[start, stop)`` of the list, as views (packed words
-        too); K and the width stay the table's (a row shard of the mesh
-        engine)."""
-        words = None if self.words is None else self.words[start:stop]
-        return CellList(self.count[start:stop], self.feat[start:stop], self.lo[start:stop],
-                        self.hi[start:stop], self.width, words)
+        too, where the rows' own span takes the same packing); K and the
+        width stay the table's (a row shard of the mesh engine)."""
+        view = (self.count[start:stop], self.feat[start:stop], self.lo[start:stop],
+                self.hi[start:stop], self.width)
+        sub = CellList(*view, None if self.words is None else self.words[start:stop])
+        if sub.words is not None and packing(sub) != packing(self):
+            sub = CellList(*view)  # packs the words of its own span
+        return sub
 
     def to(self, device) -> "CellList":
-        """The same list as tensors on ``device``."""
+        """The same list as tensors on ``device`` (its words and lattice
+        as they are)."""
         def put(a):
             t = torch.from_numpy(a) if isinstance(a, np.ndarray) else a
             return t.to(device).contiguous()
         return CellList(put(self.count), put(self.feat), put(self.lo), put(self.hi),
-                        self.width, None if self.words is None else put(self.words))
+                        self.width, None if self.words is None else put(self.words),
+                        self.lattice)
 
 
 def cell_words(feat, lo, hi):
@@ -331,10 +336,40 @@ def cell_words(feat, lo, hi):
 
 
 # the bit-parallel kernels' value tables (cam_match.cu `kGeStride`,
-# `kMaxWindow`): GE[f][v] for v in [0, 256] of each feature below the
-# list's span, GE_STRIDE words a feature, for spans up to BITMAP_FEATURES
+# `kMaxWindow`): GE[f][v] for v in [0, 256], GE_STRIDE words a feature, at
+# most BITMAP_FEATURES features in one block's shared memory.  A list of
+# span up to BITMAP_FEATURES packs ``value_words`` (one block a tile holds
+# every feature); up to MAX_MEMBERS windows of BITMAP_FEATURES, the
+# ``window_words`` of a thread-block cluster (`kMaxMembers`, the portable
+# cluster size), member m holding features [m * 223, (m + 1) * 223)
 GE_STRIDE = 260
 BITMAP_FEATURES = 223
+MAX_MEMBERS = 8
+
+
+def _value_lookups(lo, hi):
+    """(L, H) int64, numpy or torch as given: the clamped value-table
+    indices of each cell's lower and (inclusive) upper half."""
+    if isinstance(lo, np.ndarray):
+        if lo.dtype == np.float32:
+            lo_v = np.floor(np.nan_to_num(lo.astype(np.float64), nan=0.0)) + 1
+            hi_v = np.ceil(np.nan_to_num(hi.astype(np.float64), nan=0.0)) + 1
+        else:
+            lo_v, hi_v = lo.astype(np.int64), hi.astype(np.int64) + 1
+        return np.clip(lo_v, 0, 256).astype(np.int64), np.clip(hi_v, 0, 257).astype(np.int64)
+    if lo.dtype == torch.float32:
+        lo_v = torch.floor(torch.nan_to_num(lo.double(), nan=0.0)) + 1
+        hi_v = torch.ceil(torch.nan_to_num(hi.double(), nan=0.0)) + 1
+    else:
+        lo_v, hi_v = lo.to(torch.int64), hi.to(torch.int64) + 1
+    return lo_v.clamp(0, 256).to(torch.int64), hi_v.clamp(0, 257).to(torch.int64)
+
+
+def _as_int32(w):
+    """int64 words below 2**32 as their int32 bits, numpy or torch."""
+    if isinstance(w, np.ndarray):
+        return w.astype(np.uint32).view(np.int32)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32).contiguous()
 
 
 def value_words(feat, lo, hi):
@@ -348,26 +383,41 @@ def value_words(feat, lo, hi):
     (the tau = 0 indicator lo < q < hi): L = clip(floor(lo) + 1, 0, 256), H
     = clip(ceil(hi) + 1, 0, 257).  Features below ``BITMAP_FEATURES``;
     numpy or torch as given."""
-    if isinstance(feat, np.ndarray):
-        base = feat.astype(np.int64) * GE_STRIDE
-        if lo.dtype == np.float32:
-            lo_v = np.floor(np.nan_to_num(lo.astype(np.float64), nan=0.0)) + 1
-            hi_v = np.ceil(np.nan_to_num(hi.astype(np.float64), nan=0.0)) + 1
-        else:
-            lo_v, hi_v = lo.astype(np.int64), hi.astype(np.int64) + 1
-        lo_at = base + np.clip(lo_v, 0, 256).astype(np.int64)
-        hi_at = base + np.clip(hi_v, 0, 257).astype(np.int64)
-        return (lo_at | (hi_at << 16)).astype(np.uint32).view(np.int32)
-    base = feat.to(torch.int64) * GE_STRIDE
-    if lo.dtype == torch.float32:
-        lo_v = torch.floor(torch.nan_to_num(lo.double(), nan=0.0)) + 1
-        hi_v = torch.ceil(torch.nan_to_num(hi.double(), nan=0.0)) + 1
-    else:
-        lo_v, hi_v = lo.to(torch.int64), hi.to(torch.int64) + 1
-    lo_at = base + lo_v.clamp(0, 256).to(torch.int64)
-    hi_at = base + hi_v.clamp(0, 257).to(torch.int64)
-    w = lo_at | (hi_at << 16)
-    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32).contiguous()
+    L, H = _value_lookups(lo, hi)
+    base = (feat.astype(np.int64) if isinstance(feat, np.ndarray)
+            else feat.to(torch.int64)) * GE_STRIDE
+    return _as_int32((base + L) | ((base + H) << 16))
+
+
+def window_words(feat, lo, hi):
+    """(R, K) int32: each cell of a uint16, int32 or float32 list as its
+    cluster member and the offsets of its lookups in that member's value
+    tables, ``lo_at | (H - L + 256) << 16 | m << 26`` (bits as uint32): m =
+    f // BITMAP_FEATURES, the member that holds feature f, ``lo_at = (f -
+    m * BITMAP_FEATURES) * GE_STRIDE + L`` (below 2**16) and the upper
+    lookup ``lo_at + H - L`` (L and H as ``value_words``' clamps).
+    Features below ``MAX_MEMBERS * BITMAP_FEATURES``; numpy or torch as
+    given."""
+    L, H = _value_lookups(lo, hi)
+    f = feat.astype(np.int64) if isinstance(feat, np.ndarray) else feat.to(torch.int64)
+    m = f // BITMAP_FEATURES
+    lo_at = (f - m * BITMAP_FEATURES) * GE_STRIDE + L
+    return _as_int32(lo_at | ((H - L + 256) << 16) | (m << 26))
+
+
+def packing(cells: "CellList") -> str | None:
+    """The packed words a list of its dtype and span carries: "cell"
+    (uint8, any span), "value" (span up to ``BITMAP_FEATURES``), "window"
+    (up to ``MAX_MEMBERS`` windows of it), else None (the kernels search
+    ranks).  A float32 list with a NaN bound carries none either."""
+    if _np_dtype(cells.lo) == np.uint8:
+        return "cell"
+    if cells.span <= BITMAP_FEATURES:
+        return "value"
+    return "window" if cells.span <= MAX_MEMBERS * BITMAP_FEATURES else None
+
+
+_PACKERS = {"cell": cell_words, "value": value_words, "window": window_words}
 
 
 def _used_bounds(cells: "CellList"):
@@ -425,8 +475,9 @@ def binding_cells(
     ``n_real_rows`` on are the never-match padding rows, whose cells are
     all alike: each is listed as one cell, its first, since the AND (or
     sum) of one equals that of all.  K is the largest count, at least 1.
-    Scanned in ``CELL_SCAN_ROWS``-row blocks, so host memory stays bounded
-    at full width."""
+    Scanned once in ``CELL_SCAN_ROWS``-row blocks, so host memory stays
+    bounded at full width (each block's mask; the listed cells' indices,
+    6 bytes a cell, are kept for the fill)."""
     R, F = low.shape
     if high.shape != low.shape:
         raise ValueError(f"low {low.shape} and high {high.shape} differ")
@@ -447,17 +498,20 @@ def binding_cells(
             act[-pad:, 0] = True
         return act
 
+    # one scan: each block's listed (row, column) pairs, row-major (ascending
+    # features), kept until K, the largest count, is known
     count = np.empty(R, dtype=np.int32)
+    blocks = []
     for r0 in range(0, R, CELL_SCAN_ROWS):
         r1 = min(R, r0 + CELL_SCAN_ROWS)
-        count[r0:r1] = listed(r0, r1).sum(axis=1)
+        rows, cols = np.nonzero(listed(r0, r1))
+        count[r0:r1] = np.bincount(rows, minlength=r1 - r0)
+        blocks.append((r0, r1, rows.astype(np.int32), cols.astype(np.uint16)))
     K = max(1, int(count.max(initial=0)))
     feat = np.zeros((R, K), dtype=np.uint16)
     lo = np.zeros((R, K), dtype=low.dtype)
     hi = np.zeros((R, K), dtype=high.dtype)
-    for r0 in range(0, R, CELL_SCAN_ROWS):
-        r1 = min(R, r0 + CELL_SCAN_ROWS)
-        rows, cols = np.nonzero(listed(r0, r1))  # row-major: ascending features
+    for r0, r1, rows, cols in blocks:
         start = np.cumsum(count[r0:r1]) - count[r0:r1]
         slot = np.arange(rows.size) - np.repeat(start, count[r0:r1])
         feat[r0 + rows, slot] = cols

@@ -360,18 +360,72 @@ def _wide_operands(dtype, mode, n_bins, f, dev, *, normal=False):
     return (qp, *(torch.from_numpy(a).to(dev) for a in (lo, hi, lm)), cells.to(dev))
 
 
+# lists of these spans: each side of one, two and four value windows (223
+# features) and of one rank window (893), the 968-feature model's, and
+# 1,784, a cluster of eight blocks a tile (the most a cluster holds)
+CLUSTER_SPANS = (223, 224, 446, 447, 893, 894, 968, 1784)
+
+
+def _span_operands(dtype, mode, n_bins, span, dev):
+    """``_span_tables`` at ``span`` (B = 40, R = 512, 8 cells a row, one the
+    last feature) in the kernel layout of ``dtype`` (float32: the soft
+    layout), with the cell list, on ``dev``."""
+    low, high, leaf, q = _span_tables(span, n_bins, b=40)
+    incl = mode == "inclusive"
+    if incl or dtype == "float32":
+        lo, hi, lm, _ = ops.pack_tables(low, high, leaf, r_blk=128, f_blk=128, n_bins=n_bins,
+                                        dtype=dtype, inclusive=True if incl else None)
+    else:
+        lo, hi, lm = ops.pad_tables(low, high, leaf, r_blk=128, f_blk=128, n_bins=n_bins)
+        lo, hi = lo.astype(dtype), hi.astype(dtype)
+    cells = ops.binding_cells(lo, hi, n_bins=n_bins, inclusive=incl, n_real_rows=low.shape[0])
+    assert cells.span == span
+    qp = ops.pad_queries(q, lo.shape[1], dtype=dtype, device=dev)
+    return (qp, *(torch.from_numpy(a).to(dev) for a in (lo, hi, lm)), cells.to(dev))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("f", WIDE_WIDTHS)
-@pytest.mark.parametrize("dtype,mode,n_bins", VARIANTS)
+@pytest.mark.parametrize("f", [*WIDE_WIDTHS, *(f"span{s}" for s in CLUSTER_SPANS)])
+@pytest.mark.parametrize("dtype,mode,n_bins", [*VARIANTS, ("float32", "soft", 256)])
 def test_cuda_kernel_wide_table(card, dtype, mode, n_bins, f):
-    """Every hard variant at F_pad = 2,048 and 8,192: bits and k/16 margins
-    equal the plain version (``_check_hard``), packed equals int32."""
+    """Every hard variant and soft tau = 0 at F_pad = 2,048 and 8,192 and on
+    lists of the spans around one block's windows (one block a tile, a
+    cluster of up to eight, or the lane-per-query kernel, by the span):
+    bits (tau = 0: scores) and k/16 margins equal the plain version
+    (``_check_hard``/``_check_soft``) and, bit for bit, the lane-per-query
+    kernel on the same list (``walk=True``) and the one-block kernel where
+    it runs too (the list without its words, rank tables, up to 893
+    features); packed equals int32."""
     from repro_torch.kernels import cam_match as K
 
-    q, lo, hi, lm, cells = _wide_operands(dtype, mode, n_bins, f, card)
-    out = _check_hard(K, q, lo, hi, lm, cells, mode, card)
-    if dtype != "int32":
-        q32, _, _, lm32, cells32 = _wide_operands("int32", mode, n_bins, f, card)
+    soft = dtype == "float32"
+    if isinstance(f, str):
+        span = int(f[4:])
+        q, lo, hi, lm, cells = _span_operands(dtype, mode, n_bins, span, card)
+        windows = -(-span // (ops.BITMAP_FEATURES if cells.words is not None else K.RANK_FEATURES))
+        assert K.kernel_route(cells) == ("bit-parallel", windows)
+        assert span != 1784 or windows == ops.MAX_MEMBERS  # the cluster of eight
+    else:
+        q, lo, hi, lm, cells = _wide_operands(dtype, mode, n_bins, f, card)
+    if soft:
+        _check_soft(K, q, lo, hi, lm, cells, 0.0, card)
+        out = K.cam_match_soft_cuda(q, cells, lm, tau=0.0)
+        lines = K.soft_scores_cuda(q, cells, tau=0.0)
+        kw, run, match = {"tau": 0.0}, K.cam_match_soft_cuda, K.soft_scores_cuda
+    else:
+        out = _check_hard(K, q, lo, hi, lm, cells, mode, card)
+        lines = K.cam_match_bits_cuda(q, cells, mode=mode)
+        kw, run, match = {"mode": mode}, K.cam_match_cuda, K.cam_match_bits_cuda
+    assert torch.equal(run(q, cells, lm, walk=True, **kw), out)
+    assert torch.equal(match(q, cells, walk=True, **kw), lines)
+    one_block = _ranked(cells)
+    if dtype != "uint8" and K.kernel_route(one_block) == ("bit-parallel", 1):
+        assert torch.equal(run(q, one_block, lm, **kw), out)
+        assert torch.equal(match(q, one_block, **kw), lines)
+    if dtype in ("uint8", "uint16"):
+        operands = _span_operands if isinstance(f, str) else _wide_operands
+        q32, _, _, lm32, cells32 = operands("int32", mode, n_bins, span if isinstance(f, str)
+                                            else f, card)
         assert torch.equal(out, K.cam_match_cuda(q32, cells32, lm32, mode=mode))
 
 
@@ -1201,9 +1255,10 @@ def test_uint8_bit_parallel_equals_int32_inclusive(card, width):
     """The uint8 kernels against the int32 `inclusive` kernel, bit for bit
     — match words and normal-leaf margins — at B = 1, 7, 37, 256 and 1024:
     the bit-parallel kernel on a narrow table and on a list of span 223
-    (its widest window, F_pad 256); the lane-per-query kernel, which takes
-    the lists of larger span, at span 224 and on tables whose rows list
-    features past every staged window; B = 1 equals each row of a batch."""
+    (one block's widest window, F_pad 256), on a cluster of two blocks a
+    tile at span 224, and on tables whose rows list features past every
+    staged window (a cluster or the lane-per-query kernel, by the span);
+    B = 1 equals each row of a batch."""
     from repro_torch.kernels import cam_match as K
 
     for b in (1, 7, 37, 256, 1024):
@@ -1228,7 +1283,7 @@ def test_uint8_bit_parallel_equals_int32_inclusive(card, width):
             if isinstance(width, str):
                 assert c8.span == span and lo.shape[1] == 256
             else:
-                assert c8.span > K.BITMAP_FEATURES  # the lane-per-query kernel's
+                assert c8.span > K.BITMAP_FEATURES  # past one block's window
         leaves = _normal_leaves(lm, 8)
         bits = K.cam_match_bits_cuda(q8, c8, mode="inclusive")
         assert torch.equal(bits, K.cam_match_bits_cuda(q32, c32, mode="inclusive"))
@@ -1380,8 +1435,9 @@ ROUTE_CASES = {  # name: (n_bins, tiles on the bins of 2, noisy, span)
     for c in ROUTE_CASES if d == "int32" or not ROUTE_CASES[c][2]])  # uint16: no negative bound
 def test_cuda_bit_parallel_routes(card, dtype, mode, case):
     """The bit-parallel kernel on its value route (bins below 256), its
-    rank route (bins past 255, a list without its words, a span past the
-    value tables' window) and both in one call: bits and k/16 margins
+    rank route (bins past 255, a list without its words) and both in one
+    call, at a span of 600 on a cluster of three blocks a tile (the list
+    without its words: one block of rank tables): bits and k/16 margins
     equal the plain version (``_check_hard``, the list as built and
     widened), the list without its words gives the same, packed uint16
     equals int32, B = 1 equals each row."""
@@ -1390,8 +1446,10 @@ def test_cuda_bit_parallel_routes(card, dtype, mode, case):
     n_bins, on_bins, noisy, span = ROUTE_CASES[case]
     q, lo, hi, lm, cells = _route_operands(dtype, mode, n_bins, card, b=45,
                                            tiles_on_bins=on_bins, noisy=noisy, span=span)
-    if span is not None:
-        assert K.BITMAP_FEATURES < cells.span <= K.RANK_FEATURES and cells.words is None
+    if span is not None:  # a cluster of three blocks a tile; without words, one of ranks
+        assert K.BITMAP_FEATURES < cells.span <= K.RANK_FEATURES
+        assert ops.packing(cells) == "window" and K.kernel_route(cells) == ("bit-parallel", 3)
+        assert K.kernel_route(_ranked(cells)) == ("bit-parallel", 1)
     out = _check_hard(K, q, lo, hi, lm, cells, mode, card)
     assert torch.equal(K.cam_match_cuda(q, _ranked(cells), lm, mode=mode), out)
     assert torch.equal(K.cam_match_bits_cuda(q, _ranked(cells), mode=mode),

@@ -56,7 +56,8 @@ def test_every_module_is_listed():
                  "repro_torch.cli._common", "repro_torch.cli.ingest",
                  "repro_torch.cli.score", "repro_torch.launch", "repro_torch.launch.mesh",
                  "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
-                 "repro_torch.tools.paper_scale_smoke", "repro_torch.config",
+                 "repro_torch.tools.paper_scale_smoke", "repro_torch.tools.cluster_probe",
+                 "repro_torch.config",
                  "repro_torch.configs", "repro_torch.configs.arctic_480b",
                  "repro_torch.configs.deepseek_v3", "repro_torch.configs.gemma3_1b",
                  "repro_torch.configs.granite_20b", "repro_torch.configs.llama32_3b",

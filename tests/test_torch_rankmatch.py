@@ -31,6 +31,7 @@ monotone in q; the value route's clamped lookups equal them on the bins.
 The window constants against the kernel source close the file.
 """
 
+import copy
 import re
 
 import jax.numpy as jnp
@@ -105,11 +106,12 @@ def value_tables(qt: torch.Tensor, span: int) -> torch.Tensor:
     """The value route's shared memory as int64 words: GE_HEAD head words
     (the last all ones), then per feature GE[v] (bit b: query b >= v) for
     v in [0, 256], 0 at 256..258 and all ones at 259."""
-    v = torch.arange(256)
-    ge = (qt[:, :span].to(torch.int64).T[:, :, None] >= v[None, None, :]).to(torch.int64)
-    words = (ge << torch.arange(qt.shape[0])[None, :, None]).sum(dim=1)  # (span, 256)
+    x = qt[:, :span].to(torch.int64)  # (queries, span) bins
+    eq = torch.zeros((span, 256), dtype=torch.int64)  # EQ[f][v]: the queries at v
+    eq.index_put_((torch.arange(span)[None, :].expand_as(x), x),
+                  (1 << torch.arange(qt.shape[0]))[:, None].expand_as(x), accumulate=True)
     tab = torch.zeros((span, tops.GE_STRIDE), dtype=torch.int64)
-    tab[:, :256] = words
+    tab[:, :256] = eq.flip(1).cumsum(1).flip(1)  # GE[f][v]: the sum (OR) of EQ at v and up
     tab[:, tops.GE_STRIDE - 1] = FULL
     return torch.cat([torch.tensor([0, 0, 0, FULL]), tab.reshape(-1)])
 
@@ -120,14 +122,20 @@ def rank_tables(qt: torch.Tensor, span: int, live: int) -> tuple[torch.Tensor, t
     vals = torch.full((span, 32), _pad_value(qt.dtype),
                       dtype=torch.float32 if qt.dtype == torch.float32 else torch.int64)
     ge = torch.zeros((span, 33), dtype=torch.int64)
-    lanes = [b for b in range(qt.shape[0]) if live >> b & 1]
-    x = _values(qt[lanes, :span]) + 0  # -0 -> +0, one value
-    for f in range(span):
-        uniq = torch.unique(x[:, f])  # ascending
-        vals[f, : uniq.numel()] = uniq
-        eq = [sum(1 << lanes[i] for i in range(len(lanes)) if x[i, f] == u) for u in uniq]
-        for j in range(len(eq)):
-            ge[f, j] = sum(eq[j:]) if eq else 0
+    lanes = torch.tensor([b for b in range(qt.shape[0]) if live >> b & 1], dtype=torch.int64)
+    if lanes.numel() == 0:
+        return vals, ge
+    x = _values(qt[lanes, :span]) + 0  # (lanes, span); -0 -> +0, one value
+    order = torch.arange(lanes.numel())
+    # a lane leads its value where no earlier lane holds the same one
+    earlier = (x[None, :, :] == x[:, None, :]) & (order[None, :, None] < order[:, None, None])
+    lead = ~earlier.any(dim=1)
+    # its rank: the distinct values below it
+    rank = ((x[None, :, :] < x[:, None, :]) & lead[None, :, :]).sum(dim=1)
+    feats = torch.arange(span)[None, :].expand_as(x)
+    vals[feats[lead], rank[lead]] = x[lead]
+    ge[:] = ((rank[:, :, None] >= torch.arange(33)[None, None, :]).to(torch.int64)
+             << lanes[:, None, None]).sum(dim=0)
     return vals, ge
 
 
@@ -146,10 +154,49 @@ def rank_word(vals, ge, f, lo, hi, lower, upper) -> torch.Tensor:
     return g.gather(1, jl[:, None])[:, 0] & (~g.gather(1, ju[:, None])[:, 0] & FULL)
 
 
+def members(span: int, window: int) -> int:
+    """Blocks a tile: one window of ``window`` features each."""
+    return -(-max(1, span) // window)
+
+
+def member_value_tables(qt: torch.Tensor, span: int) -> torch.Tensor:
+    """(members, GE_HEAD + BITMAP_FEATURES * GE_STRIDE) int64: member m's
+    shared memory, the value tables of its window of features [m * 223,
+    (m + 1) * 223) below the span (one member where the span fits one)."""
+    W = tops.BITMAP_FEATURES
+    out = torch.zeros((members(span, W), GE_HEAD + W * tops.GE_STRIDE), dtype=torch.int64)
+    for m in range(out.shape[0]):
+        tab = value_tables(qt[:, m * W:], min(W, span - m * W))
+        out[m, : tab.numel()] = tab
+    return out
+
+
+def decode_words(cells: tops.CellList, incl: bool):
+    """(member, lower offset, upper offset) of each packed cell in its
+    member's value tables, read from the words as the kernel decodes them:
+    uint8 ``cell_words`` (the member from the feature), one block's
+    ``value_words`` (member 0) or a cluster's ``window_words``."""
+    w = torch.as_tensor(np.asarray(cells.words).view(np.uint32).astype(np.int64))
+    kind, up = tops.packing(cells), 0 if incl else 1
+    if kind == "cell":
+        f, lo, hi = w & 0xFFFF, (w >> 16) & 0xFF, w >> 24
+        m = f // tops.BITMAP_FEATURES
+        base = (f - m * tops.BITMAP_FEATURES) * tops.GE_STRIDE
+        return m, base + lo, base + hi + (1 - up)
+    if kind == "value":
+        return torch.zeros_like(w), w & 0xFFFF, (w >> 16) - up
+    assert kind == "window"
+    lo_at = w & 0xFFFF
+    return w >> 26, lo_at, lo_at + ((w >> 16) & 0x3FF) - 256 - up
+
+
 def model_bits(q: torch.Tensor, cells: tops.CellList, *, mode: str,
                force_rank: bool = False) -> tuple[torch.Tensor, list[str]]:
     """(B, R) match bits by the kernel's algorithm, and the route each tile
-    took."""
+    took.  Where the span passes one block's window, a cluster of blocks
+    serves a tile, member m holding the tables of its window of features
+    (223 of value tables, 893 of rank tables) and each cell's lookups read
+    from the member of its feature."""
     lower, upper = halves(mode)
     incl = mode == "inclusive"
     count = torch.as_tensor(np.asarray(cells.count)).to(torch.int64)
@@ -157,29 +204,44 @@ def model_bits(q: torch.Tensor, cells: tops.CellList, *, mode: str,
     lo, hi = (_values(torch.as_tensor(np.asarray(a))) for a in (cells.lo, cells.hi))
     R, Kslots = feat.shape
     span = max(1, cells.span)
+    words = cells.words is not None and tops.packing(cells) is not None
     out, routes = [], []
     for q0 in range(0, q.shape[0], WORD):
         qt = q[q0:q0 + WORD]
         nq = qt.shape[0]
         live = live_queries(qt)
-        value = (not force_rank and cells.words is not None and span <= tops.BITMAP_FEATURES
-                 and on_bins(qt, span))
+        value = not force_rank and words and on_bins(qt, span)
         routes.append("value" if value else "rank")
         word = torch.full((R,), live, dtype=torch.int64)
         if value:
-            tab = value_tables(qt, span)
-            w = torch.as_tensor(np.asarray(cells.words).view(np.uint32).astype(np.int64))
-            lo_at, hi_at = GE_HEAD + (w & 0xFFFF), GE_HEAD + (w >> 16) - (0 if incl else 1)
-            cell = tab[lo_at] & (~tab[hi_at] & FULL)
+            tabs = member_value_tables(qt, span)
+            m, lo_at, hi_at = decode_words(cells, incl)
+            cell = tabs[m, GE_HEAD + lo_at] & (~tabs[m, GE_HEAD + hi_at] & FULL)
         else:
-            vals, ge = rank_tables(qt, span, live)
-            cell = torch.stack([rank_word(vals, ge, feat[:, k], lo[:, k], hi[:, k], lower, upper)
+            W = K.RANK_FEATURES
+            tables = [rank_tables(qt[:, m * W:], min(W, span - m * W), live)
+                      for m in range(members(span, W))]
+            # member m's W feature slots at rows [m * W, (m + 1) * W)
+            vals = torch.cat([torch.cat([v, v.new_zeros((W - v.shape[0], 32))])
+                              for v, _ in tables])
+            ge = torch.cat([torch.cat([g, g.new_zeros((W - g.shape[0], 33))])
+                            for _, g in tables])
+            m, f = feat // W, feat % W  # the feature's member, its place there
+            cell = torch.stack([rank_word(vals, ge, m[:, k] * W + f[:, k], lo[:, k], hi[:, k],
+                                          lower, upper)
                                 for k in range(Kslots)], dim=1)
         for k in range(Kslots):
             word = torch.where(k < count, word & cell[:, k], word)
         bits = (word[None, :] >> torch.arange(nq, dtype=torch.int64)[:, None]) & 1
         out.append(bits.to(torch.bool))
     return torch.cat(out), routes
+
+
+def _ranked(cells: tops.CellList) -> tops.CellList:
+    """The list without its packed words: every tile searches ranks."""
+    out = copy.copy(cells)
+    object.__setattr__(out, "words", None)
+    return out
 
 
 # -- seeded problems ----------------------------------------------------------------
@@ -269,13 +331,18 @@ def test_both_routes_equal_both_references(case, mode):
     # the routes and edges the case covers
     tiles = -(-b // WORD)
     span_fits = cells.span <= tops.BITMAP_FEATURES
-    assert (cells.words is not None) == span_fits
-    expect = ["value" if t in small and span_fits else "rank" for t in range(tiles)]
-    if n_bins <= 256 and span_fits:
+    assert tops.packing(cells) == ("value" if span_fits else "window")
+    assert cells.words is not None
+    expect = ["value" if t in small else "rank" for t in range(tiles)]
+    if n_bins <= 256:
         expect = ["value"] * tiles  # every bin is on the value tables
     assert routes == expect
-    if case == "int32-span-past-window":
-        assert not span_fits and routes == ["rank"] * tiles
+    if case == "int32-span-past-window":  # a cluster of two blocks a tile, one ranked
+        assert not span_fits and routes == ["value"] * tiles
+        assert K.kernel_route(cells) == ("bit-parallel", 2)
+        assert K.kernel_route(_ranked(cells)) == ("bit-parallel", 1)
+    else:
+        assert K.kernel_route(cells) == ("bit-parallel", 1)
     cnt = np.asarray(cells.count)
     assert (cnt[r:] == 1).all() and not want[:, r:].any()  # never-match padding rows
     if listed12:
@@ -354,6 +421,141 @@ def test_a_nan_bound_takes_the_rank_route():
     got, routes = model_bits(q, cells, mode="soft")
     assert routes == ["rank", "rank"] and torch.equal(got.to(torch.float32), want)
     assert not want[:, 3].any()
+
+
+# -- past one block's window: a cluster of blocks a tile ------------------------------
+
+WIDE_SPANS = (223, 224, 446, 447, 893, 894, 968)  # each side of 1, 2 and 4 value windows, 1 rank
+WIDE_WIDTH = 968  # every case's table width: the references' shapes stay the same
+WIDE_VARIANTS = [("uint8", "inclusive"), ("uint8", "direct"), ("uint16", "direct"),
+                 ("uint16", "inclusive"), ("int32", "direct"), ("int32", "inclusive"),
+                 ("int32", "msb_lsb"), ("int32", "two_cycle"), ("float32", "soft")]
+ODD = torch.tensor([float("nan"), float("inf"), -float("inf"), 2.5, -1.0, 300.0])
+
+
+def _wide_operands(seed, span, dtype, mode, *, b=40, r=512):
+    """Tables ``WIDE_WIDTH`` features wide whose rows list 6 cells (every
+    eighth 12) at random features below ``span``, every fourth row the last
+    of them and widened to hold a query; the first tile's queries bins
+    below 256, the second's (8 queries) up to 999 for uint16/int32 and with
+    NaN, +-inf, half bins, -1 and 300 for float32 (the rank route within
+    the cluster).  Returns the padded queries, tables and cell list."""
+    rng = np.random.default_rng(seed)
+    n_bins = {"uint8": 256 if mode == "inclusive" else 200, "float32": 256}.get(dtype, 1000)
+    q = rng.integers(0, n_bins, size=(b, WIDE_WIDTH))
+    q[:WORD] = rng.integers(0, min(256, n_bins), size=(WORD, WIDE_WIDTH))
+    # 12 distinct features a row below the span, the last first in every fourth
+    cols = np.argsort(rng.random((r, span)), axis=1)[:, :12]
+    last = np.arange(r) % 4 == 0
+    cols[last] = np.where(cols[last] == span - 1, cols[last, :1], cols[last])
+    cols[last, 0] = span - 1
+    lo = rng.integers(0, n_bins - 1, size=(r, 12))
+    hi = np.minimum(n_bins, lo + rng.integers(1, n_bins // 2, size=(r, 12)))
+    hold = q[np.arange(r) % b][np.arange(r)[:, None], cols]  # each row's query's bins there
+    lo[last], hi[last] = np.minimum(lo, hold)[last], np.maximum(hi, hold + 1)[last]
+    n = np.where(np.arange(r) % 8 == 1, 12, 6)
+    rows, slots = np.nonzero(np.arange(12)[None, :] < n[:, None])
+    low = np.zeros((r, WIDE_WIDTH), np.int32)
+    high = np.full((r, WIDE_WIDTH), n_bins, np.int32)
+    low[rows, cols[rows, slots]] = lo[rows, slots]
+    high[rows, cols[rows, slots]] = hi[rows, slots]
+    leaf = np.zeros((r, 1), np.float32)
+    incl = mode == "inclusive"
+    if incl or dtype == "float32":
+        lo, hi, _, _ = tops.pack_tables(low, high, leaf, r_blk=32, f_blk=8, n_bins=n_bins,
+                                        dtype=dtype, inclusive=True if incl else None)
+    else:
+        lo, hi, _ = tops.pad_tables(low, high, leaf, r_blk=32, f_blk=8, n_bins=n_bins)
+        lo, hi = lo.astype(dtype), hi.astype(dtype)
+    cells = tops.binding_cells(lo, hi, n_bins=n_bins, inclusive=incl, n_real_rows=r)
+    qp = tops.pad_queries(q, WIDE_WIDTH, dtype=dtype, device="cpu")
+    if dtype == "float32":
+        tile = qp[WORD:]
+        pick = torch.from_numpy(rng.random(tuple(tile.shape)) < 0.01)
+        tile[pick] = ODD[torch.from_numpy(rng.integers(0, ODD.numel(), size=int(pick.sum())))]
+    return qp, lo, hi, cells
+
+
+@pytest.mark.parametrize("span", WIDE_SPANS)
+@pytest.mark.parametrize("dtype,mode", WIDE_VARIANTS)
+def test_cluster_route_equals_both_references(span, dtype, mode):
+    """Spans on each side of one, two and four value windows and of one
+    rank window, and 968: a tile's tables split over ceil(span / 223)
+    members (value route; a list without words over ceil(span / 893), rank
+    route), each cell read from its feature's member, equal both packages'
+    match bits (soft: tau = 0 scores) in every mode."""
+    q, lo, hi, cells = _wide_operands(WIDE_SPANS.index(span), span, dtype, mode)
+    lo_t, hi_t, jq, jlo, jhi = (torch.from_numpy(lo), torch.from_numpy(hi),
+                                *(jnp.asarray(a) for a in (q.numpy(), lo, hi)))
+    if dtype == "float32":
+        want = soft_scores_ref(q, lo_t, hi_t, tau=0.0).to(torch.bool)
+        jwant = np.asarray(jprec.soft_match_scores(jq, jlo, jhi, 0.0)) == 1
+    else:
+        want = cam_match_bits_ref(q, lo_t, hi_t, mode=mode)
+        jwant = np.asarray(j_bits_ref(jq, jlo, jhi, mode=mode))
+    assert np.array_equal(want.numpy(), jwant)
+    assert want[:, :512].any() and not want.all()
+    got, routes = model_bits(q, cells, mode=mode)
+    assert torch.equal(got, want)
+    # the case's edges: the span, rows past 8 cells, every member's window listed
+    assert cells.span == span and cells.k == 12
+    n_value = -(-span // tops.BITMAP_FEATURES)
+    used = np.arange(cells.k)[None, :] < np.asarray(cells.count)[:, None]
+    listed = np.asarray(cells.feat)[used]
+    assert set((listed // tops.BITMAP_FEATURES).tolist()) == set(range(n_value))
+    assert K.kernel_route(cells) == ("bit-parallel", n_value)
+    assert tops.packing(cells) == ("cell" if dtype == "uint8" else
+                                   "value" if n_value == 1 else "window")
+    assert routes == ["value", "value" if dtype == "uint8" else "rank"]
+    if dtype != "uint8" and span >= K.RANK_FEATURES:  # every tile ranked: ceil(span / 893)
+        ranked = _ranked(cells)
+        assert K.kernel_route(ranked) == ("bit-parallel", -(-span // K.RANK_FEATURES))
+        got, routes = model_bits(q, ranked, mode=mode)
+        assert torch.equal(got, want) and routes == ["rank", "rank"]
+
+
+def test_window_words_pack_the_list():
+    """A list of span past one value window packs ``window_words``: each
+    cell's member f // 223, its lower offset in that member's tables and the
+    biased distance to its upper, equal to the list's feature and clamped
+    bounds; numpy and torch pack alike; a row view whose span fits one
+    window repacks as ``value_words``, one past a cluster's carries none."""
+    for dtype, mode in (("int32", "direct"), ("uint16", "inclusive"), ("float32", "soft")):
+        _, lo, hi, cells = _wide_operands(5, 968, dtype, mode, r=90)
+        assert tops.packing(cells) == "window"
+        w = np.asarray(cells.words).view(np.uint32).astype(np.int64)
+        feat, clo, chi = (np.asarray(a) for a in (cells.feat, cells.lo, cells.hi))
+        used = np.arange(cells.k)[None, :] < np.asarray(cells.count)[:, None]
+        if dtype == "float32":
+            L = np.clip(np.floor(clo.astype(np.float64)) + 1, 0, 256)
+            H = np.clip(np.ceil(chi.astype(np.float64)) + 1, 0, 257)
+        else:
+            L, H = np.clip(clo.astype(np.int64), 0, 256), np.clip(chi.astype(np.int64) + 1, 0, 257)
+        m, local = feat // 223, feat % 223
+        assert np.array_equal((w >> 26)[used], m[used])
+        assert np.array_equal((w & 0xFFFF)[used], (local * tops.GE_STRIDE + L)[used])
+        assert np.array_equal(((w >> 16) & 0x3FF)[used], (H - L + 256)[used])
+        assert (w >> 29 == 0).all()  # bits 29-31 unused
+        t = tops.CellList(*(torch.from_numpy(np.asarray(a)) for a in
+                            (cells.count, cells.feat, cells.lo, cells.hi)), cells.width)
+        assert np.array_equal(t.words.numpy(), np.asarray(cells.words))
+        # the mesh engine's row shards: a view repacks for its own span (the
+        # never-match padding rows list feature 0)
+        rows = cells.rows(90, 96)
+        assert rows.span == 1 and tops.packing(rows) == "value"
+        assert np.array_equal(np.asarray(rows.words),
+                              tops.value_words(np.asarray(rows.feat), np.asarray(rows.lo),
+                                               np.asarray(rows.hi)))
+        assert np.array_equal(np.asarray(cells.rows(0, 40).words), np.asarray(cells.words)[:40])
+    # past MAX_MEMBERS value windows: no words (ranks), past as many rank windows: the lanes
+    f = np.array([[tops.MAX_MEMBERS * tops.BITMAP_FEATURES]], np.uint16)
+    one = np.ones((1, 1), np.int32)
+    wide = tops.CellList(np.ones(1, np.int32), f, one, one + 1, 8000)
+    assert wide.words is None and K.kernel_route(wide) == ("bit-parallel", 2)
+    far = tops.CellList(np.ones(1, np.int32), f * 0 + 7999, one, one + 1, 8000)
+    assert far.words is None and K.kernel_route(far) == ("lanes", 0)
+    u8 = tops.CellList(np.ones(1, np.int32), f, one.astype(np.uint8), one.astype(np.uint8), 8000)
+    assert tops.packing(u8) == "cell" and K.kernel_route(u8) == ("lanes", 0)
 
 
 # -- each mode's halves -------------------------------------------------------------
@@ -439,20 +641,43 @@ def test_value_lookups_equal_the_halves_on_the_bins(mode):
 
 
 def test_window_constants_match_the_kernel_source():
-    """The value and rank tables' strides and windows, and the head, as the
-    kernel source defines them, equal the Python side's."""
+    """The value and rank tables' strides and windows, the head, the
+    cluster's size and the window words' fields, as the kernel source
+    defines them, equal the Python side's; the launchers choose one block,
+    a cluster or the lane-per-query kernel by the span alone, as
+    ``kernel_route`` mirrors it."""
     src = {p.name: p.read_text() for p in (*K.SOURCES, *K.HEADERS)}
     cu = src["cam_match.cu"]
     smem = int(re.search(r"constexpr int kMaxSmem = (\d+);", src["cam_match_common.cuh"])[1])
     ge_stride = int(re.search(r"constexpr int kGeStride = (\d+);", cu)[1])
     head = int(re.search(r"constexpr int kHead = (\d+);", cu)[1])
+    most = int(re.search(r"constexpr int kMaxMembers = (\d+);", cu)[1])
+    bias = int(re.search(r"constexpr int kDeltaBias = (\d+);", cu)[1])
     assert re.search(r"constexpr int kRankStride = 32 \+ 33;", cu)
     assert "kRankWindow = (kMaxSmem - kHead * 4) / (kRankStride * 4)" in cu
     assert "kMaxWindow = kMaxSmem / (kGeStride * 4)" in cu
-    assert re.search(r"if \(l\.span > kRankWindow\) return launch_lanes", cu)
+    # the dispatch: uint8 lists by value windows; the others by value windows
+    # where they carry words (window words up to kMaxMembers windows), else by
+    # rank windows; the lanes past kMaxMembers blocks a tile
+    launch_u8 = cu[cu.index("cudaError_t launch_u8("):cu.index("cudaError_t launch_bp(")]
+    launch_bp = cu[cu.index("cudaError_t launch_bp("):cu.index("}  // namespace")]
+    assert "const int n = members(a.span, kMaxWindow);" in launch_u8
+    assert "if (a.span > kMaxMembers * kMaxWindow) a.words = nullptr;" in launch_bp
+    assert "const int n = members(a.span, a.words ? kMaxWindow : kRankWindow);" in launch_bp
+    for body in (launch_u8, launch_bp):
+        assert re.search(r"if \(l\.walk \|\| n > kMaxMembers\) \{?\s*return launch_lanes", body)
+        assert re.search(r"cam_match_\w+_kernel<[^>]*, true>, a, n,", body)  # the cluster
+    assert "inline int members(int span, int W) { return (span + W - 1) / W; }" in cu
     assert head == GE_HEAD and ge_stride == tops.GE_STRIDE
     assert tops.BITMAP_FEATURES == smem // (ge_stride * 4) == K.BITMAP_FEATURES
     assert tops.BITMAP_FEATURES * ge_stride * 4 + head * 4 <= smem
     assert K.RANK_FEATURES == (smem - head * 4) // (RANK_STRIDE * 4) == 893
-    # the offsets of a value word fit its 16-bit halves at the window's edge
+    assert most == tops.MAX_MEMBERS == K.MAX_MEMBERS == 8
+    # the offsets of a value or window word fit its 16-bit halves at the
+    # window's edge; a window word's upper offset less its lower, biased,
+    # fits 10 bits (`(cw >> 16) & 0x3FFu`) and the member 3 (`cw >> 26`)
     assert (tops.BITMAP_FEATURES - 1) * ge_stride + 257 < 1 << 16
+    assert "(cw >> 16) & 0x3FFu" in cu and "int(cw >> 26)" in cu
+    assert bias == 256 and 257 + bias < 1 << 10 and most - 1 < 1 << 3
+    # a cluster's tables: the rank window fits one block beside the head
+    assert K.RANK_FEATURES * RANK_STRIDE * 4 + head * 4 <= smem
