@@ -1,0 +1,7 @@
+"""The CAM kernels' share of their roofline in the latency cells (``readers.cam_roofline``)."""
+
+from xbench.readers import cam_roofline
+
+
+def read(rec):
+    return cam_roofline(rec)

@@ -1,0 +1,7 @@
+"""Host ms a ``raw_margin`` call beyond the card's busy time (``readers.host_ms_per``)."""
+
+from xbench.readers import host_ms_per
+
+
+def read(rec):
+    return host_ms_per(rec, "calls")
