@@ -68,6 +68,7 @@ from repro_torch.core.noc import NoCPlan, plan_noc
 from repro_torch.core.perfmodel import PerfReport, xtime_perf
 from repro_torch.core.quantize import FeatureQuantizer
 from repro_torch.core.trees import Ensemble
+from repro_torch.spans import span
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.core.engine import XTimeEngine
@@ -366,9 +367,12 @@ class CompiledModel:
                    **overrides) -> np.ndarray:
         """Raw ``(B, n_outputs)`` float32 margins for float (or pre-binned)
         rows."""
-        q = self._binned(x, "raw_margin")
-        eng = self.engine(device, mesh=mesh, batch_hint=q.shape[0], **overrides)
-        return eng.raw_margin(q).cpu().numpy()
+        with span("api.raw_margin"):
+            q = self._binned(x, "raw_margin")
+            eng = self.engine(device, mesh=mesh, batch_hint=q.shape[0], **overrides)
+            out = eng.raw_margin(q)
+            with span("api.fetch"):
+                return out.cpu().numpy()
 
     def bin(self, x: np.ndarray) -> np.ndarray:
         """Deprecated: float queries -> integer bins.  Call :meth:`predict`

@@ -58,6 +58,7 @@ from repro_torch.core.deploy import DeployConfig
 from repro_torch.core.precision import get_cell_mode
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import Mesh, check_mesh
+from repro_torch.spans import span
 
 DEFAULT_DEVICE = "cuda"
 
@@ -382,10 +383,11 @@ class XTimeEngine:
     def _kernel(self, q: torch.Tensor, s, leaf: torch.Tensor, bias) -> torch.Tensor:
         """(B, C) raw leaf sums of the rows of ``s`` (the engine's arrays or
         a shard) on ``q`` — no epilogue, no reduction across shards."""
-        return kops.cam_match(
-            q, s.low, s.high, leaf, s.cells, bias,
-            out_b=q.shape[0], out_c=leaf.shape[1], mode=self.kernel_mode, tau=self.tau,
-        )
+        with span("engine.launch"):
+            return kops.cam_match(
+                q, s.low, s.high, leaf, s.cells, bias,
+                out_b=q.shape[0], out_c=leaf.shape[1], mode=self.kernel_mode, tau=self.tau,
+            )
 
     def _reduced(self, q: torch.Tensor, moments: bool = False) -> torch.Tensor:
         """(B_pad, C) raw sums over every table row, on ``self.device``: the
@@ -461,10 +463,11 @@ class XTimeEngine:
 
     def _prep_queries(self, q_bins) -> torch.Tensor:
         # pad the batch to what the mesh's batch split accepts
-        return kops.pad_queries(
-            self.select_features(q_bins), self.arrays.f_pad, b_blk=self.batch_multiple,
-            dtype=self.table_dtype, device=self.device,
-        )
+        with span("engine.prep"):
+            return kops.pad_queries(
+                self.select_features(q_bins), self.arrays.f_pad, b_blk=self.batch_multiple,
+                dtype=self.table_dtype, device=self.device,
+            )
 
     def raw_margin(self, q_bins) -> torch.Tensor:
         """(B, n_outputs) — matches ``Ensemble.raw_margin`` on binned input."""

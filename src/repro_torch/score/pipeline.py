@@ -42,6 +42,7 @@ from repro_torch.core.tune import kernel_version
 from repro_torch.kernels import ops as kops
 from repro_torch.score.reader import open_columnar
 from repro_torch.score.writer import PredictionWriter
+from repro_torch.spans import span
 
 #: what ``kind`` selects — engine margins (the BDT analysis score) or
 #: final predictions (argmax/sign/regression value)
@@ -188,7 +189,7 @@ def score_file(
 
         stream = _stream_cuda if engine.device.type == "cuda" else _stream_host
         t0 = time.perf_counter()
-        n_chunks = stream(engine.padded_fn(kind), src.iter_chunks(chunk_rows), padded,
+        n_chunks = stream(engine.padded_fn(kind), iter(src.iter_chunks(chunk_rows)), padded,
                           writer, engine.device, double_buffer)
         values = writer.finalize()
         elapsed = time.perf_counter() - t0
@@ -212,12 +213,28 @@ def score_file(
         src.close()
 
 
+def _take(chunks, padded):
+    """The next chunk off the reader and its padded queries: ``score.prep``."""
+    with span("score.prep"):
+        start, chunk = next(chunks)
+        return start, chunk.shape[0], padded(chunk)
+
+
 def _stream_host(run, chunks, padded, writer, device, double_buffer) -> int:
     """The CPU: each chunk is scored before the next is read (the plain
-    version is synchronous, so there is nothing to overlap)."""
-    n_chunks = 0
-    for start, chunk in chunks:
-        writer.write(start, run(padded(chunk)).numpy()[: chunk.shape[0]])
+    version is synchronous, so there is nothing to overlap).  Its spans
+    mirror the card's: ``score.stage`` hands the queries to the device (no
+    copy here) and ``score.wait`` is the synchronous call itself."""
+    n_chunks = taken = 0
+    while taken < writer.n_rows:
+        with span("score.chunk"):
+            start, n, q = _take(chunks, padded)
+            with span("score.stage"):
+                q = q.to(device)
+            with span("score.wait"):
+                out = run(q).numpy()[:n]
+            writer.write(start, out)
+        taken = start + n
         n_chunks += 1
     return n_chunks
 
@@ -250,38 +267,41 @@ def _stream_cuda(run, chunks, padded, writer, device, double_buffer) -> int:
     done = [torch.cuda.Event(), torch.cuda.Event()]
 
     def drain(slot: int, start: int, n: int) -> None:
-        done[slot].synchronize()
+        with span("score.wait"):
+            done[slot].synchronize()
         writer.write(start, host_out[slot].numpy()[:n])
 
     pending = None
-    n_chunks = 0
-    for i, (start, chunk) in enumerate(chunks):
-        slot = i % 2
-        q = padded(chunk)  # the host bins while the card runs chunk i-1
-        copied[slot].synchronize()  # the copy that last read this pinned buffer
-        if not dev_q:
-            host_q = [torch.empty(q.shape, dtype=q.dtype, pin_memory=True) for _ in range(2)]
-            dev_q = [torch.empty(q.shape, dtype=q.dtype, device=device) for _ in range(2)]
-        host_q[slot].copy_(q)
-        with torch.cuda.stream(copy):
-            copy.wait_event(done[slot])  # the kernel that last read dev_q[slot]
-            dev_q[slot].copy_(host_q[slot], non_blocking=True)
-            copied[slot].record(copy)
-        main.wait_event(copied[slot])
-        with torch.cuda.stream(main):
-            out = run(dev_q[slot])
-            if host_out[slot] is None:
-                host_out[slot] = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host_out[slot].copy_(out, non_blocking=True)
-            done[slot].record(main)
-        n_chunks += 1
-        if pending is not None:
-            drain(*pending)
-            pending = None
-        if double_buffer:
-            pending = (slot, start, chunk.shape[0])
-        else:
-            drain(slot, start, chunk.shape[0])
-    if pending is not None:
-        drain(*pending)
+    n_chunks = taken = 0
+    while taken < writer.n_rows:
+        with span("score.chunk"):
+            slot = n_chunks % 2
+            start, n, q = _take(chunks, padded)  # the host bins while the card runs chunk i-1
+            with span("score.stage"):
+                copied[slot].synchronize()  # the copy that last read this pinned buffer
+                if not dev_q:
+                    host_q = [torch.empty(q.shape, dtype=q.dtype, pin_memory=True)
+                              for _ in range(2)]
+                    dev_q = [torch.empty(q.shape, dtype=q.dtype, device=device) for _ in range(2)]
+                host_q[slot].copy_(q)
+                with torch.cuda.stream(copy):
+                    copy.wait_event(done[slot])  # the kernel that last read dev_q[slot]
+                    dev_q[slot].copy_(host_q[slot], non_blocking=True)
+                    copied[slot].record(copy)
+            main.wait_event(copied[slot])
+            with torch.cuda.stream(main):
+                out = run(dev_q[slot])
+                if host_out[slot] is None:
+                    host_out[slot] = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                host_out[slot].copy_(out, non_blocking=True)
+                done[slot].record(main)
+            taken = start + n
+            n_chunks += 1
+            if pending is not None:
+                drain(*pending)
+                pending = None
+            if double_buffer and taken < writer.n_rows:
+                pending = (slot, start, n)
+            else:  # the last chunk drains inside its own span
+                drain(slot, start, n)
     return n_chunks
