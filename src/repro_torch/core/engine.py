@@ -47,6 +47,7 @@ give the raw moments and the leaf-spread uncertainty of DESIGN.md §15.
 from __future__ import annotations
 
 import itertools
+import threading
 from dataclasses import dataclass
 from typing import Callable
 
@@ -132,6 +133,45 @@ class Shard:
     moments: torch.Tensor | None  # soft engines' moments matrix rows
 
 
+# integer bin dtypes a host tensor may bring to the staging slot
+_STAGED_TENSOR_DTYPES = (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
+
+
+def _host_bins(q) -> np.ndarray | None:
+    """``q`` as a 2-D numpy array of integer bins where it lives on the
+    host (a numpy array or a CPU tensor, viewed, not copied); None for
+    anything else, which keeps ``pad_queries``."""
+    if isinstance(q, torch.Tensor):
+        if q.device.type != "cpu" or q.dtype not in _STAGED_TENSOR_DTYPES:
+            return None
+        q = q.numpy()
+    elif not isinstance(q, np.ndarray):
+        return None
+    return q if q.ndim == 2 and q.dtype.kind in "iu" else None
+
+
+@dataclass
+class _StageSlot:
+    """One thread's query staging buffers for one stream: pinned host
+    rows and their device copy, ``(capacity, f_pad)`` in the table dtype,
+    zero where no query column was written (columns past ``width``), and
+    the event recorded after the last copy out of ``host``.  ``rows``
+    keeps the last call's batch and its views of both buffers."""
+
+    host: torch.Tensor
+    dev: torch.Tensor
+    done: torch.cuda.Event
+    width: int = 0
+    rows: tuple = ()
+
+    def __post_init__(self) -> None:
+        self.host_np = self.host.numpy()
+
+    @property
+    def capacity(self) -> int:
+        return self.host.shape[0]
+
+
 def _ordered_sum(parts: list[torch.Tensor], device: torch.device) -> torch.Tensor:
     """``parts`` moved to ``device`` and added in list order."""
     acc = parts[0].to(device)
@@ -188,6 +228,14 @@ class XTimeEngine:
             None if table.col_perm is None
             else np.asarray(table.col_perm, dtype=np.int64)
         )
+        # the two as one index: q[:, fids][:, perm] == q[:, fids[perm]]
+        if self.feature_ids is None:
+            self._columns = self.col_perm
+        else:
+            self._columns = (self.feature_ids if self.col_perm is None
+                             else self.feature_ids[self.col_perm])
+        # each calling thread's query staging slots by stream (``_stage``)
+        self._staging = threading.local()
         self.mode = config.mode
         # b_blk only sizes the serving and scoring buckets; the kernel
         # tiles the batch itself (see ``batch_multiple``)
@@ -434,40 +482,91 @@ class XTimeEngine:
             return (m[:, 0] > 0.0).to(torch.int32)
         return torch.argmax(m, dim=1).to(torch.int32)
 
-    def select_features(self, q) -> torch.Tensor | np.ndarray:
-        """Narrow ``(B, n_features)`` query bins to the stored table
-        columns, then apply the compile-time column permutation — identity
-        for plain tables.  Queries already at the (narrower) physical
-        width pass through; a pure permutation preserves the width, so
-        callers pass logical-order queries and call this exactly once."""
-        fids, perm = self.feature_ids, self.col_perm
-        if fids is None and perm is None:
-            return q
+    def _column_index(self, q) -> np.ndarray | None:
+        """The stored table columns of ``q``, in the table's order, as one
+        index (``select_features``); None where ``q`` passes as it is."""
+        fids = self.feature_ids
+        if self._columns is None:
+            return None
         if (
             fids is not None
             and q.ndim == 2
             and q.shape[1] == fids.shape[0]
             and fids.shape[0] != self.table.n_features
         ):
-            return q  # already narrowed (and permuted) by an earlier call
+            return None  # already narrowed (and permuted) by an earlier call
         if q.ndim != 2 or q.shape[1] != self.table.n_features:
             expect = f"expected (_, {self.table.n_features}) query bins"
             if fids is not None:
                 expect += f" (or pre-selected (_, {fids.shape[0]}))"
             raise ValueError(f"{expect}, got {tuple(q.shape)}")
-        if fids is not None:  # numpy arrays and tensors index alike
-            q = q[:, fids]
-        if perm is not None:
-            q = q[:, perm]
-        return q
+        return self._columns
+
+    def select_features(self, q) -> torch.Tensor | np.ndarray:
+        """Narrow ``(B, n_features)`` query bins to the stored table
+        columns, then apply the compile-time column permutation — identity
+        for plain tables.  Queries already at the (narrower) physical
+        width pass through; a pure permutation preserves the width, so
+        callers pass logical-order queries and call this exactly once."""
+        cols = self._column_index(q)
+        return q if cols is None else q[:, cols]  # numpy arrays and tensors index alike
 
     def _prep_queries(self, q_bins) -> torch.Tensor:
-        # pad the batch to what the mesh's batch split accepts
+        """The queries as the kernel takes them: ``(B', f_pad)`` in the
+        table dtype on ``self.device``, the batch padded to what the
+        mesh's batch split accepts.
+
+        On one card, integer bins on the host go through the calling
+        thread's staging slot for the current stream (``_stage``): the
+        block returned is a view of the slot, valid until this thread's
+        next staged call on this engine, so a caller that holds two
+        prepared blocks clones the first.  Everything else (a mesh, the
+        CPU, queries already on the card) gets a fresh block from
+        ``pad_queries``."""
         with span("engine.prep"):
+            if self.mesh is None and self.device.type == "cuda":
+                bins = _host_bins(q_bins)
+                if bins is not None:
+                    return self._stage(bins)
             return kops.pad_queries(
                 self.select_features(q_bins), self.arrays.f_pad, b_blk=self.batch_multiple,
                 dtype=self.table_dtype, device=self.device,
             )
+
+    def _stage(self, q: np.ndarray) -> torch.Tensor:
+        """Host bins -> the kernel's query block through one reused slot:
+        one numpy pass into pinned rows (``kops.write_queries``), one
+        async copy of those rows on the current stream.  Capacity grows to
+        the next power of two, so varying batches grow a slot O(log B)
+        times; the device rows are reused in stream order, and the pinned
+        rows are rewritten only once the copy out of them has finished."""
+        with span("engine.stage"):
+            cols = self._column_index(q)
+            B = q.shape[0]
+            stream = torch.cuda.current_stream(self.device)
+            slots = self._staging.__dict__.setdefault("slots", {})
+            slot = slots.get(stream.cuda_stream)
+            if slot is None or slot.capacity < B:
+                with span("engine.stage_alloc"):
+                    cap = 1 << max(0, B - 1).bit_length()
+                    shape, tdt = (cap, self.arrays.f_pad), kops.TORCH_DTYPES[self.table_dtype]
+                    slot = slots[stream.cuda_stream] = _StageSlot(
+                        torch.zeros(shape, dtype=tdt, pin_memory=True),
+                        torch.zeros(shape, dtype=tdt, device=self.device),
+                        torch.cuda.Event(),
+                    )
+            slot.done.synchronize()
+            host = slot.host_np
+            F = kops.write_queries(q, host, self.table_dtype, cols)
+            if F < slot.width:  # a narrower batch than the last: clear its columns
+                host[:, F:slot.width] = 0
+            slot.width = F
+            if not slot.rows or slot.rows[0] != B:
+                slot.rows = (B, slot.host[:B], slot.dev[:B])
+            _, rows, dev = slot.rows
+            dev.copy_(rows, non_blocking=True)
+            slot.done.record(stream)
+            return dev
 
     def raw_margin(self, q_bins) -> torch.Tensor:
         """(B, n_outputs) — matches ``Ensemble.raw_margin`` on binned input."""

@@ -14,7 +14,9 @@ dtype instead of through padded int64 intermediates (4 GB per table pair
 at xtime-tabular's 1M x 256 cells), and encodes the float32 soft layout
 in row chunks (its int64/float64 intermediates would take ~10 GB at full
 width).  ``pad_queries``/``pad_to_bucket`` build torch tensors on the
-engine's device, and ``cam_match`` picks the implementation by device:
+engine's device, ``write_queries`` writes host bins into a buffer of the
+same layout (the engine's pinned staging rows), and ``cam_match`` picks
+the implementation by device:
 the Hopper kernels for CUDA tensors, the plain version for CPU tensors.
 ``binding_cells`` (the port's own) lists each row's non-wildcard cells,
 the only cells the Hopper kernels read.
@@ -579,6 +581,38 @@ def pad_to_bucket(
     else:  # int64 -> narrow casts wrap like numpy's; check_query_range ran first
         out[:B, :F] = q.to(device=device, dtype=torch.int64).to(tdt)
     return out
+
+
+def write_queries(q: np.ndarray, out: np.ndarray, dtype: str,
+                  columns: np.ndarray | None = None) -> int:
+    """Write integer query bins into ``out[:B, :F]`` as ``pad_to_bucket``'s
+    rows hold them, in one numpy pass; returns F.
+
+    ``columns`` (the engine's selection and permutation in one index, or
+    None for every column) are taken as the bins are written; ``out`` is
+    a numpy buffer of the table dtype (pinned memory, for the engine's
+    staging slot) whose columns past F the caller keeps zero.  The range
+    check reads the selected bins, so a dropped column out of range raises
+    nothing, as in ``pad_to_bucket``; in-range bins narrow to the same
+    values as its int64 route, and float32 holds them exactly below 2**24.
+    """
+    B, F = q.shape[0], (q.shape[1] if columns is None else len(columns))
+    if F > out.shape[1]:
+        raise ValueError(f"features {F} exceed padded width {out.shape[1]}")
+    try:
+        check_query_range(q, dtype)
+    except ValueError:
+        if columns is None:
+            raise
+        q, columns = q[:, columns], None  # only the selected bins count
+        check_query_range(q, dtype)
+    if columns is not None and q.dtype == out.dtype:
+        # 'clip' writes straight into out (the default mode buffers); take
+        # casts only some dtype pairs, so others gather first
+        np.take(q, columns, axis=1, out=out[:B, :F], mode="clip")
+    else:
+        np.copyto(out[:B, :F], q if columns is None else q[:, columns], casting="unsafe")
+    return F
 
 
 def cam_match(

@@ -1,7 +1,8 @@
-"""The benchmark's six readers of the port's spans
-(``xbench/metrics/{chunk,call}_*``): each on hand-made ``totals()``, None
-where the spans are absent, where their count is not the driver's, where
-the run was not traced or the program has no spans module; and a traced
+"""The benchmark's readers of the port's spans
+(``xbench/metrics/{chunk,call}_*``, ``stage_hits.loop``): each on
+hand-made ``totals()``, None where the spans are absent, where their
+count is not the run's counter, where the run was not traced or the
+program has no spans module; and a traced
 run of a small bulk and loop cell on the CPU, through the harness, in
 which each reads a finite value that its parts do not exceed."""
 
@@ -28,6 +29,7 @@ BULK = {"score.chunk": agg(4, 20.0), "score.prep": agg(4, 6.0), "score.stage": a
         "score.wait": agg(4, 8.0)}
 LOOP = {"api.raw_margin": agg(5, 10.0), "engine.prep": agg(5, 2.0),
         "engine.launch": agg(5, 1.0), "api.fetch": agg(5, 4.0)}
+STAGE = {"engine.stage": agg(5, 0.5), "engine.stage_alloc": agg(1, 0.1)}
 # metric -> (hand-made totals, driver counter, its value, the spans it reads)
 CASES = {
     "chunk_host_ms.bulk": (BULK, "chunks", (20.0 - 8.0) / 4, ("score.chunk", "score.wait")),
@@ -36,6 +38,7 @@ CASES = {
     "call_host_ms.loop": (LOOP, "calls", (10.0 - 4.0) / 5, ("api.raw_margin", "api.fetch")),
     "call_prep_ms.loop": (LOOP, "calls", 2.0 / 5, ("engine.prep",)),
     "call_launch_ms.loop": (LOOP, "calls", 1.0 / 5, ("engine.launch",)),
+    "stage_hits.loop": (STAGE, "calls", 100.0 * (5 - 1) / 5, ("engine.stage",)),
 }
 
 
@@ -77,6 +80,11 @@ def test_reader_finds_nothing(metric, fault, monkeypatch):
     elif fault == "no_module":  # a program without spans: the import fails
         monkeypatch.setitem(sys.modules, "repro_torch.spans", None)
     assert harness.reader(metric)(record(counters, traced=fault != "untraced")) is None
+
+
+def test_stage_hits_reads_100_where_no_slot_grew(monkeypatch):
+    with_totals(monkeypatch, {"engine.stage": agg(7, 0.7)})
+    assert harness.reader("stage_hits.loop")(record({"calls": 7})) == 100.0
 
 
 TINY = {"name": "tiny", "n_trees": 24, "depth": 4, "n_bins": 256, "kind": "gbdt",
